@@ -7,7 +7,9 @@ setup(
     version='0.1.0',
     description=('TPU-native language dataset preprocessing and data '
                  'loading for large-scale pretraining'),
-    packages=find_packages(include=['lddl_tpu', 'lddl_tpu.*']),
+    packages=find_packages(include=['lddl_tpu', 'lddl_tpu.*',
+                                    'lddl_tpu_torch', 'lddl_tpu_torch.*']),
+    package_data={'lddl_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'numpy',

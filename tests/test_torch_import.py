@@ -1,0 +1,58 @@
+"""lddl_tpu_torch imports torch and numpy only: never jax, flax, optax or
+anything of lddl_tpu, and never falls back to the CPU unasked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lddl_tpu')
+MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
+           'lddl_tpu_torch.models.convert', 'lddl_tpu_torch.models.flops',
+           'lddl_tpu_torch.ops.flash_attention', 'lddl_tpu_torch.ops._build',
+           'lddl_tpu_torch.parallel.train', 'lddl_tpu_torch.loader.bert',
+           'lddl_tpu_torch.loader.device',
+           'lddl_tpu_torch.training.pretrain')
+
+
+def test_import_loads_no_jax_and_no_lddl_tpu():
+  code = ('import sys\n'
+          f'for m in {MODULES!r}: __import__(m)\n'
+          f'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+          f'{FORBIDDEN!r})\n'
+          'print(bad)\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, check=True, timeout=120)
+  assert out.stdout.strip() == '[]', out.stdout
+
+
+def _imported_roots(path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield alias.name.split('.')[0]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      yield node.module.split('.')[0]
+
+
+@pytest.mark.parametrize('path', sorted(
+    [*(ROOT / 'lddl_tpu_torch').rglob('*.py'), ROOT / 'chip_smoke.py']),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_lddl_tpu(path):
+  bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+  assert not bad, f'{path} imports {bad}'
+
+
+def test_build_without_a_device_raises_when_cuda_is_absent(monkeypatch):
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.training import TrainLoop
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    TrainLoop.build(model_cfg=BertConfig(num_layers=1))
