@@ -6,8 +6,10 @@ the TPU's Pallas kernels replaced by CUDA kernels written for Hopper
 anything of :mod:`lddl_tpu`. Entry points put tensors on ``cuda`` unless
 the caller passes ``device='cpu'``.
 
-Ported so far (the BERT pretraining step from the loader's batch boundary):
+Ported so far (the BERT pretraining step from the loader's batch boundary,
+and packed long-context pretraining with block-diagonal attention):
 ``models.bert``, ``models.convert``, ``models.flops``,
 ``ops.flash_attention``, ``parallel.train``, ``loader.bert`` (masking),
-``loader.device`` and ``training.pretrain``.
+``loader.packed`` (``PackedCollate``), ``loader.device``, ``core.utils``
+(the np.save wire format) and ``training.pretrain``.
 """

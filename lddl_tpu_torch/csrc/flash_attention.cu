@@ -27,6 +27,21 @@
 // No atomics anywhere: dq and dk/dv are separate kernels and each output
 // element is summed by one thread in a fixed order, so gradients are bitwise
 // repeatable from run to run.
+//
+// K4, the segmented variants (block-diagonal packed attention), are the same
+// three kernels instantiated with kSeg = true; kSeg = false compiles K1-K3
+// exactly as before (every segment branch is `if constexpr`). Segment ids
+// are int32 document ids per token, [batch, s], -1 on padding. The wrapper
+// also passes each tile's [lo, hi] id interval, [batch, n_tiles, 2] int32,
+// with -1 left out (an all-padding tile gets lo = 2^30 > hi = -1), at the
+// widths the kernel uses: the 64-row tile a CTA owns and the tile_n<D>()
+// rows it streams. Before it loads a streamed tile the CTA tests
+// qlo <= khi && klo <= qhi and, when the intervals are disjoint, skips the
+// whole iteration: no load, no product, no __syncthreads. The test reads the
+// same two ints in every thread, so all threads skip together. A live tile
+// adds the elementwise same-document bias (0 or -1e9) on top of the key bias,
+// in every live tile, so the result is right for any ids (the interval test
+// only ever keeps a tile too many, never one too few).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,12 +94,41 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
 template <int D>
 __host__ __device__ constexpr int tile_n() { return D == 128 ? 32 : 64; }
 
+// Segment ids of a K4 launch (all null in K1-K3): the q rows' and kv rows'
+// ids, [batch, s_q] and [batch, s_kv], and the tile intervals of each side,
+// [batch, n_tiles, 2], each at the width its kernel tiles that side with.
+struct Seg {
+  const int* q;
+  const int* kv;
+  const int* q_iv;
+  const int* kv_iv;
+};
+
+// Do two tiles' [lo, hi] id intervals overlap? Disjoint tiles hold no
+// same-document pair and are skipped.
+__device__ __forceinline__ bool overlap(const int* a, const int* b) {
+  return a[0] <= b[1] && b[0] <= a[1];
+}
+
+// The same-document bias of one score (JAX _seg_bias).
+__device__ __forceinline__ float seg_bias(int a, int b) {
+  return a == b ? 0.f : kNegInf;
+}
+
 // ---------------------------------------------------------------------------
 // K1: forward. Replaces lddl_tpu/ops/flash_attention.py:_fwd_kernel (driven by
 // _flash_fwd_impl). One CTA per (64-row q tile, bh); the loop over kv tiles is
 // the TPU's sequential kv grid axis. Running (m, l) per row live with the four
 // threads that own that row's softmax; the running output acc lives in
 // registers.
+//
+// K4-fwd (kSeg): replaces the same _fwd_kernel with segment refs
+// (_tile_live under pl.when, _seg_bias; driven by _flash_fwd_impl). The
+// skip drops a disjoint kv tile before its load, so the work, not only the
+// result, scales with the same-document pairs. A q tile whose rows are all
+// padding skips every kv tile and ends with l = 0, floored at kLFloor: out
+// = 0 and a finite lse, as the TPU kernel's _finalize gives. Bound as K1:
+// by float32 operations on the CUDA cores, now over the live tiles only.
 template <typename T, int D>
 constexpr size_t fwd_smem() {
   constexpr int BN = tile_n<D>();
@@ -92,12 +136,12 @@ constexpr size_t fwd_smem() {
                           kRows * (BN + 1) + 3 * kRows);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, float* __restrict__ lse, int heads,
-                     int s_q, int s_kv, float scale) {
+                     int s_q, int s_kv, float scale, Seg seg) {
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -115,7 +159,24 @@ __global__ void __launch_bounds__(kThreads)
   const T* qb = q + (size_t)bh * s_q * D;
   const T* kb = k + (size_t)bh * s_kv * D;
   const T* vb = v + (size_t)bh * s_kv * D;
-  const float* biasb = bias + (size_t)(bh / heads) * s_kv;
+  const int batch = bh / heads;
+  const float* biasb = bias + (size_t)batch * s_kv;
+  // K4: this q tile's interval, the kv tiles' intervals of this batch row,
+  // and the ids of this thread's four score rows.
+  const int* q_iv = nullptr;
+  const int* kv_iv = nullptr;
+  const int* kvsegb = nullptr;
+  int qseg[4];
+  if constexpr (kSeg) {
+    q_iv = seg.q_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    kv_iv = seg.kv_iv + (size_t)batch * ((s_kv + BN - 1) / BN) * 2;
+    kvsegb = seg.kv + (size_t)batch * s_kv;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = q0 + ty + 16 * i;
+      qseg[i] = gr < s_q ? seg.q[(size_t)batch * s_q + gr] : -1;
+    }
+  }
 
   load_tile<T, D>(qs, qb, q0, kRows, s_q);
   float m_run = kNegInf, l_run = 0.f;
@@ -126,6 +187,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
 
   for (int kv0 = 0; kv0 < s_kv; kv0 += BN) {
+    if constexpr (kSeg) {
+      if (!overlap(q_iv, kv_iv + (kv0 / BN) * 2)) continue;
+    }
     load_tile<T, D>(ks, kb, kv0, BN, s_kv);
     load_tile<T, D>(vs, vb, kv0, BN, s_kv);
     __syncthreads();
@@ -151,15 +215,21 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + tx + 16 * j;
       const float bcol = col < s_kv ? biasb[col] : 0.f;
+      int kseg = -1;
+      if constexpr (kSeg) kseg = col < s_kv ? kvsegb[col] : -1;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        ss[(ty + 16 * i) * LS + tx + 16 * j] =
-            col < s_kv ? sacc[i][j] * scale + bcol : -INFINITY;
+        float sc = sacc[i][j] * scale + bcol;
+        if constexpr (kSeg) sc += seg_bias(qseg[i], kseg);
+        ss[(ty + 16 * i) * LS + tx + 16 * j] = col < s_kv ? sc : -INFINITY;
       }
     }
     __syncthreads();
     // Online softmax. Column kv0 < s_kv is always in bounds, so the tile max
-    // is finite and out-of-bounds columns get exp(-inf) = 0.
+    // is finite and out-of-bounds columns get exp(-inf) = 0. In K4 a row
+    // with no same-document key in this tile takes exp(-1e9 - m) garbage
+    // that its own document's tile wipes out through alpha = 0 (every real
+    // row meets its own document, at least at its own column).
     float mt = -INFINITY;
     for (int c = ssub; c < BN; c += 4) mt = fmaxf(mt, ss[srow * LS + c]);
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -220,6 +290,11 @@ __global__ void __launch_bounds__(kThreads)
 // K2: dq. Replaces lddl_tpu/ops/flash_attention.py:_dq_kernel (driven by
 // _flash_bwd). One CTA per (64-row q tile, bh), looping over kv tiles:
 // dq = scale * sum_kv (P * (dO V^T - delta)) K with P = exp(s - lse), no clamp.
+//
+// K4-dq (kSeg): replaces _dq_kernel with segment refs. A disjoint kv tile
+// would add exactly zero (P underflows against its -1e9 bias), so it is
+// skipped before its load, as in K4-fwd; live tiles add the same-document
+// bias. Bound as K2: float32 CUDA-core operations over the live tiles.
 template <typename T, int D>
 constexpr size_t dq_smem() {
   constexpr int BN = tile_n<D>();
@@ -227,13 +302,13 @@ constexpr size_t dq_smem() {
                           kRows * (BN + 1) + 2 * kRows);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int heads, int s_q, int s_kv, float scale) {
+                    int heads, int s_q, int s_kv, float scale, Seg seg) {
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -249,7 +324,22 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const T* kb = k + (size_t)bh * s_kv * D;
   const T* vb = v + (size_t)bh * s_kv * D;
-  const float* biasb = bias + (size_t)(bh / heads) * s_kv;
+  const int batch = bh / heads;
+  const float* biasb = bias + (size_t)batch * s_kv;
+  const int* q_iv = nullptr;
+  const int* kv_iv = nullptr;
+  const int* kvsegb = nullptr;
+  int qseg[4];
+  if constexpr (kSeg) {
+    q_iv = seg.q_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    kv_iv = seg.kv_iv + (size_t)batch * ((s_kv + BN - 1) / BN) * 2;
+    kvsegb = seg.kv + (size_t)batch * s_kv;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = q0 + ty + 16 * i;
+      qseg[i] = gr < s_q ? seg.q[(size_t)batch * s_q + gr] : -1;
+    }
+  }
 
   load_tile<T, D>(qs, q + (size_t)bh * s_q * D, q0, kRows, s_q);
   load_tile<T, D>(dos, dout + (size_t)bh * s_q * D, q0, kRows, s_q);
@@ -262,6 +352,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
 
   for (int kv0 = 0; kv0 < s_kv; kv0 += BN) {
+    if constexpr (kSeg) {
+      if (!overlap(q_iv, kv_iv + (kv0 / BN) * 2)) continue;
+    }
     load_tile<T, D>(ks, kb, kv0, BN, s_kv);
     load_tile<T, D>(vs, vb, kv0, BN, s_kv);
     __syncthreads();
@@ -295,12 +388,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NJ; ++j) {
       const int col = kv0 + tx + 16 * j;
       const float bcol = col < s_kv ? biasb[col] : 0.f;
+      int kseg = -1;
+      if constexpr (kSeg) kseg = col < s_kv ? kvsegb[col] : -1;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
         float ds = 0.f;
         if (col < s_kv) {
-          const float p = expf(sacc[i][j] * scale + bcol - lse_s[r]);
+          float sc = sacc[i][j] * scale + bcol;
+          if constexpr (kSeg) sc += seg_bias(qseg[i], kseg);
+          const float p = expf(sc - lse_s[r]);
           ds = p * (pacc[i][j] - delta_s[r]);
         }
         dss[r * LS + tx + 16 * j] = ds;
@@ -336,6 +433,12 @@ __global__ void __launch_bounds__(kThreads)
 // _flash_bwd). One CTA per (64-row kv tile, bh), looping over q tiles with
 // the (k, v) tile resident: dv = sum_q P^T dO, dk = scale * sum_q dS^T Q with
 // P = exp(min(s - lse, 30)).
+//
+// K4-dkv (kSeg): replaces _dkv_kernel with segment refs. Here the CTA owns
+// a 64-row kv tile and streams q tiles, so q_iv is at the streamed width
+// tile_n<D>() and kv_iv at 64; a disjoint q tile is skipped before its
+// load, live ones add the same-document bias. Bound as K3: float32
+// CUDA-core operations over the live tiles.
 template <typename T, int D>
 constexpr size_t dkv_smem() {
   constexpr int BM = tile_n<D>();
@@ -343,14 +446,14 @@ constexpr size_t dkv_smem() {
                           2 * kRows * (BM + 1) + 2 * BM + kRows);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int s_q, int s_kv,
-                     float scale) {
+                     float scale, Seg seg) {
   constexpr int BM = tile_n<D>();
   constexpr int LD = D + 1, LM = BM + 1, NJ = BM / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -370,10 +473,27 @@ __global__ void __launch_bounds__(kThreads)
   const T* dob = dout + (size_t)bh * s_q * D;
   const float* lseb = lse + (size_t)bh * s_q;
   const float* deltab = delta + (size_t)bh * s_q;
+  const int batch = bh / heads;
+  // K4: this kv tile's interval, the q tiles' intervals of this batch row,
+  // and the ids of this thread's four kv rows.
+  const int* kv_iv = nullptr;
+  const int* q_iv = nullptr;
+  const int* qsegb = nullptr;
+  int kseg[4];
+  if constexpr (kSeg) {
+    kv_iv = seg.kv_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    q_iv = seg.q_iv + (size_t)batch * ((s_q + BM - 1) / BM) * 2;
+    qsegb = seg.q + (size_t)batch * s_q;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = kv0 + ty + 16 * i;
+      kseg[i] = gr < s_kv ? seg.kv[(size_t)batch * s_kv + gr] : -1;
+    }
+  }
 
   load_tile<T, D>(ks, k + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
   load_tile<T, D>(vs, v + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
-  load_vec(bias_s, bias + (size_t)(bh / heads) * s_kv, kv0, kRows, s_kv);
+  load_vec(bias_s, bias + (size_t)batch * s_kv, kv0, kRows, s_kv);
   float dk_acc[4][ND], dv_acc[4][ND];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -381,6 +501,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < ND; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   for (int q0 = 0; q0 < s_q; q0 += BM) {
+    if constexpr (kSeg) {
+      if (!overlap(kv_iv, q_iv + (q0 / BM) * 2)) continue;
+    }
     load_tile<T, D>(qs, qb, q0, BM, s_q);
     load_tile<T, D>(dos, dob, q0, BM, s_q);
     load_vec(lse_s, lseb, q0, BM, s_q);
@@ -417,12 +540,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NJ; ++j) {
       const int r = tx + 16 * j;
       const bool live = q0 + r < s_q;
+      int qseg = -1;
+      if constexpr (kSeg) qseg = live ? qsegb[q0 + r] : -1;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = ty + 16 * i;
         float p = 0.f, ds = 0.f;
         if (live) {
-          p = expf(fminf(sacc[i][j] * scale + bias_s[c] - lse_s[r], 30.f));
+          float sc = sacc[i][j] * scale + bias_s[c];
+          if constexpr (kSeg) sc += seg_bias(kseg[i], qseg);
+          p = expf(fminf(sc - lse_s[r], 30.f));
           ds = p * (pacc[i][j] - delta_s[r]);
         }
         pt[c * LM + r] = p;
@@ -472,68 +599,74 @@ __global__ void __launch_bounds__(kThreads)
 // the 48 KB default), launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the Python wrapper.
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                void* out, float* lse, int bh, int heads, int s_q, int s_kv,
-               float scale, cudaStream_t stream) {
+               float scale, Seg seg, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<T, D, kSeg>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s_q + kRows - 1) / kRows, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, heads, s_q,
-      s_kv, scale);
+      s_kv, scale, seg);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 int launch_dq(const void* q, const void* k, const void* v, const float* bias,
               const void* dout, const float* lse, const float* delta, void* dq,
-              int bh, int heads, int s_q, int s_kv, float scale,
+              int bh, int heads, int s_q, int s_kv, float scale, Seg seg,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem<T, D>();
-  auto kern = flash_dq_kernel<T, D>;
+  auto kern = flash_dq_kernel<T, D, kSeg>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s_q + kRows - 1) / kRows, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse, delta,
-      (T*)dq, heads, s_q, s_kv, scale);
+      (T*)dq, heads, s_q, s_kv, scale, seg);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int bh, int heads, int s_q, int s_kv,
-               float scale, cudaStream_t stream) {
+               float scale, Seg seg, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<T, D>();
-  auto kern = flash_dkv_kernel<T, D>;
+  auto kern = flash_dkv_kernel<T, D, kSeg>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s_kv + kRows - 1) / kRows, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, heads, s_q, s_kv, scale);
+      (T*)dk, (T*)dv, heads, s_q, s_kv, scale, seg);
   return (int)cudaGetLastError();
 }
 
 // Dispatch on (head_dim, dtype); anything else is refused with
 // cudaErrorInvalidValue (the Python wrapper checks first).
-#define LDDL_DISPATCH(FN, ...)                                         \
+#define LDDL_DISPATCH(FN, SEG, ...)                                    \
   switch (head_dim * 2 + (is_bf16 ? 1 : 0)) {                          \
-    case 64: return FN<float, 32>(__VA_ARGS__);                        \
-    case 65: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                \
-    case 128: return FN<float, 64>(__VA_ARGS__);                       \
-    case 129: return FN<__nv_bfloat16, 64>(__VA_ARGS__);               \
-    case 256: return FN<float, 128>(__VA_ARGS__);                      \
-    case 257: return FN<__nv_bfloat16, 128>(__VA_ARGS__);              \
+    case 64: return FN<float, 32, SEG>(__VA_ARGS__);                   \
+    case 65: return FN<__nv_bfloat16, 32, SEG>(__VA_ARGS__);           \
+    case 128: return FN<float, 64, SEG>(__VA_ARGS__);                  \
+    case 129: return FN<__nv_bfloat16, 64, SEG>(__VA_ARGS__);          \
+    case 256: return FN<float, 128, SEG>(__VA_ARGS__);                 \
+    case 257: return FN<__nv_bfloat16, 128, SEG>(__VA_ARGS__);         \
     default: return (int)cudaErrorInvalidValue;                        \
   }
+
+Seg make_seg(const void* q_seg, const void* kv_seg, const void* q_iv,
+             const void* kv_iv) {
+  return Seg{(const int*)q_seg, (const int*)kv_seg, (const int*)q_iv,
+             (const int*)kv_iv};
+}
 
 }  // namespace
 
@@ -543,8 +676,9 @@ int lddl_flash_fwd(const void* q, const void* k, const void* v,
                    const void* bias, void* out, void* lse, int bh, int heads,
                    int s_q, int s_kv, int head_dim, int is_bf16, float scale,
                    void* stream) {
-  LDDL_DISPATCH(launch_fwd, q, k, v, (const float*)bias, out, (float*)lse, bh,
-                heads, s_q, s_kv, scale, (cudaStream_t)stream)
+  LDDL_DISPATCH(launch_fwd, false, q, k, v, (const float*)bias, out,
+                (float*)lse, bh, heads, s_q, s_kv, scale, Seg{},
+                (cudaStream_t)stream)
 }
 
 int lddl_flash_dq(const void* q, const void* k, const void* v,
@@ -552,9 +686,9 @@ int lddl_flash_dq(const void* q, const void* k, const void* v,
                   const void* delta, void* dq, int bh, int heads, int s_q,
                   int s_kv, int head_dim, int is_bf16, float scale,
                   void* stream) {
-  LDDL_DISPATCH(launch_dq, q, k, v, (const float*)bias, dout,
+  LDDL_DISPATCH(launch_dq, false, q, k, v, (const float*)bias, dout,
                 (const float*)lse, (const float*)delta, dq, bh, heads, s_q,
-                s_kv, scale, (cudaStream_t)stream)
+                s_kv, scale, Seg{}, (cudaStream_t)stream)
 }
 
 int lddl_flash_dkv(const void* q, const void* k, const void* v,
@@ -562,9 +696,52 @@ int lddl_flash_dkv(const void* q, const void* k, const void* v,
                    const void* delta, void* dk, void* dv, int bh, int heads,
                    int s_q, int s_kv, int head_dim, int is_bf16, float scale,
                    void* stream) {
-  LDDL_DISPATCH(launch_dkv, q, k, v, (const float*)bias, dout,
+  LDDL_DISPATCH(launch_dkv, false, q, k, v, (const float*)bias, dout,
                 (const float*)lse, (const float*)delta, dk, dv, bh, heads, s_q,
-                s_kv, scale, (cudaStream_t)stream)
+                s_kv, scale, Seg{}, (cudaStream_t)stream)
+}
+
+// K4 launchers: the segment-free signature plus the int32 segment ids of
+// the q and kv rows ([batch, s]) and the tile intervals ([batch, n_tiles,
+// 2]): q_iv at 64 rows and kv_iv at tile_n<D>() rows for fwd and dq, q_iv
+// at tile_n<D>() and kv_iv at 64 for dkv (each kernel's owned and streamed
+// tile widths).
+
+int lddl_flash_fwd_seg(const void* q, const void* k, const void* v,
+                       const void* bias, const void* q_seg,
+                       const void* kv_seg, const void* q_iv,
+                       const void* kv_iv, void* out, void* lse, int bh,
+                       int heads, int s_q, int s_kv, int head_dim,
+                       int is_bf16, float scale, void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_iv, kv_iv);
+  LDDL_DISPATCH(launch_fwd, true, q, k, v, (const float*)bias, out,
+                (float*)lse, bh, heads, s_q, s_kv, scale, seg,
+                (cudaStream_t)stream)
+}
+
+int lddl_flash_dq_seg(const void* q, const void* k, const void* v,
+                      const void* bias, const void* q_seg, const void* kv_seg,
+                      const void* q_iv, const void* kv_iv, const void* dout,
+                      const void* lse, const void* delta, void* dq, int bh,
+                      int heads, int s_q, int s_kv, int head_dim, int is_bf16,
+                      float scale, void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_iv, kv_iv);
+  LDDL_DISPATCH(launch_dq, true, q, k, v, (const float*)bias, dout,
+                (const float*)lse, (const float*)delta, dq, bh, heads, s_q,
+                s_kv, scale, seg, (cudaStream_t)stream)
+}
+
+int lddl_flash_dkv_seg(const void* q, const void* k, const void* v,
+                       const void* bias, const void* q_seg,
+                       const void* kv_seg, const void* q_iv,
+                       const void* kv_iv, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int bh,
+                       int heads, int s_q, int s_kv, int head_dim,
+                       int is_bf16, float scale, void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_iv, kv_iv);
+  LDDL_DISPATCH(launch_dkv, true, q, k, v, (const float*)bias, dout,
+                (const float*)lse, (const float*)delta, dk, dv, bh, heads, s_q,
+                s_kv, scale, seg, (cudaStream_t)stream)
 }
 
 const char* lddl_cuda_error_string(int err) {

@@ -9,7 +9,8 @@ logits:
   - LayerNorm epsilon 1e-6 with float32 statistics and flax's fast
     variance, ``E[x^2] - E[x]^2`` clipped at 0;
   - tanh GELU;
-  - an additive -1e9 key bias in dense attention;
+  - an additive -1e9 key bias in dense attention, plus a -1e9
+    cross-document bias when the batch carries ``segment_ids``;
   - the masked-only head gathers positions *before* the transform;
   - the MLM decoder is tied to ``word_embeddings`` with its own
     ``mlm_bias``;
@@ -155,7 +156,7 @@ class SelfAttention(nn.Module):
       self.value = Dense(d, d, cfg.dtype)
     self.out = Dense(d, d, cfg.dtype)
 
-  def forward(self, x, attention_mask, generator=None):
+  def forward(self, x, attention_mask, generator=None, segment_ids=None):
     cfg = self.cfg
     b, s, d = x.shape
     heads, hd = cfg.num_heads, cfg.head_dim
@@ -165,12 +166,18 @@ class SelfAttention(nn.Module):
       q, k, v = self.query(x), self.key(x), self.value(x)
     q, k, v = (t.reshape(b, s, heads, hd).transpose(1, 2) for t in (q, k, v))
     if cfg.attention_impl in ('flash', 'ring_flash'):
-      ctx = flash_attention(q, k, v, attention_mask)
+      ctx = flash_attention(q, k, v, attention_mask, segment_ids,
+                            segment_ids)
     else:
       scale = 1.0 / hd ** 0.5
       scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
       zero = torch.zeros((), dtype=torch.float32, device=x.device)
       bias = torch.where(attention_mask, zero, NEG_INF)[:, None, None, :]
+      if segment_ids is not None:
+        # The flash kernels' block-diagonal semantics as an additive bias.
+        same_doc = (segment_ids[:, None, :, None] ==
+                    segment_ids[:, None, None, :])
+        bias = bias + torch.where(same_doc, zero, NEG_INF)
       probs = torch.softmax(scores + bias, dim=-1)
       ctx = torch.matmul(probs.to(cfg.dtype), v)
     ctx = ctx.transpose(1, 2).reshape(b, s, d)
@@ -190,12 +197,12 @@ class Layer(nn.Module):
     self.output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
     self.output_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
 
-  def forward(self, x, attention_mask, seed=None):
+  def forward(self, x, attention_mask, seed=None, segment_ids=None):
     # One generator per layer call: a checkpointed layer recomputes its
     # forward from the same seed and so redraws the same dropout masks.
     gen = _generator(seed, x.device)
     x = self.attention_norm(
-        x + self.attention(x, attention_mask, gen))
+        x + self.attention(x, attention_mask, gen, segment_ids))
     h = F.gelu(self.intermediate(x), approximate='tanh')
     h = _dropout(self.output(h), self.cfg.dropout_rate, gen)
     return self.output_norm(x + h)
@@ -208,12 +215,13 @@ class Encoder(nn.Module):
     self.cfg = cfg
     self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_layers))
 
-  def forward(self, x, attention_mask, seeds):
+  def forward(self, x, attention_mask, seeds, segment_ids=None):
     for layer, seed in zip(self.layers, seeds):
       if self.cfg.remat and torch.is_grad_enabled():
-        x = checkpoint(layer, x, attention_mask, seed, use_reentrant=False)
+        x = checkpoint(layer, x, attention_mask, seed, segment_ids,
+                       use_reentrant=False)
       else:
-        x = layer(x, attention_mask, seed)
+        x = layer(x, attention_mask, seed, segment_ids)
     return x
 
 
@@ -230,9 +238,7 @@ class BertForPretraining(nn.Module):
   """``forward`` returns (mlm_logits float32, nsp_logits [b, 2] float32).
 
   ``mesh`` is the JAX model's multi-chip argument; multi-GPU placement
-  waits for a later slice, so only ``None`` is accepted. The JAX
-  model's ``segment_ids`` (block-diagonal packed attention) waits for the
-  packed slice.
+  waits for a later slice, so only ``None`` is accepted.
   """
 
   def __init__(self, cfg, mesh=None):
@@ -273,7 +279,7 @@ class BertForPretraining(nn.Module):
     nn.init.zeros_(self.mlm_bias)
 
   def forward(self, input_ids, token_type_ids, attention_mask,
-              dropout_key=None, mlm_positions=None):
+              dropout_key=None, mlm_positions=None, segment_ids=None):
     """``dropout_key=None`` is deterministic mode; otherwise a tuple of
     ints (the train step passes ``(seed + 1, step)``) from which every
     dropout site's generator is seeded.
@@ -282,6 +288,11 @@ class BertForPretraining(nn.Module):
     ``mlm_positions`` int ``[b, P]``: the masked-only head, hidden states
     gathered at those positions before the transform, logits
     ``[b, P, V]``.
+
+    ``segment_ids`` int ``[b, s]`` (doc index per token, -1 = padding, the
+    packed loader's ``block_diagonal`` key) restricts attention to
+    same-document pairs: the segmented flash kernels, or an additive bias
+    in dense attention.
     """
     cfg = self.cfg
     s = input_ids.shape[1]
@@ -291,7 +302,7 @@ class BertForPretraining(nn.Module):
          self.token_type_embeddings(token_type_ids))
     x = _dropout(self.embed_norm(x), cfg.dropout_rate,
                  _generator(seeds[0], x.device))
-    x = self.encoder(x, attention_mask.bool(), seeds[1:])
+    x = self.encoder(x, attention_mask.bool(), seeds[1:], segment_ids)
 
     x_mlm = x
     if mlm_positions is not None:

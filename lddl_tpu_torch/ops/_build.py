@@ -31,6 +31,10 @@ _SIGNATURES = {
     'lddl_flash_fwd': (6, 6),
     'lddl_flash_dq': (8, 6),
     'lddl_flash_dkv': (9, 6),
+    # K4: the same, plus q/kv segment ids and q/kv tile intervals.
+    'lddl_flash_fwd_seg': (10, 6),
+    'lddl_flash_dq_seg': (12, 6),
+    'lddl_flash_dkv_seg': (13, 6),
 }
 
 _lock = threading.Lock()

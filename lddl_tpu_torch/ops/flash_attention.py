@@ -33,10 +33,26 @@ least one attended key (a loader row always has ``[CLS]``). A row with no
 attended key is outside that domain: it gets the mean of V over the real
 keys, where JAX also averages in its zero padding columns.
 
-Segment ids (block-diagonal packed attention, the TPU kernels' segmented
-form) are not ported yet and raise ``NotImplementedError``.
+Segment ids (block-diagonal packed attention): ``q_segment_ids`` and
+``kv_segment_ids``, int ``[batch, seq]`` document ids with -1 on padding,
+restrict attention to same-document pairs. They run the segmented kernels
+``fwd_seg``, ``dq_seg`` and ``dkv_seg`` (K4): the same three bodies, which
+skip every tile whose id interval is disjoint from the owned tile's
+before loading it, and add a ``NEG_INF`` same-document bias on the tiles
+they keep. The intervals come from :func:`_tile_intervals` at the
+kernels' tile widths (:data:`TILE_ROWS` owned, :func:`stream_rows`
+streamed), once per attention call for its three kernels
+(:class:`Segments`); :func:`count_skippable_tiles` counts what the grid
+skips. The plain versions add the same bias over the whole score matrix
+and skip nothing. Parity domain: rows with an id >= 0 (real tokens) match the
+plain version and JAX. Padding rows stay finite; a tile whose rows are
+all padding skips every tile and gives out = 0 (with a finite lse), where
+the plain version, which skips nothing, averages over the padding keys.
+Padding rows are never compared, and their cotangents are zero in the
+model.
 """
 
+import numpy as np
 import torch
 
 from . import _build
@@ -51,10 +67,22 @@ _EXP_CLAMP = 30.0
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
+# The kernels' tiles: a CTA owns TILE_ROWS rows (q in fwd and dq, kv in
+# dkv) and streams the other side in tiles of stream_rows(head_dim) rows
+# (tile_n<D>() in csrc/flash_attention.cu).
+TILE_ROWS = 64
+# The interval of an all-padding tile: lo above every id, hi = -1.
+_EMPTY_LO = 2**30
+
+
+def stream_rows(head_dim):
+  return 32 if head_dim == 128 else 64
+
 
 # Kernel launches by name; each wrapper adds one where it launches, nowhere
 # else (chip_smoke.py reads these to show the main path used the kernels).
-launches = {'fwd': 0, 'dq': 0, 'dkv': 0}
+launches = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': 0, 'dq_seg': 0,
+            'dkv_seg': 0}
 
 
 def reset_launches():
@@ -65,15 +93,23 @@ def reset_launches():
 # ---- plain PyTorch versions (CPU path and the on-card reference) ----
 
 
-def _scores(q, k, bias, heads):
-  """f32 ``scale * q k^T + bias`` over the whole ``[bh, s_q, s_kv]``."""
+def _scores(q, k, bias, heads, qseg=None, kvseg=None):
+  """f32 ``scale * q k^T + bias`` over the whole ``[bh, s_q, s_kv]``, plus
+  the same-document bias (0 or ``NEG_INF``) when segment ids are given."""
   scale = 1.0 / q.shape[-1] ** 0.5
   s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-  return s + bias.repeat_interleave(heads, dim=0)[:, None, :]
+  s = s + bias.repeat_interleave(heads, dim=0)[:, None, :]
+  if qseg is None:
+    return s
+  zero = torch.zeros((), dtype=torch.float32, device=q.device)
+  same = torch.where(qseg[:, :, None] == kvseg[:, None, :], zero, NEG_INF)
+  bh, s_q, s_kv = s.shape
+  return (s.view(bh // heads, heads, s_q, s_kv) + same[:, None]).view(
+      bh, s_q, s_kv)
 
 
-def _fwd_plain(q, k, v, bias, heads):
-  s = _scores(q, k, bias, heads)
+def _fwd_plain(q, k, v, bias, heads, qseg=None, kvseg=None):
+  s = _scores(q, k, bias, heads, qseg, kvseg)
   # The kernels' running max starts at NEG_INF.
   m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
   p = torch.exp(s - m)
@@ -82,17 +118,18 @@ def _fwd_plain(q, k, v, bias, heads):
   return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _dq_plain(q, k, v, bias, dout, lse, delta, heads):
+def _dq_plain(q, k, v, bias, dout, lse, delta, heads, qseg=None, kvseg=None):
   scale = 1.0 / q.shape[-1] ** 0.5
-  p = torch.exp(_scores(q, k, bias, heads) - lse[..., None])
+  p = torch.exp(_scores(q, k, bias, heads, qseg, kvseg) - lse[..., None])
   dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
   ds = p * (dp - delta[..., None])
   return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
 
 
-def _dkv_plain(q, k, v, bias, dout, lse, delta, heads):
+def _dkv_plain(q, k, v, bias, dout, lse, delta, heads, qseg=None,
+               kvseg=None):
   scale = 1.0 / q.shape[-1] ** 0.5
-  s = _scores(q, k, bias, heads) - lse[..., None]
+  s = _scores(q, k, bias, heads, qseg, kvseg) - lse[..., None]
   p = torch.exp(torch.clamp_max(s, _EXP_CLAMP))
   dv = torch.matmul(p.transpose(1, 2), dout.float())
   dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
@@ -101,11 +138,91 @@ def _dkv_plain(q, k, v, bias, dout, lse, delta, heads):
   return dk.to(q.dtype), dv.to(q.dtype)
 
 
+# ---- segment tiles ----
+
+
+def _tile_intervals(seg, rows):
+  """``[b, n_tiles, 2]`` int32 ``(lo, hi)`` id interval of each ``rows``-row
+  tile of int32 ``seg`` ``[b, s]`` (JAX ``_seg_interval``). Padding (-1)
+  is left out of ``lo`` and, being below every id, drops out of ``hi``;
+  the ragged last tile is filled with padding. A tile of padding only gets
+  ``(2**30, -1)``, disjoint from every tile."""
+  b, s = seg.shape
+  if s % rows:
+    seg = torch.nn.functional.pad(seg, (0, rows - s % rows), value=-1)
+  tiles = seg.view(b, -1, rows)
+  lo = torch.where(tiles < 0, _EMPTY_LO, tiles).amin(dim=2)
+  return torch.stack((lo, tiles.amax(dim=2)), dim=2)
+
+
+def segment_block_intervals(segment_ids, block):
+  """Per-block ``(lo, hi)`` id intervals of a ``[b, s]`` id array, as
+  numpy arrays ``[b, n_blocks]`` (JAX ``segment_block_intervals``): the
+  host-side mirror of the intervals the kernels test."""
+  iv = _tile_intervals(torch.from_numpy(np.asarray(segment_ids, np.int32)),
+                       block)
+  return iv[..., 0].numpy(), iv[..., 1].numpy()
+
+
+def count_skippable_tiles(segment_ids, block_q=None, block_k=None,
+                          head_dim=64):
+  """``(total, skipped)`` tile counts of the forward grid for a ``[b, s]``
+  segment-id batch under the kernels' interval test (JAX
+  ``count_skippable_tiles``). The defaults are the CUDA tiles at
+  ``head_dim``: ``TILE_ROWS`` q rows owned, ``stream_rows(head_dim)`` kv
+  rows streamed, so the count is what the CUDA grid skips per head (the
+  fraction is the same for every head, and for dq and, by symmetry of
+  self-attention, dk/dv)."""
+  block_q = TILE_ROWS if block_q is None else block_q
+  block_k = stream_rows(head_dim) if block_k is None else block_k
+  qlo, qhi = segment_block_intervals(segment_ids, block_q)
+  klo, khi = segment_block_intervals(segment_ids, block_k)
+  live = ((qlo[:, :, None] <= khi[:, None, :]) &
+          (klo[:, None, :] <= qhi[:, :, None]))
+  total = int(live.size)
+  return total, total - int(live.sum())
+
+
+class Segments:
+  """The segment ids of one attention call, shared by its three kernels:
+  int32 ``q`` ``[b, s_q]`` and ``kv`` ``[b, s_kv]`` document ids (-1 on
+  padding) and, computed at first use and kept, their tile intervals at
+  the widths the kernels tile with. Built once per call, so the interval
+  ops run once and not before every launch (for self-attention ``q is
+  kv`` and one set serves both sides)."""
+
+  def __init__(self, q, kv):
+    self.q, self.kv = q, kv
+    self._intervals = {}
+
+  def _tiles(self, ids, rows):
+    key = (id(ids), rows)
+    if key not in self._intervals:
+      self._intervals[key] = _tile_intervals(ids, rows)
+    return self._intervals[key]
+
+  def launch_args(self, head_dim, kv_owned=False):
+    """A K4 launcher's segment arguments: the q and kv ids, then the q and
+    kv tile intervals, the side a CTA owns at ``TILE_ROWS`` rows and the
+    side it streams at ``stream_rows(head_dim)`` (fwd and dq own q, dkv
+    owns kv)."""
+    own, stream = TILE_ROWS, stream_rows(head_dim)
+    q_rows, kv_rows = (stream, own) if kv_owned else (own, stream)
+    return (self.q, self.kv, self._tiles(self.q, q_rows),
+            self._tiles(self.kv, kv_rows))
+
+
+def _ids(seg):
+  """The plain versions' segment arguments: (q ids, kv ids) or ()."""
+  return () if seg is None else (seg.q, seg.kv)
+
+
 # ---- kernel wrappers ----
 
 
-def _check(q, k, v, bias, heads, *rows):
-  """Raise on anything the CUDA kernels do not take."""
+def _check(q, k, v, bias, heads, *rows, seg=None):
+  """Raise on anything the CUDA kernels do not take. ``seg``: the call's
+  :class:`Segments`, or None for the segment-free kernels."""
   if not (q.dim() == k.dim() == v.dim() == 3):
     raise ValueError('q, k, v must be [batch*heads, seq, head_dim]')
   bh, s_q, d = q.shape
@@ -126,6 +243,12 @@ def _check(q, k, v, bias, heads, *rows):
   if bias.dtype != torch.float32 or tuple(bias.shape) != (bh // heads, s_kv):
     raise ValueError(f'bias must be float32 [{bh // heads}, {s_kv}]; got '
                      f'{bias.dtype} {tuple(bias.shape)}')
+  if seg is not None:
+    for ids, s in zip(_ids(seg), (s_q, s_kv)):
+      if ids.dtype != torch.int32 or tuple(ids.shape) != (bh // heads, s):
+        raise ValueError(f'segment ids must be int32 [{bh // heads}, {s}]; '
+                         f'got {ids.dtype} {tuple(ids.shape)}')
+    rows += _ids(seg)
   tensors = (q, k, v, bias) + rows
   for t in tensors:
     if t.device != q.device:
@@ -142,10 +265,14 @@ def _use_kernel(q):
   return q.device.type == 'cuda'
 
 
-def _launch(name, heads, *tensors):
-  """Launch ``lddl_flash_<name>`` on ``tensors`` (q, k, ... in the C
-  launcher's order) on the current stream and count it."""
-  q, k = tensors[:2]
+def _launch(name, heads, q, k, v, bias, *rest, seg=()):
+  """Launch ``lddl_flash_<name>`` on (q, k, v, bias, *rest), in the C
+  launcher's order, on the current stream and count it; with ``seg`` (see
+  :meth:`Segments.launch_args`) the K4 launcher ``lddl_flash_<name>_seg``,
+  which takes the segment inputs after the bias."""
+  if seg:
+    name += '_seg'
+  tensors = (q, k, v, bias, *seg, *rest)
   bh, s_q, d = q.shape
   with torch.cuda.device(q.device):
     _build.launch(f'lddl_flash_{name}', *(t.data_ptr() for t in tensors),
@@ -155,32 +282,36 @@ def _launch(name, heads, *tensors):
   launches[name] += 1
 
 
-def _fwd(q, k, v, bias, heads):
+def _fwd(q, k, v, bias, heads, seg=None):
   if not _use_kernel(q):
-    return _fwd_plain(q, k, v, bias, heads)
-  _check(q, k, v, bias, heads)
+    return _fwd_plain(q, k, v, bias, heads, *_ids(seg))
+  _check(q, k, v, bias, heads, seg=seg)
   out = torch.empty_like(q)
   lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-  _launch('fwd', heads, q, k, v, bias, out, lse)
+  _launch('fwd', heads, q, k, v, bias, out, lse,
+          seg=() if seg is None else seg.launch_args(q.shape[-1]))
   return out, lse
 
 
-def _dq(q, k, v, bias, dout, lse, delta, heads):
+def _dq(q, k, v, bias, dout, lse, delta, heads, seg=None):
   if not _use_kernel(q):
-    return _dq_plain(q, k, v, bias, dout, lse, delta, heads)
-  _check(q, k, v, bias, heads, dout, lse, delta)
+    return _dq_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
+  _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
   dq = torch.empty_like(q)
-  _launch('dq', heads, q, k, v, bias, dout, lse, delta, dq)
+  _launch('dq', heads, q, k, v, bias, dout, lse, delta, dq,
+          seg=() if seg is None else seg.launch_args(q.shape[-1]))
   return dq
 
 
-def _dkv(q, k, v, bias, dout, lse, delta, heads):
+def _dkv(q, k, v, bias, dout, lse, delta, heads, seg=None):
   if not _use_kernel(q):
-    return _dkv_plain(q, k, v, bias, dout, lse, delta, heads)
-  _check(q, k, v, bias, heads, dout, lse, delta)
+    return _dkv_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
+  _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
   dk = torch.empty_like(k)
   dv = torch.empty_like(v)
-  _launch('dkv', heads, q, k, v, bias, dout, lse, delta, dk, dv)
+  _launch('dkv', heads, q, k, v, bias, dout, lse, delta, dk, dv,
+          seg=() if seg is None else seg.launch_args(q.shape[-1],
+                                                     kv_owned=True))
   return dk, dv
 
 
@@ -192,22 +323,23 @@ def _backward_rows(g, g_lse, out, q):
 
 
 class _FlashPair(torch.autograd.Function):
-  """``(out, lse)`` of ``[bh, s, d]`` inputs, differentiable in both."""
+  """``(out, lse)`` of ``[bh, s, d]`` inputs, differentiable in both.
+  ``seg``: the call's :class:`Segments`, or None."""
 
   @staticmethod
-  def forward(ctx, q, k, v, bias, heads):
-    out, lse = _fwd(q, k, v, bias, heads)
+  def forward(ctx, q, k, v, bias, heads, seg):
+    out, lse = _fwd(q, k, v, bias, heads, seg)
     ctx.save_for_backward(q, k, v, bias, out, lse)
-    ctx.heads = heads
+    ctx.heads, ctx.seg = heads, seg
     return out, lse
 
   @staticmethod
   def backward(ctx, g, g_lse):
     q, k, v, bias, out, lse = ctx.saved_tensors
     g, delta = _backward_rows(g, g_lse, out, q)
-    dq = _dq(q, k, v, bias, g, lse, delta, ctx.heads)
-    dk, dv = _dkv(q, k, v, bias, g, lse, delta, ctx.heads)
-    return dq, dk, dv, None, None
+    dq = _dq(q, k, v, bias, g, lse, delta, ctx.heads, ctx.seg)
+    dk, dv = _dkv(q, k, v, bias, g, lse, delta, ctx.heads, ctx.seg)
+    return dq, dk, dv, None, None, None
 
 
 def key_bias(attention_mask, batch, s_kv, device):
@@ -224,17 +356,30 @@ def flash_attention_with_lse(q, k, v, attention_mask=None,
   """Like :func:`flash_attention` but also returns the per-query
   log-sum-exp ``[batch, heads, seq]`` (float32). Gradients flow through
   both outputs."""
-  if q_segment_ids is not None or kv_segment_ids is not None:
-    raise NotImplementedError(
-        'segment ids (block-diagonal packed attention) are not ported to '
-        'the CUDA kernels yet')
+  if (q_segment_ids is None) != (kv_segment_ids is None):
+    raise ValueError('q_segment_ids and kv_segment_ids must be given '
+                     'together (self-attention passes the same array)')
   b, h, s_q, d = q.shape
   s_kv = k.shape[2]
   bias = key_bias(attention_mask, b, s_kv, q.device)
+  seg = None
+  if q_segment_ids is not None:
+    qseg = _segment_rows(q_segment_ids, b, s_q, q.device)
+    seg = Segments(qseg, qseg if kv_segment_ids is q_segment_ids else
+                   _segment_rows(kv_segment_ids, b, s_kv, q.device))
   out, lse = _FlashPair.apply(q.reshape(b * h, s_q, d).contiguous(),
                               k.reshape(b * h, s_kv, d).contiguous(),
-                              v.reshape(b * h, s_kv, d).contiguous(), bias, h)
+                              v.reshape(b * h, s_kv, d).contiguous(), bias, h,
+                              seg)
   return out.view(b, h, s_q, d), lse.view(b, h, s_q)
+
+
+def _segment_rows(segment_ids, batch, s, device):
+  """int ``[batch, s]`` doc ids -> the kernels' contiguous int32 rows."""
+  if tuple(segment_ids.shape) != (batch, s):
+    raise ValueError(f'segment ids must be [{batch}, {s}]; got '
+                     f'{tuple(segment_ids.shape)}')
+  return segment_ids.to(device=device, dtype=torch.int32).contiguous()
 
 
 def flash_attention(q, k, v, attention_mask=None, q_segment_ids=None,
@@ -243,8 +388,10 @@ def flash_attention(q, k, v, attention_mask=None, q_segment_ids=None,
 
   ``q, k, v``: ``[batch, heads, seq, head_dim]`` in float32 or bfloat16;
   ``attention_mask``: ``[batch, seq]`` with 1 = attend, 0 = padding (key
-  side). Returns the context ``[batch, heads, seq, head_dim]`` in the
-  input dtype.
+  side). Optional ``q_segment_ids``/``kv_segment_ids`` ``[batch, seq]``
+  int (doc index per token, -1 = padding), given together, restrict
+  attention to same-document pairs through the segmented kernels. Returns
+  the context ``[batch, heads, seq, head_dim]`` in the input dtype.
   """
   return flash_attention_with_lse(q, k, v, attention_mask, q_segment_ids,
                                   kv_segment_ids)[0]

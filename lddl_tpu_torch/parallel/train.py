@@ -3,7 +3,9 @@
 Counterpart of :mod:`lddl_tpu.parallel.train` (its mesh placement waits
 for the multi-GPU slice). Loss = masked-LM cross entropy (ignore label
 -100, mean over masked positions) + next-sentence-prediction cross
-entropy, over exactly the dict the loader yields.
+entropy, over exactly the dict the loader yields. A batch with a
+``segment_ids`` key (the packed loader with ``block_diagonal=True``) runs
+block-diagonal attention and :func:`per_doc_mlm_loss`.
 
 The optimizer is ``optax.adamw`` over
 ``warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1))``
@@ -31,6 +33,33 @@ def masked_positions(labels, max_predictions):
   return torch.argsort(unmasked, dim=1, stable=True)[:, :p]
 
 
+def per_doc_mlm_loss(mlm_ce, masked, seg, num_docs_cap):
+  """Packing-aware MLM normalization (arXiv:2107.02027 §3.2), as
+  :func:`lddl_tpu.parallel.train.per_doc_mlm_loss`: each document's own
+  masked-mean cross entropy, then the mean over the documents with at
+  least one MLM target, so a packed row weighs its documents as unpacked
+  training would.
+
+  ``seg``: doc index per column, aligned with ``mlm_ce``/``masked``
+  (gathered at ``mlm_positions`` under the masked-only head); padding (-1)
+  and unmasked columns carry weight 0. ``num_docs_cap``: the bound on docs
+  per row (the sequence length). The per-document sums are float32
+  ``index_add`` over ``b * num_docs_cap`` segments.
+  """
+  b = masked.shape[0]
+  rows = torch.arange(b, device=seg.device)[:, None]
+  ids = (seg.long().clamp(0, num_docs_cap - 1) +
+         num_docs_cap * rows).reshape(-1)
+  w = masked.float().reshape(-1)
+  zeros = torch.zeros(b * num_docs_cap, dtype=torch.float32,
+                      device=mlm_ce.device)
+  ce_sum = zeros.index_add(0, ids, mlm_ce.float().reshape(-1) * w)
+  cnt = zeros.index_add(0, ids, w)
+  has = cnt > 0
+  per_doc = torch.where(has, ce_sum / cnt.clamp_min(1.0), 0.0)
+  return per_doc.sum() / has.sum().clamp_min(1)
+
+
 def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
   """Scalar loss + metrics dict for one batch.
 
@@ -39,10 +68,11 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
   head: only the first P masked positions per row get ``[b, P, V]``
   logits — the same MLM cross entropy at a fraction of the head's work,
   provided P covers the masking budget (:func:`check_max_predictions`).
+
+  A ``segment_ids`` batch key switches on block-diagonal attention in the
+  model and the :func:`per_doc_mlm_loss` normalization.
   """
-  if 'segment_ids' in batch:
-    raise NotImplementedError('segment_ids batches (block-diagonal packed '
-                              'loss) are not ported yet')
+  segment_ids = batch.get('segment_ids')
   labels = batch['labels'].long()
   mlm_positions = None
   if max_predictions is not None:
@@ -50,13 +80,21 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
     labels = torch.gather(labels, 1, mlm_positions)
   mlm_logits, nsp_logits = model(
       batch['input_ids'], batch['token_type_ids'], batch['attention_mask'],
-      dropout_key=dropout_key, mlm_positions=mlm_positions)
+      dropout_key=dropout_key, mlm_positions=mlm_positions,
+      segment_ids=segment_ids)
   masked = labels != IGNORE_INDEX
   safe_labels = torch.where(masked, labels, 0)
   mlm_ce = F.cross_entropy(mlm_logits.flatten(0, 1), safe_labels.flatten(),
                            reduction='none').view_as(labels)
   denom = masked.sum().clamp_min(1)
-  mlm_loss = torch.where(masked, mlm_ce, 0.0).sum() / denom
+  if segment_ids is not None:
+    seg = segment_ids
+    if mlm_positions is not None:
+      seg = torch.gather(segment_ids, 1, mlm_positions)
+    mlm_loss = per_doc_mlm_loss(mlm_ce, masked, seg,
+                                num_docs_cap=batch['input_ids'].shape[1])
+  else:
+    mlm_loss = torch.where(masked, mlm_ce, 0.0).sum() / denom
   nsp_loss = F.cross_entropy(nsp_logits,
                              batch['next_sentence_labels'].long())
   hits = masked & (mlm_logits.argmax(dim=-1) == labels)

@@ -10,7 +10,11 @@ makes a loop without a corpus and the caller attaches ``loop.loader``,
 any iterable of loader-format batch dicts (``input_ids``,
 ``token_type_ids``, ``attention_mask``, ``labels``,
 ``next_sentence_labels``) with a ``batch_size`` attribute — the same
-contract replay uses with the JAX loop.
+contract replay uses with the JAX loop. Batches of the packed collate
+(:class:`~lddl_tpu_torch.loader.packed.PackedCollate` with
+``block_diagonal=True``) also carry ``segment_ids``; the feed copies every
+key and the train step then runs block-diagonal attention and the
+per-document MLM loss.
 
 Checkpoints are ``torch.save`` files, written into a temporary directory
 and renamed into place, so a reader sees a step whole or not at all. They

@@ -16,6 +16,13 @@ from lddl_tpu.models import BertForPretraining as JaxBert
 from lddl_tpu_torch.models import (BertConfig, BertForPretraining,
                                    flax_to_state_dict)
 
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+  # The port creates no lddl_ shm segment; the shared fixture would count
+  # segments of other xdist workers' loader tests as this test's leak.
+  yield
+
+
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
             intermediate_size=128, dropout_rate=0.0)
 
@@ -78,6 +85,27 @@ def test_masked_only_head_matches_jax(impl):
   _compare(jout, tout)
 
 
+@pytest.mark.parametrize('impl', ['dense', 'flash'])
+def test_segment_ids_logits_match_jax(impl):
+  """Block-diagonal attention in the model: three documents per row, a
+  padded tail on row 0 (logits compared on real rows)."""
+  jmodel, params, tmodel = _models(impl)
+  ids, types, mask = _batch()
+  seg = np.where(mask > 0, np.arange(64)[None, :] * 3 // 64, -1)
+  seg = seg.astype(np.int32)
+  jout = jmodel.apply({'params': params}, jnp.asarray(ids),
+                      jnp.asarray(types), jnp.asarray(mask),
+                      segment_ids=jnp.asarray(seg))
+  with torch.no_grad():
+    tout = tmodel(*(torch.from_numpy(x) for x in (ids, types, mask)),
+                  segment_ids=torch.from_numpy(seg))
+  real = mask.astype(bool)[..., None]
+  np.testing.assert_allclose(tout[0].numpy() * real, np.asarray(jout[0]) * real,
+                             rtol=1e-4, atol=1e-4)
+  np.testing.assert_allclose(tout[1].numpy(), np.asarray(jout[1]), rtol=1e-4,
+                             atol=1e-4)
+
+
 def test_converter_covers_every_parameter():
   """The converted state dict loads strictly (no missing or unexpected
   key) and transposes Dense kernels to torch's [out, in]."""
@@ -104,7 +132,8 @@ def test_init_distributions_follow_flax():
   assert torch.count_nonzero(model.mlm_bias) == 0
 
 
-def test_remat_gives_the_same_gradients():
+def _remat_grads(**kw):
+  """Layer-0 FFN gradients without and with remat, dropout on."""
   ids, types, mask = (torch.from_numpy(x) for x in _batch())
   grads = []
   for remat in (False, True):
@@ -113,9 +142,21 @@ def test_remat_gives_the_same_gradients():
                                           attention_impl='flash',
                                           **dict(TINY, dropout_rate=0.1)))
     model.reset_parameters(torch.Generator().manual_seed(0))
-    mlm, nsp = model(ids, types, mask, dropout_key=(5, 2))
+    mlm, nsp = model(ids, types, mask, dropout_key=(5, 2), **kw)
     (mlm.square().mean() + nsp.sum()).backward()
     grads.append(model.encoder.layers[0].intermediate.weight.grad.clone())
+  return grads
+
+
+def test_remat_gives_the_same_gradients():
+  grads = _remat_grads()
+  torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=0)
+
+
+def test_remat_gives_the_same_gradients_with_segment_ids():
+  mask = torch.from_numpy(_batch()[2])
+  seg = torch.where(mask > 0, torch.arange(64)[None, :] // 20, -1)
+  grads = _remat_grads(segment_ids=seg)
   torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=0)
 
 

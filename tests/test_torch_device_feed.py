@@ -9,6 +9,13 @@ import pytest
 from lddl_tpu_torch.loader.device import prefetch_to_device
 
 
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+  # The port creates no lddl_ shm segment; the shared fixture would count
+  # segments of other xdist workers' loader tests as this test's leak.
+  yield
+
+
 def _batches(n, seed=0):
   rng = np.random.default_rng(seed)
   return [{'input_ids': rng.integers(0, 30522, (4, 16)).astype(np.int32),

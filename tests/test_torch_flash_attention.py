@@ -5,6 +5,11 @@ mode); the port runs its plain PyTorch versions, which is what its
 wrappers take for CPU tensors. Same numpy inputs on both sides.
 Tolerances are those of tests/test_flash_attention.py: fwd 2e-5, grads
 2e-4 (both f32, summation order differs), bf16 3e-2.
+
+Segmented (block-diagonal) cases compare out and lse on real rows only
+and feed zero cotangents on padding rows, as tests/test_block_diagonal.py
+does: padding rows are outside the parity domain (the kernels skip their
+all-padding tiles, the plain version and JAX's larger blocks do not).
 """
 
 import jax
@@ -15,6 +20,13 @@ import torch
 
 from lddl_tpu.ops import flash_attention as jfa
 from lddl_tpu_torch.ops import flash_attention as tfa
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+  # The port creates no lddl_ shm segment; the shared fixture would count
+  # segments of other xdist workers' loader tests as this test's leak.
+  yield
 
 
 def _inputs(b, h, s, d, seed=0):
@@ -113,13 +125,6 @@ def test_plain_versions_match_autograd_of_dense():
                                atol=2e-4, err_msg=name)
 
 
-def test_segment_ids_not_ported():
-  q = torch.zeros(1, 1, 8, 32)
-  seg = torch.zeros(1, 8, dtype=torch.int32)
-  with pytest.raises(NotImplementedError):
-    tfa.flash_attention(q, q, q, None, seg, seg)
-
-
 def test_other_devices_raise():
   q = torch.zeros(1, 1, 8, 32, device='meta')
   with pytest.raises(ValueError, match='cuda'):
@@ -143,3 +148,214 @@ def test_kernel_checks_reject_what_the_kernels_do_not_take():
     tfa._check(t, t, t, bias, 2)
   with pytest.raises(ValueError, match='bias'):
     tfa._check(q, q, q, bias.double(), 2)
+
+
+# ---- segment ids (block-diagonal packed attention, K4) ----
+
+
+def _ragged_segments(b, s, k, seed=0, pad_tail=True):
+  """tests/test_block_diagonal.py's rows: k docs per row with boundaries
+  off every block size, and a padded tail (ids -1, mask 0) on row 0."""
+  rng = np.random.default_rng(seed)
+  seg = np.zeros((b, s), np.int32)
+  mask = np.ones((b, s), np.int32)
+  for row in range(b):
+    cuts = sorted(
+        set(int(np.clip(i * s // k + rng.integers(-s // (4 * k), s //
+                                                  (4 * k) + 1), 1, s - 1))
+            for i in range(1, k)))
+    bounds = [0] + cuts + [s]
+    for d in range(len(bounds) - 1):
+      seg[row, bounds[d]:bounds[d + 1]] = d
+  if pad_tail:
+    tail = s - max(1, s // 13)
+    mask[0, tail:] = 0
+    seg[0, tail:] = -1
+  return seg, mask
+
+
+def _seg_inputs(b, h, s, d, seg, mask, seed):
+  """q, k, v and cotangents (zero on padding rows) as numpy f32."""
+  rng = np.random.default_rng(seed)
+  q, k, v, cot = (rng.standard_normal((b, h, s, d), dtype=np.float32)
+                  for _ in range(4))
+  cot_lse = rng.standard_normal((b, h, s), dtype=np.float32)
+  real = mask.astype(bool)[:, None, :]
+  return q, k, v, cot * real[..., None], cot_lse * real
+
+
+def _jax_seg(q, k, v, mask, seg, cot, cot_lse):
+  segj = jnp.asarray(seg)
+
+  def loss(q, k, v):
+    out, lse = jfa.flash_attention_with_lse(q, k, v, jnp.asarray(mask), segj,
+                                            segj)
+    return jnp.sum(out * cot) + jnp.sum(lse * cot_lse), (out, lse)
+
+  (_, (out, lse)), grads = jax.value_and_grad(
+      loss, argnums=(0, 1, 2), has_aux=True)(
+          jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+  return [np.asarray(x) for x in (out, lse, *grads)]
+
+
+def _torch_seg(q, k, v, mask, seg, cot, cot_lse):
+  qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+  segt = torch.from_numpy(seg)
+  out, lse = tfa.flash_attention_with_lse(qt, kt, vt, torch.from_numpy(mask),
+                                          segt, segt)
+  (torch.sum(out * torch.from_numpy(cot)) +
+   torch.sum(lse * torch.from_numpy(cot_lse))).backward()
+  return [x.detach().numpy() for x in (out, lse, qt.grad, kt.grad, vt.grad)]
+
+
+def _compare_real_rows(jax_res, torch_res, mask, fwd_tol=2e-5,
+                       grad_tol=2e-4):
+  real = mask.astype(bool)[:, None, :]
+  for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv'), jax_res,
+                        torch_res):
+    assert np.isfinite(b).all(), name
+    if name == 'out':
+      a, b = a * real[..., None], b * real[..., None]
+    elif name == 'lse':
+      a, b = a * real, b * real
+    tol = fwd_tol if name in ('out', 'lse') else grad_tol
+    np.testing.assert_allclose(b, a, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize('b,s,k', [(2, 512, 4), (1, 2048, 16)])
+def test_segmented_matches_jax(b, s, k):
+  h, d = 2, 32
+  seg, mask = _ragged_segments(b, s, k, seed=s + 1)
+  args = (*_seg_inputs(b, h, s, d, seg, mask, seed=7 * s),)
+  q, kk, v, cot, cot_lse = args
+  _compare_real_rows(_jax_seg(q, kk, v, mask, seg, cot, cot_lse),
+                     _torch_seg(q, kk, v, mask, seg, cot, cot_lse), mask)
+
+
+def test_segmented_matches_jax_with_small_blocks(monkeypatch):
+  """JAX with its blocks forced small, so that its grid really skips
+  cross-document tiles in the forward and both backward kernels."""
+  monkeypatch.setattr(jfa, '_BLOCK_Q', 64)
+  monkeypatch.setattr(jfa, '_BLOCK_KV_SEG', 128)
+  b, h, s, d = 2, 2, 512, 32
+  seg, mask = _ragged_segments(b, s, 4, seed=11)
+  assert jfa.count_skippable_tiles(seg, block_q=64, block_k=128)[1] > 0
+  q, kk, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=13)
+  _compare_real_rows(_jax_seg(q, kk, v, mask, seg, cot, cot_lse),
+                     _torch_seg(q, kk, v, mask, seg, cot, cot_lse), mask)
+
+
+@pytest.mark.parametrize('d', [64, 128])
+def test_segmented_head_dims_match_jax(d):
+  b, h, s = 1, 2, 384
+  seg, mask = _ragged_segments(b, s, 3, seed=d)
+  q, kk, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=d + 1)
+  _compare_real_rows(_jax_seg(q, kk, v, mask, seg, cot, cot_lse),
+                     _torch_seg(q, kk, v, mask, seg, cot, cot_lse), mask)
+
+
+def test_segmented_bf16_matches_jax():
+  b, h, s, d = 1, 2, 384, 64
+  seg, mask = _ragged_segments(b, s, 3, seed=29, pad_tail=False)
+  q, kk, v, _, _ = _seg_inputs(b, h, s, d, seg, mask, seed=23)
+  segj = jnp.asarray(seg)
+  ref = jfa.flash_attention(*(jnp.asarray(x).astype(jnp.bfloat16)
+                              for x in (q, kk, v)), jnp.asarray(mask), segj,
+                            segj)
+  segt = torch.from_numpy(seg)
+  out = tfa.flash_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                              for x in (q, kk, v)), torch.from_numpy(mask),
+                            segt, segt)
+  assert out.dtype == torch.bfloat16
+  np.testing.assert_allclose(out.float().numpy(),
+                             np.asarray(ref, dtype=np.float32), rtol=3e-2,
+                             atol=3e-2)
+
+
+def test_all_padding_row_stays_finite_and_real_rows_match_jax():
+  b, h, s, d = 2, 2, 256, 32
+  seg, mask = _ragged_segments(b, s, 3, seed=17, pad_tail=False)
+  seg[1], mask[1] = -1, 0
+  q, kk, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=19)
+  got = _torch_seg(q, kk, v, mask, seg, cot, cot_lse)
+  assert all(np.isfinite(x).all() for x in got)
+  _compare_real_rows(_jax_seg(q, kk, v, mask, seg, cot, cot_lse), got, mask)
+
+
+def test_segment_ids_require_pairing():
+  q = torch.zeros(1, 1, 64, 32)
+  seg = torch.zeros(1, 64, dtype=torch.int32)
+  with pytest.raises(ValueError, match='together'):
+    tfa.flash_attention(q, q, q, None, seg, None)
+  with pytest.raises(ValueError, match='together'):
+    tfa.flash_attention(q, q, q, None, None, seg)
+
+
+def test_plain_segmented_versions_match_autograd_of_dense():
+  """The plain bodies with segment ids against torch autograd through
+  dense block-diagonal softmax attention in float64 (real rows; zero
+  cotangents on padding rows)."""
+  b, h, s, d = 2, 2, 96, 32
+  seg, mask = _ragged_segments(b, s, 3, seed=5)
+  q, k, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=6)
+  qt, kt, vt = (torch.from_numpy(x).double().requires_grad_()
+                for x in (q, k, v))
+  segt = torch.from_numpy(seg)
+  bias = torch.where(torch.from_numpy(mask) != 0, 0.0, tfa.NEG_INF).double()
+  same = segt[:, :, None] == segt[:, None, :]
+  sc = torch.einsum('bhqd,bhkd->bhqk', qt, kt) / d ** 0.5
+  sc = sc + bias[:, None, None, :] + torch.where(same, 0.0,
+                                                 tfa.NEG_INF)[:, None]
+  lse = torch.logsumexp(sc, dim=-1)
+  out = torch.einsum('bhqk,bhkd->bhqd', torch.softmax(sc, dim=-1), vt)
+  (torch.sum(out * torch.from_numpy(cot)) +
+   torch.sum(lse * torch.from_numpy(cot_lse))).backward()
+  ref = [x.detach().numpy() for x in (out, lse, qt.grad, kt.grad, vt.grad)]
+  _compare_real_rows(ref, _torch_seg(q, k, v, mask, seg, cot, cot_lse), mask,
+                     fwd_tol=2e-4)
+
+
+def test_kernel_checks_reject_bad_segment_ids():
+  q = torch.zeros(2, 8, 32)
+  bias = torch.zeros(1, 8)
+  seg = torch.zeros(1, 8, dtype=torch.int32)
+  tfa._check(q, q, q, bias, 2, seg=tfa.Segments(seg, seg))  # no raise
+  with pytest.raises(ValueError, match='segment ids'):
+    tfa._check(q, q, q, bias, 2, seg=tfa.Segments(seg.long(), seg))
+  with pytest.raises(ValueError, match='segment ids'):
+    tfa._check(q, q, q, bias, 2, seg=tfa.Segments(seg, seg[:, :4]))
+
+
+# ---- tile accounting ----
+
+
+@pytest.mark.parametrize('block', [64, 128, 512])
+def test_segment_block_intervals_match_jax(block):
+  seg, _ = _ragged_segments(2, 1024, 7, seed=3)
+  seg[1, 1000:] = -1
+  for got, ref in zip(tfa.segment_block_intervals(seg, block),
+                      jfa.segment_block_intervals(seg, block)):
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize('blocks', [(64, 64), (64, 128), (128, 512)])
+def test_count_skippable_tiles_matches_jax_at_equal_blocks(blocks):
+  seg, _ = _ragged_segments(2, 2048, 16, seed=3)
+  assert (tfa.count_skippable_tiles(seg, *blocks) ==
+          jfa.count_skippable_tiles(seg, *blocks))
+
+
+@pytest.mark.parametrize('head_dim', [64, 128])
+def test_count_skippable_tiles_at_the_cuda_tiles(head_dim):
+  """tests/test_block_diagonal.py::test_count_skippable_tiles's
+  expectations at the CUDA tiles (64 owned rows, stream_rows streamed)."""
+  one = np.zeros((2, 2048), np.int32)
+  total, skipped = tfa.count_skippable_tiles(one, head_dim=head_dim)
+  assert total == 2 * 32 * (2048 // tfa.stream_rows(head_dim))
+  assert skipped == 0
+  seg, _ = _ragged_segments(2, 2048, 16, seed=3, pad_tail=False)
+  total, skipped = tfa.count_skippable_tiles(seg, head_dim=head_dim)
+  assert skipped / total > 0.8
+  pad = np.full((1, 512), -1, np.int32)
+  total, skipped = tfa.count_skippable_tiles(pad, head_dim=head_dim)
+  assert skipped == total

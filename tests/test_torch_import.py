@@ -10,14 +10,21 @@ from pathlib import Path
 import pytest
 import torch
 
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+  # The port creates no lddl_ shm segment; the shared fixture would count
+  # segments of other xdist workers' loader tests as this test's leak.
+  yield
+
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lddl_tpu')
 MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.models.convert', 'lddl_tpu_torch.models.flops',
            'lddl_tpu_torch.ops.flash_attention', 'lddl_tpu_torch.ops._build',
            'lddl_tpu_torch.parallel.train', 'lddl_tpu_torch.loader.bert',
-           'lddl_tpu_torch.loader.device',
-           'lddl_tpu_torch.training.pretrain')
+           'lddl_tpu_torch.loader.device', 'lddl_tpu_torch.loader.packed',
+           'lddl_tpu_torch.core.utils', 'lddl_tpu_torch.training.pretrain')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():

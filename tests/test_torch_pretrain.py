@@ -7,9 +7,18 @@ import numpy as np
 import pytest
 import torch
 
+from lddl_tpu_torch.core.utils import serialize_np_array
+from lddl_tpu_torch.loader import PackedCollate
 from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
 from lddl_tpu_torch.models import BertConfig
 from lddl_tpu_torch.training import TrainLoop
+
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+  # The port creates no lddl_ shm segment; the shared fixture would count
+  # segments of other xdist workers' loader tests as this test's leak.
+  yield
+
 
 CFG = BertConfig(vocab_size=128, hidden_size=64, num_layers=2, num_heads=2,
                  intermediate_size=128, max_position_embeddings=128,
@@ -124,3 +133,69 @@ def test_nonfinite_loss_stops_the_run(monkeypatch, tmp_path):
 def test_build_rejects_a_corpus_path():
   with pytest.raises(NotImplementedError, match='loader'):
     TrainLoop.build('/data/balanced', model_cfg=CFG, device='cpu')
+
+
+class _Tok:
+  cls_token_id, sep_token_id, mask_token_id, pad_token_id = 2, 3, 4, 0
+  vocab_size = CFG.vocab_size
+
+
+class _PackedLoader:
+  """Packed block-diagonal batches of one bin (seq 128, 2-4 documents per
+  row) from wire rows through PackedCollate; iterating yields them from
+  ``start`` on."""
+
+  batch_size = 2
+
+  def __init__(self, n, start=0):
+    collate = PackedCollate(_Tok(), base_seed=3, block_diagonal=True)
+    self.batches = [collate(self._rows(i), 128, epoch=0, step=i)
+                    for i in range(n)]
+    self.start = start
+
+  def _rows(self, step):
+    rng = np.random.default_rng(500 + step)
+    rows = []
+    for _ in range(self.batch_size):
+      ids, marks = [_Tok.cls_token_id], []
+      for n in rng.integers(10, 40, size=rng.integers(2, 5)):
+        marks.append(len(ids))
+        ids += list(rng.integers(5, CFG.vocab_size, n)) + [_Tok.sep_token_id]
+      rows.append({'input_ids': serialize_np_array(np.asarray(ids, np.uint16)),
+                   'doc_offsets': serialize_np_array(np.asarray(marks,
+                                                                np.uint16))})
+    return rows
+
+  def __iter__(self):
+    return iter(self.batches[self.start:])
+
+
+def test_packed_batches_train_and_resume_bit_equal(tmp_path):
+  """segment_ids batches pass through the feed and the train step; a
+  resumed packed run equals the uninterrupted one."""
+  def loop():
+    lp = TrainLoop.build(model_cfg=CFG, device='cpu', learning_rate=1e-3,
+                         warmup_steps=2, total_steps=6, seed=5,
+                         max_predictions=32, max_seq_length=128)
+    lp.loader = _PackedLoader(4)
+    return lp
+
+  assert all('segment_ids' in b for b in _PackedLoader(4).batches)
+  straight = loop()
+  losses = straight.run(4, log_every=0)
+  assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+  first = loop()
+  head = first.run(2, ckpt_dir=str(tmp_path), log_every=0)
+  resumed = loop().restore(str(tmp_path))
+  resumed.loader.start = resumed.step
+  tail = resumed.run(4, log_every=0)
+  assert head + tail == losses
+  assert resumed.state_digest() == straight.state_digest()
+
+
+def test_build_accepts_the_packed_budget_at_8192():
+  import warnings
+  with warnings.catch_warnings():
+    warnings.simplefilter('error')
+    TrainLoop.build(model_cfg=CFG, device='cpu', max_predictions=1359,
+                    max_seq_length=8192)
