@@ -6,14 +6,18 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the CUDA kernels from lddl_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the CUDA kernels from lddl_tpu_torch/csrc (nvcc, sm_90a) and
+     report each kernel's registers and spills (none allowed in the
+     tensor-core bodies at head_dim 64);
   3. hold each kernel (flash fwd, dq, dkv) against its plain PyTorch
      version on the card, in float32 (TF32 off) and bfloat16, at the
      shapes the training phase gives them plus a ragged and a d=32 case;
      check that two launches are bitwise equal; time kernel, plain version
-     and PyTorch's scaled_dot_product_attention (a yardstick only, never
-     called by the port) with CUDA events, beside the least time the card
-     could take for the same work;
+     and PyTorch's scaled_dot_product_attention on its memory-efficient
+     backend (a yardstick only, never called by the port) with CUDA
+     events, beside the least time the card could take for the same work;
+     bf16 fwd and dkv run the tensor-core (mma.sync) bodies, float32 and
+     every dq the CUDA-core bodies, and each row says which;
   4. the same for the segmented kernels (K4: block-diagonal packed
      attention) on ragged packed rows, out and lse compared on real rows,
      cotangents zero on padding rows; also time the segment-free kernel
@@ -45,6 +49,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,9 +88,12 @@ SEG_CASES = (
     (2, 12, 8192, 64, torch.bfloat16, 16, True, False),
     (2, 12, 2048, 64, torch.float32, 4, True, False),
     (2, 8, 1024, 32, torch.float32, 8, True, False),
+    (2, 8, 1024, 32, torch.bfloat16, 8, True, False),
     (2, 8, 1024, 128, torch.float32, 8, True, False),
+    (2, 8, 1024, 128, torch.bfloat16, 8, True, False),
     (2, 12, 2048, 64, torch.bfloat16, 1, False, False),  # nothing skips
     (2, 12, 4096, 64, torch.float32, 16, True, True),
+    (2, 12, 4096, 64, torch.bfloat16, 16, True, True),
 )
 # Where at least this share of tiles skips, the segmented kernel must take
 # at most SKIP_SPEEDUP_MAX of the segment-free kernel's time on the same
@@ -101,6 +109,16 @@ TPU_KERNELS = {
     'dq_seg': 'lddl_tpu/ops/flash_attention.py:241',
     'dkv_seg': 'lddl_tpu/ops/flash_attention.py:286',
 }
+# Which body a kernel runs (csrc/flash_attention.cu): bf16 fwd and dkv on
+# the tensor cores, float32 and dq (either dtype) on the CUDA cores.
+MMA_BODY, F32_BODY = 'mma.sync bf16', 'cuda-core f32'
+
+
+def body(name, dtype):
+  mma = dtype == torch.bfloat16 and name.split('_')[0] in ('fwd', 'dkv')
+  return MMA_BODY if mma else F32_BODY
+
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -138,6 +156,47 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.synchronize()
     times.append(start.elapsed_time(end))
   return float(np.median(times))
+
+
+# ---- phase 2: the build's register report ----
+
+
+def ptxas_report(text):
+  """Registers and spills of every kernel instantiation from nvcc's
+  ``-Xptxas -v`` log, logged one line each. Raises if a tensor-core body
+  at head_dim 64 (BERT-base, the main path) spills. Returns {(name, body):
+  {'registers': n, 'spill_bytes': n}} for the bf16 head_dim-64
+  instantiations, the ones the main path runs."""
+  kernels, key = {}, None
+  for line in text.splitlines():
+    entry = re.search(r"Compiling entry function '(\S+)'", line)
+    if entry:
+      m = re.search(r'flash_(fwd|dq|dkv)(_mma)?_kernelI(f|13__nv_bfloat16)?'
+                    r'Li(\d+)ELb([01])E', entry.group(1))
+      key = None if m is None else (
+          m.group(1) + ('_seg' if m.group(5) == '1' else ''),
+          MMA_BODY if m.group(2) else F32_BODY,
+          'f32' if m.group(3) == 'f' else 'bf16', int(m.group(4)))
+      if key is not None:
+        kernels[key] = {'registers': None, 'spill_bytes': 0}
+      continue
+    if key is None:
+      continue
+    spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+    if spill:
+      kernels[key]['spill_bytes'] = int(spill.group(1)) + int(spill.group(2))
+    regs = re.search(r'Used (\d+) registers', line)
+    if regs:
+      kernels[key]['registers'] = int(regs.group(1))
+  for (name, kind, dtype, d), r in sorted(kernels.items()):
+    log(f'    {name:8s} {kind:14s} {dtype:4s} d={d:3d}: {r["registers"]} '
+        f'registers, {r["spill_bytes"]} bytes spilled')
+    if kind == MMA_BODY and d == 64 and r['spill_bytes']:
+      raise AssertionError(f'{name} ({kind}, d=64) spills '
+                           f'{r["spill_bytes"]} bytes')
+  return {(name, kind): r for (name, kind, dtype, d), r in kernels.items()
+          if dtype == 'bf16' and d == 64}
 
 
 # ---- phase 3: kernels vs plain versions ----
@@ -202,14 +261,17 @@ def sdpa_ms(q, k, v, g, attn_mask, shape):
   """Yardstick, never called by the port: milliseconds of PyTorch's
   scaled_dot_product_attention with the equivalent additive mask, forward
   (against fwd) and backward, dq, dk and dv together (against dq and
-  dkv)."""
+  dkv), pinned to the memory-efficient backend, the fused one that takes
+  an additive mask, so that every call times the same kernels."""
   import torch.nn.functional as F
+  from torch.nn.attention import SDPBackend, sdpa_kernel
   q4, k4, v4 = (t.view(shape).detach().requires_grad_() for t in (q, k, v))
-  out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
-  fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-      q4, k4, v4, attn_mask=attn_mask))
-  bwd = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g.view(shape),
-                                            retain_graph=True))
+  with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+    out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=attn_mask))
+    bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (q4, k4, v4), g.view(shape), retain_graph=True))
   return {'fwd': fwd, 'dq': bwd, 'dkv': bwd}
 
 
@@ -240,13 +302,14 @@ def check_kernels(tfa, cases, seed):
           *work(name, b, h, s, d, dtype, s * int(mask.sum())), dtype)
       rows.append({
           'name': name, 'shape': [b, h, s, d], 'dtype': str(dtype),
-          'max_abs_err': err, 'tol': tol,
+          'body': body(name, dtype), 'max_abs_err': err, 'tol': tol,
           'ms': cuda_ms(kernel), 'plain_ms': cuda_ms(plain),
           'library_ms': library[name],
           'bound_ms': bound_ms, 'bound_by': bound_by})
       r = rows[-1]
       log(f'  {name:3s} b={b:2d} h={h:2d} s={s:3d} d={d:3d} '
-          f'{str(dtype):14s} err={err:.3g} (tol {tol:g}) bitwise-repeat=ok '
+          f'{str(dtype):14s} [{r["body"]}] err={err:.3g} (tol {tol:g}) '
+          f'bitwise-repeat=ok '
           f'kernel={r["ms"]:.3f}ms plain={r["plain_ms"]:.3f}ms '
           f'sdpa={r["library_ms"]:.3f}ms bound={r["bound_ms"]:.4f}ms '
           f'({r["bound_by"]}, {100 * r["bound_ms"] / r["ms"]:.1f}% of bound)')
@@ -340,7 +403,8 @@ def check_seg_kernels(tfa, cases, seed):
                                        seg=True), dtype)
       rows.append({
           'name': f'{name}_seg', 'shape': [b, h, s, d], 'dtype': str(dtype),
-          'docs': docs, 'max_abs_err': err, 'tol': tol,
+          'body': body(name, dtype), 'docs': docs, 'max_abs_err': err,
+          'tol': tol,
           'skip_fraction': skip, 'ms': cuda_ms(kernel),
           'plain_ms': cuda_ms(plain, reps=5, warmup=1),
           'segment_free_ms': cuda_ms(free), 'intervals_ms': intervals_ms,
@@ -348,7 +412,8 @@ def check_seg_kernels(tfa, cases, seed):
           'bound_by': bound_by})
       r = rows[-1]
       log(f'  {name:3s}_seg b={b} h={h:2d} s={s:4d} d={d:3d} docs={docs:2d} '
-          f'{str(dtype):14s} err={err:.3g} (tol {tol:g}) bitwise-repeat=ok '
+          f'{str(dtype):14s} [{r["body"]}] err={err:.3g} (tol {tol:g}) '
+          f'bitwise-repeat=ok '
           f'skip={100 * skip:.1f}% kernel={r["ms"]:.3f}ms '
           f'segment-free={r["segment_free_ms"]:.3f}ms '
           f'plain={r["plain_ms"]:.3f}ms sdpa={r["library_ms"]:.3f}ms '
@@ -754,11 +819,10 @@ def main():
   _build.library()
   log(f'  kernels loaded in {time.perf_counter() - t0:.1f}s from '
       f'{_build.library_path()}')
+  ptxas = {}
   if _build.build_info['log'] is not None:
     log(f'  nvcc took {_build.build_info["seconds"]:.1f}s; ptxas:')
-    for line in _build.build_info['log'].splitlines():
-      if 'registers' in line or 'Compiling entry' in line:
-        log('   ', line.strip())
+    ptxas = ptxas_report(_build.build_info['log'])
 
   log('== kernels vs plain versions [' + card + ']')
   cases = []
@@ -797,12 +861,14 @@ def main():
         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
-        'shape': r['shape'], 'dtype': r['dtype'],
+        'shape': r['shape'], 'dtype': r['dtype'], 'body': r['body'],
         'library': ('scaled_dot_product_attention forward' if
                     name.startswith('fwd') else
                     'scaled_dot_product_attention backward (dq, dk and dv '
                     'together)') + (' with the [b, 1, s, s] block-diagonal '
-                                    'mask' if seg else '')}
+                                    'mask' if seg else '') +
+                   ', pinned to SDPBackend.EFFICIENT_ATTENTION'}
+    entry.update(ptxas.get((name, r['body']), {}))
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],

@@ -3,18 +3,22 @@
 // Layout: q/k/v/out and their gradients are contiguous [bh, s, d] with
 // bh = batch * heads; lse and delta are [bh, s_q] float32; the key bias is
 // [batch, s_kv] float32 holding 0 (attend) or -1e9 (padding), shared by the
-// heads of one batch row. scale = 1/sqrt(d). Inputs are float32 or bfloat16;
-// every product and sum runs in float32, as the TPU bodies upcast with
-// astype(f32). Outputs are written in the input dtype, lse in float32.
+// heads of one batch row. scale = 1/sqrt(d). Inputs are float32 or bfloat16.
+// Outputs are written in the input dtype, lse in float32.
 //
-// What bounds these kernels on the H100: they run their matrix products as
-// float32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16), so they are bound by operations, far from the card's
-// bound for the same work. Tensor cores (mma.sync / wgmma) and TMA loads come
-// in a later PR; the design here is the simple correct one: one CTA owns a
-// 64-row tile, a loop inside the CTA replaces the TPU's sequential grid axis,
-// the streamed tiles are staged through shared memory as float32, and each
-// thread keeps a 4 x (width/16) block of the running sums in registers.
+// Two bodies. Every dq, and fwd and dk/dv in float32, run the CUDA-core
+// body: every product and sum in float32, as the TPU bodies upcast with
+// astype(f32), as float32 FMAs on the CUDA cores (67 TFLOP/s peak), so they
+// are bound by operations, far from the card's bound for the same work. One
+// CTA owns a 64-row tile, a loop inside the CTA replaces the TPU's
+// sequential grid axis, the streamed tiles are staged through shared memory
+// as float32, and each thread keeps a 4 x (width/16) block of the running
+// sums in registers. It is the only body that holds the float32 tolerances.
+// fwd and dk/dv in bf16 run the tensor-core body (flash_fwd_mma_kernel,
+// flash_dkv_mma_kernel, below): the same tiles and skip on mma.sync with
+// cp.async double buffering (tensor_core.cuh); it rounds P and dS to bf16
+// before the products that take them, as the TPU's MXU rounds float32
+// operands at default precision.
 //
 // Ragged edge: each kernel masks its own edge by bounds checks (no host-side
 // zero padding). Key columns at or past s_kv take no part in any sum, which
@@ -25,8 +29,8 @@
 // averages in its zero padding columns.
 //
 // No atomics anywhere: dq and dk/dv are separate kernels and each output
-// element is summed by one thread in a fixed order, so gradients are bitwise
-// repeatable from run to run.
+// element is summed by one thread (in the tensor-core body, one warp) in a
+// fixed order, so gradients are bitwise repeatable from run to run.
 //
 // K4, the segmented variants (block-diagonal packed attention), are the same
 // three kernels instantiated with kSeg = true; kSeg = false compiles K1-K3
@@ -38,7 +42,10 @@
 // rows it streams. Before it loads a streamed tile the CTA tests
 // qlo <= khi && klo <= qhi and, when the intervals are disjoint, skips the
 // whole iteration: no load, no product, no __syncthreads. The test reads the
-// same two ints in every thread, so all threads skip together. A live tile
+// same two ints in every thread, so all threads skip together. The
+// tensor-core body prefetches: it looks up the next LIVE tile's interval
+// and issues that tile's copy, never a skipped one's, so every cp.async
+// group it commits is waited for and consumed. A live tile
 // adds the elementwise same-document bias (0 or -1e9) on top of the key bias,
 // in every live tile, so the result is right for any ids (the interval test
 // only ever keeps a tile too many, never one too few).
@@ -47,6 +54,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -595,6 +606,522 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 bodies of K1 and K3 (and their K4 forms) on the tensor cores.
+//
+// FlashAttention-2's structure on mma.sync and cp.async. A CTA of 4 warps
+// owns the same 64-row tile as the float32 bodies above and streams the
+// other side in the same tile_n<D>() rows, so the grid, the tile intervals
+// of K4 and the skip are unchanged. Each warp owns 16 of the 64 rows: every
+// product is a chain of m16n8k16 bf16 mma.sync with float32 accumulators in
+// registers, and the C fragments of one product, packed to bf16, are the A
+// fragments of the next (tensor_core.cuh), so no score or probability tile
+// goes through shared memory. The streamed tiles are double-buffered with
+// cp.async: while a tile is multiplied, the next live tile's copy is in
+// flight. Streamed tiles sit in shared memory at a row stride of D + 8 bf16
+// (16-byte aligned rows, and the eight rows of one ldmatrix fall in eight
+// distinct 4-bank groups).
+//
+// Numerics: q, k, v and dO are bf16 already, so S = Q K^T and dP = dO V^T
+// are exact products summed in float32. What is new against the float32
+// body is one rounding: P (and dS in dk/dv) to bf16 before the products
+// that take them; the softmax sums, lse and delta stay float32.
+//
+// What bounds them: the card's bound for this work is the bytes at s=512
+// and the tensor cores' rate at the packed shapes, but these bodies run at
+// 9-15% of it. Each CTA walks few streamed tiles (8 at s=512, ~13 live in a
+// packed row), so its Q copy, first wait and epilogue weigh much, and each
+// warp reloads the streamed fragments from shared memory for every product.
+// wgmma with TMA and warp specialisation is the next step.
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 owned rows
+
+using bf16 = __nv_bfloat16;
+
+// Rows [row0, row0 + N) of a [len, D] bf16 matrix into a shared tile of row
+// stride D + 8 by 16-byte cp.async; rows >= len are zero-filled.
+template <int D, int N>
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
+                                                int row0, int len) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  static_assert(N * kChunks % kMmaThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < N * kChunks / kMmaThreads; ++it) {
+    const int idx = threadIdx.x + it * kMmaThreads;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const int gr = row0 + r;
+    const bool in = gr < len;
+    tc::cp_async_16(dst + r * (D + 8) + c, src + (size_t)(in ? gr : 0) * D + c,
+                    in);
+  }
+}
+
+// Entries [row0, row0 + N) of a length-len vector of 4-byte values into
+// shared memory by cp.async; entries >= len are zero-filled.
+template <int N, typename V>
+__device__ __forceinline__ void copy_vec_async(V* dst, const V* src, int row0,
+                                               int len) {
+  static_assert(sizeof(V) == 4, "4-byte entries");
+  for (int r = threadIdx.x; r < N; r += kMmaThreads) {
+    const bool in = row0 + r < len;
+    tc::cp_async_4(dst + r, src + (in ? row0 + r : 0), in);
+  }
+}
+
+// A fragment (16 x 16) at rows [r0, r0 + 16), cols [c0, c0 + 16) of a
+// row-major shared tile of stride LD.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile,
+                                       int r0, int c0, int lane) {
+  tc::ldmatrix_x4(f, tile + (r0 + lane % 16) * LD + c0 + (lane / 16) * 8);
+}
+
+// B fragments of two n-blocks for a product against the TRANSPOSE of a
+// row-major tile: n = tile rows [n0, n0 + 16), k = tile cols [k0, k0 + 16).
+// f[0], f[1] are n-block n0's b[0], b[1]; f[2], f[3] n-block n0 + 8's.
+template <int LD>
+__device__ __forceinline__ void load_bt(uint32_t (&f)[4], const bf16* tile,
+                                        int n0, int k0, int lane) {
+  tc::ldmatrix_x4(f, tile + (n0 + lane % 8 + (lane / 16) * 8) * LD + k0 +
+                         ((lane / 8) % 2) * 8);
+}
+
+// B fragments of two n-blocks for a product against a row-major tile
+// itself: k = tile rows [k0, k0 + 16), n = tile cols [n0, n0 + 16).
+template <int LD>
+__device__ __forceinline__ void load_b(uint32_t (&f)[4], const bf16* tile,
+                                       int k0, int n0, int lane) {
+  tc::ldmatrix_x4_trans(f, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                               n0 + (lane / 16) * 8);
+}
+
+// The A fragments of a [16, 16 * KS] bf16 operand from the float C
+// fragments of a [16, 8 * 2 * KS] product (rounded to bf16 here).
+template <int KS>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[KS][4],
+                                       float (&c)[2 * KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = tc::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = tc::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = tc::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = tc::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// K1 / K4-fwd, bf16: replaces lddl_tpu/ops/flash_attention.py:_fwd_kernel
+// as flash_fwd_kernel does. Shared memory: the Q tile, two buffers of K and
+// V tiles, and two of the tile's key bias and (K4) kv ids.
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  constexpr int BN = tile_n<D>();
+  return sizeof(bf16) * (kRows + 4 * BN) * (D + 8) + 2 * 2 * BN * 4;
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ bias, bf16* __restrict__ out,
+                         float* __restrict__ lse, int heads, int s_q, int s_kv,
+                         float scale, Seg seg) {
+  constexpr int BN = tile_n<D>(), LD = D + 8;
+  constexpr int KD = D / 16;   // k-steps of Q K^T
+  constexpr int NB = BN / 8;   // n-blocks of the scores
+  constexpr int KN = BN / 16;  // k-steps of P V
+  constexpr int ND = D / 8;    // n-blocks of out
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [kRows][LD]
+  bf16* ks = qs + kRows * LD;                      // [2][BN][LD]
+  bf16* vs = ks + 2 * BN * LD;                     // [2][BN][LD]
+  float* bias_s = reinterpret_cast<float*>(vs + 2 * BN * LD);  // [2][BN]
+  int* kvseg_s = reinterpret_cast<int*>(bias_s + 2 * BN);      // [2][BN]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* qb = q + (size_t)bh * s_q * D;
+  const bf16* kb = k + (size_t)bh * s_kv * D;
+  const bf16* vb = v + (size_t)bh * s_kv * D;
+  const int batch = bh / heads;
+  const float* biasb = bias + (size_t)batch * s_kv;
+  const int n_tiles = (s_kv + BN - 1) / BN;
+  // K4: this q tile's interval, the kv tiles' intervals of this batch row,
+  // and the ids of this lane's two rows (16 warp + g and + 8).
+  const int* q_iv = nullptr;
+  const int* kv_iv = nullptr;
+  const int* kvsegb = nullptr;
+  int qseg[2] = {-1, -1};
+  if constexpr (kSeg) {
+    q_iv = seg.q_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    kv_iv = seg.kv_iv + (size_t)batch * n_tiles * 2;
+    kvsegb = seg.kv + (size_t)batch * s_kv;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gr = q0 + 16 * warp + g + 8 * i;
+      qseg[i] = gr < s_q ? seg.q[(size_t)batch * s_q + gr] : -1;
+    }
+  }
+  // The first live kv tile at or after j (n_tiles if none). Every thread
+  // reads the same ints, so the whole CTA agrees on every skip.
+  auto next_live = [&](int j) {
+    if constexpr (kSeg) {
+      while (j < n_tiles && !overlap(q_iv, kv_iv + 2 * j)) ++j;
+    }
+    return j;
+  };
+  // Two cp.async groups per kv tile: K with its bias and ids, then V.
+  auto issue = [&](int j, int buf) {
+    const int kv0 = j * BN;
+    copy_tile_async<D, BN>(ks + buf * BN * LD, kb, kv0, s_kv);
+    copy_vec_async<BN>(bias_s + buf * BN, biasb, kv0, s_kv);
+    if constexpr (kSeg) copy_vec_async<BN>(kvseg_s + buf * BN, kvsegb, kv0, s_kv);
+    tc::cp_async_commit();
+    copy_tile_async<D, BN>(vs + buf * BN * LD, vb, kv0, s_kv);
+    tc::cp_async_commit();
+  };
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  int j = next_live(0);
+  if (j < n_tiles) {  // else a q tile of padding only: out = 0, lse finite
+    copy_tile_async<D, kRows>(qs, qb, q0, s_q);
+    tc::cp_async_commit();
+    issue(j, 0);
+    tc::cp_async_wait<2>();  // Q landed (K and V may still be in flight)
+    __syncthreads();
+    uint32_t qf[KD][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
+
+    int buf = 0;
+    while (j < n_tiles) {
+      const int jn = next_live(j + 1);
+      const int kv0 = j * BN;
+      tc::cp_async_wait<1>();  // this tile's K (its V may be in flight)
+      // K landed for every thread, and every warp is done with the other
+      // buffer (the last tile's), so the next live tile may fill it.
+      __syncthreads();
+      if (jn < n_tiles) issue(jn, buf ^ 1);
+      const bf16* kt = ks + buf * BN * LD;
+      const bf16* vt = vs + buf * BN * LD;
+      const float* bt = bias_s + buf * BN;
+      const int* st = kvseg_s + buf * BN;
+
+      float s[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int p = 0; p < NB / 2; ++p) {
+          uint32_t kf[4];
+          load_bt<LD>(kf, kt, 16 * p, 16 * kk, lane);
+          tc::mma_bf16(s[2 * p], qf[kk], kf[0], kf[1]);
+          tc::mma_bf16(s[2 * p + 1], qf[kk], kf[2], kf[3]);
+        }
+      // Scale and biases; columns at or past s_kv take no part.
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e] * scale + bt[c];
+          if constexpr (kSeg) x += seg_bias(qseg[e >> 1], st[c]);
+          x = kv0 + c < s_kv ? x : -INFINITY;
+          s[n][e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+      // Online softmax; the four lanes t of a row share it. Column kv0 is
+      // in bounds, so the tile max is finite (see flash_fwd_kernel).
+      float alpha[2], m_new[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        m_new[i] = fmaxf(m_run[i], mt[i]);
+        alpha[i] = __expf(m_run[i] - m_new[i]);
+        m_run[i] = m_new[i];
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(s[n][e] - m_new[e >> 1]);
+          s[n][e] = p;
+          psum[e >> 1] += p;
+        }
+      // Each lane keeps its own columns' part of l; the four parts of a
+      // row are summed once, at the end.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + psum[i];
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      uint32_t pf[KN][4];
+      c_to_a<KN>(pf, s);
+
+      if (jn < n_tiles) {
+        tc::cp_async_wait<2>();  // this tile's V (the next tile's two groups
+      } else {                   // may be in flight)
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk)
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t vf[4];
+          load_b<LD>(vf, vt, 16 * kk, 16 * p, lane);
+          tc::mma_bf16(acc[2 * p], pf[kk], vf[0], vf[1]);
+          tc::mma_bf16(acc[2 * p + 1], pf[kk], vf[2], vf[3]);
+        }
+      buf ^= 1;
+      j = jn;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = fmaxf(l_run[i], kLFloor);
+    const int gr = q0 + 16 * warp + g + 8 * i;
+    if (gr >= s_q) continue;
+    bf16* orow = out + ((size_t)bh * s_q + gr) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * i] / l, acc[n][2 * i + 1] / l);
+    }
+    if (t == 0) lse[(size_t)bh * s_q + gr] = m_run[i] + logf(l);
+  }
+}
+
+// K3 / K4-dkv, bf16: replaces lddl_tpu/ops/flash_attention.py:_dkv_kernel
+// as flash_dkv_kernel does. The kv rows are the M dimension of every
+// product: S^T = K Q^T gives P^T directly in C layout, which is the A
+// operand of dv += P^T dO; dP^T = V dO^T, dS^T = P^T (dP^T - delta) and
+// dk += dS^T Q the same way, so no transpose goes through shared memory.
+// Shared memory: the K and V tiles (resident), two buffers of Q and dO
+// tiles, and two of the tile's lse, delta and (K4) q ids.
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  constexpr int BM = tile_n<D>();
+  return sizeof(bf16) * (2 * kRows + 4 * BM) * (D + 8) + 2 * 3 * BM * 4;
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int heads, int s_q, int s_kv,
+                         float scale, Seg seg) {
+  constexpr int BM = tile_n<D>(), LD = D + 8;
+  constexpr int KD = D / 16;   // k-steps of K Q^T and V dO^T
+  constexpr int NB = BM / 8;   // n-blocks of S^T and dP^T
+  constexpr int KM = BM / 16;  // k-steps of P^T dO and dS^T Q
+  constexpr int ND = D / 8;    // n-blocks of dk and dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [kRows][LD]
+  bf16* vs = ks + kRows * LD;                      // [kRows][LD]
+  bf16* qs = vs + kRows * LD;                      // [2][BM][LD]
+  bf16* dos = qs + 2 * BM * LD;                    // [2][BM][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BM * LD);  // [2][BM]
+  float* delta_s = lse_s + 2 * BM;                             // [2][BM]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + 2 * BM);      // [2][BM]
+
+  const int bh = blockIdx.y, kv0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* qb = q + (size_t)bh * s_q * D;
+  const bf16* dob = dout + (size_t)bh * s_q * D;
+  const float* lseb = lse + (size_t)bh * s_q;
+  const float* deltab = delta + (size_t)bh * s_q;
+  const int batch = bh / heads;
+  const int n_tiles = (s_q + BM - 1) / BM;
+  // This lane's two kv rows (16 warp + g and + 8): key bias and, in K4, ids.
+  float kbias[2];
+  int kseg[2] = {-1, -1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = kv0 + 16 * warp + g + 8 * i;
+    kbias[i] = gr < s_kv ? bias[(size_t)batch * s_kv + gr] : 0.f;
+    if constexpr (kSeg) kseg[i] = gr < s_kv ? seg.kv[(size_t)batch * s_kv + gr] : -1;
+  }
+  const int* kv_iv = nullptr;
+  const int* q_iv = nullptr;
+  const int* qsegb = nullptr;
+  if constexpr (kSeg) {
+    kv_iv = seg.kv_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    q_iv = seg.q_iv + (size_t)batch * n_tiles * 2;
+    qsegb = seg.q + (size_t)batch * s_q;
+  }
+  auto next_live = [&](int j) {
+    if constexpr (kSeg) {
+      while (j < n_tiles && !overlap(kv_iv, q_iv + 2 * j)) ++j;
+    }
+    return j;
+  };
+  // Two groups per q tile: Q with its lse and ids, then dO with its delta.
+  auto issue = [&](int j, int buf) {
+    const int q0 = j * BM;
+    copy_tile_async<D, BM>(qs + buf * BM * LD, qb, q0, s_q);
+    copy_vec_async<BM>(lse_s + buf * BM, lseb, q0, s_q);
+    if constexpr (kSeg) copy_vec_async<BM>(qseg_s + buf * BM, qsegb, q0, s_q);
+    tc::cp_async_commit();
+    copy_tile_async<D, BM>(dos + buf * BM * LD, dob, q0, s_q);
+    copy_vec_async<BM>(delta_s + buf * BM, deltab, q0, s_q);
+    tc::cp_async_commit();
+  };
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  int j = next_live(0);
+  if (j < n_tiles) {
+    copy_tile_async<D, kRows>(ks, k + (size_t)bh * s_kv * D, kv0, s_kv);
+    copy_tile_async<D, kRows>(vs, v + (size_t)bh * s_kv * D, kv0, s_kv);
+    tc::cp_async_commit();
+    issue(j, 0);
+    int buf = 0;
+    while (j < n_tiles) {
+      const int jn = next_live(j + 1);
+      const int q0 = j * BM;
+      tc::cp_async_wait<1>();  // K, V and this tile's Q (its dO may be in flight)
+      __syncthreads();  // ... for every thread; the other buffer is free
+      if (jn < n_tiles) issue(jn, buf ^ 1);
+      const bf16* qt = qs + buf * BM * LD;
+      const bf16* dot = dos + buf * BM * LD;
+      const float* lt = lse_s + buf * BM;
+      const float* dlt = delta_s + buf * BM;
+      const int* st = qseg_s + buf * BM;
+
+      // S^T = K Q^T: this warp's 16 kv rows x BM q columns.
+      float s[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t kf[4];
+        load_a<LD>(kf, ks, 16 * warp, 16 * kk, lane);
+#pragma unroll
+        for (int p = 0; p < NB / 2; ++p) {
+          uint32_t qf[4];
+          load_bt<LD>(qf, qt, 16 * p, 16 * kk, lane);
+          tc::mma_bf16(s[2 * p], kf, qf[0], qf[1]);
+          tc::mma_bf16(s[2 * p + 1], kf, qf[2], qf[3]);
+        }
+      }
+      // P^T = exp(min(S^T scale + bias - lse, 30)); q columns at or past
+      // s_q take no part.
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e] * scale + kbias[e >> 1];
+          if constexpr (kSeg) x += seg_bias(kseg[e >> 1], st[c]);
+          s[n][e] = q0 + c < s_q ? __expf(fminf(x - lt[c], 30.f)) : 0.f;
+        }
+      uint32_t pf[KM][4];
+      c_to_a<KM>(pf, s);
+
+      if (jn < n_tiles) {
+        tc::cp_async_wait<2>();  // this tile's dO and delta
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+      // dv += P^T dO.
+#pragma unroll
+      for (int kk = 0; kk < KM; ++kk)
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t f[4];
+          load_b<LD>(f, dot, 16 * kk, 16 * p, lane);
+          tc::mma_bf16(dv_acc[2 * p], pf[kk], f[0], f[1]);
+          tc::mma_bf16(dv_acc[2 * p + 1], pf[kk], f[2], f[3]);
+        }
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) in place.
+      float dp[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t vf[4];
+        load_a<LD>(vf, vs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+        for (int p = 0; p < NB / 2; ++p) {
+          uint32_t f[4];
+          load_bt<LD>(f, dot, 16 * p, 16 * kk, lane);
+          tc::mma_bf16(dp[2 * p], vf, f[0], f[1]);
+          tc::mma_bf16(dp[2 * p + 1], vf, f[2], f[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          dp[n][e] = s[n][e] * (dp[n][e] - dlt[c]);
+        }
+      uint32_t df[KM][4];
+      c_to_a<KM>(df, dp);
+      // dk += dS^T Q.
+#pragma unroll
+      for (int kk = 0; kk < KM; ++kk)
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t f[4];
+          load_b<LD>(f, qt, 16 * kk, 16 * p, lane);
+          tc::mma_bf16(dk_acc[2 * p], df[kk], f[0], f[1]);
+          tc::mma_bf16(dk_acc[2 * p + 1], df[kk], f[2], f[3]);
+        }
+      buf ^= 1;
+      j = jn;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = kv0 + 16 * warp + g + 8 * i;
+    if (gr >= s_kv) continue;
+    bf16* dkrow = dk + ((size_t)bh * s_kv + gr) * D;
+    bf16* dvrow = dv + ((size_t)bh * s_kv + gr) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale,
+                                dk_acc[n][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host launchers: each sets the kernel's dynamic shared-memory limit (above
 // the 48 KB default), launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the Python wrapper.
@@ -603,16 +1130,28 @@ template <typename T, int D, bool kSeg>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                void* out, float* lse, int bh, int heads, int s_q, int s_kv,
                float scale, Seg seg, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<T, D>();
-  auto kern = flash_fwd_kernel<T, D, kSeg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((s_q + kRows - 1) / kRows, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, heads, s_q,
-      s_kv, scale, seg);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
+    constexpr size_t smem = fwd_mma_smem<D>();
+    auto kern = flash_fwd_mma_kernel<D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, (bf16*)out, lse,
+        heads, s_q, s_kv, scale, seg);
+    return (int)cudaGetLastError();
+  } else {  // float32: the CUDA-core body
+    constexpr size_t smem = fwd_smem<T, D>();
+    auto kern = flash_fwd_kernel<T, D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, heads, s_q,
+        s_kv, scale, seg);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D, bool kSeg>
@@ -637,16 +1176,29 @@ int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int bh, int heads, int s_q, int s_kv,
                float scale, Seg seg, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<T, D>();
-  auto kern = flash_dkv_kernel<T, D, kSeg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((s_kv + kRows - 1) / kRows, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, heads, s_q, s_kv, scale, seg);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
+    constexpr size_t smem = dkv_mma_smem<D>();
+    auto kern = flash_dkv_mma_kernel<D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
+        (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, heads, s_q, s_kv,
+        scale, seg);
+    return (int)cudaGetLastError();
+  } else {  // float32: the CUDA-core body
+    constexpr size_t smem = dkv_smem<T, D>();
+    auto kern = flash_dkv_kernel<T, D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse,
+        delta, (T*)dk, (T*)dv, heads, s_q, s_kv, scale, seg);
+    return (int)cudaGetLastError();
+  }
 }
 
 // Dispatch on (head_dim, dtype); anything else is refused with

@@ -4,9 +4,10 @@ The sources under ``lddl_tpu_torch/csrc`` are compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, which is loaded
 with :mod:`ctypes` (no PyTorch headers, so a build takes seconds, not
 minutes). The library lands in ``build/lddl_tpu_torch/`` beside the
-package, named by a hash of the source and the flags, so an edited source
-builds anew and an unchanged one is reused. Nothing is compiled at import:
-the first call to :func:`library` builds.
+package, named by a hash of every file under ``csrc`` (the ``.cu`` nvcc
+compiles and the headers it includes) and the flags, so an edited source
+or header builds anew and an unchanged tree is reused. Nothing is compiled
+at import: the first call to :func:`library` builds.
 """
 
 import ctypes
@@ -19,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / 'csrc' / 'flash_attention.cu'
+CSRC = _PKG / 'csrc'
+SOURCE = CSRC / 'flash_attention.cu'
 BUILD_DIR = _PKG.parent / 'build' / 'lddl_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -57,9 +59,12 @@ def _nvcc():
 
 
 def library_path():
-  digest = hashlib.sha256(SOURCE.read_bytes() +
-                          ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f'flash_attention-{digest}.so'
+  h = hashlib.sha256()
+  for path in sorted(p for p in CSRC.rglob('*') if p.is_file()):
+    h.update(path.relative_to(CSRC).as_posix().encode() + b'\0')
+    h.update(path.read_bytes() + b'\0')
+  h.update(' '.join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f'flash_attention-{h.hexdigest()[:16]}.so'
 
 
 def _build(out):

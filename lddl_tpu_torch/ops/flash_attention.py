@@ -15,6 +15,11 @@ Three kernels carry it (``lddl_tpu_torch/csrc/flash_attention.cu``):
   - ``dkv`` (K3): ``dv = sum_q P^T dO``, ``dk = scale * sum_q dS^T Q`` with
     ``P = exp(min(s - lse, 30))``.
 
+In bf16, ``fwd`` and ``dkv`` run on the tensor cores (``mma.sync``) and
+round the probabilities P, and dS in ``dkv``, to bf16 before the products
+that take them; ``dq``, and every kernel in float32, run float32 FMAs on
+the CUDA cores.
+
 ``delta = rowsum(dO * O) - g_lse`` is computed here in torch, outside the
 kernels, as the JAX backward computes it outside Pallas; folding the lse
 cotangent into it gives gradients for both outputs of
@@ -255,6 +260,9 @@ def _check(q, k, v, bias, heads, *rows, seg=None):
       raise ValueError('all inputs must be on one device')
     if not t.is_contiguous():
       raise ValueError('kernel inputs must be contiguous')
+    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+      # The bf16 bodies copy rows in 16-byte cp.async chunks.
+      raise ValueError('bf16 kernel inputs must start 16-byte aligned')
 
 
 def _use_kernel(q):

@@ -9,7 +9,7 @@ setup(
                  'loading for large-scale pretraining'),
     packages=find_packages(include=['lddl_tpu', 'lddl_tpu.*',
                                     'lddl_tpu_torch', 'lddl_tpu_torch.*']),
-    package_data={'lddl_tpu_torch': ['csrc/*.cu']},
+    package_data={'lddl_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'numpy',

@@ -359,3 +359,130 @@ def test_count_skippable_tiles_at_the_cuda_tiles(head_dim):
   pad = np.full((1, 512), -1, np.int32)
   total, skipped = tfa.count_skippable_tiles(pad, head_dim=head_dim)
   assert skipped == total
+
+
+# ---- the bf16 tensor-core bodies' rounding (K1, K3 and their K4 forms) ----
+
+
+def _round_bf16(x):
+  return x.to(torch.bfloat16).float()
+
+
+def _mma_fwd(q, k, v, bias, heads, qseg=None, kvseg=None):
+  """The bf16 forward body's arithmetic in torch: exact products of the
+  bf16 operands summed in float32, an online softmax over kv tiles of
+  stream_rows(d) columns, and P rounded to bf16 before P V. The running
+  max, l, lse and the accumulator stay float32."""
+  s = tfa._scores(q, k, bias, heads, qseg, kvseg)
+  bh, s_q, s_kv = s.shape
+  m = torch.full((bh, s_q, 1), tfa.NEG_INF)
+  l = torch.zeros((bh, s_q, 1))
+  acc = torch.zeros((bh, s_q, q.shape[-1]))
+  bn = tfa.stream_rows(q.shape[-1])
+  for c0 in range(0, s_kv, bn):
+    tile = s[:, :, c0:c0 + bn]
+    m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+    p = torch.exp(tile - m_new)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(_round_bf16(p), v[:, c0:c0 + bn].float())
+    m = m_new
+  l = l.clamp_min(tfa._L_FLOOR)
+  return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _mma_dkv(q, k, v, bias, dout, lse, delta, heads, qseg=None, kvseg=None):
+  """The bf16 dk/dv body's arithmetic: P and dS rounded to bf16 before
+  the products that take them, float32 everywhere else."""
+  scale = 1.0 / q.shape[-1] ** 0.5
+  s = tfa._scores(q, k, bias, heads, qseg, kvseg) - lse[..., None]
+  p = torch.exp(torch.clamp_max(s, tfa._EXP_CLAMP))
+  dv = torch.matmul(_round_bf16(p).transpose(1, 2), dout.float())
+  dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
+  ds = p * (dp - delta[..., None])
+  dk = torch.matmul(_round_bf16(ds).transpose(1, 2), q.float()) * scale
+  return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bf16_chain(q, k, v, mask, cot, cot_lse, seg, fwd, dkv):
+  """(out, lse, dq, dk, dv) of [b, h, s, d] numpy inputs in bf16 through
+  ``fwd`` and ``dkv`` (dq through the float32 body, as on the card), as
+  the autograd function chains them."""
+  b, h, s, d = q.shape
+  qt, kt, vt = (torch.from_numpy(x.reshape(b * h, s, d)).to(torch.bfloat16)
+                for x in (q, k, v))
+  bias = tfa.key_bias(torch.from_numpy(mask), b, s, 'cpu')
+  ids = () if seg is None else (torch.from_numpy(seg),) * 2
+  out, lse = fwd(qt, kt, vt, bias, h, *ids)
+  g, delta = tfa._backward_rows(torch.from_numpy(cot.reshape(b * h, s, d)),
+                                torch.from_numpy(cot_lse.reshape(b * h, s)),
+                                out, qt)
+  dq = tfa._dq_plain(qt, kt, vt, bias, g, lse, delta, h, *ids)
+  dk, dv = dkv(qt, kt, vt, bias, g, lse, delta, h, *ids)
+  return [x.float().numpy().reshape(shape) for x, shape in
+          zip((out, lse, dq, dk, dv), ((b, h, s, d), (b, h, s)) + ((b, h, s,
+                                                                   d),) * 3)]
+
+
+def _jax_bf16(q, k, v, mask, cot, cot_lse, seg):
+  segj = None if seg is None else jnp.asarray(seg)
+
+  def loss(q, k, v):
+    out, lse = jfa.flash_attention_with_lse(q, k, v, jnp.asarray(mask), segj,
+                                            segj)
+    return (jnp.sum(out.astype(jnp.float32) * cot) + jnp.sum(lse * cot_lse),
+            (out, lse))
+
+  (_, (out, lse)), grads = jax.value_and_grad(
+      loss, argnums=(0, 1, 2), has_aux=True)(
+          *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)))
+  return [np.asarray(x, dtype=np.float32) for x in (out, lse, *grads)]
+
+
+@pytest.mark.parametrize('d,seg_docs', [(32, None), (64, None), (128, None),
+                                        (64, 3)],
+                         ids=['d32-ragged', 'd64-ragged', 'd128-ragged',
+                              'd64-segmented-padding-row'])
+def test_bf16_body_rounding_holds_the_bf16_tolerance(d, seg_docs):
+  """P (and dS) rounded to bf16 before their products, as the tensor-core
+  bodies do, stays within the bf16 tolerance the card is held to (3e-2)
+  of the float32 plain versions and of JAX's bf16 flash attention
+  (interpret mode). Out and lse on real rows; gradients with zero
+  cotangents on padding rows where there are segment ids."""
+  b, h, s = 2, 2, 384 if seg_docs else 512 if d == 64 else 256
+  if seg_docs is None:
+    q, k, v, mask, cot, cot_lse = _inputs(b, h, s, d, seed=d)
+    seg = None
+  else:
+    seg, mask = _ragged_segments(b, s, seg_docs, seed=31, pad_tail=False)
+    seg[1], mask[1] = -1, 0  # a row of padding only
+    q, k, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=37)
+  args = (q, k, v, mask, cot, cot_lse, seg)
+  mma = _bf16_chain(*args, fwd=_mma_fwd, dkv=_mma_dkv)
+  plain = _bf16_chain(*args, fwd=tfa._fwd_plain, dkv=tfa._dkv_plain)
+  ref = _jax_bf16(*args)
+  real = np.ones((b, s), bool) if seg is None else mask.astype(bool)
+  rows = np.broadcast_to(real[:, None, :], (b, h, s))
+  for name, got, p, r in zip(('out', 'lse', 'dq', 'dk', 'dv'), mma, plain,
+                             ref):
+    assert np.isfinite(got).all(), name
+    if name in ('out', 'lse'):
+      got, p, r = got[rows], p[rows], r[rows]
+    np.testing.assert_allclose(got, p, rtol=3e-2, atol=3e-2,
+                               err_msg=f'{name} vs float32 plain')
+    np.testing.assert_allclose(got, r, rtol=3e-2, atol=3e-2,
+                               err_msg=f'{name} vs JAX bf16')
+
+
+def test_kernel_checks_reject_misaligned_bf16_rows():
+  """The bf16 bodies copy rows in 16-byte chunks: a bf16 input that does
+  not start 16-byte aligned is refused (float32 inputs are not)."""
+  bias = torch.zeros(1, 8)
+  q = torch.zeros(2, 8, 32, dtype=torch.bfloat16)
+  tfa._check(q, q, q, bias, 2)  # a fresh allocation: no raise
+  shifted = torch.zeros(2 * 8 * 32 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 32)
+  assert shifted.is_contiguous()
+  with pytest.raises(ValueError, match='16-byte aligned'):
+    tfa._check(shifted, q, q, bias, 2)
+  f32 = torch.zeros(2 * 8 * 32 + 1)[1:].view(2, 8, 32)
+  tfa._check(f32, f32, f32, bias, 2)

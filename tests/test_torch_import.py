@@ -50,7 +50,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize('path', sorted(
-    [*(ROOT / 'lddl_tpu_torch').rglob('*.py'), ROOT / 'chip_smoke.py']),
+    [*(ROOT / 'lddl_tpu_torch').rglob('*.py'), ROOT / 'chip_smoke.py',
+     ROOT / 'kernel_ab.py']),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_lddl_tpu(path):
   bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -63,3 +64,14 @@ def test_build_without_a_device_raises_when_cuda_is_absent(monkeypatch):
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   with pytest.raises(RuntimeError, match='no CUDA device'):
     TrainLoop.build(model_cfg=BertConfig(num_layers=1))
+
+
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'kernel_ab.py'])
+def test_card_scripts_exit_nonzero_without_a_card(script):
+  """Without a CUDA card each script prints no result and fails."""
+  args = ['.', '.'] if script == 'kernel_ab.py' else []
+  env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES='')
+  out = subprocess.run([sys.executable, str(ROOT / script), *args], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+  assert out.returncode != 0
+  assert '"ok": true' not in out.stdout
