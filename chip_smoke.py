@@ -16,8 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and PyTorch's scaled_dot_product_attention on its memory-efficient
      backend (a yardstick only, never called by the port) with CUDA
      events, beside the least time the card could take for the same work;
-     bf16 fwd and dkv run the tensor-core (mma.sync) bodies, float32 and
-     every dq the CUDA-core bodies, and each row says which;
+     every bf16 kernel runs the tensor-core (mma.sync) body, every float32
+     one the CUDA-core body, and each row says which;
   4. the same for the segmented kernels (K4: block-diagonal packed
      attention) on ragged packed rows, out and lse compared on real rows,
      cotangents zero on padding rows; also time the segment-free kernel
@@ -109,14 +109,13 @@ TPU_KERNELS = {
     'dq_seg': 'lddl_tpu/ops/flash_attention.py:241',
     'dkv_seg': 'lddl_tpu/ops/flash_attention.py:286',
 }
-# Which body a kernel runs (csrc/flash_attention.cu): bf16 fwd and dkv on
-# the tensor cores, float32 and dq (either dtype) on the CUDA cores.
+# Which body a kernel runs (csrc/flash_attention.cu): every bf16 kernel on
+# the tensor cores, every float32 one on the CUDA cores.
 MMA_BODY, F32_BODY = 'mma.sync bf16', 'cuda-core f32'
 
 
-def body(name, dtype):
-  mma = dtype == torch.bfloat16 and name.split('_')[0] in ('fwd', 'dkv')
-  return MMA_BODY if mma else F32_BODY
+def body(dtype):
+  return MMA_BODY if dtype == torch.bfloat16 else F32_BODY
 
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -165,18 +164,17 @@ def ptxas_report(text):
   """Registers and spills of every kernel instantiation from nvcc's
   ``-Xptxas -v`` log, logged one line each. Raises if a tensor-core body
   at head_dim 64 (BERT-base, the main path) spills. Returns {(name, body):
-  {'registers': n, 'spill_bytes': n}} for the bf16 head_dim-64
+  {'registers': n, 'spill_bytes': n}} for the tensor-core (bf16) head_dim-64
   instantiations, the ones the main path runs."""
   kernels, key = {}, None
   for line in text.splitlines():
     entry = re.search(r"Compiling entry function '(\S+)'", line)
     if entry:
-      m = re.search(r'flash_(fwd|dq|dkv)(_mma)?_kernelI(f|13__nv_bfloat16)?'
-                    r'Li(\d+)ELb([01])E', entry.group(1))
+      m = re.search(r'flash_(fwd|dq|dkv)(_mma)?_kernelILi(\d+)ELb([01])E',
+                    entry.group(1))
       key = None if m is None else (
-          m.group(1) + ('_seg' if m.group(5) == '1' else ''),
-          MMA_BODY if m.group(2) else F32_BODY,
-          'f32' if m.group(3) == 'f' else 'bf16', int(m.group(4)))
+          m.group(1) + ('_seg' if m.group(4) == '1' else ''),
+          MMA_BODY if m.group(2) else F32_BODY, int(m.group(3)))
       if key is not None:
         kernels[key] = {'registers': None, 'spill_bytes': 0}
       continue
@@ -189,14 +187,14 @@ def ptxas_report(text):
     regs = re.search(r'Used (\d+) registers', line)
     if regs:
       kernels[key]['registers'] = int(regs.group(1))
-  for (name, kind, dtype, d), r in sorted(kernels.items()):
-    log(f'    {name:8s} {kind:14s} {dtype:4s} d={d:3d}: {r["registers"]} '
-        f'registers, {r["spill_bytes"]} bytes spilled')
+  for (name, kind, d), r in sorted(kernels.items()):
+    log(f'    {name:8s} {kind:14s} d={d:3d}: {r["registers"]} registers, '
+        f'{r["spill_bytes"]} bytes spilled')
     if kind == MMA_BODY and d == 64 and r['spill_bytes']:
       raise AssertionError(f'{name} ({kind}, d=64) spills '
                            f'{r["spill_bytes"]} bytes')
-  return {(name, kind): r for (name, kind, dtype, d), r in kernels.items()
-          if dtype == 'bf16' and d == 64}
+  return {(name, kind): r for (name, kind, d), r in kernels.items()
+          if kind == MMA_BODY and d == 64}
 
 
 # ---- phase 3: kernels vs plain versions ----
@@ -302,7 +300,7 @@ def check_kernels(tfa, cases, seed):
           *work(name, b, h, s, d, dtype, s * int(mask.sum())), dtype)
       rows.append({
           'name': name, 'shape': [b, h, s, d], 'dtype': str(dtype),
-          'body': body(name, dtype), 'max_abs_err': err, 'tol': tol,
+          'body': body(dtype), 'max_abs_err': err, 'tol': tol,
           'ms': cuda_ms(kernel), 'plain_ms': cuda_ms(plain),
           'library_ms': library[name],
           'bound_ms': bound_ms, 'bound_by': bound_by})
@@ -403,7 +401,7 @@ def check_seg_kernels(tfa, cases, seed):
                                        seg=True), dtype)
       rows.append({
           'name': f'{name}_seg', 'shape': [b, h, s, d], 'dtype': str(dtype),
-          'body': body(name, dtype), 'docs': docs, 'max_abs_err': err,
+          'body': body(dtype), 'docs': docs, 'max_abs_err': err,
           'tol': tol,
           'skip_fraction': skip, 'ms': cuda_ms(kernel),
           'plain_ms': cuda_ms(plain, reps=5, warmup=1),

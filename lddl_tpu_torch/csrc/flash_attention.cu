@@ -6,19 +6,19 @@
 // heads of one batch row. scale = 1/sqrt(d). Inputs are float32 or bfloat16.
 // Outputs are written in the input dtype, lse in float32.
 //
-// Two bodies. Every dq, and fwd and dk/dv in float32, run the CUDA-core
-// body: every product and sum in float32, as the TPU bodies upcast with
-// astype(f32), as float32 FMAs on the CUDA cores (67 TFLOP/s peak), so they
-// are bound by operations, far from the card's bound for the same work. One
-// CTA owns a 64-row tile, a loop inside the CTA replaces the TPU's
-// sequential grid axis, the streamed tiles are staged through shared memory
-// as float32, and each thread keeps a 4 x (width/16) block of the running
-// sums in registers. It is the only body that holds the float32 tolerances.
-// fwd and dk/dv in bf16 run the tensor-core body (flash_fwd_mma_kernel,
-// flash_dkv_mma_kernel, below): the same tiles and skip on mma.sync with
-// cp.async double buffering (tensor_core.cuh); it rounds P and dS to bf16
-// before the products that take them, as the TPU's MXU rounds float32
-// operands at default precision.
+// Two bodies. Every kernel in float32 runs the CUDA-core body: every
+// product and sum in float32, as the TPU bodies upcast with astype(f32), as
+// float32 FMAs on the CUDA cores (67 TFLOP/s peak), so they are bound by
+// operations, far from the card's bound for the same work. One CTA owns a
+// 64-row tile, a loop inside the CTA replaces the TPU's sequential grid
+// axis, the streamed tiles are staged through shared memory as float32, and
+// each thread keeps a 4 x (width/16) block of the running sums in
+// registers. It is the only body that holds the float32 tolerances. Every
+// kernel in bf16 runs the tensor-core body (flash_fwd_mma_kernel,
+// flash_dq_mma_kernel, flash_dkv_mma_kernel, below): the same tiles and skip
+// on mma.sync with cp.async double buffering (tensor_core.cuh); it rounds P
+// and dS to bf16 before the products that take them, as the TPU's MXU
+// rounds float32 operands at default precision.
 //
 // Ragged edge: each kernel masks its own edge by bounds checks (no host-side
 // zero padding). Key columns at or past s_kv take no part in any sum, which
@@ -66,29 +66,15 @@ constexpr int kRows = 64;       // rows of the tile one CTA owns
 constexpr float kNegInf = -1e9f;
 constexpr float kLFloor = 1e-30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows [row0, row0 + n) of a [len, D] matrix into shared memory as float32
+// Rows [row0, row0 + n) of a [len, D] float32 matrix into shared memory
 // with row stride D + 1 (conflict-free column reads); rows >= len become 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int n, int len) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int n, int len) {
   for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
-    dst[r * (D + 1) + c] = gr < len ? to_f32(src[(size_t)gr * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = gr < len ? src[(size_t)gr * D + c] : 0.f;
   }
 }
 
@@ -140,19 +126,20 @@ __device__ __forceinline__ float seg_bias(int a, int b) {
 // padding skips every kv tile and ends with l = 0, floored at kLFloor: out
 // = 0 and a finite lse, as the TPU kernel's _finalize gives. Bound as K1:
 // by float32 operations on the CUDA cores, now over the live tiles only.
-template <typename T, int D>
+template <int D>
 constexpr size_t fwd_smem() {
   constexpr int BN = tile_n<D>();
   return sizeof(float) * (kRows * (D + 1) + 2 * BN * (D + 1) +
                           kRows * (BN + 1) + 3 * kRows);
 }
 
-template <typename T, int D, bool kSeg>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, float* __restrict__ lse, int heads,
-                     int s_q, int s_kv, float scale, Seg seg) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     float* __restrict__ lse, int heads, int s_q, int s_kv,
+                     float scale, Seg seg) {
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -167,9 +154,9 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int srow = tid / 4, ssub = tid % 4;  // softmax: 4 threads per row
-  const T* qb = q + (size_t)bh * s_q * D;
-  const T* kb = k + (size_t)bh * s_kv * D;
-  const T* vb = v + (size_t)bh * s_kv * D;
+  const float* qb = q + (size_t)bh * s_q * D;
+  const float* kb = k + (size_t)bh * s_kv * D;
+  const float* vb = v + (size_t)bh * s_kv * D;
   const int batch = bh / heads;
   const float* biasb = bias + (size_t)batch * s_kv;
   // K4: this q tile's interval, the kv tiles' intervals of this batch row,
@@ -189,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  load_tile<T, D>(qs, qb, q0, kRows, s_q);
+  load_tile<D>(qs, qb, q0, kRows, s_q);
   float m_run = kNegInf, l_run = 0.f;
   float acc[4][ND];
 #pragma unroll
@@ -201,8 +188,8 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kSeg) {
       if (!overlap(q_iv, kv_iv + (kv0 / BN) * 2)) continue;
     }
-    load_tile<T, D>(ks, kb, kv0, BN, s_kv);
-    load_tile<T, D>(vs, vb, kv0, BN, s_kv);
+    load_tile<D>(ks, kb, kv0, BN, s_kv);
+    load_tile<D>(vs, vb, kv0, BN, s_kv);
     __syncthreads();
     // Scores for rows ty + 16 i, columns tx + 16 j.
     float sacc[4][NJ];
@@ -290,35 +277,38 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty + 16 * i, gr = q0 + r;
     if (gr >= s_q) continue;
     const float l = l_s[r];
-    T* orow = out + ((size_t)bh * s_q + gr) * D;
+    float* orow = out + ((size_t)bh * s_q + gr) * D;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+    for (int j = 0; j < ND; ++j) orow[tx + 16 * j] = acc[i][j] / l;
     if (tx == 0) lse[(size_t)bh * s_q + gr] = m_s[r] + logf(l);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2: dq. Replaces lddl_tpu/ops/flash_attention.py:_dq_kernel (driven by
-// _flash_bwd). One CTA per (64-row q tile, bh), looping over kv tiles:
+// K2: dq, float32 (bf16: flash_dq_mma_kernel below). Replaces
+// lddl_tpu/ops/flash_attention.py:_dq_kernel (driven by _flash_bwd). One
+// CTA per (64-row q tile, bh), looping over kv tiles:
 // dq = scale * sum_kv (P * (dO V^T - delta)) K with P = exp(s - lse), no clamp.
 //
 // K4-dq (kSeg): replaces _dq_kernel with segment refs. A disjoint kv tile
 // would add exactly zero (P underflows against its -1e9 bias), so it is
 // skipped before its load, as in K4-fwd; live tiles add the same-document
 // bias. Bound as K2: float32 CUDA-core operations over the live tiles.
-template <typename T, int D>
+template <int D>
 constexpr size_t dq_smem() {
   constexpr int BN = tile_n<D>();
   return sizeof(float) * (2 * kRows * (D + 1) + 2 * BN * (D + 1) +
                           kRows * (BN + 1) + 2 * kRows);
 }
 
-template <typename T, int D, bool kSeg>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int s_q, int s_kv, float scale, Seg seg) {
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
@@ -333,8 +323,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* kb = k + (size_t)bh * s_kv * D;
-  const T* vb = v + (size_t)bh * s_kv * D;
+  const float* kb = k + (size_t)bh * s_kv * D;
+  const float* vb = v + (size_t)bh * s_kv * D;
   const int batch = bh / heads;
   const float* biasb = bias + (size_t)batch * s_kv;
   const int* q_iv = nullptr;
@@ -352,8 +342,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  load_tile<T, D>(qs, q + (size_t)bh * s_q * D, q0, kRows, s_q);
-  load_tile<T, D>(dos, dout + (size_t)bh * s_q * D, q0, kRows, s_q);
+  load_tile<D>(qs, q + (size_t)bh * s_q * D, q0, kRows, s_q);
+  load_tile<D>(dos, dout + (size_t)bh * s_q * D, q0, kRows, s_q);
   load_vec(lse_s, lse + (size_t)bh * s_q, q0, kRows, s_q);
   load_vec(delta_s, delta + (size_t)bh * s_q, q0, kRows, s_q);
   float acc[4][ND];
@@ -366,8 +356,8 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kSeg) {
       if (!overlap(q_iv, kv_iv + (kv0 / BN) * 2)) continue;
     }
-    load_tile<T, D>(ks, kb, kv0, BN, s_kv);
-    load_tile<T, D>(vs, vb, kv0, BN, s_kv);
+    load_tile<D>(ks, kb, kv0, BN, s_kv);
+    load_tile<D>(vs, vb, kv0, BN, s_kv);
     __syncthreads();
     float sacc[4][NJ], pacc[4][NJ];
 #pragma unroll
@@ -433,9 +423,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int gr = q0 + ty + 16 * i;
     if (gr >= s_q) continue;
-    T* row = dq + ((size_t)bh * s_q + gr) * D;
+    float* row = dq + ((size_t)bh * s_q + gr) * D;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+    for (int j = 0; j < ND; ++j) row[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
@@ -450,20 +440,22 @@ __global__ void __launch_bounds__(kThreads)
 // tile_n<D>() and kv_iv at 64; a disjoint q tile is skipped before its
 // load, live ones add the same-document bias. Bound as K3: float32
 // CUDA-core operations over the live tiles.
-template <typename T, int D>
+template <int D>
 constexpr size_t dkv_smem() {
   constexpr int BM = tile_n<D>();
   return sizeof(float) * (2 * kRows * (D + 1) + 2 * BM * (D + 1) +
                           2 * kRows * (BM + 1) + 2 * BM + kRows);
 }
 
-template <typename T, int D, bool kSeg>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int heads, int s_q, int s_kv,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int heads, int s_q, int s_kv,
                      float scale, Seg seg) {
   constexpr int BM = tile_n<D>();
   constexpr int LD = D + 1, LM = BM + 1, NJ = BM / 16, ND = D / 16;
@@ -480,8 +472,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.y, kv0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* qb = q + (size_t)bh * s_q * D;
-  const T* dob = dout + (size_t)bh * s_q * D;
+  const float* qb = q + (size_t)bh * s_q * D;
+  const float* dob = dout + (size_t)bh * s_q * D;
   const float* lseb = lse + (size_t)bh * s_q;
   const float* deltab = delta + (size_t)bh * s_q;
   const int batch = bh / heads;
@@ -502,8 +494,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  load_tile<T, D>(ks, k + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
-  load_tile<T, D>(vs, v + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
+  load_tile<D>(ks, k + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
+  load_tile<D>(vs, v + (size_t)bh * s_kv * D, kv0, kRows, s_kv);
   load_vec(bias_s, bias + (size_t)batch * s_kv, kv0, kRows, s_kv);
   float dk_acc[4][ND], dv_acc[4][ND];
 #pragma unroll
@@ -515,8 +507,8 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kSeg) {
       if (!overlap(kv_iv, q_iv + (q0 / BM) * 2)) continue;
     }
-    load_tile<T, D>(qs, qb, q0, BM, s_q);
-    load_tile<T, D>(dos, dob, q0, BM, s_q);
+    load_tile<D>(qs, qb, q0, BM, s_q);
+    load_tile<D>(dos, dob, q0, BM, s_q);
     load_vec(lse_s, lseb, q0, BM, s_q);
     load_vec(delta_s, deltab, q0, BM, s_q);
     __syncthreads();
@@ -595,18 +587,18 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int gr = kv0 + ty + 16 * i;
     if (gr >= s_kv) continue;
-    T* dkrow = dk + ((size_t)bh * s_kv + gr) * D;
-    T* dvrow = dv + ((size_t)bh * s_kv + gr) * D;
+    float* dkrow = dk + ((size_t)bh * s_kv + gr) * D;
+    float* dvrow = dv + ((size_t)bh * s_kv + gr) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      dkrow[tx + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
-      dvrow[tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      dkrow[tx + 16 * j] = dk_acc[i][j] * scale;
+      dvrow[tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 bodies of K1 and K3 (and their K4 forms) on the tensor cores.
+// bf16 bodies of K1-K3 (and their K4 forms) on the tensor cores.
 //
 // FlashAttention-2's structure on mma.sync and cp.async. A CTA of 4 warps
 // owns the same 64-row tile as the float32 bodies above and streams the
@@ -623,12 +615,13 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Numerics: q, k, v and dO are bf16 already, so S = Q K^T and dP = dO V^T
 // are exact products summed in float32. What is new against the float32
-// body is one rounding: P (and dS in dk/dv) to bf16 before the products
-// that take them; the softmax sums, lse and delta stay float32.
+// body is one rounding: P and dS to bf16 before the products that take them
+// (in dq only dS: P enters no product there); the softmax sums, lse and
+// delta stay float32.
 //
 // What bounds them: the card's bound for this work is the bytes at s=512
 // and the tensor cores' rate at the packed shapes, but these bodies run at
-// 9-15% of it. Each CTA walks few streamed tiles (8 at s=512, ~13 live in a
+// 9-16% of it. Each CTA walks few streamed tiles (8 at s=512, ~13 live in a
 // packed row), so its Q copy, first wait and epilogue weigh much, and each
 // warp reloads the streamed fragments from shared memory for every product.
 // wgmma with TMA and warp specialisation is the next step.
@@ -909,6 +902,209 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// K2 / K4-dq, bf16: replaces lddl_tpu/ops/flash_attention.py:_dq_kernel as
+// flash_dq_kernel does. The forward's skeleton with another inner step: the
+// q rows are M in all three products. S = Q K^T and P = exp(S scale + bias
+// - lse) with no clamp, dP = dO V^T, dS = P (dP - delta) in the C
+// fragments, and dq += dS K with dS packed to bf16 as the A operand and K,
+// as it lies, the B operand (load_b), from the same shared tile as K^T in
+// S. Q and dO are held as A fragments for the whole kv loop, lse and delta
+// of this lane's two rows in registers. Shared memory: the Q and dO tiles,
+// two buffers of K and V tiles, and two of the tile's key bias and (K4) kv
+// ids. A buffer is refilled only after the __syncthreads at the top of the
+// next tile, which every warp reaches after its last product (dS K) on it.
+template <int D>
+constexpr size_t dq_mma_smem() {
+  constexpr int BN = tile_n<D>();
+  return sizeof(bf16) * (2 * kRows + 4 * BN) * (D + 8) + 2 * 2 * BN * 4;
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ bias,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int heads, int s_q, int s_kv, float scale, Seg seg) {
+  constexpr int BN = tile_n<D>(), LD = D + 8;
+  constexpr int KD = D / 16;   // k-steps of Q K^T and dO V^T
+  constexpr int NB = BN / 8;   // n-blocks of S and dP
+  constexpr int KN = BN / 16;  // k-steps of dS K
+  constexpr int ND = D / 8;    // n-blocks of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [kRows][LD]
+  bf16* dos = qs + kRows * LD;                     // [kRows][LD]
+  bf16* ks = dos + kRows * LD;                     // [2][BN][LD]
+  bf16* vs = ks + 2 * BN * LD;                     // [2][BN][LD]
+  float* bias_s = reinterpret_cast<float*>(vs + 2 * BN * LD);  // [2][BN]
+  int* kvseg_s = reinterpret_cast<int*>(bias_s + 2 * BN);      // [2][BN]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* kb = k + (size_t)bh * s_kv * D;
+  const bf16* vb = v + (size_t)bh * s_kv * D;
+  const int batch = bh / heads;
+  const float* biasb = bias + (size_t)batch * s_kv;
+  const int n_tiles = (s_kv + BN - 1) / BN;
+  // This lane's two rows (16 warp + g and + 8): lse, delta and, in K4, ids.
+  // Rows past s_q take lse = delta = 0; their zero-filled dO gives dS = 0.
+  float row_lse[2], row_delta[2];
+  int qseg[2] = {-1, -1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = q0 + 16 * warp + g + 8 * i;
+    const bool in = gr < s_q;
+    row_lse[i] = in ? lse[(size_t)bh * s_q + gr] : 0.f;
+    row_delta[i] = in ? delta[(size_t)bh * s_q + gr] : 0.f;
+    if constexpr (kSeg) qseg[i] = in ? seg.q[(size_t)batch * s_q + gr] : -1;
+  }
+  const int* q_iv = nullptr;
+  const int* kv_iv = nullptr;
+  const int* kvsegb = nullptr;
+  if constexpr (kSeg) {
+    q_iv = seg.q_iv + ((size_t)batch * gridDim.x + blockIdx.x) * 2;
+    kv_iv = seg.kv_iv + (size_t)batch * n_tiles * 2;
+    kvsegb = seg.kv + (size_t)batch * s_kv;
+  }
+  // As in flash_fwd_mma_kernel: the first live kv tile at or after j, and
+  // two cp.async groups per kv tile, K with its bias and ids, then V.
+  auto next_live = [&](int j) {
+    if constexpr (kSeg) {
+      while (j < n_tiles && !overlap(q_iv, kv_iv + 2 * j)) ++j;
+    }
+    return j;
+  };
+  auto issue = [&](int j, int buf) {
+    const int kv0 = j * BN;
+    copy_tile_async<D, BN>(ks + buf * BN * LD, kb, kv0, s_kv);
+    copy_vec_async<BN>(bias_s + buf * BN, biasb, kv0, s_kv);
+    if constexpr (kSeg)
+      copy_vec_async<BN>(kvseg_s + buf * BN, kvsegb, kv0, s_kv);
+    tc::cp_async_commit();
+    copy_tile_async<D, BN>(vs + buf * BN * LD, vb, kv0, s_kv);
+    tc::cp_async_commit();
+  };
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int j = next_live(0);
+  if (j < n_tiles) {  // else a q tile of padding only: dq = 0
+    copy_tile_async<D, kRows>(qs, q + (size_t)bh * s_q * D, q0, s_q);
+    copy_tile_async<D, kRows>(dos, dout + (size_t)bh * s_q * D, q0, s_q);
+    tc::cp_async_commit();
+    issue(j, 0);
+    tc::cp_async_wait<2>();  // Q and dO landed (K and V may be in flight)
+    __syncthreads();
+    uint32_t qf[KD][4], gf[KD][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      load_a<LD>(qf[kk], qs, 16 * warp, 16 * kk, lane);
+      load_a<LD>(gf[kk], dos, 16 * warp, 16 * kk, lane);
+    }
+
+    int buf = 0;
+    while (j < n_tiles) {
+      const int jn = next_live(j + 1);
+      const int kv0 = j * BN;
+      tc::cp_async_wait<1>();  // this tile's K (its V may be in flight)
+      // K landed for every thread, and every warp is done with the other
+      // buffer: its last product there, the last tile's dS K, came before.
+      __syncthreads();
+      if (jn < n_tiles) issue(jn, buf ^ 1);
+      const bf16* kt = ks + buf * BN * LD;
+      const bf16* vt = vs + buf * BN * LD;
+      const float* bt = bias_s + buf * BN;
+      const int* st = kvseg_s + buf * BN;
+
+      // S = Q K^T, then P = exp(S scale + biases - lse) in place; columns
+      // at or past s_kv take no part (P = 0 there).
+      float s[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int p = 0; p < NB / 2; ++p) {
+          uint32_t kf[4];
+          load_bt<LD>(kf, kt, 16 * p, 16 * kk, lane);
+          tc::mma_bf16(s[2 * p], qf[kk], kf[0], kf[1]);
+          tc::mma_bf16(s[2 * p + 1], qf[kk], kf[2], kf[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e] * scale + bt[c];
+          if constexpr (kSeg) x += seg_bias(qseg[e >> 1], st[c]);
+          s[n][e] = kv0 + c < s_kv ? __expf(x - row_lse[e >> 1]) : 0.f;
+        }
+
+      if (jn < n_tiles) {
+        tc::cp_async_wait<2>();  // this tile's V (the next tile's two groups
+      } else {                   // may be in flight)
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+      // dP = dO V^T, then dS = P (dP - delta) in place of P.
+      float dp[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int p = 0; p < NB / 2; ++p) {
+          uint32_t vf[4];
+          load_bt<LD>(vf, vt, 16 * p, 16 * kk, lane);
+          tc::mma_bf16(dp[2 * p], gf[kk], vf[0], vf[1]);
+          tc::mma_bf16(dp[2 * p + 1], gf[kk], vf[2], vf[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] *= dp[n][e] - row_delta[e >> 1];
+      uint32_t df[KN][4];
+      c_to_a<KN>(df, s);
+      // dq += dS K.
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk)
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t f[4];
+          load_b<LD>(f, kt, 16 * kk, 16 * p, lane);
+          tc::mma_bf16(acc[2 * p], df[kk], f[0], f[1]);
+          tc::mma_bf16(acc[2 * p + 1], df[kk], f[2], f[3]);
+        }
+      buf ^= 1;
+      j = jn;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = q0 + 16 * warp + g + 8 * i;
+    if (gr >= s_q) continue;
+    bf16* row = dq + ((size_t)bh * s_q + gr) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * i] * scale,
+                                acc[n][2 * i + 1] * scale);
+    }
+  }
+}
+
 // K3 / K4-dkv, bf16: replaces lddl_tpu/ops/flash_attention.py:_dkv_kernel
 // as flash_dkv_kernel does. The kv rows are the M dimension of every
 // product: S^T = K Q^T gives P^T directly in C layout, which is the A
@@ -1142,14 +1338,14 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
         heads, s_q, s_kv, scale, seg);
     return (int)cudaGetLastError();
   } else {  // float32: the CUDA-core body
-    constexpr size_t smem = fwd_smem<T, D>();
-    auto kern = flash_fwd_kernel<T, D, kSeg>;
+    constexpr size_t smem = fwd_smem<D>();
+    auto kern = flash_fwd_kernel<D, kSeg>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, heads, s_q,
-        s_kv, scale, seg);
+        (const float*)q, (const float*)k, (const float*)v, bias,
+        (float*)out, lse, heads, s_q, s_kv, scale, seg);
     return (int)cudaGetLastError();
   }
 }
@@ -1159,16 +1355,30 @@ int launch_dq(const void* q, const void* k, const void* v, const float* bias,
               const void* dout, const float* lse, const float* delta, void* dq,
               int bh, int heads, int s_q, int s_kv, float scale, Seg seg,
               cudaStream_t stream) {
-  constexpr size_t smem = dq_smem<T, D>();
-  auto kern = flash_dq_kernel<T, D, kSeg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((s_q + kRows - 1) / kRows, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse, delta,
-      (T*)dq, heads, s_q, s_kv, scale, seg);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
+    constexpr size_t smem = dq_mma_smem<D>();
+    auto kern = flash_dq_mma_kernel<D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
+        (const bf16*)dout, lse, delta, (bf16*)dq, heads, s_q, s_kv, scale,
+        seg);
+    return (int)cudaGetLastError();
+  } else {  // float32: the CUDA-core body
+    constexpr size_t smem = dq_smem<D>();
+    auto kern = flash_dq_kernel<D, kSeg>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, bias,
+        (const float*)dout, lse, delta, (float*)dq, heads, s_q, s_kv, scale,
+        seg);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D, bool kSeg>
@@ -1189,14 +1399,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
         scale, seg);
     return (int)cudaGetLastError();
   } else {  // float32: the CUDA-core body
-    constexpr size_t smem = dkv_smem<T, D>();
-    auto kern = flash_dkv_kernel<T, D, kSeg>;
+    constexpr size_t smem = dkv_smem<D>();
+    auto kern = flash_dkv_kernel<D, kSeg>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse,
-        delta, (T*)dk, (T*)dv, heads, s_q, s_kv, scale, seg);
+        (const float*)q, (const float*)k, (const float*)v, bias,
+        (const float*)dout, lse, delta, (float*)dk, (float*)dv, heads, s_q,
+        s_kv, scale, seg);
     return (int)cudaGetLastError();
   }
 }

@@ -15,10 +15,10 @@ Three kernels carry it (``lddl_tpu_torch/csrc/flash_attention.cu``):
   - ``dkv`` (K3): ``dv = sum_q P^T dO``, ``dk = scale * sum_q dS^T Q`` with
     ``P = exp(min(s - lse, 30))``.
 
-In bf16, ``fwd`` and ``dkv`` run on the tensor cores (``mma.sync``) and
-round the probabilities P, and dS in ``dkv``, to bf16 before the products
-that take them; ``dq``, and every kernel in float32, run float32 FMAs on
-the CUDA cores.
+In bf16 all three run on the tensor cores (``mma.sync``) and round the
+probabilities P (``fwd``, ``dkv``) and dS (``dq``, ``dkv``) to bf16 before
+the products that take them; in float32 all three run float32 FMAs on the
+CUDA cores.
 
 ``delta = rowsum(dO * O) - g_lse`` is computed here in torch, outside the
 kernels, as the JAX backward computes it outside Pallas; folding the lse

@@ -361,7 +361,7 @@ def test_count_skippable_tiles_at_the_cuda_tiles(head_dim):
   assert skipped == total
 
 
-# ---- the bf16 tensor-core bodies' rounding (K1, K3 and their K4 forms) ----
+# ---- the bf16 tensor-core bodies' rounding (K1-K3 and their K4 forms) ----
 
 
 def _round_bf16(x):
@@ -391,6 +391,17 @@ def _mma_fwd(q, k, v, bias, heads, qseg=None, kvseg=None):
   return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
+def _mma_dq(q, k, v, bias, dout, lse, delta, heads, qseg=None, kvseg=None):
+  """The bf16 dq body's arithmetic: S and dP exact in float32, P = exp(S -
+  lse) with no clamp (as _dq_kernel), and dS rounded to bf16 before dS K,
+  the one rounding the float32 body does not make."""
+  scale = 1.0 / q.shape[-1] ** 0.5
+  p = torch.exp(tfa._scores(q, k, bias, heads, qseg, kvseg) - lse[..., None])
+  dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
+  ds = p * (dp - delta[..., None])
+  return (torch.matmul(_round_bf16(ds), k.float()) * scale).to(q.dtype)
+
+
 def _mma_dkv(q, k, v, bias, dout, lse, delta, heads, qseg=None, kvseg=None):
   """The bf16 dk/dv body's arithmetic: P and dS rounded to bf16 before
   the products that take them, float32 everywhere else."""
@@ -404,10 +415,9 @@ def _mma_dkv(q, k, v, bias, dout, lse, delta, heads, qseg=None, kvseg=None):
   return dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _bf16_chain(q, k, v, mask, cot, cot_lse, seg, fwd, dkv):
+def _bf16_chain(q, k, v, mask, cot, cot_lse, seg, fwd, dq, dkv):
   """(out, lse, dq, dk, dv) of [b, h, s, d] numpy inputs in bf16 through
-  ``fwd`` and ``dkv`` (dq through the float32 body, as on the card), as
-  the autograd function chains them."""
+  ``fwd``, ``dq`` and ``dkv``, as the autograd function chains them."""
   b, h, s, d = q.shape
   qt, kt, vt = (torch.from_numpy(x.reshape(b * h, s, d)).to(torch.bfloat16)
                 for x in (q, k, v))
@@ -417,7 +427,7 @@ def _bf16_chain(q, k, v, mask, cot, cot_lse, seg, fwd, dkv):
   g, delta = tfa._backward_rows(torch.from_numpy(cot.reshape(b * h, s, d)),
                                 torch.from_numpy(cot_lse.reshape(b * h, s)),
                                 out, qt)
-  dq = tfa._dq_plain(qt, kt, vt, bias, g, lse, delta, h, *ids)
+  dq = dq(qt, kt, vt, bias, g, lse, delta, h, *ids)
   dk, dv = dkv(qt, kt, vt, bias, g, lse, delta, h, *ids)
   return [x.float().numpy().reshape(shape) for x, shape in
           zip((out, lse, dq, dk, dv), ((b, h, s, d), (b, h, s)) + ((b, h, s,
@@ -444,11 +454,11 @@ def _jax_bf16(q, k, v, mask, cot, cot_lse, seg):
                          ids=['d32-ragged', 'd64-ragged', 'd128-ragged',
                               'd64-segmented-padding-row'])
 def test_bf16_body_rounding_holds_the_bf16_tolerance(d, seg_docs):
-  """P (and dS) rounded to bf16 before their products, as the tensor-core
-  bodies do, stays within the bf16 tolerance the card is held to (3e-2)
-  of the float32 plain versions and of JAX's bf16 flash attention
-  (interpret mode). Out and lse on real rows; gradients with zero
-  cotangents on padding rows where there are segment ids."""
+  """P (and dS in dq and dk/dv) rounded to bf16 before their products, as
+  the tensor-core bodies do, stays within the bf16 tolerance the card is
+  held to (3e-2) of the float32 plain versions and of JAX's bf16 flash
+  attention (interpret mode). Out and lse on real rows; gradients with
+  zero cotangents on padding rows where there are segment ids."""
   b, h, s = 2, 2, 384 if seg_docs else 512 if d == 64 else 256
   if seg_docs is None:
     q, k, v, mask, cot, cot_lse = _inputs(b, h, s, d, seed=d)
@@ -458,8 +468,9 @@ def test_bf16_body_rounding_holds_the_bf16_tolerance(d, seg_docs):
     seg[1], mask[1] = -1, 0  # a row of padding only
     q, k, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=37)
   args = (q, k, v, mask, cot, cot_lse, seg)
-  mma = _bf16_chain(*args, fwd=_mma_fwd, dkv=_mma_dkv)
-  plain = _bf16_chain(*args, fwd=tfa._fwd_plain, dkv=tfa._dkv_plain)
+  mma = _bf16_chain(*args, fwd=_mma_fwd, dq=_mma_dq, dkv=_mma_dkv)
+  plain = _bf16_chain(*args, fwd=tfa._fwd_plain, dq=tfa._dq_plain,
+                      dkv=tfa._dkv_plain)
   ref = _jax_bf16(*args)
   real = np.ones((b, s), bool) if seg is None else mask.astype(bool)
   rows = np.broadcast_to(real[:, None, :], (b, h, s))
@@ -472,6 +483,42 @@ def test_bf16_body_rounding_holds_the_bf16_tolerance(d, seg_docs):
                                err_msg=f'{name} vs float32 plain')
     np.testing.assert_allclose(got, r, rtol=3e-2, atol=3e-2,
                                err_msg=f'{name} vs JAX bf16')
+
+
+@pytest.mark.parametrize('d,seg_docs', [(32, None), (64, None), (128, None),
+                                        (64, 9)],
+                         ids=['d32-ragged', 'd64-ragged', 'd128-ragged',
+                              'd64-segmented-padding-row'])
+def test_bf16_dq_body_holds_the_bf16_tolerance(d, seg_docs):
+  """dq alone: the bf16 dq body's arithmetic (dS rounded to bf16 before dS
+  K, no clamp on P), from the same lse and delta as the float32 plain dq,
+  within 3e-2 of it and of JAX's bf16 gradient wrt q (interpret mode).
+  Ragged key masks over more than three streamed kv tiles; the segmented
+  case has 9 documents and a padded tail on one row, padding only on the
+  other, where dq must be exactly 0 (zero cotangents)."""
+  b, h = 2, 2
+  if seg_docs is None:
+    s = 200
+    assert s >= 3 * tfa.stream_rows(d)
+    q, k, v, mask, cot, cot_lse = _inputs(b, h, s, d, seed=d + 3)
+    seg = None
+  else:
+    s = 512
+    seg, mask = _ragged_segments(b, s, seg_docs, seed=41)
+    seg[1], mask[1] = -1, 0  # a row of padding only
+    q, k, v, cot, cot_lse = _seg_inputs(b, h, s, d, seg, mask, seed=43)
+  args = (q, k, v, mask, cot, cot_lse, seg)
+  plain_fwd = dict(fwd=tfa._fwd_plain, dkv=tfa._dkv_plain)
+  got = _bf16_chain(*args, dq=_mma_dq, **plain_fwd)[2]
+  plain = _bf16_chain(*args, dq=tfa._dq_plain, **plain_fwd)[2]
+  ref = _jax_bf16(*args)[2]
+  assert np.isfinite(got).all()
+  np.testing.assert_allclose(got, plain, rtol=3e-2, atol=3e-2,
+                             err_msg='dq vs float32 plain')
+  np.testing.assert_allclose(got, ref, rtol=3e-2, atol=3e-2,
+                             err_msg='dq vs JAX bf16')
+  if seg is not None:
+    assert (got[1] == 0).all()
 
 
 def test_kernel_checks_reject_misaligned_bf16_rows():
