@@ -25,20 +25,44 @@ Phases, each of which raises on failure (the script then exits non-zero):
      half its time wherever 80% or more of the tiles skip, and check that
      a row of padding only gives out = 0 and a finite lse;
   5. train BERT-base at full width (hidden 768, 12 layers, 12 heads, FFN
-     3072, vocab 30528, bf16, attention_impl='flash') through
-     TrainLoop.run on loader-format batches made in numpy from --seed, in
-     two bins (seq 128 x batch 64, seq 512 x batch 16) fed by
-     prefetch_to_device; check finite losses and 12 launches of each
-     kernel per step; check one step against dense attention from the
-     same weights; save, restore and check the resumed losses;
+     3072, vocab 30528, bf16, attention_impl='flash', dropout 0.1)
+     through TrainLoop.run on loader-format batches made in numpy from
+     --seed, in two bins (seq 128 x batch 64, seq 512 x batch 16) fed by
+     prefetch_to_device, with the step cache on (the default: one CUDA
+     graph per bin, replayed); check finite losses, 12 launches of each
+     kernel per step as the kernels count them on the device (replays
+     included; the wrappers' count, which adds the launches a graph
+     recorded at capture per replay, must agree), and exactly one cache
+     miss per bin with none after the first pass over the bins (hits =
+     steps - misses); time the same steps with the cache off
+     (LDDL_STEP_CACHE=0) and profile both ways, printing ms/step, device
+     busy and the idle share per bin with the cache on and off, and
+     check that the profiler saw 12 calls per replayed step of each
+     kernel; check one step against dense attention from the same
+     weights; check the timed graphs themselves (deterministic algorithms
+     off) against eager steps from one checkpoint, loss, grad_norm and
+     the update within NONDET_*_RTOL, beside the eager-vs-eager spread;
+     check that fresh loops restored from one checkpoint, with the cache
+     on and off, without and with remat, give bit-equal losses and state
+     digests over 3 steps of each bin (graph vs eager and the remat
+     recompute's dropout, deterministic algorithms on); save, restore and
+     check the resumed
+     losses bit for bit, into a fresh loop and into the same loop (its
+     graphs survive restore); with telemetry and trace on, check that
+     export_telemetry writes both files with the train.step_cache_*
+     counters, train.mfu and non-zero hbm.* gauges, and that an armed
+     StepProfiler writes one trace;
   6. packed long-context training: the same model with 8192 positions at
      seq 8192 x batch 2, rows of 12-16 documents packed as
      preprocess/packed.py writes them and collated by PackedCollate
      (block_diagonal=True), dynamic masking, masked-only head of 1359
-     predictions; check finite losses and 12 launches per step of each
-     segmented kernel (none of the segment-free ones), profile, check one
-     packed s=2048 step against dense attention, and save, restore and
-     resume bit for bit.
+     predictions, the step cache on; check finite losses, 12 launches per
+     step of each segmented kernel (none of the segment-free ones), on
+     the device and in the profiler, and one cache miss; time and profile
+     with the cache on and off; check one packed s=2048 step against
+     dense attention, the timed graph against eager steps, graph vs eager
+     (with and without remat) on packed rows bit for bit, and save,
+     restore and resume bit for bit.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -46,6 +70,7 @@ script exits non-zero before printing any result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -128,6 +153,20 @@ TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (3e-2, 3e-2)}
 # One full-width step, flash vs dense attention from the same weights:
 # both round attention to bf16 at different points; 12 layers compound it.
 DENSE_LOSS_RTOL, DENSE_GRAD_NORM_RTOL = 1e-2, 5e-2
+# Gaps between two kernels up to this long (microseconds) count as launch
+# latency in the profile's idle split; longer ones as waiting on the host.
+LAUNCH_GAP_US = 50
+# The timed graphs (deterministic algorithms off) against eager steps from
+# one checkpoint: the gathers' and index_add's atomics sum in any order, so
+# two eager runs differ in the last bits and the steps are held within
+# these: per-step loss and grad_norm, and the parameter update over the run
+# (|theta_graph - theta_eager| / |theta_eager - theta_0|). Sized from the
+# spread of two eager runs on an H100 (6 bin steps, 3 packed): loss 1.9e-7
+# (packed), grad_norm 0, update 2.4e-9; each limit is 50x or more that.
+NONDET_LOSS_RTOL, NONDET_GRAD_NORM_RTOL, NONDET_UPDATE_RTOL = 1e-5, 1e-5, 1e-6
+# A kernel's name in the profiler: its body and whether it is segmented.
+FLASH_KERNEL_NAME = re.compile(
+    r'flash_(fwd|dq|dkv)(?:_mma)?_kernel<\d+, (true|false)>')
 
 
 def log(*args):
@@ -434,13 +473,44 @@ def check_seg_kernels(tfa, cases, seed):
 # ---- phase 5: training ----
 
 
-def profile_steps(loop, loader, bin_stats, card, steps=2):
-  """Device time by kernel over ``steps`` more steps of ``loader``
-  (torch.profiler), per step; the idle share is against the unprofiled
-  step time measured before."""
+@contextlib.contextmanager
+def step_cache(on):
+  """``LDDL_STEP_CACHE`` on (the default) or off for the runs inside."""
+  old = os.environ.get('LDDL_STEP_CACHE')
+  os.environ['LDDL_STEP_CACHE'] = '1' if on else '0'
+  try:
+    yield
+  finally:
+    if old is None:
+      del os.environ['LDDL_STEP_CACHE']
+    else:
+      os.environ['LDDL_STEP_CACHE'] = old
+
+
+def timed_run(loop, loader, start, steps):
+  """(seconds per step, losses) of ``steps`` steps of ``loader`` from
+  batch ``start``: host clock around TrainLoop.run, synchronised."""
+  loop.loader = loader
+  loader.start = start
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  losses = loop.run(loop.step + steps, log_every=0)
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / len(losses), losses
+
+
+def profile_steps(loop, loader, start, seq_len, step_ms, card, cache,
+                  steps=2):
+  """Device time by kernel over ``steps`` more steps of ``loader`` from
+  batch ``start`` (torch.profiler), per step; the idle share is against
+  the unprofiled ``step_ms`` measured before in the same cache mode
+  (``cache``: 'on' or 'off'). The profiler sees the kernels of a CUDA
+  graph replay by name, so the split holds with the cache on, and
+  ``flash_calls_per_step`` counts each flash kernel's launches there."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   loop.loader = loader
+  loader.start = start
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -449,7 +519,28 @@ def profile_steps(loop, loader, bin_stats, card, steps=2):
   kernels = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA]
   busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-  step_ms = bin_stats['ms_per_step']
+  launched = sum(e.count for e in kernels) / steps
+  # The device's idle time between its kernels, split by gap length: gaps
+  # of at most LAUNCH_GAP_US are the time from one kernel to the next of a
+  # stream of launches (inside a replayed graph, its node latency); the
+  # longer ones are the device waiting for the host.
+  gaps = {'short': 0.0, 'long': 0.0}
+  end = None
+  for start, stop in sorted((e.time_range.start, e.time_range.end)
+                            for e in prof.events()
+                            if e.device_type == DeviceType.CUDA):
+    if end is not None and start > end:
+      gaps['short' if start - end <= LAUNCH_GAP_US else 'long'] += (
+          start - end) / 1e3 / steps
+    end = stop if end is None else max(end, stop)
+  # The flash kernels' calls by name, counted by the profiler on the
+  # device (graph replays included).
+  flash_calls = {}
+  for e in kernels:
+    m = FLASH_KERNEL_NAME.search(e.key)
+    if m:
+      name = m.group(1) + ('_seg' if m.group(2) == 'true' else '')
+      flash_calls[name] = flash_calls.get(name, 0) + e.count
   top = sorted(kernels, key=lambda e: e.self_device_time_total,
                reverse=True)[:12]
   rows = [{'kernel': e.key[:90], 'ms_per_step':
@@ -463,15 +554,71 @@ def profile_steps(loop, loader, bin_stats, card, steps=2):
   attn = share(lambda k: 'flash_' in k and '_kernel' in k)
   # cuBLAS's Hopper GEMMs are named nvjet_* / *gemm* / cutlass_*.
   gemm = share(lambda k: any(t in k for t in ('nvjet', 'gemm', 'cutlass')))
-  log(f'  profile s={bin_stats["seq_len"]}: device busy {busy:.2f} ms of '
-      f'{step_ms:.2f} ms/step (idle {100 * (1 - busy / step_ms):.1f}%): '
-      f'flash kernels {attn:.2f} ms, GEMMs {gemm:.2f} ms, other '
-      f'{busy - attn - gemm:.2f} ms [{card}]')
+  idle = 1 - busy / step_ms
+  log(f'  profile s={seq_len} cache {cache}: device busy {busy:.2f} ms of '
+      f'{step_ms:.2f} ms/step (idle {100 * idle:.1f}%): flash kernels '
+      f'{attn:.2f} ms, GEMMs {gemm:.2f} ms, other {busy - attn - gemm:.2f} '
+      f'ms; {launched:.0f} kernels/step; idle between kernels '
+      f'{gaps["short"]:.2f} ms/step in gaps <= {LAUNCH_GAP_US} us, '
+      f'{gaps["long"]:.2f} ms/step in longer ones [{card}]')
   for r in rows:
     log(f'    {r["ms_per_step"]:8.3f} ms  x{r["calls_per_step"]:<6g} '
         f'{r["kernel"]}')
-  return {'device_busy_ms_per_step': busy, 'flash_ms_per_step': attn,
-          'gemm_ms_per_step': gemm, 'top_kernels': rows}
+  return {'device_busy_ms_per_step': busy, 'idle_share': idle,
+          'flash_ms_per_step': attn, 'gemm_ms_per_step': gemm,
+          'flash_calls_per_step': {k: v / steps
+                                   for k, v in flash_calls.items()},
+          'kernels_per_step': launched, 'short_gap_ms_per_step': gaps['short'],
+          'long_gap_ms_per_step': gaps['long'], 'top_kernels': rows}
+
+
+def check_launches(counts, host, want, label):
+  """The kernels' own counts on the device over the main path (``counts``,
+  graph replays included) are ``want``, and the wrappers' count
+  (``host``: eager launches plus the launches the step cache recorded at
+  capture, once per replay) agrees with them."""
+  if counts != want:
+    raise AssertionError(f'{label}: the kernels counted {counts} launches '
+                         f'on the device; want {want} (12 per step of each '
+                         'kernel of the path)')
+  if host != counts:
+    raise AssertionError(f'{label}: the wrappers and the step cache counted '
+                         f'{host} launches, the device {counts}')
+  log(f'  launches ({label}), counted by the kernels on the device (graph '
+      f'replays included): {counts}; the wrappers\' count agrees')
+
+
+def check_profiled_launches(prof, want, label):
+  """The profiler saw ``want`` (name -> calls per step) of the flash
+  kernels in its window, and no other flash kernel."""
+  got = prof['flash_calls_per_step']
+  if got != {k: v for k, v in want.items() if v}:
+    raise AssertionError(f'{label}: the profiler saw flash kernel calls '
+                         f'{got} per step; want {want}')
+  log(f'  profiler ({label}, cache on): flash kernel calls per step {got}')
+
+
+def check_cache(cache, misses, steps, label):
+  """The step cache missed exactly once per bin (``misses``) and hit on
+  every other of ``steps`` steps."""
+  if cache is None:
+    raise AssertionError(f'{label}: the step cache is off (LDDL_STEP_CACHE '
+                         'set?); the main path runs with it on')
+  if (cache.misses, cache.hits) != (misses, steps - misses):
+    raise AssertionError(f'{label}: step cache misses {cache.misses}, hits '
+                         f'{cache.hits} over {steps} steps; want {misses} '
+                         f'miss(es), one per bin, and {steps - misses} hits')
+  log(f'  step cache ({label}): {cache.misses} misses (one per bin, '
+      f'{cache.retrace_seconds:.2f} s of eager step + capture), '
+      f'{cache.hits} hits over {steps} steps')
+
+
+def cache_line(label, on_ms, on_prof, off_ms, off_prof, card):
+  log(f'  {label}: cache on {on_ms:.2f} ms/step, busy '
+      f'{on_prof["device_busy_ms_per_step"]:.2f} ms, idle '
+      f'{100 * on_prof["idle_share"]:.1f}% | cache off {off_ms:.2f} '
+      f'ms/step, busy {off_prof["device_busy_ms_per_step"]:.2f} ms, idle '
+      f'{100 * off_prof["idle_share"]:.1f}% [{card}]')
 
 
 class BinLoader:
@@ -597,14 +744,8 @@ def train(args, card):
   for (s, b), loader in zip(BINS, loaders):
     loop.loader = loader
     loader.start = 0
-    base = loop.step
-    all_losses += loop.run(base + args.warmup, log_every=0)
-    loader.start = args.warmup
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = loop.run(base + steps_per_bin, log_every=0)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / len(losses)
+    all_losses += loop.run(loop.step + args.warmup, log_every=0)
+    dt, losses = timed_run(loop, loader, args.warmup, args.steps)
     all_losses += losses
     mfu = loop.flops_per_step(b, s) / dt / peak
     per_bin.append({'seq_len': s, 'batch': b, 'ms_per_step': 1e3 * dt,
@@ -613,27 +754,53 @@ def train(args, card):
     log(f'  bin s={s} b={b}: {1e3 * dt:.2f} ms/step, {b / dt:.1f} '
         f'samples/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s bf16 [{card}]; '
         f'losses {losses[0]:.4f} -> {losses[-1]:.4f}')
-  counts = dict(tfa.launches)
+  counts = tfa.device_launches()
+  host = dict(tfa.launches)
   total_steps = len(all_losses)
   if not all(np.isfinite(all_losses)):
     raise AssertionError(f'non-finite loss in {all_losses}')
   if loop.stop_reason is not None:
     raise AssertionError(f'run stopped early: {loop.stop_reason}')
-  want = cfg.num_layers * total_steps
-  if counts != {'fwd': want, 'dq': want, 'dkv': want, 'fwd_seg': 0,
-                'dq_seg': 0, 'dkv_seg': 0}:
-    raise AssertionError(f'launches {counts} after {total_steps} steps; '
-                         f'want {want} of each segment-free kernel (12 per '
-                         'step) and none of the segmented ones')
-  log(f'  launches over {total_steps} steps: {counts} (12 per step each)')
+  per_step = {'fwd': cfg.num_layers, 'dq': cfg.num_layers,
+              'dkv': cfg.num_layers, 'fwd_seg': 0, 'dq_seg': 0, 'dkv_seg': 0}
+  check_launches(counts, host,
+                 {k: n * total_steps for k, n in per_step.items()},
+                 f'bins, {total_steps} steps')
+  cache = loop.step_cache
+  check_cache(cache, len(BINS), total_steps, 'bins')
 
+  # The same steps with the cache off, then both ways profiled.
   for bin_stats, loader in zip(per_bin, loaders):
-    loader.start = steps_per_bin
-    bin_stats['profile'] = profile_steps(loop, loader, bin_stats, card)
+    with step_cache(False):
+      dt_off, _ = timed_run(loop, loader, args.warmup, args.steps)
+    bin_stats['ms_per_step_cache_off'] = 1e3 * dt_off
+    bin_stats['profile'] = profile_steps(
+        loop, loader, steps_per_bin, bin_stats['seq_len'],
+        bin_stats['ms_per_step'], card, 'on')
+    check_profiled_launches(bin_stats['profile'], per_step,
+                            f'bin s={bin_stats["seq_len"]}')
+    with step_cache(False):
+      bin_stats['profile_cache_off'] = profile_steps(
+          loop, loader, steps_per_bin, bin_stats['seq_len'],
+          1e3 * dt_off, card, 'off')
+  for bin_stats in per_bin:
+    cache_line(f'bin s={bin_stats["seq_len"]} b={bin_stats["batch"]}',
+               bin_stats['ms_per_step'], bin_stats['profile'],
+               bin_stats['ms_per_step_cache_off'],
+               bin_stats['profile_cache_off'], card)
+  # Bins switched back and forth since the first pass: no new miss.
+  if cache.misses != len(BINS):
+    raise AssertionError(f'step cache missed {cache.misses} times after '
+                         f'the first pass over {len(BINS)} bins')
 
   flash_vs_dense(loop, cfg, loaders[1].batches[-1], args.max_predictions,
                  'the s=512 batch')
+  check_timed_graphs(loop, [(loader, 0, 3) for loader in loaders],
+                     'both bins')
+  check_graph_vs_eager(loop, build, [(loader, 0, 3) for loader in loaders],
+                       'both bins')
   check_resume(loop, build, loaders[1], steps_per_bin + 2)
+  check_telemetry(build, loaders[0], 0)
   return per_bin, counts
 
 
@@ -665,10 +832,141 @@ def flash_vs_dense(loop, cfg, batch, max_predictions, label):
       f'{DENSE_GRAD_NORM_RTOL})')
 
 
+@contextlib.contextmanager
+def recorded_grad_norms(loop):
+  """The grad norms of the steps ``loop`` runs inside, read from each
+  step's metrics as the loop reads its loss."""
+  norms = []
+  saved = loop.step_cache, loop.step_fn
+
+  def recording(fn):
+    def step(batch, dropout_seed):
+      metrics = fn(batch, dropout_seed)
+      norms.append(float(metrics['grad_norm']))
+      return metrics
+    return step
+
+  loop.step_cache, loop.step_fn = (recording(f) for f in saved)
+  try:
+    yield norms
+  finally:
+    loop.step_cache, loop.step_fn = saved
+
+
+def check_timed_graphs(loop, runs, label):
+  """The main path's own graphs, captured and timed with deterministic
+  algorithms off, against eager steps: from one checkpoint of ``loop``,
+  graph, eager, and eager again, each run ``runs`` ((loader, start,
+  steps) in turn) with dropout on. Per-step loss and grad_norm, and the
+  parameter update over the run, must agree within NONDET_*_RTOL, graph
+  vs eager and eager vs eager (the run-to-run spread the tolerances are
+  sized from); the graphs must be the main path's (no new miss)."""
+  cache = loop.step_cache
+  misses = cache.misses
+  got = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_timed_') as ckpt:
+    loop.save(ckpt)
+    theta0 = [p.detach().clone() for p in loop.model.parameters()]
+    for mode in ('graph', 'eager', 'eager again'):
+      loop.restore(ckpt)
+      losses = []
+      with step_cache(mode == 'graph'), recorded_grad_norms(loop) as norms:
+        for loader, start, steps in runs:
+          loop.loader = loader
+          loader.start = start
+          losses += loop.run(loop.step + steps, log_every=0)
+      got[mode] = (losses, norms,
+                   [p.detach().clone() for p in loop.model.parameters()])
+  if cache.misses != misses:
+    raise AssertionError(f'timed graphs ({label}): the cache missed '
+                         f'{cache.misses - misses} more times; the main '
+                         "path's graphs were not replayed")
+
+  def norm(ts):
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in ts])))
+
+  def rel(xs, ys):
+    return max(abs(x - y) / abs(y) for x, y in zip(xs, ys))
+
+  (e_loss, e_norms, e_theta) = got['eager']
+  update = norm([t - t0 for t, t0 in zip(e_theta, theta0)])
+  for mode in ('graph', 'eager again'):
+    losses, norms, theta = got[mode]
+    d = (rel(losses, e_loss), rel(norms, e_norms),
+         norm([a - b for a, b in zip(theta, e_theta)]) / update)
+    line = (f'{mode} vs eager ({label}, deterministic algorithms off, '
+            f'dropout 0.1, {len(losses)} steps from one checkpoint): '
+            f'loss rel diff {d[0]:.3e}, grad_norm {d[1]:.3e}, update '
+            f'{d[2]:.3e} (limits {NONDET_LOSS_RTOL}, {NONDET_GRAD_NORM_RTOL}'
+            f', {NONDET_UPDATE_RTOL}; bit-equal: '
+            f'{losses == e_loss and norms == e_norms})')
+    if (d[0] > NONDET_LOSS_RTOL or d[1] > NONDET_GRAD_NORM_RTOL
+        or d[2] > NONDET_UPDATE_RTOL):
+      raise AssertionError(line)
+    log(f'  {line}')
+  del got, theta0
+  torch.cuda.empty_cache()
+
+
+def check_graph_vs_eager(loop, build, runs, label):
+  """Fresh loops restored from one checkpoint of ``loop``, with the step
+  cache on and off, each without and with remat, each run ``runs``
+  ((loader, start, steps) in turn) with dropout on: losses and state
+  digests must be equal bit for bit, so a replayed graph computes what an
+  eager step computes, its dropout masks included (reseeded before each
+  replay), and a rematerialized layer's recompute redraws its forward's
+  masks (from its twin generator). Deterministic algorithms are on in
+  all, as for resume."""
+  from lddl_tpu_torch.training import TrainLoop
+  if build['model_cfg'].dropout_rate != 0.1:
+    raise AssertionError('graph vs eager runs with dropout 0.1')
+  got = {}
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    with tempfile.TemporaryDirectory(prefix='lddl_smoke_gve_') as ckpt:
+      loop.save(ckpt)
+      for remat in (False, True):
+        cfg = dataclasses.replace(build['model_cfg'], remat=remat)
+        for on in (True, False):
+          with step_cache(on):
+            fresh = TrainLoop.build(**dict(build, model_cfg=cfg)).restore(
+                ckpt)
+            losses = []
+            for loader, start, steps in runs:
+              fresh.loader = loader
+              loader.start = start
+              losses += fresh.run(fresh.step + steps, log_every=0)
+            cache = fresh.step_cache
+            got[remat, on] = (losses, fresh.state_digest(), None if
+                              cache is None else (cache.misses, cache.hits))
+            del fresh, cache
+            torch.cuda.empty_cache()
+  finally:
+    torch.use_deterministic_algorithms(False)
+  steps = sum(n for _, _, n in runs)
+  want = {True: (len(runs), steps - len(runs)), False: None}
+  graph, digest, _ = got[False, True]
+  for (remat, on), (losses, dig, counts) in got.items():
+    if counts != want[on]:
+      raise AssertionError(f'graph vs eager ({label}, remat {remat}): cache '
+                           f'counts {counts}, want {want[on]}')
+    if losses != graph or dig != digest:
+      raise AssertionError(f'graph vs eager ({label}): remat {remat}, cache '
+                           f'{"on" if on else "off"} gives losses {losses}, '
+                           f'the graph without remat {graph}, or state '
+                           'digests differ')
+  log(f'  graph vs eager ({label}, dropout 0.1, {steps} steps from one '
+      f'checkpoint, cache on and off, without and with remat): losses '
+      f'{graph} and the state digest equal bit for bit')
+
+
 def check_resume(loop, build, loader, start, steps=2):
   """Save, ``steps`` more steps from batch ``start`` of ``loader``; restore
-  into a fresh loop, the same steps: losses and state digest must equal
-  the uninterrupted run bit for bit."""
+  into a fresh loop, and into the same loop, the same steps: losses and
+  state digest must equal the uninterrupted run bit for bit. The step
+  cache is on: the same loop replays the graphs it captured before the
+  restore (no new miss)."""
   from lddl_tpu_torch.training import TrainLoop
   torch.use_deterministic_algorithms(True, warn_only=True)
   try:
@@ -679,17 +977,80 @@ def check_resume(loop, build, loader, start, steps=2):
       at = loop.step
       straight = loop.run(at + steps, log_every=0)
       digest = loop.state_digest()
+      misses = loop.step_cache.misses
+      loop.restore(ckpt)
+      loader.start = start
+      replayed = loop.run(at + steps, log_every=0)
+      same_loop = (replayed == straight and loop.state_digest() == digest
+                   and loop.step_cache.misses == misses)
       resumed = TrainLoop.build(**build).restore(ckpt)
       resumed.loader = loader
+      loader.start = start
       again = resumed.run(at + steps, log_every=0)
       same_digest = resumed.state_digest() == digest
+      cached = resumed.step_cache is not None
+      del resumed
   finally:
     torch.use_deterministic_algorithms(False)
-  if again != straight or not same_digest:
-    raise AssertionError(f'resumed losses {again} != uninterrupted '
-                         f'{straight}, or state digests differ')
-  log(f'  save at step {at}, restore, {steps} steps: losses {again} and the '
-      'state digest equal the uninterrupted run bit for bit')
+  if again != straight or not same_digest or not same_loop or not cached:
+    raise AssertionError(f'resumed losses {again} (same loop: {replayed}) '
+                         f'!= uninterrupted {straight}, or state digests or '
+                         'cache misses differ, or the cache was off')
+  log(f'  save at step {at}, restore, {steps} steps (cache on): losses '
+      f'{again} and the state digest equal the uninterrupted run bit for '
+      'bit, in a fresh loop and in the same loop (its graphs replayed)')
+
+
+def check_telemetry(build, loader, start, steps=3):
+  """With telemetry and trace on, a fresh loop runs ``steps`` steps with
+  the StepProfiler armed for 2: export_telemetry must write both files,
+  the telemetry holding the train.step_cache_* counters, train.mfu and
+  non-zero hbm.* gauges, and the profiler exactly one trace."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.training import TrainLoop, export_telemetry
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_tele_') as out:
+    os.environ['LDDL_TELEMETRY_DIR'] = out
+    telemetry.enable()
+    telemetry.enable_trace()
+    try:
+      loop = TrainLoop.build(**build)
+      loop.loader = loader
+      loader.start = start
+      telemetry.get_step_profiler().arm(2)
+      loop.run(steps, log_every=0)
+      del loop
+      torch.cuda.empty_cache()
+      paths = sorted(os.path.basename(p) for p in export_telemetry())
+      with open(os.path.join(out, 'telemetry.rank0.jsonl')) as f:
+        lines = {x['name']: x for x in map(json.loads, f)
+                 if x['kind'] != 'meta'}
+      profiles = os.path.join(out, 'profiles')
+      captures = sorted(os.listdir(profiles))
+      traced = [os.path.isfile(os.path.join(profiles, c, 'trace.json'))
+                for c in captures]
+    finally:
+      telemetry.disable()
+      telemetry.disable_trace()
+      del os.environ['LDDL_TELEMETRY_DIR']
+  want = {'train.step_cache_misses': 1, 'train.step_cache_hits': steps - 1}
+  got = {k: lines.get(k, {}).get('total') for k in want}
+  hbm = {k: lines.get(f'hbm.{k}', {}).get('value') for k in
+         ('bytes_in_use', 'peak_bytes_in_use', 'bytes_limit',
+          'headroom_frac')}
+  mfu = lines.get('train.mfu', {})
+  if (paths != ['telemetry.rank0.jsonl', 'trace.rank0.jsonl'] or got != want
+      or mfu.get('count') != steps or not mfu.get('value')
+      or not all(hbm.values()) or traced != [True]):
+    raise AssertionError(f'telemetry: files {paths}, cache counters {got} '
+                         f'(want {want}), train.mfu {mfu}, hbm {hbm}, '
+                         f'profiler captures {captures}')
+  log(f'  telemetry: {paths} with cache counters {got}, train.mfu '
+      f'{mfu["value"]:.4f} (last step, profiled), hbm.bytes_in_use '
+      f'{hbm["bytes_in_use"] / 2**30:.2f} GiB, peak '
+      f'{hbm["peak_bytes_in_use"] / 2**30:.2f} of '
+      f'{hbm["bytes_limit"] / 2**30:.2f} GiB (headroom '
+      f'{100 * hbm["headroom_frac"]:.1f}%); profiler wrote {captures[0]}/'
+      'trace.json')
 
 
 # ---- phase 6: packed long-context training ----
@@ -704,7 +1065,10 @@ def train_packed(args, card):
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
 
+  from lddl_tpu_torch.telemetry import sample_hbm
+
   s, b, max_predictions = PACKED
+  torch.cuda.reset_peak_memory_stats()
   # The JAX CLI sizes the position table max(max_seq_length, 512).
   cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
                    max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
@@ -722,26 +1086,23 @@ def train_packed(args, card):
   loop.loader = loader
   loader.start = 0
   losses = loop.run(args.packed_warmup, log_every=0)
-  loader.start = args.packed_warmup
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  timed = loop.run(n_main, log_every=0)
-  torch.cuda.synchronize()
-  dt = (time.perf_counter() - t0) / len(timed)
-  counts = dict(tfa.launches)
+  dt, timed = timed_run(loop, loader, args.packed_warmup, args.packed_steps)
+  counts = tfa.device_launches()
+  host = dict(tfa.launches)
   losses += timed
   if not all(np.isfinite(losses)):
     raise AssertionError(f'non-finite packed loss in {losses}')
   if loop.stop_reason is not None:
     raise AssertionError(f'packed run stopped early: {loop.stop_reason}')
-  want = cfg.num_layers * len(losses)
-  expect = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': want, 'dq_seg': want,
-            'dkv_seg': want}
-  if counts != expect:
-    raise AssertionError(f'packed launches {counts} after {len(losses)} '
-                         f'steps; want {expect} (12 per step of each '
-                         'segmented kernel, none of the segment-free ones)')
-  log(f'  launches over {len(losses)} packed steps: {counts}')
+  per_step = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': cfg.num_layers,
+              'dq_seg': cfg.num_layers, 'dkv_seg': cfg.num_layers}
+  check_launches(counts, host,
+                 {k: n * len(losses) for k, n in per_step.items()},
+                 f'packed, {len(losses)} steps')
+  check_cache(loop.step_cache, 1, len(losses), 'packed')
+  with step_cache(False):
+    dt_off, _ = timed_run(loop, loader, args.packed_warmup,
+                          args.packed_steps)
 
   timed_batches = loader.batches[args.packed_warmup:n_main]
   seg = np.concatenate([x['segment_ids'] for x in timed_batches])
@@ -763,6 +1124,7 @@ def train_packed(args, card):
       'skip_fraction': skipped / total,
       'mfu_dense_count': flops / dt / peak,
       'mfu_same_doc': flops_same_doc / dt / peak,
+      'ms_per_step_cache_off': 1e3 * dt_off,
       'losses': timed}
   log(f'  packed s={s} b={b}: {1e3 * dt:.2f} ms/step, {b / dt:.2f} '
       f'samples/s, {real_tokens / dt:.0f} real tokens/s '
@@ -776,11 +1138,28 @@ def train_packed(args, card):
       f'pairs only ({flops_same_doc / 1e12:.2f} TFLOP/step); losses '
       f'{timed[0]:.4f} -> {timed[-1]:.4f}')
 
-  loader.start = n_main
-  stats['profile'] = profile_steps(loop, loader, stats, card)
+  stats['profile'] = profile_steps(loop, loader, n_main, s, 1e3 * dt, card,
+                                   'on')
+  check_profiled_launches(stats['profile'], per_step, f'packed s={s}')
+  with step_cache(False):
+    stats['profile_cache_off'] = profile_steps(loop, loader, n_main, s,
+                                               1e3 * dt_off, card, 'off')
+  cache_line(f'packed s={s} b={b}', stats['ms_per_step'], stats['profile'],
+             stats['ms_per_step_cache_off'], stats['profile_cache_off'],
+             card)
+  if loop.step_cache.misses != 1:
+    raise AssertionError(f'packed step cache missed '
+                         f'{loop.step_cache.misses} times')
   flash_vs_dense(loop, cfg, PackedLoader(*PACKED_DENSE, 1, args.seed).batches[0],
                  max_predictions, f'a packed s={PACKED_DENSE[0]} batch')
+  check_timed_graphs(loop, [(loader, 0, 3)], 'packed rows')
+  check_graph_vs_eager(loop, build, [(loader, 0, 3)], 'packed rows')
   check_resume(loop, build, loader, n_main + 2)
+  stats['hbm'] = hbm = sample_hbm()
+  log(f'  card memory over the packed phase: peak '
+      f'{hbm["peak_bytes_in_use"] / 2**30:.2f} of '
+      f'{hbm["bytes_limit"] / 2**30:.2f} GiB reserved (headroom '
+      f'{100 * hbm["headroom_frac"]:.1f}%; graph pools included)')
   return stats, counts
 
 
@@ -844,6 +1223,8 @@ def main():
   packed, seg_counts = train_packed(args, card)
   counts.update({k: v for k, v in seg_counts.items() if k.endswith('_seg')})
 
+  profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
+              '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
   main_shape = {'': [BINS[1][1], 12, BINS[1][0], 64],
                 '_seg': list(SEG_CASES[0][:4])}
@@ -856,6 +1237,9 @@ def main():
     entry = {
         'name': f'flash_{name}', 'route': 'cuda', 'source': KERNEL_SOURCE,
         'replaces': TPU_KERNELS[name], 'launches': counts[name],
+        'launches_counted_by': 'the kernel itself, on the device, over the '
+                               'main path (CUDA graph replays included)',
+        'profiled_calls_per_step': profiled[seg].get(name),
         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

@@ -11,5 +11,9 @@ and packed long-context pretraining with block-diagonal attention):
 ``models.bert``, ``models.convert``, ``models.flops``,
 ``ops.flash_attention``, ``parallel.train``, ``loader.bert`` (masking),
 ``loader.packed`` (``PackedCollate``), ``loader.device``, ``core.utils``
-(the np.save wire format) and ``training.pretrain``.
+(the np.save wire format), ``training.pretrain`` (with the step cache:
+one CUDA graph per bin), and the train loop's hooks: ``telemetry``
+(metrics, trace, roofline, profiler, sentinels), ``core.faults``,
+``training.elastic`` (preemption, async checkpoints) and
+``pipeline.pool`` (its background writer).
 """

@@ -28,9 +28,16 @@
 // keys, i.e. it returns the mean of V over them, where the TPU path also
 // averages in its zero padding columns.
 //
-// No atomics anywhere: dq and dk/dv are separate kernels and each output
+// No atomics in any sum: dq and dk/dv are separate kernels and each output
 // element is summed by one thread (in the tensor-core body, one warp) in a
-// fixed order, so gradients are bitwise repeatable from run to run.
+// fixed order, so gradients are bitwise repeatable from run to run. The one
+// atomic is the launch count below, which no output reads.
+//
+// Launch counts live on the device: the first thread of block (0, 0) of
+// every launch adds one to its kernel's slot of g_launches, so a launch
+// replayed from a CUDA graph counts as one made from the host does.
+// lddl_flash_launches reads the slots and lddl_flash_reset_launches zeroes
+// them.
 //
 // K4, the segmented variants (block-diagonal packed attention), are the same
 // three kernels instantiated with kSeg = true; kSeg = false compiles K1-K3
@@ -55,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "tensor_core.cuh"
@@ -101,6 +109,18 @@ struct Seg {
   const int* kv_iv;
 };
 
+// Slots of g_launches: fwd, dq, dkv, then the same three with kSeg.
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+constexpr int kKinds = 6;
+__device__ unsigned long long g_launches[kKinds];
+
+template <int kKind, bool kSeg>
+__device__ __forceinline__ void count_launch() {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(&g_launches[kKind + (kSeg ? 3 : 0)], 1ull);
+  }
+}
+
 // Do two tiles' [lo, hi] id intervals overlap? Disjoint tiles hold no
 // same-document pair and are skipped.
 __device__ __forceinline__ bool overlap(const int* a, const int* b) {
@@ -140,6 +160,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ bias, float* __restrict__ out,
                      float* __restrict__ lse, int heads, int s_q, int s_kv,
                      float scale, Seg seg) {
+  count_launch<kFwd, kSeg>();
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -310,6 +331,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int s_q, int s_kv, float scale, Seg seg) {
+  count_launch<kDq, kSeg>();
   constexpr int BN = tile_n<D>();
   constexpr int LD = D + 1, LS = BN + 1, NJ = BN / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -457,6 +479,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int heads, int s_q, int s_kv,
                      float scale, Seg seg) {
+  count_launch<kDkv, kSeg>();
   constexpr int BM = tile_n<D>();
   constexpr int LD = D + 1, LM = BM + 1, NJ = BM / 16, ND = D / 16;
   extern __shared__ float smem[];
@@ -717,6 +740,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          const float* __restrict__ bias, bf16* __restrict__ out,
                          float* __restrict__ lse, int heads, int s_q, int s_kv,
                          float scale, Seg seg) {
+  count_launch<kFwd, kSeg>();
   constexpr int BN = tile_n<D>(), LD = D + 8;
   constexpr int KD = D / 16;   // k-steps of Q K^T
   constexpr int NB = BN / 8;   // n-blocks of the scores
@@ -928,6 +952,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
                         int heads, int s_q, int s_kv, float scale, Seg seg) {
+  count_launch<kDq, kSeg>();
   constexpr int BN = tile_n<D>(), LD = D + 8;
   constexpr int KD = D / 16;   // k-steps of Q K^T and dO V^T
   constexpr int NB = BN / 8;   // n-blocks of S and dP
@@ -1128,6 +1153,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          const float* __restrict__ delta, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int heads, int s_q, int s_kv,
                          float scale, Seg seg) {
+  count_launch<kDkv, kSeg>();
   constexpr int BM = tile_n<D>(), LD = D + 8;
   constexpr int KD = D / 16;   // k-steps of K Q^T and V dO^T
   constexpr int NB = BM / 8;   // n-blocks of S^T and dP^T
@@ -1318,9 +1344,30 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Host launchers: each sets the kernel's dynamic shared-memory limit (above
-// the 48 KB default), launches on the caller's stream and returns
-// cudaGetLastError(), so a refused launch reaches the Python wrapper.
+// Host launchers: each raises the kernel's dynamic shared-memory limit (above
+// the 48 KB default) once per device, launches on the caller's stream and
+// returns cudaGetLastError(), so a refused launch reaches the Python wrapper.
+
+// A kernel's dynamic shared-memory limit, raised by its first launch on each
+// device. Every later launch, one recorded into a CUDA graph included, makes
+// no CUDA call but the launch itself (cudaGetDevice aside). One static
+// instance per launcher instantiation and body, so per kernel.
+struct SmemLimit {
+  std::atomic<unsigned long long> devices{0};  // bit d: raised on device d
+
+  template <typename Kernel>
+  cudaError_t raise(Kernel kern, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (devices.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+};
 
 template <typename T, int D, bool kSeg>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
@@ -1330,8 +1377,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
     constexpr size_t smem = fwd_mma_smem<D>();
     auto kern = flash_fwd_mma_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kMmaThreads, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, (bf16*)out, lse,
@@ -1340,8 +1387,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
   } else {  // float32: the CUDA-core body
     constexpr size_t smem = fwd_smem<D>();
     auto kern = flash_fwd_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, bias,
@@ -1359,8 +1406,8 @@ int launch_dq(const void* q, const void* k, const void* v, const float* bias,
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
     constexpr size_t smem = dq_mma_smem<D>();
     auto kern = flash_dq_mma_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kMmaThreads, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
@@ -1370,8 +1417,8 @@ int launch_dq(const void* q, const void* k, const void* v, const float* bias,
   } else {  // float32: the CUDA-core body
     constexpr size_t smem = dq_smem<D>();
     auto kern = flash_dq_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, bias,
@@ -1390,8 +1437,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor-core body
     constexpr size_t smem = dkv_mma_smem<D>();
     auto kern = flash_dkv_mma_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kMmaThreads, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
@@ -1401,8 +1448,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
   } else {  // float32: the CUDA-core body
     constexpr size_t smem = dkv_smem<D>();
     auto kern = flash_dkv_kernel<D, kSeg>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemLimit limit;
+    cudaError_t err = limit.raise(kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, bias,
@@ -1505,6 +1552,21 @@ int lddl_flash_dkv_seg(const void* q, const void* k, const void* v,
   LDDL_DISPATCH(launch_dkv, true, q, k, v, (const float*)bias, dout,
                 (const float*)lse, (const float*)delta, dk, dv, bh, heads, s_q,
                 s_kv, scale, seg, (cudaStream_t)stream)
+}
+
+// The device's launch counts of the current device, [kKinds] in g_launches
+// order, read after the device is idle.
+int lddl_flash_launches(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+}
+
+int lddl_flash_reset_launches() {
+  const unsigned long long zero[kKinds] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
 }
 
 const char* lddl_cuda_error_string(int err) {

@@ -11,6 +11,13 @@ the step still reads it. At most ``size`` batches are in flight.
 
 With ``device='cpu'`` batches are plain ``torch.from_numpy`` copies (the
 tests' path).
+
+The producer does its CUDA work (pinning, issuing the copies) under
+:data:`CUDA_FEED_LOCK`: a CUDA graph capture in global mode fails on any
+other thread's CUDA call, so the train step's cache holds the lock while
+it captures. Each batch's placement is timed into the
+``train.h2d_seconds`` histogram and traced as a ``train.h2d`` span, as in
+the JAX package's feed.
 """
 
 import os
@@ -21,7 +28,12 @@ import warnings
 import numpy as np
 import torch
 
+from ..telemetry import get_telemetry, get_tracer
+
 _DONE = object()
+# Held by a feed's producer thread while it pins and copies a batch, and
+# by whoever must keep other threads' CUDA calls away for a while.
+CUDA_FEED_LOCK = threading.Lock()
 
 
 def _close_join_timeout():
@@ -51,6 +63,8 @@ def prefetch_to_device(iterator, device, size=2):
   if device.type not in ('cpu', 'cuda'):
     raise ValueError(f'prefetch_to_device: unsupported device {device}')
   side = torch.cuda.Stream(device=device) if device.type == 'cuda' else None
+  h2d_hist = get_telemetry().histogram('train.h2d_seconds')
+  tracer = get_tracer()
   q = queue.Queue(maxsize=size)
   stop = threading.Event()
   err = []
@@ -81,7 +95,9 @@ def prefetch_to_device(iterator, device, size=2):
   def _producer():
     try:
       for batch in iterator:
-        if not _put(_to_device(batch)):
+        with CUDA_FEED_LOCK, tracer.span('train.h2d'), h2d_hist.time():
+          item = _to_device(batch)
+        if not _put(item):
           return
     except BaseException as e:  # propagate into the consumer
       err.append(e)

@@ -18,10 +18,18 @@ logits:
     ``Dense``/``Embed`` with ``dtype=bf16``, ``param_dtype=f32``).
 
 ``nn.scan`` over layers becomes a ``ModuleList`` walked in a loop;
-``remat`` becomes :func:`torch.utils.checkpoint.checkpoint`. Dropout draws
-from a ``torch.Generator`` per layer, seeded from the step's dropout key,
-so a step is a pure function of (state, batch, key) and a rematerialized
-layer redraws the same masks.
+``remat`` becomes :func:`torch.utils.checkpoint.checkpoint`.
+
+Dropout draws from one ``torch.Generator`` per site (the embeddings, then
+one per layer), reseeded every step from the step's dropout key, so a
+step is a pure function of (state, batch, key). The generators live as
+long as the model: a CUDA graph of the step registers them and draws from
+whatever seed they hold at replay, so reseeding before a replay draws the
+masks an eager step draws. With ``remat`` each layer also has a twin
+generator, reseeded with the layer's seed: the checkpointed forward draws
+from the layer's generator and the recompute from its twin, so the
+recompute redraws the forward's masks without saving them or reading a
+generator's state (which a capture could not do).
 """
 
 import dataclasses
@@ -125,12 +133,14 @@ class LayerNorm(nn.Module):
     return y.to(self.dtype)
 
 
-def _generator(seed, device):
-  if seed is None:
-    return None
-  g = torch.Generator(device=device)
-  g.manual_seed(seed)
-  return g
+# ``dropout_key`` value that draws from the generators as the last
+# :meth:`BertForPretraining.seed_dropout` left them (a captured step).
+SEEDED = 'seeded'
+
+
+def _keep_mask(shape, rate, generator, device):
+  """flax ``nn.Dropout``'s keep bitmap: keep with probability 1 - rate."""
+  return torch.rand(shape, generator=generator, device=device) < 1 - rate
 
 
 def _dropout(x, rate, generator):
@@ -138,7 +148,7 @@ def _dropout(x, rate, generator):
   values by 1 / (1 - rate). ``generator=None`` is deterministic mode."""
   if generator is None or rate == 0.0:
     return x
-  keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+  keep = _keep_mask(x.shape, rate, generator, x.device)
   return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -197,14 +207,13 @@ class Layer(nn.Module):
     self.output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
     self.output_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
 
-  def forward(self, x, attention_mask, seed=None, segment_ids=None):
-    # One generator per layer call: a checkpointed layer recomputes its
-    # forward from the same seed and so redraws the same dropout masks.
-    gen = _generator(seed, x.device)
+  def forward(self, x, attention_mask, generator=None, segment_ids=None):
+    """``generator`` draws the attention output's mask, then the FFN
+    output's; None is deterministic mode."""
     x = self.attention_norm(
-        x + self.attention(x, attention_mask, gen, segment_ids))
+        x + self.attention(x, attention_mask, generator, segment_ids))
     h = F.gelu(self.intermediate(x), approximate='tanh')
-    h = _dropout(self.output(h), self.cfg.dropout_rate, gen)
+    h = _dropout(self.output(h), self.cfg.dropout_rate, generator)
     return self.output_norm(x + h)
 
 
@@ -215,21 +224,27 @@ class Encoder(nn.Module):
     self.cfg = cfg
     self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_layers))
 
-  def forward(self, x, attention_mask, seeds, segment_ids=None):
-    for layer, seed in zip(self.layers, seeds):
+  def forward(self, x, attention_mask, generators, twins, segment_ids=None):
+    """``generators``: one per layer (None in deterministic mode);
+    ``twins``: the layers' recompute generators under remat."""
+    for layer, gen, twin in zip(self.layers, generators, twins):
       if self.cfg.remat and torch.is_grad_enabled():
-        x = checkpoint(layer, x, attention_mask, seed, segment_ids,
-                       use_reentrant=False)
+        # The forward draws from the layer's generator, the recompute from
+        # its twin, seeded alike: the same masks. The layer's own
+        # generators are the only RNG it reads, so no global RNG state is
+        # saved (reading it would also break a capture).
+        draw = iter((gen, twin))
+        x = checkpoint(lambda h, m, seg, layer=layer, draw=draw:
+                       layer(h, m, next(draw), seg),
+                       x, attention_mask, segment_ids, use_reentrant=False,
+                       preserve_rng_state=False)
       else:
-        x = layer(x, attention_mask, seed, segment_ids)
+        x = layer(x, attention_mask, gen, segment_ids)
     return x
 
 
 def _site_seeds(dropout_key, n):
-  """``n`` 64-bit seeds from a dropout key tuple, one per dropout site;
-  all None in deterministic mode."""
-  if dropout_key is None:
-    return [None] * n
+  """``n`` 64-bit seeds from a dropout key tuple, one per dropout site."""
   return [int(np.random.SeedSequence([*dropout_key, i]).generate_state(
       1, np.uint64)[0]) for i in range(n)]
 
@@ -265,6 +280,7 @@ class BertForPretraining(nn.Module):
     self.mlm_transform = Dense(d, d, cfg.dtype)
     self.mlm_norm = LayerNorm(d, cfg.dtype)
     self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+    self._dropout_gens = None
     self.reset_parameters()
 
   def reset_parameters(self, generator=None):
@@ -278,11 +294,36 @@ class BertForPretraining(nn.Module):
         module.reset_parameters(generator)
     nn.init.zeros_(self.mlm_bias)
 
+  def dropout_generators(self):
+    """The dropout generators on the parameters' device, made at first use
+    and kept for the model's life: one per site (the embeddings', then one
+    per layer), then with ``remat`` the layers' twins; [] when dropout is
+    off."""
+    if self.cfg.dropout_rate == 0.0:
+      return []
+    device = self.word_embeddings.weight.device
+    if self._dropout_gens is None or self._dropout_gens[0].device != device:
+      n = self.cfg.num_layers * (2 if self.cfg.remat else 1) + 1
+      self._dropout_gens = [torch.Generator(device=device) for _ in range(n)]
+    return self._dropout_gens
+
+  def seed_dropout(self, dropout_key):
+    """Reseed every generator from ``dropout_key`` (a tuple of ints), a
+    layer's twin with the layer's seed: host work, done before a step and
+    never inside a CUDA graph. Returns the generators."""
+    gens = self.dropout_generators()
+    seeds = _site_seeds(dropout_key, self.cfg.num_layers + 1)
+    for gen, seed in zip(gens, seeds + seeds[1:]):
+      gen.manual_seed(seed)
+    return gens
+
   def forward(self, input_ids, token_type_ids, attention_mask,
               dropout_key=None, mlm_positions=None, segment_ids=None):
-    """``dropout_key=None`` is deterministic mode; otherwise a tuple of
-    ints (the train step passes ``(seed + 1, step)``) from which every
-    dropout site's generator is seeded.
+    """``dropout_key=None`` is deterministic mode; a tuple of ints (the
+    train step passes ``(seed + 1, step)``) reseeds every dropout site's
+    generator from it (:meth:`seed_dropout`) and draws; :data:`SEEDED`
+    draws from the generators as the last :meth:`seed_dropout` left them,
+    which is what a captured step does.
 
     ``mlm_positions=None``: logits over every position, ``[b, s, V]``.
     ``mlm_positions`` int ``[b, P]``: the masked-only head, hidden states
@@ -296,13 +337,21 @@ class BertForPretraining(nn.Module):
     """
     cfg = self.cfg
     s = input_ids.shape[1]
-    seeds = _site_seeds(dropout_key, cfg.num_layers + 1)
+    gens = [None] * (2 * cfg.num_layers + 1)
+    if dropout_key is SEEDED:
+      if self._dropout_gens is None and cfg.dropout_rate > 0.0:
+        raise ValueError('dropout_key=SEEDED before any seed_dropout()')
+      gens = self.dropout_generators() or gens
+    elif dropout_key is not None:
+      gens = self.seed_dropout(dropout_key) or gens
     pos = torch.arange(s, device=input_ids.device)[None, :]
     x = (self.word_embeddings(input_ids) + self.position_embeddings(pos) +
          self.token_type_embeddings(token_type_ids))
-    x = _dropout(self.embed_norm(x), cfg.dropout_rate,
-                 _generator(seeds[0], x.device))
-    x = self.encoder(x, attention_mask.bool(), seeds[1:], segment_ids)
+    x = self.embed_norm(x)
+    x = _dropout(x, cfg.dropout_rate, gens[0])
+    layers = gens[1:cfg.num_layers + 1]
+    twins = gens[cfg.num_layers + 1:] or [None] * cfg.num_layers
+    x = self.encoder(x, attention_mask.bool(), layers, twins, segment_ids)
 
     x_mlm = x
     if mlm_positions is not None:

@@ -95,6 +95,10 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _P]
         fn.restype = _I
+      lib.lddl_flash_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+      lib.lddl_flash_launches.restype = _I
+      lib.lddl_flash_reset_launches.argtypes = []
+      lib.lddl_flash_reset_launches.restype = _I
       lib.lddl_cuda_error_string.argtypes = [_I]
       lib.lddl_cuda_error_string.restype = ctypes.c_char_p
       _lib = lib
@@ -102,9 +106,15 @@ def library():
 
 
 def launch(name, *args):
-  """Call one C launcher; raise if it reports a CUDA error."""
+  """Call one C function of the library (a launcher, or the launch-count
+  read and reset); raise if it reports a CUDA error."""
   lib = library()
   err = getattr(lib, name)(*args)
   if err != 0:
     msg = lib.lddl_cuda_error_string(err).decode()
     raise RuntimeError(f'{name} failed: CUDA error {err} ({msg})')
+
+
+def loaded():
+  """Whether this process has loaded the library (no build is started)."""
+  return _lib is not None

@@ -29,7 +29,9 @@ Each kernel has a plain PyTorch version (``_fwd_plain``, ``_dq_plain``,
 ``_dkv_plain``) that repeats its arithmetic over the whole score matrix.
 The wrappers take the plain version only for tensors on the CPU (the tests
 run there); for a CUDA tensor they launch the kernel or raise. Every launch
-adds one to ``launches[name]``.
+adds one to ``launches[name]``. The kernels also count themselves on the
+device (:func:`device_launches`), so a launch replayed from a CUDA graph,
+which runs no Python, is counted there as it ran.
 
 Padding semantics: the JAX wrapper pads q/k/v to ``_padded_len(s)`` with
 ``NEG_INF``-biased key columns. Here the kernels bound-check their ragged
@@ -56,6 +58,8 @@ the plain version, which skips nothing, averages over the padding keys.
 Padding rows are never compared, and their cotangents are zero in the
 model.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -85,14 +89,31 @@ def stream_rows(head_dim):
 
 
 # Kernel launches by name; each wrapper adds one where it launches, nowhere
-# else (chip_smoke.py reads these to show the main path used the kernels).
+# else. A replayed CUDA graph runs no wrapper: the step cache adds the
+# launches it recorded at capture instead (training/pretrain.py).
 launches = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': 0, 'dq_seg': 0,
             'dkv_seg': 0}
 
 
 def reset_launches():
+  """Zero :data:`launches`, and the device's counts if the kernels are
+  loaded."""
   for name in launches:
     launches[name] = 0
+  if _build.loaded():
+    _build.launch('lddl_flash_reset_launches')
+
+
+def device_launches():
+  """Launches by name as the kernels counted them on the current CUDA
+  device (replays of a CUDA graph included) since the library was loaded
+  or :func:`reset_launches`; waits for the device. chip_smoke.py reads
+  these to show the main path ran the kernels."""
+  out = (ctypes.c_ulonglong * len(launches))()
+  _build.launch('lddl_flash_launches', out)
+  # The slots' order in csrc/flash_attention.cu (enum Kind, then kSeg).
+  return dict(zip(('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg'),
+                  map(int, out)))
 
 
 # ---- plain PyTorch versions (CPU path and the on-card reference) ----

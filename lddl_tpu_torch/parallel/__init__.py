@@ -1,3 +1,3 @@
-from .train import AdamW, pretrain_loss, train_step
+from .train import AdamW, TrainStep, pretrain_loss, train_step
 
-__all__ = ['AdamW', 'pretrain_loss', 'train_step']
+__all__ = ['AdamW', 'TrainStep', 'pretrain_loss', 'train_step']

@@ -12,7 +12,12 @@ The optimizer is ``optax.adamw`` over
 written out (b1 0.9, b2 0.999, eps 1e-8, decay on every parameter, the
 learning rate taken at the pre-increment step count so step 0 runs at lr
 0). PyTorch's own AdamW folds the decay and the schedule in differently,
-so the port carries optax's update rule itself.
+so the port carries optax's update rule itself. As in optax, the step
+count, the bias corrections and the schedule are float32 values on the
+device, updated inside the step, so the step bakes no host number into a
+launch and can be captured into a CUDA graph and replayed
+(:class:`TrainStep`, :class:`~lddl_tpu_torch.training.pretrain.
+CompiledStepCache`).
 """
 
 import math
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..loader.bert import IGNORE_INDEX
+from ..models.bert import SEEDED
 
 
 def masked_positions(labels, max_predictions):
@@ -108,18 +114,36 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
 
 def learning_rate(step, peak, warmup_steps, total_steps):
   """``optax.warmup_cosine_decay_schedule(0, peak, warmup_steps,
-  max(total_steps, warmup_steps + 1))`` at ``step`` (end value 0)."""
+  max(total_steps, warmup_steps + 1))`` at ``step`` (end value 0), as a
+  float32 0-d tensor computed as optax computes it. ``step`` is an int or
+  a float32 tensor (the optimizer's device-side count: the result then
+  lies beside it and the schedule runs inside the step)."""
   decay_steps = max(total_steps, warmup_steps + 1)
-  if step < warmup_steps:
-    # optax.linear_schedule(0, peak, warmup_steps)
-    return -peak * (1 - step / warmup_steps) + peak
-  t = min(step - warmup_steps, decay_steps - warmup_steps)
-  return peak * 0.5 * (1 + math.cos(math.pi * t / (decay_steps - warmup_steps)))
+  count = torch.as_tensor(step, dtype=torch.float32)
+  # optax.cosine_decay_schedule(peak, decay_steps - warmup_steps), joined
+  # at the warmup boundary.
+  span = decay_steps - warmup_steps
+  t = torch.clamp(count - warmup_steps, max=span)
+  cosine = peak * (0.5 * (1 + torch.cos(math.pi * t / span)))
+  if warmup_steps <= 0:
+    return cosine
+  # optax.linear_schedule(0, peak, warmup_steps)
+  frac = 1 - torch.clamp(count, 0, warmup_steps) / warmup_steps
+  return torch.where(count < warmup_steps, -peak * frac + peak, cosine)
 
 
 class AdamW:
   """``optax.adamw`` (eps_root 0, decay on every parameter) over a fixed
-  list of float32 parameters; ``count`` is optax's step count."""
+  list of float32 parameters.
+
+  ``count`` is optax's step count as a host int (checkpoints, dropout
+  keys); ``count_t`` is the same count as a float32 0-d tensor beside the
+  parameters, which :meth:`apply` reads and advances on the device.
+  :meth:`step` is :meth:`apply` plus the host count. ``params``, ``mu``,
+  ``nu`` and ``count_t`` are updated in place and never rebound, so a
+  CUDA graph that captured :meth:`apply` stays valid across
+  :meth:`load_state_dict`.
+  """
 
   def __init__(self, params, schedule, weight_decay=1e-4, b1=0.9, b2=0.999,
                eps=1e-8):
@@ -128,35 +152,47 @@ class AdamW:
     self.weight_decay = weight_decay
     self.b1, self.b2, self.eps = b1, b2, eps
     self.count = 0
+    device = self.params[0].device if self.params else None
+    self.count_t = torch.zeros((), dtype=torch.float32, device=device)
     self.mu = [torch.zeros_like(p) for p in self.params]
     self.nu = [torch.zeros_like(p) for p in self.params]
 
   @torch.no_grad()
-  def step(self, grads):
-    """Apply one update from ``grads`` (aligned with ``params``). The
-    parameters and moments are updated in place (JAX returns new arrays;
-    in place saves a copy of the model and both moments)."""
-    lr = self.schedule(self.count)
+  def apply(self, grads):
+    """Apply one update from ``grads`` (aligned with ``params``) on the
+    device: the learning rate at the pre-increment count, the moments,
+    the count and the bias corrections all stay tensors, so nothing here
+    reads the host (JAX returns new arrays; in place saves a copy of the
+    model and both moments)."""
+    lr = self.schedule(self.count_t)
     b1, b2 = self.b1, self.b2
     torch._foreach_mul_(self.mu, b1)
     torch._foreach_add_(self.mu, grads, alpha=1 - b1)
     torch._foreach_mul_(self.nu, b2)
     torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-    self.count += 1
-    mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count)
+    self.count_t += 1
+    mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count_t)
     denom = torch._foreach_sqrt(torch._foreach_div(self.nu,
-                                                   1 - b2 ** self.count))
+                                                   1 - b2 ** self.count_t))
     torch._foreach_add_(denom, self.eps)
     update = torch._foreach_div(mu_hat, denom)
     torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-    torch._foreach_add_(self.params, update, alpha=-lr)
+    torch._foreach_mul_(update, -lr)
+    torch._foreach_add_(self.params, update)
+
+  def step(self, grads):
+    """:meth:`apply`, then advance the host count."""
+    self.apply(grads)
+    self.count += 1
 
   def state_dict(self):
     return {'count': self.count, 'mu': self.mu, 'nu': self.nu}
 
   def load_state_dict(self, state):
+    """Copy ``state`` into the live tensors (in place)."""
     self.count = int(state['count'])
     with torch.no_grad():
+      self.count_t.fill_(self.count)
       for dst, src in zip(self.mu + self.nu, state['mu'] + state['nu']):
         dst.copy_(src)
 
@@ -166,27 +202,65 @@ def global_norm(tensors):
   return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def train_step(model, opt, batch, dropout_seed, max_predictions=None):
-  """One train step; returns the metrics dict (0-d tensors).
+class TrainStep:
+  """One train step, split where a CUDA graph needs it.
 
-  The dropout key is ``(dropout_seed, opt.count)``, the JAX step's
-  ``fold_in(rng, count)``, so a step is a pure function of (state,
-  batch). ``grad_norm`` is the global norm of the raw gradients, before
-  the optimizer.
+  :meth:`prepare` is host work: it reseeds the model's dropout
+  generators from the dropout key ``(dropout_seed, opt.count)``, the JAX
+  step's ``fold_in(rng, count)``, so a step is a pure function of
+  (state, batch). :meth:`body` is device work only (forward, backward,
+  grad norm, :meth:`AdamW.apply`) and can be captured and replayed;
+  :meth:`finish` advances the host count. Calling the step runs the
+  three in turn.
   """
-  for p in opt.params:
-    p.grad = None
-  loss, metrics = pretrain_loss(model, batch,
-                                dropout_key=(dropout_seed, opt.count),
-                                max_predictions=max_predictions)
-  loss.backward()
-  grads = [p.grad for p in opt.params]
-  metrics['grad_norm'] = global_norm(grads)
-  opt.step(grads)
-  for p in opt.params:
-    p.grad = None
-  metrics['loss'] = loss.detach()
-  return metrics
+
+  def __init__(self, model, opt, max_predictions=None):
+    self.model = model
+    self.opt = opt
+    self.max_predictions = max_predictions
+
+  def prepare(self, dropout_seed):
+    self.model.seed_dropout((dropout_seed, self.opt.count))
+
+  def generators(self):
+    """The generators :meth:`body` draws from (what a CUDA graph of it
+    must register)."""
+    return self.model.dropout_generators()
+
+  def body(self, batch):
+    """Forward, backward and update; returns the metrics dict (0-d
+    tensors). ``grad_norm`` is the global norm of the raw gradients,
+    before the optimizer."""
+    opt = self.opt
+    for p in opt.params:
+      p.grad = None
+    loss, metrics = pretrain_loss(self.model, batch, dropout_key=SEEDED,
+                                  max_predictions=self.max_predictions)
+    loss.backward()
+    grads = [p.grad for p in opt.params]
+    metrics['grad_norm'] = global_norm(grads)
+    opt.apply(grads)
+    for p in opt.params:
+      p.grad = None
+    metrics['loss'] = loss
+    # Detached, so no metric keeps the step's autograd graph alive (a
+    # captured graph's outputs live as long as the graph).
+    return {k: v.detach() for k, v in metrics.items()}
+
+  def finish(self):
+    self.opt.count += 1
+
+  def __call__(self, batch, dropout_seed):
+    self.prepare(dropout_seed)
+    metrics = self.body(batch)
+    self.finish()
+    return metrics
+
+
+def train_step(model, opt, batch, dropout_seed, max_predictions=None):
+  """One eager train step (:class:`TrainStep`); returns the metrics dict
+  (0-d tensors)."""
+  return TrainStep(model, opt, max_predictions)(batch, dropout_seed)
 
 
 def check_max_predictions(max_predictions, seq_len, masking,

@@ -1,3 +1,5 @@
-from .pretrain import MODEL_SIZES, TrainLoop
+from .pretrain import (MODEL_SIZES, CompiledStepCache, TrainLoop,
+                       export_telemetry)
 
-__all__ = ['MODEL_SIZES', 'TrainLoop']
+__all__ = ['MODEL_SIZES', 'CompiledStepCache', 'TrainLoop',
+           'export_telemetry']

@@ -24,7 +24,15 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.ops.flash_attention', 'lddl_tpu_torch.ops._build',
            'lddl_tpu_torch.parallel.train', 'lddl_tpu_torch.loader.bert',
            'lddl_tpu_torch.loader.device', 'lddl_tpu_torch.loader.packed',
-           'lddl_tpu_torch.core.utils', 'lddl_tpu_torch.training.pretrain')
+           'lddl_tpu_torch.core.utils', 'lddl_tpu_torch.training.pretrain',
+           'lddl_tpu_torch.core.faults', 'lddl_tpu_torch.pipeline.pool',
+           'lddl_tpu_torch.telemetry', 'lddl_tpu_torch.telemetry.metrics',
+           'lddl_tpu_torch.telemetry.trace',
+           'lddl_tpu_torch.telemetry.roofline',
+           'lddl_tpu_torch.telemetry.profiling',
+           'lddl_tpu_torch.telemetry.perf',
+           'lddl_tpu_torch.telemetry.sentinel',
+           'lddl_tpu_torch.training.elastic')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():
