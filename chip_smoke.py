@@ -62,7 +62,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with the cache on and off; check one packed s=2048 step against
      dense attention, the timed graph against eager steps, graph vs eager
      (with and without remat) on packed rows bit for bit, and save,
-     restore and resume bit for bit.
+     restore and resume bit for bit;
+  7. training from shards, through the corpus loader as a user calls it,
+     from the balanced Parquet shards lddl_tpu wrote (tests/assets/
+     torch_shards, made by tests/make_torch_shards.py): (a) drain one
+     epoch of the pairs loader (batch 16, bins of 128 up to 512, dynamic
+     masking) and of the packed one (batch 2, s=8192, block-diagonal),
+     every batch's batch_sha256 held against the digests of lddl_tpu's
+     loaders (digests.json), timed and split into read+decode, collate
+     and the rest; (b) SHARD_EPOCHS epochs of BERT-base from pairs/
+     through TrainLoop.build(path=...) and TrainLoop.run with the step
+     cache on, the shuffle buffers smaller than a bin (digests.json's
+     settings): finite losses, one cache miss per bin, 12 launches per
+     step of each segment-free kernel and none of the segmented ones
+     (counts at 0 just before, read just after); per bin, the loop's
+     whole window per step (data wait included) and the step alone,
+     against synthetic batches made beforehand in the same shapes and
+     order through the same graphs and loop, and against the shards again
+     with the thread switch interval cut to GIL_SWITCH_S;
+     train.data_wait_seconds
+     with the epochs' first steps apart, train.h2d_seconds and the
+     collate time from the loop's telemetry; then save at the first
+     epoch's midpoint, restore into the same loop and into a fresh one
+     (whose loader restore must re-seek), and check the rest of the epoch
+     bit for bit; (c) packed s=8192 from packed/ for the warm-up and
+     timed packed steps: 12 launches per step of each segmented kernel
+     and none of the others, one cache miss, the whole window and real
+     tokens/s over it, and the data wait; (d) python -m
+     lddl_tpu_torch.training.pretrain on pairs/ for 4 steps with a
+     checkpoint every 2, then --resume to step 6: rc 0 and finite losses.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -72,6 +100,7 @@ script exits non-zero before printing any result.
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -89,6 +118,15 @@ import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VOCAB_FILE = os.path.join(HERE, 'benchmarks', 'assets', 'bench_vocab_30522.txt')
+# Balanced shards lddl_tpu wrote, with the digests of its loaders' batches
+# over them (tests/make_torch_shards.py).
+SHARDS = os.path.join(HERE, 'tests', 'assets', 'torch_shards')
+# Epochs of pairs/ in phase 7b: its smallest bins hold 3 batches an epoch,
+# so 5 epochs give each bin at least 14 cache hits.
+SHARD_EPOCHS = 5
+# The thread switch interval of 7b's third pass over the shards (Python's
+# default is 5 ms).
+GIL_SWITCH_S = 0.0005
 DEVICE = 'cuda'
 MODEL = 'base'
 PAD, CLS, SEP, MASK = 0, 2, 3, 4
@@ -171,6 +209,21 @@ FLASH_KERNEL_NAME = re.compile(
 
 def log(*args):
   print(*args, flush=True)
+
+
+def batch_sha256(batch):
+  """The digest of one loader batch (a dict of numpy arrays): sha256 over
+  each key in sorted order, then its array's dtype, shape and bytes. The
+  same on every machine, so batches of two loaders (or of one loader on
+  two machines) compare by it."""
+  h = hashlib.sha256()
+  for key in sorted(batch):
+    value = np.ascontiguousarray(batch[key])
+    h.update(key.encode() + b'\0')
+    h.update(value.dtype.str.encode() + b'\0')
+    h.update(repr(value.shape).encode() + b'\0')
+    h.update(value.tobytes())
+  return h.hexdigest()
 
 
 def card_line():
@@ -1163,6 +1216,474 @@ def train_packed(args, card):
   return stats, counts
 
 
+# ---- phase 7: training from shards ----
+
+
+def shard_path(name):
+  return os.path.join(SHARDS, name)
+
+
+def load_digests():
+  """digests.json: each shard set's loader settings and the digest of
+  every epoch-0 batch that lddl_tpu's loaders give over it
+  (tests/make_torch_shards.py)."""
+  with open(os.path.join(SHARDS, 'digests.json')) as f:
+    return json.load(f)
+
+
+def histogram(tele, name):
+  """(count, sum, max) of one telemetry histogram."""
+  h = tele.histogram(name)
+  return h.count, h.sum, (h.max if h.count else 0.0)
+
+
+def collate_seconds(tele):
+  """Seconds and calls of the collates, summed over their per-bin
+  loader.collate_seconds.s<L> histograms."""
+  lines = [x for x in tele.snapshot_lines()
+           if x.get('name', '').startswith('loader.collate_seconds.s')]
+  return sum(x['sum'] for x in lines), sum(x['count'] for x in lines)
+
+
+def loader_alone(digests, card):
+  """7a: drain one epoch of each shard set through the port's loader (the
+  card machine's reader, codec library and collate) and hold every batch's
+  digest against digests.json; time it, split into reading and decoding
+  the shards (loader.read_batch_seconds), the collate
+  (loader.collate_seconds.s<L>) and the rest (shuffle and bin draws)."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                     get_packed_pretrain_data_loader)
+  from lddl_tpu_torch.pipeline import codecs
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  t0 = time.perf_counter()
+  codecs.library()
+  log(f'  codec library loaded in {time.perf_counter() - t0:.2f}s from '
+      f'{codecs.library_path()}')
+  tok = load_bert_tokenizer(VOCAB_FILE)
+  stats = {}
+  for name, make in (('pairs', get_bert_pretrain_data_loader),
+                     ('packed', get_packed_pretrain_data_loader)):
+    settings = digests[name]['settings']
+    tele = telemetry.enable()
+    try:
+      t0 = time.perf_counter()
+      loader = make(shard_path(name), tokenizer=tok, **settings)
+      batches = list(loader)
+      seconds = time.perf_counter() - t0
+      read = histogram(tele, 'loader.read_batch_seconds')[1]
+      collate, calls = collate_seconds(tele)
+    finally:
+      telemetry.disable()
+    got = [batch_sha256(b) for b in batches]
+    want = digests[name]['batches']
+    if got != want:
+      bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+      raise AssertionError(f'{name}: {len(got)} batches, want {len(want)}; '
+                           f'batch {bad} differs from lddl_tpu\'s '
+                           '(digests.json)')
+    samples = sum(b['input_ids'].shape[0] for b in batches)
+    n = len(batches)
+    stats[name] = {
+        'batches': n, 'samples': samples, 'samples_per_s': samples / seconds,
+        'ms_per_batch': 1e3 * seconds / n,
+        'read_decode_ms_per_batch': 1e3 * read / n,
+        'collate_ms_per_batch': 1e3 * collate / n,
+        'other_ms_per_batch': 1e3 * (seconds - read - collate) / n,
+        'shapes': sorted({tuple(b['input_ids'].shape) for b in batches})}
+    r = stats[name]
+    log(f'  loader alone, {name}: {n} batches = lddl_tpu\'s bytes '
+        f'(digests.json); {r["samples_per_s"]:.0f} samples/s, '
+        f'{r["ms_per_batch"]:.2f} ms/batch: read+decode '
+        f'{r["read_decode_ms_per_batch"]:.2f} ms, collate '
+        f'{r["collate_ms_per_batch"]:.2f} ms ({calls} calls), shuffle and '
+        f'bins {r["other_ms_per_batch"]:.2f} ms; shapes {r["shapes"]} '
+        f'(host CPU of the card machine) [{card}]')
+  return stats
+
+
+@contextlib.contextmanager
+def timed_steps(loop, epoch, tele):
+  """The steps ``loop`` runs inside, one dict each: ``seq_len``;
+  ``compute``, the host clock around the step through the loop's step
+  cache, synchronised before and after; ``wall``, from the end of the
+  previous step (or of the set-up) to the end of this one: the loop's
+  whole window per step, its own work and the data wait included;
+  ``wait``, this step's ``train.data_wait_seconds`` (the histogram's sum
+  grows by it just before the step); ``hit``, the cache had the step's
+  graph; ``first``, the first step of an epoch of ``epoch`` steps (the run
+  starts at an epoch's start)."""
+  from lddl_tpu_torch.training import CompiledStepCache
+  if loop.step_cache is None:
+    loop.step_cache = CompiledStepCache(loop.step_fn)
+  cache = loop.step_cache
+  wait_h = tele.histogram('train.data_wait_seconds')
+  steps = []
+  last = {'wait': wait_h.sum}
+
+  def step(batch, dropout_seed):
+    misses = cache.misses
+    wait = wait_h.sum - last['wait']
+    last['wait'] = wait_h.sum
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = cache(batch, dropout_seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps.append({'seq_len': batch['input_ids'].shape[1],
+                  'compute': t1 - t0, 'wall': t1 - last['end'],
+                  'wait': wait, 'hit': cache.misses == misses,
+                  'first': len(steps) % epoch == 0})
+    last['end'] = t1
+    return metrics
+
+  loop.step_cache = step
+  torch.cuda.synchronize()
+  last['end'] = time.perf_counter()
+  try:
+    yield steps
+  finally:
+    loop.step_cache = cache
+
+
+def ms(xs, how):
+  return 1e3 * float(how(xs)) if xs else None
+
+
+def step_stats(steps):
+  """Per bin and over all bins, from timed_steps' records: compute ms
+  (median of cache hits); wall ms, the loop's whole window (mean over
+  cache hits, epochs' first steps included, and median over the hits that
+  are not an epoch's first); the data wait of the steps that are not an
+  epoch's first (mean, max); and the epochs' first steps' waits apart."""
+  def summary(xs):
+    hits = [x for x in xs if x['hit']]
+    steady = [x for x in hits if not x['first']]
+    waits = [x['wait'] for x in xs if not x['first']]
+    return {
+        'steps': len(xs), 'hits': len(hits),
+        'compute_ms': ms([x['compute'] for x in hits], np.median),
+        'wall_ms': ms([x['wall'] for x in hits], np.mean),
+        'steady_wall_ms': ms([x['wall'] for x in steady], np.median),
+        'wait_ms': ms(waits, np.mean), 'wait_max_ms': ms(waits, np.max)}
+  out = {s: summary([x for x in steps if x['seq_len'] == s])
+         for s in sorted({x['seq_len'] for x in steps})}
+  out['all'] = summary(steps)
+  out['all']['epoch_first_wait_ms'] = [1e3 * x['wait'] for x in steps
+                                       if x['first']]
+  return out
+
+
+class ReplayLoader:
+  """Synthetic batches (BinLoader's) in the shapes and order of recorded
+  steps: the k-th iteration yields epoch k's sequence of seq lens."""
+
+  def __init__(self, epochs, batch_size, seed, mask_fn):
+    self.batch_size = batch_size
+    lens = [s for e in epochs for s in e]
+    made = {s: iter(BinLoader(s, batch_size, lens.count(s), seed,
+                              mask_fn).batches) for s in set(lens)}
+    self.epochs = [[next(made[s]) for s in e] for e in epochs]
+    self._next = 0
+
+  def __iter__(self):
+    epoch = self.epochs[self._next % len(self.epochs)]
+    self._next += 1
+    return iter(epoch)
+
+
+def train_from_shards(args, digests, card):
+  """7b: BERT-base through TrainLoop.build(path=pairs/) for SHARD_EPOCHS
+  epochs with the step cache on; then the same shapes in the same order on
+  synthetic batches made beforehand, through the same graphs and the same
+  loop; then the shards again with a short thread switch interval; then
+  save at the first epoch's midpoint and restore into fresh loops."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+
+  settings = digests['pairs']['settings']
+  tok = load_bert_tokenizer(VOCAB_FILE)
+  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                   **MODEL_SIZES[MODEL])
+  build = dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+               warmup_steps=10, total_steps=1000, seed=settings['base_seed'],
+               max_predictions=args.max_predictions,
+               batch_size_per_rank=settings['batch_size_per_rank'],
+               bin_size=settings['bin_size'],
+               max_seq_length=settings['max_seq_length'],
+               masking=settings['masking'],
+               loader_kwargs={'shuffle_buffer_size':
+                              settings['shuffle_buffer_size']})
+  loop = TrainLoop.build(shard_path('pairs'), tok, **build)
+  epoch = loop.loader.batches_per_epoch
+  n = SHARD_EPOCHS * epoch
+  b = loop.loader.batch_size
+
+  # The main path: counts at 0 just before, read just after.
+  tele = telemetry.enable()
+  try:
+    tfa.reset_launches()
+    with timed_steps(loop, epoch, tele) as steps:
+      losses = loop.run(n, log_every=0)
+    counts = tfa.device_launches()
+    host = dict(tfa.launches)
+    wait = histogram(tele, 'train.data_wait_seconds')
+    h2d = histogram(tele, 'train.h2d_seconds')
+    collate, calls = collate_seconds(tele)
+  finally:
+    telemetry.disable()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'pairs, {SHARD_EPOCHS} epochs: {len(losses)} '
+                         f'steps of {n}, losses {losses}')
+  if loop.stop_reason is not None:
+    raise AssertionError(f'pairs run stopped early: {loop.stop_reason}')
+  per_step = {'fwd': cfg.num_layers, 'dq': cfg.num_layers,
+              'dkv': cfg.num_layers, 'fwd_seg': 0, 'dq_seg': 0, 'dkv_seg': 0}
+  check_launches(counts, host, {k: m * n for k, m in per_step.items()},
+                 f'pairs from shards, {n} steps')
+  bins = sorted({x['seq_len'] for x in steps})
+  check_cache(loop.step_cache, len(bins), n, 'pairs from shards')
+  shard = step_stats(steps)
+
+  # The same shapes in the same order on synthetic batches made
+  # beforehand, through the same graphs and the same loop, telemetry on.
+  lens = [x['seq_len'] for x in steps]
+  shard_loader = loop.loader
+  loop.loader = ReplayLoader([lens[i:i + epoch] for i in range(0, n, epoch)],
+                             b, args.seed, dynamic_mask_tokens)
+  tele = telemetry.enable()
+  try:
+    with timed_steps(loop, epoch, tele) as synth_steps:
+      loop.run(loop.step + n, log_every=0)
+  finally:
+    telemetry.disable()
+  if [x['seq_len'] for x in synth_steps] != lens:
+    raise AssertionError('the synthetic run did not replay the shapes')
+  synth = step_stats(synth_steps)
+
+  # The shards again with the interpreter's thread switch interval cut
+  # from its 5 ms to GIL_SWITCH_S: a thread that wants the GIL waits up to
+  # one interval for the holder, so if the data wait is the loop's thread
+  # waiting on the feed thread's Python work, it shrinks here.
+  loop.loader = shard_loader
+  interval = sys.getswitchinterval()
+  tele = telemetry.enable()
+  try:
+    sys.setswitchinterval(GIL_SWITCH_S)
+    with timed_steps(loop, epoch, tele) as gil_steps:
+      loop.run(loop.step + n, log_every=0)
+  finally:
+    sys.setswitchinterval(interval)
+    telemetry.disable()
+  gil = step_stats(gil_steps)
+  stats = {'epochs': SHARD_EPOCHS, 'steps': n, 'batch': b, 'bins': {},
+           'losses': losses, 'default_switch_interval_s': interval,
+           'switch_interval_s': GIL_SWITCH_S}
+  for s in bins + ['all']:
+    r = dict(shard[s])
+    r.update(samples_per_s=b / r['wall_ms'] * 1e3,
+             synthetic={k: synth[s][k] for k in
+                        ('compute_ms', 'wall_ms', 'steady_wall_ms',
+                         'wait_ms', 'wait_max_ms')},
+             compute_ratio=r['compute_ms'] / synth[s]['compute_ms'],
+             wall_ratio=r['wall_ms'] / synth[s]['wall_ms'],
+             short_switch={k: gil[s][k] for k in
+                           ('steps', 'compute_ms', 'wall_ms',
+                            'steady_wall_ms', 'wait_ms', 'wait_max_ms')})
+    stats['bins'][s] = r
+    log(f'  pairs from shards {"s=" + str(s) if s != "all" else "all bins"}'
+        f' b={b}: {r["steps"]} steps ({r["hits"]} cache hits); wall (the '
+        f'loop\'s whole window per step, data wait included) '
+        f'{r["wall_ms"]:.2f} ms/step mean of hits, {r["steady_wall_ms"]:.2f}'
+        f' median outside epochs\' first steps, {r["samples_per_s"]:.1f} '
+        f'samples/s; compute {r["compute_ms"]:.2f} ms/step median; data wait'
+        f' outside epochs\' first steps {r["wait_ms"]:.3f} ms mean, '
+        f'{r["wait_max_ms"]:.2f} max. Synthetic batches, same shapes and '
+        f'order: wall {r["synthetic"]["wall_ms"]:.2f} (ratio '
+        f'{r["wall_ratio"]:.3f}), steady {r["synthetic"]["steady_wall_ms"]:.2f},'
+        f' compute {r["synthetic"]["compute_ms"]:.2f} (ratio '
+        f'{r["compute_ratio"]:.3f}), data wait {r["synthetic"]["wait_ms"]:.3f}'
+        f' ms. Shards, switch interval {GIL_SWITCH_S * 1e3:g} ms: wall '
+        f'{r["short_switch"]["wall_ms"]:.2f}, steady '
+        f'{r["short_switch"]["steady_wall_ms"]:.2f}, compute '
+        f'{r["short_switch"]["compute_ms"]:.2f}, data wait '
+        f'{r["short_switch"]["wait_ms"]:.3f} ms [{card}]')
+  firsts = shard['all']['epoch_first_wait_ms']
+  stats.update(
+      data_wait_s=wait[1], data_wait_max_s=wait[2],
+      data_wait_ms_per_step=1e3 * wait[1] / max(wait[0], 1),
+      epoch_first_wait_ms=firsts,
+      synthetic_epoch_first_wait_ms=synth['all']['epoch_first_wait_ms'],
+      short_switch_epoch_first_wait_ms=gil['all']['epoch_first_wait_ms'],
+      h2d_ms_per_step=1e3 * h2d[1] / max(h2d[0], 1), h2d_max_s=h2d[2],
+      collate_ms_per_step=1e3 * collate / max(calls, 1))
+  log(f'  pairs, {SHARD_EPOCHS} epochs of {epoch} steps: '
+      f'train.data_wait_seconds {wait[1]:.4f} s over {wait[0]} steps '
+      f'({stats["data_wait_ms_per_step"]:.3f} ms/step; epochs\' first '
+      f'steps {", ".join(f"{x:.2f}" for x in firsts)} ms; synthetic '
+      f'{", ".join(f"{x:.2f}" for x in synth["all"]["epoch_first_wait_ms"])}'
+      f' ms), train.h2d_seconds {stats["h2d_ms_per_step"]:.3f} ms/batch '
+      f'(max {1e3 * h2d[2]:.2f} ms), collate '
+      f'{stats["collate_ms_per_step"]:.3f} ms/step ({calls} collates); '
+      f'losses {losses[0]:.4f} -> {losses[-1]:.4f} [{card}]')
+  del loop
+  torch.cuda.empty_cache()
+  check_shard_resume(build, tok, epoch)
+  return stats
+
+
+def check_shard_resume(build, tok, epoch):
+  """Save at the epoch's midpoint; restore into the same loop and into a
+  fresh one, whose loader restore itself must re-seek to the midpoint;
+  the rest of the epoch must give the same losses and state digest bit for
+  bit (deterministic algorithms on)."""
+  from lddl_tpu_torch.training import TrainLoop
+  mid = epoch // 2
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    with tempfile.TemporaryDirectory(prefix='lddl_smoke_shards_') as ckpt:
+      first = TrainLoop.build(shard_path('pairs'), tok, **build)
+      first.run(mid, ckpt_dir=ckpt, log_every=0)
+      same = first.restore(ckpt).run(epoch, log_every=0)
+      same_digest = first.state_digest()
+      del first
+      torch.cuda.empty_cache()
+      fresh = TrainLoop.build(shard_path('pairs'), tok, **build)
+      at = fresh.loader.tell()
+      fresh.restore(ckpt)
+      seeked = fresh.loader.tell()
+      again = fresh.run(epoch, log_every=0)
+      fresh_digest = fresh.state_digest()
+      del fresh
+      torch.cuda.empty_cache()
+  finally:
+    torch.use_deterministic_algorithms(False)
+  if at != (0, 0) or seeked != (0, mid):
+    raise AssertionError(f'restore left the loader at {seeked} (built at '
+                         f'{at}); want (0, {mid})')
+  if again != same or fresh_digest != same_digest or len(again) != (
+      epoch - mid):
+    raise AssertionError(f'resumed from the midpoint: fresh loop losses '
+                         f'{again}, same loop {same}, or state digests '
+                         'differ')
+  log(f'  pairs resume: saved at step {mid} of {epoch}; restore re-seeked a '
+      f'fresh loop\'s loader from {at} to {seeked}; the {len(again)} '
+      'resumed steps equal the same loop\'s bit for bit (losses and state '
+      'digest, deterministic algorithms on)')
+
+
+def train_packed_from_shards(args, digests, card):
+  """7c: BERT-base at s=8192 through TrainLoop.build(path=packed/,
+  data_format='packed', block_diagonal=True) for the warm-up and timed
+  steps, the step cache on."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+
+  settings = digests['packed']['settings']
+  s, b = settings['max_seq_length'], settings['batch_size_per_rank']
+  tok = load_bert_tokenizer(VOCAB_FILE)
+  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                   max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
+  loop = TrainLoop.build(
+      shard_path('packed'), tok, model_cfg=cfg, device=DEVICE,
+      learning_rate=1e-4, warmup_steps=10, total_steps=1000,
+      seed=settings['base_seed'], max_predictions=PACKED[2],
+      batch_size_per_rank=b, max_seq_length=s, data_format='packed',
+      block_diagonal=settings['block_diagonal'],
+      loader_kwargs={'shuffle_buffer_size': settings['shuffle_buffer_size']})
+  n = args.packed_warmup + args.packed_steps
+  if loop.loader.batches_per_epoch < n:
+    raise AssertionError(f'packed shards give {loop.loader.batches_per_epoch}'
+                         f' batches per epoch; the phase runs {n}')
+  tele = telemetry.enable()
+  try:
+    tfa.reset_launches()
+    with timed_steps(loop, loop.loader.batches_per_epoch, tele) as steps:
+      losses = loop.run(n, log_every=0)
+    counts = tfa.device_launches()
+    host = dict(tfa.launches)
+    wait = histogram(tele, 'train.data_wait_seconds')
+    # Real tokens of the batches the loader collated: the run's and the
+    # feed's prefetch beyond them.
+    real = (tele.counter(f'loader.tokens_real.s{s}').total /
+            max(tele.counter('loader.batches').total, 1))
+  finally:
+    telemetry.disable()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'packed from shards: losses {losses}')
+  per_step = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': cfg.num_layers,
+              'dq_seg': cfg.num_layers, 'dkv_seg': cfg.num_layers}
+  check_launches(counts, host, {k: m * n for k, m in per_step.items()},
+                 f'packed from shards, {n} steps')
+  check_cache(loop.step_cache, 1, n, 'packed from shards')
+  timed = [x for x in steps[args.packed_warmup:] if x['hit']]
+  dt = float(np.mean([x['compute'] for x in timed]))
+  wall = float(np.mean([x['wall'] for x in timed]))
+  stats = {'seq_len': s, 'batch': b, 'steps': n, 'ms_per_step': 1e3 * dt,
+           'wall_ms_per_step': 1e3 * wall,
+           'real_tokens_per_step': real, 'real_tokens_per_s': real / wall,
+           'data_wait_ms_per_step': 1e3 * wait[1] / max(wait[0], 1),
+           'data_wait_max_s': wait[2], 'losses': losses}
+  log(f'  packed from shards s={s} b={b}, {len(timed)} timed cache hits: '
+      f'wall (the loop\'s whole window per step, data wait included) '
+      f'{1e3 * wall:.2f} ms/step mean, compute {1e3 * dt:.2f}; '
+      f'{real / wall:.0f} real tokens/s over the wall ({real:.0f} real '
+      f'tokens/step); train.data_wait_seconds '
+      f'{stats["data_wait_ms_per_step"]:.3f} ms/step over all {n} steps '
+      f'(max {1e3 * wait[2]:.2f} ms); losses {losses[0]:.4f} -> '
+      f'{losses[-1]:.4f} [{card}]')
+  del loop
+  torch.cuda.empty_cache()
+  return stats
+
+
+def cli_from_shards(digests, card):
+  """7d: the CLI as a user runs it, from shards to a checkpoint, then
+  resumed from it; rc 0 and finite losses both times."""
+  settings = digests['pairs']['settings']
+  base = [sys.executable, '-m', 'lddl_tpu_torch.training.pretrain',
+          '--path', shard_path('pairs'), '--vocab-file', VOCAB_FILE,
+          '--bin-size', str(settings['bin_size']),
+          '--max-seq-length', str(settings['max_seq_length']),
+          '--batch-size', str(settings['batch_size_per_rank']),
+          '--attention', 'flash', '--log-every', '1']
+  out = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_cli_') as ckpt:
+    for label, extra in (('run', ['--steps', '4', '--checkpoint-every',
+                                  '2']),
+                         ('resume', ['--resume', '--steps', '6'])):
+      t0 = time.perf_counter()
+      proc = subprocess.run(base + extra + ['--checkpoint-dir', ckpt],
+                            cwd=HERE, capture_output=True, text=True,
+                            timeout=600, check=False)
+      seconds = time.perf_counter() - t0
+      losses = [float(x) for x in re.findall(r'^step=\d+ loss=(\S+)',
+                                             proc.stdout, re.M)]
+      final = [json.loads(x) for x in proc.stdout.splitlines()
+               if x.startswith('{"final_step"')]
+      if (proc.returncode != 0 or not losses or not final or
+          not all(np.isfinite(losses))):
+        raise AssertionError(f'CLI {label} exited {proc.returncode}, losses '
+                             f'{losses}:\n{proc.stdout[-3000:]}\n'
+                             f'{proc.stderr[-3000:]}')
+      out[label] = {'rc': proc.returncode, 'losses': losses,
+                    'final': final[-1], 'seconds': seconds}
+      log(f'  CLI {label}: rc 0 in {seconds:.1f}s, losses {losses}, '
+          f'{final[-1]} [{card}]')
+  if out['resume']['final']['final_step'] != 6 or len(
+      out['resume']['losses']) != 2:
+    raise AssertionError(f'CLI resume did not continue from step 4: {out}')
+  return out
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -1223,6 +1744,15 @@ def main():
   packed, seg_counts = train_packed(args, card)
   counts.update({k: v for k, v in seg_counts.items() if k.endswith('_seg')})
 
+  torch.cuda.empty_cache()
+
+  log('== training from shards: the corpus loader [' + card + ']')
+  digests = load_digests()
+  shards = {'loader': loader_alone(digests, card)}
+  shards['pairs'] = train_from_shards(args, digests, card)
+  shards['packed'] = train_packed_from_shards(args, digests, card)
+  shards['cli'] = cli_from_shards(digests, card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -1259,7 +1789,11 @@ def main():
   log(json.dumps({'training': [{k: v for k, v in b.items() if k != 'losses'}
                                for b in per_bin],
                   'packed': {k: v for k, v in packed.items()
-                             if k != 'losses'}, 'card': card}))
+                             if k != 'losses'},
+                  'shards': {k: ({kk: vv for kk, vv in v.items()
+                                  if kk != 'losses'} if k != 'cli' else v)
+                             for k, v in shards.items()},
+                  'card': card}, default=str))
   log(json.dumps({'kernels': summary}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

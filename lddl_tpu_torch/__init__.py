@@ -2,18 +2,24 @@
 
 Same module names and layout as :mod:`lddl_tpu`, written in PyTorch, with
 the TPU's Pallas kernels replaced by CUDA kernels written for Hopper
-(``csrc/``). The package imports torch and numpy only, never jax or
-anything of :mod:`lddl_tpu`. Entry points put tensors on ``cuda`` unless
-the caller passes ``device='cpu'``.
+(``csrc/``). The package imports torch, numpy and the stdlib only: never
+jax, anything of :mod:`lddl_tpu`, pyarrow or transformers. Entry points
+put tensors on ``cuda`` unless the caller passes ``device='cpu'``.
 
-Ported so far (the BERT pretraining step from the loader's batch boundary,
-and packed long-context pretraining with block-diagonal attention):
+Ported so far: BERT pretraining on one card from balanced Parquet shards
+that :mod:`lddl_tpu` wrote, segment-free and packed long-context with
+block-diagonal attention. The corpus loader: ``pipeline.parquet_io`` (a
+Parquet reader in numpy, no pyarrow) with ``pipeline.codecs`` (LZ4 and
+Snappy in host C++, ``csrc/codecs.cpp``), ``pipeline.shard_format``,
+``balance`` (the sample-count cache), ``tokenization.wordpiece`` (a vocab
+map, no transformers), ``core.utils``, ``core.random``, ``core.log``,
+``loader.dataset``, ``loader.columnar``, ``loader.shuffle_buffer``,
+``loader.binned``, ``loader.bert`` and ``loader.packed``. The step:
 ``models.bert``, ``models.convert``, ``models.flops``,
-``ops.flash_attention``, ``parallel.train``, ``loader.bert`` (masking),
-``loader.packed`` (``PackedCollate``), ``loader.device``, ``core.utils``
-(the np.save wire format), ``training.pretrain`` (with the step cache:
-one CUDA graph per bin), and the train loop's hooks: ``telemetry``
+``ops.flash_attention``, ``parallel.train``, ``loader.device``,
+``training.pretrain`` (``TrainLoop``, its step cache of one CUDA graph per
+bin, and the ``pretrain`` CLI), and the train loop's hooks: ``telemetry``
 (metrics, trace, roofline, profiler, sentinels), ``core.faults``,
-``training.elastic`` (preemption, async checkpoints) and
+``training.elastic`` (preemption, async checkpoints, loader re-seek) and
 ``pipeline.pool`` (its background writer).
 """

@@ -52,8 +52,9 @@ def _host_copy(batch):
 
 
 def prefetch_to_device(iterator, device, size=2):
-  """Yield batches of ``iterator`` (numpy dicts) as tensor dicts on
-  ``device``, keeping up to ``size`` in flight.
+  """Yield batches of ``iterator`` (numpy dicts, or lists of micro-batch
+  dicts) as tensor dicts (or lists of them) on ``device``, keeping up to
+  ``size`` in flight.
 
   A producer error is raised in the consumer at the batch where it
   happened. Closing the generator (or dropping it) stops the producer and
@@ -81,16 +82,21 @@ def prefetch_to_device(iterator, device, size=2):
     return False
 
   def _to_device(batch):
+    # A micro-batch list is placed element by element behind one event,
+    # as the JAX feed places lists.
+    micro = isinstance(batch, (list, tuple))
+    dicts = list(batch) if micro else [batch]
     if side is None:
-      return _host_copy(batch), None
-    pinned = {k: torch.from_numpy(np.asarray(v)).pin_memory()
-              for k, v in batch.items()}
-    with torch.cuda.stream(side):
-      placed = {k: t.to(device, non_blocking=True)
-                for k, t in pinned.items()}
-      ready = torch.cuda.Event()
-      ready.record(side)
-    return placed, ready
+      placed, ready = [_host_copy(d) for d in dicts], None
+    else:
+      pinned = [{k: torch.from_numpy(np.asarray(v)).pin_memory()
+                 for k, v in d.items()} for d in dicts]
+      with torch.cuda.stream(side):
+        placed = [{k: t.to(device, non_blocking=True) for k, t in d.items()}
+                  for d in pinned]
+        ready = torch.cuda.Event()
+        ready.record(side)
+    return (placed if micro else placed[0]), ready
 
   def _producer():
     try:
@@ -118,8 +124,9 @@ def prefetch_to_device(iterator, device, size=2):
       if ready is not None:
         current = torch.cuda.current_stream(device)
         current.wait_event(ready)
-        for tensor in placed.values():
-          tensor.record_stream(current)
+        for d in (placed if isinstance(placed, list) else [placed]):
+          for tensor in d.values():
+            tensor.record_stream(current)
       yield placed
   finally:
     stop.set()

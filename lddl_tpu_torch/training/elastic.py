@@ -10,6 +10,8 @@
   ``LDDL_PREEMPTION_FILE``) sets a flag the step loop checks at every
   step boundary; the loop then flushes the writer and lands one final
   synchronous checkpoint.
+- :func:`reseek_loader`: positions a loader at a restored
+  ``samples_seen`` through its ``seek(epoch, batch_index)`` contract.
 
 The JAX package's ``RankMembership`` (lease-store membership over the
 comm backend) waits for the multi-GPU slice.
@@ -21,6 +23,30 @@ import threading
 
 from ..pipeline.pool import AsyncShardWriter, WriteBackError  # noqa: F401
 from ..telemetry import get_telemetry
+
+
+def reseek_loader(loader, samples_seen, dp_world=1):
+  """Position ``loader`` at the global ``samples_seen`` counter via the
+  public ``seek(epoch, batch_index)`` contract (copied from
+  ``lddl_tpu/training/elastic.py:89-113``).
+
+  A checkpoint's ``samples_seen`` is world-size-independent; each rank's
+  loader continues from the matching ``(epoch, batch_index)``, the same
+  arithmetic as :meth:`~lddl_tpu_torch.loader.binned.BinnedIterator.
+  epoch_and_offset_of`. Returns the ``(epoch, batch_index)`` it seeked
+  to, or None for a loader that carries no positioning contract (a raw
+  iterable).
+  """
+  if loader is None or not hasattr(loader, 'seek'):
+    return None
+  global_batch = loader.batch_size * max(int(dp_world), 1)
+  samples_per_epoch = loader.batches_per_epoch * global_batch
+  if samples_per_epoch <= 0:
+    return None
+  epoch = samples_seen // samples_per_epoch
+  index = (samples_seen % samples_per_epoch) // global_batch
+  loader.seek(epoch, index)
+  return epoch, index
 
 
 def async_ckpt_enabled():

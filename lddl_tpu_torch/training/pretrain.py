@@ -5,16 +5,21 @@ checkpoint holds the model and optimizer state, the dropout key and the
 ``(step, samples_seen)`` counters, so a restart resumes the parameter
 trajectory and the data-stream position together.
 
-This slice ends at the loader's batch boundary: ``build(path=None, ...)``
-makes a loop without a corpus and the caller attaches ``loop.loader``,
-any iterable of loader-format batch dicts (``input_ids``,
-``token_type_ids``, ``attention_mask``, ``labels``,
-``next_sentence_labels``) with a ``batch_size`` attribute — the same
-contract replay uses with the JAX loop. Batches of the packed collate
-(:class:`~lddl_tpu_torch.loader.packed.PackedCollate` with
-``block_diagonal=True``) also carry ``segment_ids``; the feed copies every
-key and the train step then runs block-diagonal attention and the
-per-document MLM loss.
+``build(path, tokenizer, ...)`` makes the loop and its corpus loader
+over a balanced shard directory that :mod:`lddl_tpu` wrote: NSP pairs
+(:func:`~lddl_tpu_torch.loader.bert.get_bert_pretrain_data_loader`) or,
+with ``data_format='packed'``, packed long-context rows
+(:func:`~lddl_tpu_torch.loader.packed.get_packed_pretrain_data_loader`),
+whose ``block_diagonal=True`` batches carry ``segment_ids``: the feed
+copies every key and the train step then runs block-diagonal attention
+and the per-document MLM loss. ``build(path=None, ...)`` makes a loop
+without a corpus; the caller attaches ``loop.loader``, any iterable of
+loader-format batch dicts with a ``batch_size`` attribute.
+:meth:`TrainLoop.restore` re-seeks a loader that has the loader's
+``seek`` contract to the restored ``samples_seen``.
+
+CLI: ``python -m lddl_tpu_torch.training.pretrain --path <balanced>
+--vocab-file <vocab> ...`` (:func:`main`).
 
 Checkpoints are ``torch.save`` files, written into a temporary directory
 and renamed into place, so a reader sees a step whole or not at all. They
@@ -33,6 +38,7 @@ when no cost model exists. The flight recorder, the determinism ledger,
 rank membership and the live monitor are not ported yet.
 """
 
+import argparse
 import functools
 import hashlib
 import json
@@ -48,8 +54,10 @@ from collections import namedtuple
 import torch
 
 from ..core import faults
+from ..loader.bert import get_bert_pretrain_data_loader
 from ..loader.device import CUDA_FEED_LOCK, prefetch_to_device
-from ..models.bert import BertForPretraining
+from ..loader.packed import get_packed_pretrain_data_loader
+from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
 from ..ops import flash_attention as tfa
 from ..parallel.train import AdamW, TrainStep, check_max_predictions
@@ -57,7 +65,9 @@ from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
 from ..telemetry.sentinel import get_sentinel
-from .elastic import AsyncCheckpointWriter, PreemptionGuard, async_ckpt_enabled
+from ..tokenization.wordpiece import load_bert_tokenizer
+from .elastic import (AsyncCheckpointWriter, PreemptionGuard,
+                      async_ckpt_enabled, reseek_loader)
 
 MODEL_SIZES = {
     'tiny': dict(hidden_size=128, num_layers=2, num_heads=2,
@@ -87,7 +97,7 @@ def resolve_device(device=None):
 def _step_dirs(ckpt_dir):
   """``[(step, path)]`` of the step directories, newest first."""
   found = []
-  for name in os.listdir(ckpt_dir):
+  for name in sorted(os.listdir(ckpt_dir)):
     if name.startswith(_STEP_PREFIX) and name[len(_STEP_PREFIX):].isdigit():
       found.append((int(name[len(_STEP_PREFIX):]),
                     os.path.join(ckpt_dir, name)))
@@ -285,13 +295,15 @@ class TrainLoop:
   and the step counters."""
 
   def __init__(self, model, opt, device, dropout_seed, loader=None,
-               max_predictions=None):
+               max_predictions=None, dp_rank=0, dp_world=1):
     self.model = model
     self.opt = opt
     self.device = device
     self.dropout_seed = dropout_seed
     self.loader = loader
     self.max_predictions = max_predictions
+    self.dp_rank = dp_rank
+    self.dp_world = dp_world
     self.step_fn = TrainStep(model, opt, max_predictions)
     # Made by the first run() with LDDL_STEP_CACHE on and kept, so repeated
     # run() calls, epochs and restore() replay the same per-bin graphs.
@@ -304,23 +316,65 @@ class TrainLoop:
     self._last_saved = -1
 
   @classmethod
-  def build(cls, path=None, *, model_cfg, device=None, learning_rate=1e-4,
-            warmup_steps=100, total_steps=10000, weight_decay=0.01,
-            seed=127, max_predictions=None, max_seq_length=512,
-            masking='dynamic', mlm_probability=0.15):
-    """A loop at step 0 with freshly initialised params (flax's init
-    distributions, drawn from ``seed`` on the CPU, then moved to
-    ``device``); :meth:`restore` moves it to a checkpoint.
+  def build(cls, path=None, tokenizer=None, *, model_cfg, device=None,
+            learning_rate=1e-4, warmup_steps=100, total_steps=10000,
+            weight_decay=0.01, batch_size_per_rank=64, bin_size=None,
+            max_seq_length=512, masking='dynamic', seed=127, samples_seen=0,
+            loader_kwargs=None, max_predictions=None, data_format='pairs',
+            block_diagonal=False, dp_rank=0, dp_world=1):
+    """A loop with freshly initialised params (flax's init distributions,
+    drawn from ``seed`` on the CPU, then moved to ``device``) and the
+    corpus loader over ``path``, as the JAX loop's ``build``
+    (``lddl_tpu/training/pretrain.py:201-278``); :meth:`restore` moves it
+    to a checkpoint.
 
-    ``path`` must be None: the corpus loader is not ported yet, so the
-    caller attaches ``loop.loader``. ``max_seq_length``, ``masking`` and
-    ``mlm_probability`` describe that loader, for
-    :func:`check_max_predictions`.
+    ``tokenizer``: the special ids, ``vocab_size`` and
+    ``convert_tokens_to_ids``
+    (:func:`~lddl_tpu_torch.tokenization.wordpiece.load_bert_tokenizer`);
+    None loads one from ``loader_kwargs['vocab_file']``. The loader is
+    positioned at ``samples_seen`` and the step counter at
+    ``samples_seen // (batch_size_per_rank * dp_world)``. ``dp_rank`` and
+    ``dp_world`` pick this rank's share of the shards. With ``path=None`` the loop has no loader: the caller
+    attaches ``loop.loader``, and ``max_seq_length`` and ``masking``
+    describe it for :func:`check_max_predictions`.
     """
-    if path is not None:
-      raise NotImplementedError('the corpus loader is not ported yet: build '
-                                'with path=None and attach loop.loader')
+    if block_diagonal and data_format != 'packed':
+      raise ValueError("block_diagonal requires data_format='packed' "
+                       '(pair shards carry no doc_offsets)')
     device = resolve_device(device)
+    if path is None:
+      loader = None
+    elif data_format == 'packed':
+      # Long-context document-packed shards: always dynamic masking, no
+      # NSP pairs.
+      if masking != 'dynamic':
+        raise ValueError("data_format='packed' supports masking='dynamic' "
+                         'only (no stored masks in packed shards)')
+      loader = get_packed_pretrain_data_loader(
+          path,
+          dp_rank=dp_rank,
+          dp_world_size=dp_world,
+          batch_size_per_rank=batch_size_per_rank,
+          tokenizer=tokenizer,
+          max_seq_length=max_seq_length,
+          bin_size=bin_size,
+          base_seed=seed,
+          samples_seen=samples_seen,
+          block_diagonal=block_diagonal,
+          **(loader_kwargs or {}))
+    else:
+      loader = get_bert_pretrain_data_loader(
+          path,
+          dp_rank=dp_rank,
+          dp_world_size=dp_world,
+          batch_size_per_rank=batch_size_per_rank,
+          tokenizer=tokenizer,
+          masking=masking,
+          max_seq_length=max_seq_length,
+          bin_size=bin_size,
+          base_seed=seed,
+          samples_seen=samples_seen,
+          **(loader_kwargs or {}))
     model = BertForPretraining(model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(device)
@@ -329,10 +383,15 @@ class TrainLoop:
                                  total_steps=total_steps)
     opt = AdamW(model.parameters(), schedule, weight_decay=weight_decay)
     if max_predictions is not None:
-      check_max_predictions(max_predictions, max_seq_length, masking,
-                            mlm_probability=mlm_probability)
-    return cls(model, opt, device, dropout_seed=seed + 1,
-               max_predictions=max_predictions)
+      check_max_predictions(
+          max_predictions, max_seq_length, masking,
+          mlm_probability=(loader_kwargs or {}).get('mlm_probability', 0.15))
+    loop = cls(model, opt, device, dropout_seed=seed + 1, loader=loader,
+               max_predictions=max_predictions, dp_rank=dp_rank,
+               dp_world=dp_world)
+    loop.samples_seen = samples_seen
+    loop.step = samples_seen // (batch_size_per_rank * dp_world)
+    return loop
 
   def flops_per_step(self, batch, seq_len):
     """Analytic FLOPs of one step at ``[batch, seq_len]`` (MFU numerator)."""
@@ -413,9 +472,9 @@ class TrainLoop:
   def restore(self, ckpt_dir, step=None):
     """Restore the newest readable step (or exactly ``step``), copying
     into the live parameters and optimizer tensors, so the step cache's
-    graphs stay valid. The caller positions ``loop.loader`` at the
-    restored ``samples_seen`` (the corpus loader's seek contract waits
-    for the loader slice)."""
+    graphs stay valid, and re-seek ``loop.loader`` to the restored
+    ``samples_seen`` (:func:`~lddl_tpu_torch.training.elastic.
+    reseek_loader`; a loader without ``seek`` is left to the caller)."""
     if step is None:
       meta = self.latest_meta(ckpt_dir)
       if meta is None:
@@ -432,6 +491,7 @@ class TrainLoop:
     self.dropout_seed = int(state['dropout_seed'])
     self.step, self.samples_seen = _read_meta(path)
     self._last_saved = self.step
+    reseek_loader(self.loader, self.samples_seen, self.dp_world)
     return self
 
   def state_digest(self):
@@ -471,7 +531,7 @@ class TrainLoop:
     sentinel = get_sentinel()
     nonfinite_stop = (os.environ.get('LDDL_NONFINITE', '')
                       .strip().lower() != 'ignore')
-    global_batch = self.loader.batch_size
+    global_batch = self.loader.batch_size * max(self.dp_world, 1)
     tele = get_telemetry()
     tracer = get_tracer()
     data_wait_h = tele.histogram('train.data_wait_seconds')
@@ -617,3 +677,107 @@ class TrainLoop:
       print(f'stopping early: {self.stop_reason} '
             f'(step={self.step} samples_seen={self.samples_seen})')
     return losses
+
+
+def attach_args(parser):
+  """The JAX CLI's arguments (``lddl_tpu/training/pretrain.py:785-853``),
+  plus ``--device``. Left out until the slices that port them: the mesh
+  sizes (``--dp``, ``--fsdp``, ``--tp``, ``--sp``), ``--comm`` and ring
+  attention (the port trains on one card), ``--tokenizer`` (a hub
+  tokenizer needs the network) and ``--prng`` (a JAX setting)."""
+  parser.add_argument('--path', required=True, help='balanced shard dir')
+  parser.add_argument('--vocab-file', required=True)
+  parser.add_argument('--model', choices=sorted(MODEL_SIZES),
+                      default='base')
+  parser.add_argument('--attention',
+                      choices=['dense', 'flash'],
+                      default='dense')
+  parser.add_argument('--remat', action='store_true')
+  parser.add_argument('--batch-size', type=int, default=64,
+                      help='per-process samples per step')
+  parser.add_argument('--bin-size', type=int, default=None)
+  parser.add_argument('--max-seq-length', type=int, default=512)
+  parser.add_argument('--masking', choices=['dynamic', 'static'],
+                      default='dynamic')
+  parser.add_argument('--data-format', choices=['pairs', 'packed'],
+                      default='pairs',
+                      help="'pairs': NSP-pair shards (preprocess_bert_"
+                      "pretrain); 'packed': long-context document-packed "
+                      'id shards (preprocess_packed_pretrain)')
+  parser.add_argument('--block-diagonal', action='store_true',
+                      help='packed rows only: attention within documents '
+                      'and the MLM loss normalized per document')
+  parser.add_argument('--steps', type=int, default=1000)
+  parser.add_argument('--learning-rate', type=float, default=1e-4)
+  parser.add_argument('--warmup-steps', type=int, default=100)
+  parser.add_argument('--weight-decay', type=float, default=0.01)
+  parser.add_argument('--seed', type=int, default=127)
+  parser.add_argument('--max-predictions', type=int, default=None,
+                      help='masked-only MLM head: vocab logits at this many '
+                      'gathered MLM positions per row')
+  parser.add_argument('--checkpoint-dir', default=None)
+  parser.add_argument('--checkpoint-every', type=int, default=500)
+  parser.add_argument('--log-every', type=int, default=50)
+  parser.add_argument('--resume', action='store_true',
+                      help='resume from the newest checkpoint in '
+                           '--checkpoint-dir (model state AND data '
+                           'stream position)')
+  parser.add_argument('--device', default=None,
+                      help="torch device; default the CUDA card (raises "
+                      "without one). 'cpu' runs on the CPU")
+  return parser
+
+
+def main(args=None):
+  """Train from a balanced shard directory (the JAX CLI's ``main``,
+  ``lddl_tpu/training/pretrain.py:856-916``); returns the loop."""
+  if args is None or isinstance(args, list):
+    args = attach_args(argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)).parse_args(
+            args)
+  tokenizer = load_bert_tokenizer(args.vocab_file)
+  vocab = ((tokenizer.vocab_size + 63) // 64) * 64
+  cfg = BertConfig(
+      vocab_size=vocab,
+      max_position_embeddings=max(args.max_seq_length, 512),
+      attention_impl=args.attention,
+      remat=args.remat,
+      **MODEL_SIZES[args.model])
+  device = resolve_device(args.device)
+  print(f'device: {device}; model={args.model} attention={args.attention}')
+
+  samples_seen = 0
+  resume = False
+  if args.resume and args.checkpoint_dir:
+    meta = TrainLoop.latest_meta(args.checkpoint_dir)
+    if meta is not None:
+      _, samples_seen = meta
+      resume = True
+      print(f'resuming from samples_seen={samples_seen}')
+
+  loop = TrainLoop.build(
+      args.path, tokenizer, model_cfg=cfg, device=device,
+      learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
+      total_steps=args.steps, weight_decay=args.weight_decay,
+      batch_size_per_rank=args.batch_size, bin_size=args.bin_size,
+      max_seq_length=args.max_seq_length, masking=args.masking,
+      seed=args.seed, samples_seen=samples_seen,
+      max_predictions=args.max_predictions,
+      data_format=args.data_format,
+      block_diagonal=args.block_diagonal)
+  if resume:
+    loop.restore(args.checkpoint_dir)
+  losses = loop.run(args.steps, ckpt_dir=args.checkpoint_dir,
+                    ckpt_every=args.checkpoint_every,
+                    log_every=args.log_every)
+  export_telemetry()
+  if losses:
+    print(json.dumps({'final_step': loop.step,
+                      'final_loss': round(losses[-1], 4),
+                      'samples_seen': loop.samples_seen}))
+  return loop
+
+
+if __name__ == '__main__':
+  main()

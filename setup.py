@@ -9,7 +9,8 @@ setup(
                  'loading for large-scale pretraining'),
     packages=find_packages(include=['lddl_tpu', 'lddl_tpu.*',
                                     'lddl_tpu_torch', 'lddl_tpu_torch.*']),
-    package_data={'lddl_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+    package_data={'lddl_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                    'csrc/*.cpp']},
     python_requires='>=3.10',
     install_requires=[
         'numpy',

@@ -36,6 +36,24 @@ def test_batches_are_byte_identical_copies():
       assert not np.shares_memory(got, a[k])
 
 
+def test_micro_batch_lists_are_copied_element_by_element():
+  """A loader built with micro_batch_size yields lists of micro-batch
+  dicts; the feed places each, as the JAX feed does."""
+  from lddl_tpu_torch.loader.bert import split_into_micro_batches
+  batch = dict(_batches(1)[0], token_type_ids=np.zeros((4, 16), np.int32),
+               attention_mask=np.ones((4, 16), np.int32),
+               labels=np.full((4, 16), -100, np.int32))
+  src = [split_into_micro_batches(batch, 2) for _ in range(3)]
+  out = list(prefetch_to_device(iter(src), 'cpu', size=2))
+  assert len(out) == 3
+  for micros, placed in zip(src, out):
+    assert isinstance(placed, list) and len(placed) == len(micros) == 2
+    for a, b in zip(micros, placed):
+      assert set(a) == set(b)
+      for k in a:
+        assert b[k].numpy().tobytes() == a[k].tobytes()
+
+
 def test_producer_error_reaches_the_consumer():
   def source():
     yield from _batches(2)

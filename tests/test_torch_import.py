@@ -1,5 +1,6 @@
-"""lddl_tpu_torch imports torch and numpy only: never jax, flax, optax or
-anything of lddl_tpu, and never falls back to the CPU unasked."""
+"""lddl_tpu_torch imports torch, numpy and the stdlib only: never jax,
+flax, optax, anything of lddl_tpu, pyarrow, transformers or tokenizers,
+and never falls back to the CPU unasked."""
 
 import ast
 import os
@@ -18,7 +19,9 @@ def _no_leaked_shm_segments():
 
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lddl_tpu')
+# The card's machine has no pyarrow, transformers or tokenizers either.
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lddl_tpu',
+             'pyarrow', 'transformers', 'tokenizers')
 MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.models.convert', 'lddl_tpu_torch.models.flops',
            'lddl_tpu_torch.ops.flash_attention', 'lddl_tpu_torch.ops._build',
@@ -32,7 +35,15 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.telemetry.profiling',
            'lddl_tpu_torch.telemetry.perf',
            'lddl_tpu_torch.telemetry.sentinel',
-           'lddl_tpu_torch.training.elastic')
+           'lddl_tpu_torch.training.elastic', 'lddl_tpu_torch.balance',
+           'lddl_tpu_torch.core.log', 'lddl_tpu_torch.core.random',
+           'lddl_tpu_torch.loader.binned', 'lddl_tpu_torch.loader.columnar',
+           'lddl_tpu_torch.loader.dataset',
+           'lddl_tpu_torch.loader.shuffle_buffer',
+           'lddl_tpu_torch.pipeline.codecs',
+           'lddl_tpu_torch.pipeline.parquet_io',
+           'lddl_tpu_torch.pipeline.shard_format',
+           'lddl_tpu_torch.tokenization.wordpiece')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():

@@ -130,9 +130,14 @@ def test_nonfinite_loss_stops_the_run(monkeypatch, tmp_path):
   assert len(_nan_loop().run(3, log_every=0)) == 3
 
 
-def test_build_rejects_a_corpus_path():
-  with pytest.raises(NotImplementedError, match='loader'):
-    TrainLoop.build('/data/balanced', model_cfg=CFG, device='cpu')
+def test_build_rejects_a_corpus_path(tmp_path):
+  """A corpus path builds the loader, so one without shards (or a
+  block-diagonal loop over pair shards) is refused before any model."""
+  with pytest.raises(ValueError, match='no parquet shards'):
+    TrainLoop.build(str(tmp_path), _Tok(), model_cfg=CFG, device='cpu')
+  with pytest.raises(ValueError, match='block_diagonal'):
+    TrainLoop.build(str(tmp_path), model_cfg=CFG, device='cpu',
+                    block_diagonal=True)
 
 
 class _Tok:
@@ -199,3 +204,144 @@ def test_build_accepts_the_packed_budget_at_8192():
     warnings.simplefilter('error')
     TrainLoop.build(model_cfg=CFG, device='cpu', max_predictions=1359,
                     max_seq_length=8192)
+
+
+# ---- training from shards, against the JAX loop ----
+
+SHARD_CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                 intermediate_size=64, max_position_embeddings=128,
+                 dropout_rate=0.0)
+
+
+@pytest.fixture(scope='module')
+def shards(tmp_path_factory):
+  """Balanced shards lddl_tpu wrote: binned NSP pairs and packed rows."""
+  from lddl_tpu.balance import balance_directory
+  from lddl_tpu.pipeline import Executor
+  from lddl_tpu.preprocess import bert, packed
+  from lddl_tpu.preprocess.readers import read_corpus
+  from lddl_tpu.testing import write_word_corpus, write_word_vocab
+  root = tmp_path_factory.mktemp('torch_shards')
+  vocab = str(root / 'vocab.txt')
+  write_word_vocab(vocab)
+  src = str(root / 'source')
+  write_word_corpus(src, num_docs=80, num_shards=2, seed=3,
+                    sents_range=(2, 8), words_range=(4, 16))
+  out = {'vocab': vocab}
+  for name, run, cfg in (
+      ('pairs', bert.run, bert.BertPretrainConfig(
+          vocab_file=vocab, target_seq_length=64, bin_size=32,
+          duplicate_factor=2, seed=5, sentence_backend='rules',
+          tokenizer_backend='hf')),
+      ('packed', packed.run, packed.PackedPretrainConfig(
+          vocab_file=vocab, target_seq_length=128, seed=5,
+          sentence_backend='rules', tokenizer_backend='hf'))):
+    sink = str(root / f'{name}_sink')
+    run(read_corpus([src], num_blocks=2, sample_ratio=1.0), sink, cfg,
+        executor=Executor(num_local_workers=1))
+    out[name] = str(root / name)
+    balance_directory(sink, out[name], 2)
+  return out
+
+
+def _build_kw(data_format):
+  if data_format == 'packed':
+    return dict(batch_size_per_rank=8, max_seq_length=128,
+                data_format='packed', block_diagonal=True,
+                loader_kwargs={'shuffle_buffer_size': 16})
+  return dict(batch_size_per_rank=8, bin_size=32, max_seq_length=64,
+              loader_kwargs={'shuffle_buffer_size': 16})
+
+
+def _torch_loop(shards, data_format, **kw):
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  cfg = BertConfig(dtype=torch.float32, **SHARD_CFG)
+  return TrainLoop.build(
+      shards[data_format], load_bert_tokenizer(vocab_file=shards['vocab']),
+      model_cfg=cfg, device='cpu', learning_rate=1e-3, warmup_steps=2,
+      total_steps=8, seed=5, **dict(_build_kw(data_format), **kw))
+
+
+@pytest.mark.parametrize('data_format', ['pairs', 'packed'])
+def test_build_from_path_trains_as_the_jax_loop(shards, data_format):
+  """TrainLoop.build(path, ...) in both packages over the same shards,
+  the JAX params carried across (models/convert.py): four steps' losses
+  within test_torch_train.py's five-step tolerance (2e-4 relative)."""
+  import jax
+  import jax.numpy as jnp
+  from lddl_tpu.models import BertConfig as JaxConfig
+  from lddl_tpu.parallel import make_mesh
+  from lddl_tpu.tokenization.wordpiece import load_bert_tokenizer as jtok
+  from lddl_tpu.training.pretrain import TrainLoop as JaxLoop
+  from lddl_tpu_torch.models import flax_to_state_dict
+  jloop = JaxLoop.build(
+      shards[data_format], jtok(vocab_file=shards['vocab'], backend='hf'),
+      model_cfg=JaxConfig(dtype=jnp.float32, **SHARD_CFG), mesh=make_mesh(),
+      learning_rate=1e-3, warmup_steps=2, total_steps=8, seed=5,
+      **_build_kw(data_format))
+  tloop = _torch_loop(shards, data_format)
+  tloop.model.load_state_dict(flax_to_state_dict(jax.device_get(
+      jloop.params)))
+  want = jloop.run(4, log_every=0)
+  got = tloop.run(4, log_every=0)
+  assert len(got) == len(want) == 4
+  np.testing.assert_allclose(got, want, rtol=2e-4)
+  assert (tloop.step, tloop.samples_seen) == (jloop.step, jloop.samples_seen)
+
+
+def test_restore_reseeks_the_loader(shards, tmp_path):
+  """restore() positions a fresh loop's loader at the checkpoint's
+  samples_seen (the coordinate lddl_tpu's reseek_loader gives), and every
+  restart from one checkpoint continues bit for bit."""
+  from lddl_tpu.loader import get_bert_pretrain_data_loader as jax_loader
+  from lddl_tpu.training.elastic import reseek_loader as jax_reseek
+  ckpt = str(tmp_path / 'ckpt')
+  first = _torch_loop(shards, 'pairs')
+  first.run(5, ckpt_dir=ckpt, log_every=0)
+  assert TrainLoop.latest_meta(ckpt) == (5, 40)
+
+  def resume():
+    loop = _torch_loop(shards, 'pairs')
+    assert loop.loader.tell() == (0, 0)
+    loop.restore(ckpt)
+    return loop, loop.loader.tell(), loop.run(8, log_every=0)
+
+  (a, at_a, tail_a), (b, at_b, tail_b) = resume(), resume()
+  jl = jax_loader(shards['pairs'], vocab_file=shards['vocab'],
+                  batch_size_per_rank=8, bin_size=32, max_seq_length=64)
+  jax_reseek(jl, 40)
+  assert at_a == at_b == jl.tell() == (0, 5)
+  assert len(tail_a) == 3 and tail_a == tail_b
+  assert a.state_digest() == b.state_digest()
+
+
+def test_cli_trains_from_shards_and_resumes(shards, tmp_path, capsys):
+  from lddl_tpu_torch.training.pretrain import main
+  base = ['--path', shards['pairs'], '--vocab-file', shards['vocab'],
+          '--model', 'tiny', '--bin-size', '32', '--max-seq-length', '64',
+          '--batch-size', '8', '--warmup-steps', '1', '--log-every', '1',
+          '--device', 'cpu', '--checkpoint-dir', str(tmp_path / 'ckpt')]
+  first = main(base + ['--steps', '2', '--checkpoint-every', '2'])
+  assert (first.step, first.samples_seen) == (2, 16)
+  resumed = main(base + ['--steps', '4', '--resume'])
+  out = capsys.readouterr().out
+  assert 'resuming from samples_seen=16' in out
+  assert (resumed.step, resumed.samples_seen) == (4, 32)
+  losses = [float(x.split('loss=')[1].split()[0])
+            for x in out.splitlines() if x.startswith('step=')]
+  assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+  assert '"final_step": 4' in out
+
+
+@pytest.mark.parametrize('flag', [['--dp', '2'], ['--tp', '2'],
+                                  ['--comm', 'file'],
+                                  ['--attention', 'ring']])
+def test_cli_refuses_what_is_not_ported(shards, flag, capsys):
+  """Meshes, comm backends and ring attention wait for the multi-GPU
+  slice: the CLI does not offer their flags, so argparse refuses them."""
+  from lddl_tpu_torch.training.pretrain import main
+  with pytest.raises(SystemExit) as exc:
+    main(['--path', shards['pairs'], '--vocab-file', shards['vocab'],
+          '--device', 'cpu'] + flag)
+  assert exc.value.code == 2
+  assert flag[0] in capsys.readouterr().err
