@@ -90,7 +90,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and none of the others, one cache miss, the whole window and real
      tokens/s over it, and the data wait; (d) python -m
      lddl_tpu_torch.training.pretrain on pairs/ for 4 steps with a
-     checkpoint every 2, then --resume to step 6: rc 0 and finite losses.
+     checkpoint every 2, then --resume to step 6: rc 0 and finite losses;
+  8. the loaders through WORKERS worker processes (forkserver children
+     that import no torch; batches handed over in shared-memory slot
+     rings or pickled): (a) one epoch of pairs/, packed/ and codebert/
+     by each handoff (shm, pickle, shm with zero-copy views), every
+     batch's batch_sha256 = digests.json, samples/s and ms/batch beside
+     the serial loader's in alternating order, the workers' start per
+     epoch, and no slot overflow at the default slot size; (b)
+     SHARD_EPOCHS epochs of BERT-base from pairs/ through
+     TrainLoop.build(path, loader_kwargs={'num_workers': WORKERS,
+     'vocab_file': ...}), the step cache on: 12 launches per step of each
+     segment-free kernel and none of the segmented ones, one miss per bin
+     (counts at 0 just before, read just after); then the serial loader
+     and synthetic batches through the same loop, alternating with the
+     workers (W S Y Y S W): the loop's whole window per step, the step
+     alone, the data wait with the epochs' first steps apart,
+     train.h2d_seconds and the workers' start per epoch; and a midpoint
+     resume through a re-seeked MultiprocessLoader, bit for bit; (c)
+     packed s=8192 from packed/ through the workers: 12 launches per step
+     of each segmented kernel and none of the others, one miss, the
+     window and data wait beside 7c's; (d) one epoch with the
+     determinism ledger on, serially and through the workers, and off,
+     alternating: the collate and device records equal key for key (the
+     port's auditor exits 0), the collate digests = lddl_tpu's blake2b-8
+     ones (digests.json), and the ledger's cost per step; (e)
+     CODEBERT_STEPS BERT-base steps from codebert/ through
+     get_codebert_pretrain_data_loader(..., num_workers=WORKERS): finite
+     losses, the batches = digests.json; (f) a worker SIGKILLed
+     mid-epoch: the parent raises the RuntimeError naming it within its
+     5 s poll. No ``lddltorch_`` shared-memory segment is left after any
+     phase from 7 on.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -127,6 +157,14 @@ SHARD_EPOCHS = 5
 # The thread switch interval of 7b's third pass over the shards (Python's
 # default is 5 ms).
 GIL_SWITCH_S = 0.0005
+# Phase 8: worker processes of the loaders, their handoffs (transport,
+# zero_copy), the shard sets and their loaders, and the CodeBERT steps.
+WORKERS = 2
+HANDOFFS = (('shm', False), ('pickle', False), ('shm', True))
+SHARD_LOADERS = {'pairs': 'get_bert_pretrain_data_loader',
+                 'packed': 'get_packed_pretrain_data_loader',
+                 'codebert': 'get_codebert_pretrain_data_loader'}
+CODEBERT_STEPS = 6
 DEVICE = 'cuda'
 MODEL = 'base'
 PAD, CLS, SEP, MASK = 0, 2, 3, 4
@@ -1393,6 +1431,25 @@ class ReplayLoader:
     return iter(epoch)
 
 
+def pairs_build(args, settings, **loader_kwargs):
+  """TrainLoop.build's arguments for BERT-base over pairs/ (phases 7b,
+  8b, 8d)."""
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.training import MODEL_SIZES
+  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                   **MODEL_SIZES[MODEL])
+  return dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+              warmup_steps=10, total_steps=1000, seed=settings['base_seed'],
+              max_predictions=args.max_predictions,
+              batch_size_per_rank=settings['batch_size_per_rank'],
+              bin_size=settings['bin_size'],
+              max_seq_length=settings['max_seq_length'],
+              masking=settings['masking'],
+              loader_kwargs={'shuffle_buffer_size':
+                             settings['shuffle_buffer_size'],
+                             **loader_kwargs})
+
+
 def train_from_shards(args, digests, card):
   """7b: BERT-base through TrainLoop.build(path=pairs/) for SHARD_EPOCHS
   epochs with the step cache on; then the same shapes in the same order on
@@ -1401,24 +1458,14 @@ def train_from_shards(args, digests, card):
   save at the first epoch's midpoint and restore into fresh loops."""
   from lddl_tpu_torch import telemetry
   from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
-  from lddl_tpu_torch.models import BertConfig
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
-  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+  from lddl_tpu_torch.training import TrainLoop
 
   settings = digests['pairs']['settings']
   tok = load_bert_tokenizer(VOCAB_FILE)
-  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
-                   **MODEL_SIZES[MODEL])
-  build = dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
-               warmup_steps=10, total_steps=1000, seed=settings['base_seed'],
-               max_predictions=args.max_predictions,
-               batch_size_per_rank=settings['batch_size_per_rank'],
-               bin_size=settings['bin_size'],
-               max_seq_length=settings['max_seq_length'],
-               masking=settings['masking'],
-               loader_kwargs={'shuffle_buffer_size':
-                              settings['shuffle_buffer_size']})
+  build = pairs_build(args, settings)
+  cfg = build['model_cfg']
   loop = TrainLoop.build(shard_path('pairs'), tok, **build)
   epoch = loop.loader.batches_per_epoch
   n = SHARD_EPOCHS * epoch
@@ -1537,7 +1584,7 @@ def train_from_shards(args, digests, card):
   return stats
 
 
-def check_shard_resume(build, tok, epoch):
+def check_shard_resume(build, tok, epoch, label='pairs'):
   """Save at the epoch's midpoint; restore into the same loop and into a
   fresh one, whose loader restore itself must re-seek to the midpoint;
   the rest of the epoch must give the same losses and state digest bit for
@@ -1564,21 +1611,22 @@ def check_shard_resume(build, tok, epoch):
   finally:
     torch.use_deterministic_algorithms(False)
   if at != (0, 0) or seeked != (0, mid):
-    raise AssertionError(f'restore left the loader at {seeked} (built at '
-                         f'{at}); want (0, {mid})')
+    raise AssertionError(f'{label}: restore left the loader at {seeked} '
+                         f'(built at {at}); want (0, {mid})')
   if again != same or fresh_digest != same_digest or len(again) != (
       epoch - mid):
-    raise AssertionError(f'resumed from the midpoint: fresh loop losses '
-                         f'{again}, same loop {same}, or state digests '
-                         'differ')
-  log(f'  pairs resume: saved at step {mid} of {epoch}; restore re-seeked a '
+    raise AssertionError(f'{label}, resumed from the midpoint: fresh loop '
+                         f'losses {again}, same loop {same}, or state '
+                         'digests differ')
+  log(f'  {label} resume: saved at step {mid} of {epoch}; restore re-seeked a '
       f'fresh loop\'s loader from {at} to {seeked}; the {len(again)} '
       'resumed steps equal the same loop\'s bit for bit (losses and state '
       'digest, deterministic algorithms on)')
 
 
-def train_packed_from_shards(args, digests, card):
-  """7c: BERT-base at s=8192 through TrainLoop.build(path=packed/,
+def train_packed_from_shards(args, digests, card, workers=0):
+  """7c (8c with ``workers``: through that many loader worker processes):
+  BERT-base at s=8192 through TrainLoop.build(path=packed/,
   data_format='packed', block_diagonal=True) for the warm-up and timed
   steps, the step cache on."""
   from lddl_tpu_torch import telemetry
@@ -1589,7 +1637,14 @@ def train_packed_from_shards(args, digests, card):
 
   settings = digests['packed']['settings']
   s, b = settings['max_seq_length'], settings['batch_size_per_rank']
-  tok = load_bert_tokenizer(VOCAB_FILE)
+  loader_kwargs = {'shuffle_buffer_size': settings['shuffle_buffer_size']}
+  if workers:
+    tok = None
+    loader_kwargs.update(num_workers=workers, vocab_file=VOCAB_FILE)
+  else:
+    tok = load_bert_tokenizer(VOCAB_FILE)
+  label = f'packed through {workers} workers' if workers else (
+      'packed from shards')
   cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
                    max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
   loop = TrainLoop.build(
@@ -1597,8 +1652,7 @@ def train_packed_from_shards(args, digests, card):
       learning_rate=1e-4, warmup_steps=10, total_steps=1000,
       seed=settings['base_seed'], max_predictions=PACKED[2],
       batch_size_per_rank=b, max_seq_length=s, data_format='packed',
-      block_diagonal=settings['block_diagonal'],
-      loader_kwargs={'shuffle_buffer_size': settings['shuffle_buffer_size']})
+      block_diagonal=settings['block_diagonal'], loader_kwargs=loader_kwargs)
   n = args.packed_warmup + args.packed_steps
   if loop.loader.batches_per_epoch < n:
     raise AssertionError(f'packed shards give {loop.loader.batches_per_epoch}'
@@ -1612,34 +1666,40 @@ def train_packed_from_shards(args, digests, card):
     host = dict(tfa.launches)
     wait = histogram(tele, 'train.data_wait_seconds')
     # Real tokens of the batches the loader collated: the run's and the
-    # feed's prefetch beyond them.
+    # feed's prefetch beyond them (in the workers' processes when there
+    # are workers: their counters are not this process's).
     real = (tele.counter(f'loader.tokens_real.s{s}').total /
             max(tele.counter('loader.batches').total, 1))
   finally:
     telemetry.disable()
   if len(losses) != n or not all(np.isfinite(losses)):
-    raise AssertionError(f'packed from shards: losses {losses}')
+    raise AssertionError(f'{label}: losses {losses}')
   per_step = {'fwd': 0, 'dq': 0, 'dkv': 0, 'fwd_seg': cfg.num_layers,
               'dq_seg': cfg.num_layers, 'dkv_seg': cfg.num_layers}
   check_launches(counts, host, {k: m * n for k, m in per_step.items()},
-                 f'packed from shards, {n} steps')
-  check_cache(loop.step_cache, 1, n, 'packed from shards')
+                 f'{label}, {n} steps')
+  check_cache(loop.step_cache, 1, n, label)
   timed = [x for x in steps[args.packed_warmup:] if x['hit']]
   dt = float(np.mean([x['compute'] for x in timed]))
   wall = float(np.mean([x['wall'] for x in timed]))
   stats = {'seq_len': s, 'batch': b, 'steps': n, 'ms_per_step': 1e3 * dt,
            'wall_ms_per_step': 1e3 * wall,
-           'real_tokens_per_step': real, 'real_tokens_per_s': real / wall,
            'data_wait_ms_per_step': 1e3 * wait[1] / max(wait[0], 1),
            'data_wait_max_s': wait[2], 'losses': losses}
-  log(f'  packed from shards s={s} b={b}, {len(timed)} timed cache hits: '
-      f'wall (the loop\'s whole window per step, data wait included) '
-      f'{1e3 * wall:.2f} ms/step mean, compute {1e3 * dt:.2f}; '
-      f'{real / wall:.0f} real tokens/s over the wall ({real:.0f} real '
-      f'tokens/step); train.data_wait_seconds '
-      f'{stats["data_wait_ms_per_step"]:.3f} ms/step over all {n} steps '
-      f'(max {1e3 * wait[2]:.2f} ms); losses {losses[0]:.4f} -> '
-      f'{losses[-1]:.4f} [{card}]')
+  if workers:
+    stats['start_ms'] = [1e3 * x for x in loop.loader.start_seconds]
+    starts = ', '.join(f'{x:.0f}' for x in stats['start_ms'])
+    tokens = f'workers\' start {starts} ms'
+  else:
+    stats.update(real_tokens_per_step=real, real_tokens_per_s=real / wall)
+    tokens = (f'{real / wall:.0f} real tokens/s over the wall ({real:.0f} '
+              'real tokens/step)')
+  log(f'  {label} s={s} b={b}, {len(timed)} timed cache hits: wall (the '
+      f'loop\'s whole window per step, data wait included) '
+      f'{1e3 * wall:.2f} ms/step mean, compute {1e3 * dt:.2f}; {tokens}; '
+      f'train.data_wait_seconds {stats["data_wait_ms_per_step"]:.3f} '
+      f'ms/step over all {n} steps (max {1e3 * wait[2]:.2f} ms); losses '
+      f'{losses[0]:.4f} -> {losses[-1]:.4f} [{card}]')
   del loop
   torch.cuda.empty_cache()
   return stats
@@ -1682,6 +1742,382 @@ def cli_from_shards(digests, card):
       out['resume']['losses']) != 2:
     raise AssertionError(f'CLI resume did not continue from step 4: {out}')
   return out
+
+
+# ---- phase 8: the corpus loader through worker processes ----
+
+def check_no_segments(label):
+  """No shared-memory ring of the port (``lddltorch_``) is left linked."""
+  from lddl_tpu_torch.loader.shm import live_segments
+  left = live_segments()
+  if left:
+    raise AssertionError(f'{label}: shared-memory segments left behind: '
+                         f'{left}')
+
+
+def check_digests(label, got, want):
+  if got != want:
+    bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+               min(len(got), len(want)))
+    raise AssertionError(f'{label}: {len(got)} batches, want {len(want)}; '
+                         f'batch {bad} differs from lddl_tpu\'s '
+                         '(digests.json)')
+
+
+def handoff_label(handoff):
+  if handoff is None:
+    return 'serial'
+  transport, zero_copy = handoff
+  return f'W={WORKERS} {transport}' + (' zero-copy' if zero_copy else '')
+
+
+def loader_through_workers(digests, card):
+  """8a: one epoch of each shard set through WORKERS worker processes by
+  each handoff (shm, pickle, shm with zero-copy views), every batch's
+  digest (taken before the next pull: a zero-copy batch is valid only
+  until then) held against digests.json; samples/s and ms/batch, build
+  and drain, beside the serial loader's in alternating order; the
+  workers' start (from iter() to the first batch) and the slot overflows
+  (batches pickled because they did not fit their slot: 0 required at
+  the default slot size)."""
+  from lddl_tpu_torch import loader as tloader
+  stats = {}
+  for name, attr in SHARD_LOADERS.items():
+    make = getattr(tloader, attr)
+    settings = digests[name]['settings']
+    runs = {}
+    order = [None, *HANDOFFS]
+    for handoff in order + order[::-1]:
+      kw = {} if handoff is None else dict(
+          num_workers=WORKERS, transport=handoff[0], zero_copy=handoff[1])
+      label = handoff_label(handoff)
+      t0 = time.perf_counter()
+      loader = make(shard_path(name), vocab_file=VOCAB_FILE, **settings, **kw)
+      got, rows = [], 0
+      for batch in loader:
+        got.append(batch_sha256(batch))
+        rows += batch['input_ids'].shape[0]
+      seconds = time.perf_counter() - t0
+      check_digests(f'{name}, {label}', got, digests[name]['batches'])
+      r = runs.setdefault(label, {'seconds': [], 'start_ms': [],
+                                  'slot_overflows': 0})
+      r['seconds'].append(seconds)
+      r['start_ms'] += [1e3 * x for x in getattr(loader, 'start_seconds', [])]
+      r['slot_overflows'] += getattr(loader, 'slot_overflows', 0)
+      r.update(rows=rows, batches=len(got))
+      check_no_segments(f'8a {name}, {label}')
+    for label, r in runs.items():
+      if label != 'serial' and 'shm' in label and r['slot_overflows']:
+        raise AssertionError(f'{name}, {label}: {r["slot_overflows"]} '
+                             'batches did not fit their shm slot at the '
+                             'default slot_bytes')
+      sec = float(np.mean(r['seconds']))
+      r.update(samples_per_s=r['rows'] / sec,
+               ms_per_batch=1e3 * sec / r['batches'])
+      starts = ', '.join(f'{x:.0f}' for x in r['start_ms'])
+      extra = ('' if label == 'serial' else
+               f'; workers\' start {starts} ms; slot overflows '
+               f'{r["slot_overflows"]}')
+      log(f'  loader alone, {name}, {label}: {r["batches"]} batches = '
+          f'lddl_tpu\'s bytes (digests.json), twice; '
+          f'{r["samples_per_s"]:.0f} samples/s, {r["ms_per_batch"]:.2f} '
+          f'ms/batch (build and drain, mean of 2{extra}) [{card}]')
+    stats[name] = runs
+  return stats
+
+
+def timed_epochs(loop, loader, epoch, n):
+  """``n`` more steps of ``loop`` on ``loader``, telemetry on: the
+  timed_steps records, the data wait and h2d histograms, and (a worker
+  loader's) the workers' start per epoch. A loader with ``seek`` starts
+  at epoch 0, so every run takes the same batches."""
+  from lddl_tpu_torch import telemetry
+  if hasattr(loader, 'seek'):
+    loader.seek(0, 0)
+  loop.loader = loader
+  starts = len(getattr(loader, 'start_seconds', []))
+  tele = telemetry.enable()
+  try:
+    with timed_steps(loop, epoch, tele) as steps:
+      losses = loop.run(loop.step + n, log_every=0)
+    h2d = histogram(tele, 'train.h2d_seconds')
+  finally:
+    telemetry.disable()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'{n} steps: {len(losses)} finite losses')
+  return {'steps': steps, 'losses': losses,
+          'h2d_ms_per_step': 1e3 * h2d[1] / max(h2d[0], 1),
+          'start_ms': [1e3 * x for x in
+                       getattr(loader, 'start_seconds', [])[starts:]]}
+
+
+def train_through_workers(args, digests, card):
+  """8b: BERT-base from pairs/ through TrainLoop.build(path,
+  loader_kwargs={'num_workers': WORKERS, 'vocab_file': ...}) for
+  SHARD_EPOCHS epochs, cache on: 12 launches per step of K1-K3 and none
+  of K4 on the device, one miss per bin; then the serial loader and
+  synthetic batches (the same shapes and order) through the same loop
+  and graphs, alternating with the workers (W S Y Y S W); then a midpoint
+  resume through a re-seeked MultiprocessLoader."""
+  from lddl_tpu_torch.loader import (MultiprocessLoader,
+                                     get_bert_pretrain_data_loader)
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.training import TrainLoop
+
+  settings = digests['pairs']['settings']
+  build = pairs_build(args, settings, num_workers=WORKERS,
+                      vocab_file=VOCAB_FILE)
+  loop = TrainLoop.build(shard_path('pairs'), **build)
+  workers = loop.loader
+  if not isinstance(workers, MultiprocessLoader):
+    raise AssertionError(f'TrainLoop.build made a {type(workers)}')
+  epoch = workers.batches_per_epoch
+  n = SHARD_EPOCHS * epoch
+  b = workers.batch_size
+  cfg = build['model_cfg']
+
+  # The main path: counts at 0 just before, read just after.
+  tfa.reset_launches()
+  runs = {'workers': [timed_epochs(loop, workers, epoch, n)]}
+  counts = tfa.device_launches()
+  host = dict(tfa.launches)
+  per_step = {'fwd': cfg.num_layers, 'dq': cfg.num_layers,
+              'dkv': cfg.num_layers, 'fwd_seg': 0, 'dq_seg': 0, 'dkv_seg': 0}
+  check_launches(counts, host, {k: m * n for k, m in per_step.items()},
+                 f'pairs through {WORKERS} workers, {n} steps')
+  lens = [x['seq_len'] for x in runs['workers'][0]['steps']]
+  check_cache(loop.step_cache, len(set(lens)), n,
+              f'pairs through {WORKERS} workers')
+  check_no_segments('8b main path')
+
+  serial = get_bert_pretrain_data_loader(
+      shard_path('pairs'), vocab_file=VOCAB_FILE, **settings)
+  synthetic = ReplayLoader([lens[i:i + epoch] for i in range(0, n, epoch)],
+                           b, args.seed, dynamic_mask_tokens)
+  loaders = {'workers': workers, 'serial': serial, 'synthetic': synthetic}
+  for name in ('serial', 'synthetic', 'synthetic', 'serial', 'workers'):
+    runs.setdefault(name, []).append(
+        timed_epochs(loop, loaders[name], epoch, n))
+    got = [x['seq_len'] for x in runs[name][-1]['steps']]
+    if got != lens:
+      raise AssertionError(f'8b {name}: shapes {got}, not the main path\'s '
+                           f'{lens}')
+  check_no_segments('8b alternation')
+
+  stats = {'epochs': SHARD_EPOCHS, 'steps_per_run': n, 'batch': b,
+           'workers': WORKERS, 'order': 'W S Y Y S W', 'runs': {}}
+  for name, rs in runs.items():
+    per = [step_stats(r['steps'])['all'] for r in rs]
+    r = {k: float(np.mean([p[k] for p in per])) for k in
+         ('wall_ms', 'steady_wall_ms', 'compute_ms', 'wait_ms',
+          'wait_max_ms')}
+    r.update(per_run=[{k: p[k] for k in ('wall_ms', 'steady_wall_ms',
+                                          'compute_ms', 'wait_ms')}
+                      for p in per],
+             epoch_first_wait_ms=[x for p in per
+                                  for x in p['epoch_first_wait_ms']],
+             h2d_ms_per_step=float(np.mean([x['h2d_ms_per_step']
+                                            for x in rs])),
+             start_ms=[x for q in rs for x in q['start_ms']],
+             samples_per_s=b / r['wall_ms'] * 1e3)
+    stats['runs'][name] = r
+    log(f'  pairs b={b}, {name}: {len(rs)} runs of {n} steps; wall (the '
+        f'loop\'s whole window per step, data wait included) '
+        f'{r["wall_ms"]:.2f} ms/step mean of hits, {r["steady_wall_ms"]:.2f}'
+        f' median outside epochs\' first steps, {r["samples_per_s"]:.1f} '
+        f'samples/s; the step alone {r["compute_ms"]:.2f} ms median; data '
+        f'wait outside epochs\' first steps {r["wait_ms"]:.3f} ms mean, '
+        f'{r["wait_max_ms"]:.2f} max; epochs\' first steps\' waits '
+        f'{", ".join(f"{x:.1f}" for x in r["epoch_first_wait_ms"])} ms; '
+        f'train.h2d_seconds {r["h2d_ms_per_step"]:.3f} ms/batch'
+        + (f'; workers\' start per epoch '
+           f'{", ".join(f"{x:.0f}" for x in r["start_ms"])} ms'
+           if r['start_ms'] else '') + f' [{card}]')
+  stats['losses'] = runs['workers'][0]['losses']
+  del loop, workers, loaders
+  torch.cuda.empty_cache()
+  check_shard_resume(build, None, epoch, f'pairs through {WORKERS} workers')
+  check_no_segments('8b resume')
+  return stats
+
+
+def ledger_on_card(args, digests, card):
+  """8d: one epoch of BERT-base from pairs/ with LDDL_LEDGER on, serially
+  and through WORKERS workers, and the same two with it off, alternating
+  (serial off, on; workers on, off): the two ledgers' collate and device
+  records are equal key for key and digest for digest (the port's auditor
+  exits 0 on the pair), the collate digests are digests.json's ledger
+  entries (lddl_tpu's batches under blake2b-8, which the phase forces
+  wherever xxhash is installed), and the ledger's cost per step is the
+  window's difference."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.telemetry import ledger
+  from lddl_tpu_torch.training import TrainLoop
+
+  settings = digests['pairs']['settings']
+  saved = ledger._xxhash, ledger.ALGO
+  ledger._xxhash, ledger.ALGO = None, 'blake2b8'
+  loop = TrainLoop.build(shard_path('pairs'), **pairs_build(args, settings,
+                                                            vocab_file=
+                                                            VOCAB_FILE))
+  epoch = loop.loader.batches_per_epoch
+  timed = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_ledger_') as root:
+    try:
+      for mode, on in (('serial', False), ('serial', True),
+                       ('workers', True), ('workers', False)):
+        kw = {'num_workers': WORKERS} if mode == 'workers' else {}
+        loader = get_bert_pretrain_data_loader(
+            shard_path('pairs'), vocab_file=VOCAB_FILE, **settings, **kw)
+        if on:
+          ledger.enable_ledger(directory=os.path.join(root, mode), rank=0)
+        try:
+          run = timed_epochs(loop, loader, epoch, epoch)
+        finally:
+          ledger.disable_ledger()
+        timed[mode, on] = step_stats(run['steps'])['all']
+    finally:
+      ledger._xxhash, ledger.ALGO = saved
+    records = {}
+    for mode in ('serial', 'workers'):
+      with open(os.path.join(root, mode, 'ledger.rank0.jsonl')) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+      if lines[0].get('algo') != 'blake2b8':
+        raise AssertionError(f'8d {mode}: ledger meta {lines[0]}')
+      records[mode] = {
+          b: {tuple((k, r[k]) for k in ('epoch', 'index') if k in r):
+              r['digest'] for r in lines[1:] if r['boundary'] == b}
+          for b in ('collate', 'device')}
+    audit = subprocess.run(
+        [sys.executable, '-m', 'lddl_tpu_torch.telemetry.audit', 'diff',
+         os.path.join(root, 'serial'), os.path.join(root, 'workers')],
+        cwd=HERE, capture_output=True, text=True, timeout=120, check=False)
+  del loop
+  torch.cuda.empty_cache()
+  if records['serial'] != records['workers']:
+    raise AssertionError('8d: the serial and worker ledgers differ')
+  if audit.returncode != 0:
+    raise AssertionError(f'8d: the auditor exited {audit.returncode}:\n'
+                         f'{audit.stdout}\n{audit.stderr}')
+  collate = [records['serial']['collate'][(('epoch', 0), ('index', i))]
+             for i in range(len(records['serial']['collate']))]
+  if collate != digests['pairs']['ledger']:
+    raise AssertionError('8d: the collate digests are not lddl_tpu\'s '
+                         '(digests.json ledger entries)')
+  if len(records['serial']['device']) != epoch:
+    raise AssertionError(f'8d: {len(records["serial"]["device"])} device '
+                         f'records, want {epoch}')
+  stats = {'records': {b: len(v) for b, v in records['serial'].items()}}
+  for mode in ('serial', 'workers'):
+    on, off = timed[mode, True], timed[mode, False]
+    stats[mode] = {
+        'on_wall_ms': on['wall_ms'], 'off_wall_ms': off['wall_ms'],
+        'on_steady_wall_ms': on['steady_wall_ms'],
+        'off_steady_wall_ms': off['steady_wall_ms'],
+        'cost_ms_per_step': on['wall_ms'] - off['wall_ms'],
+        'steady_cost_ms_per_step': on['steady_wall_ms'] -
+                                   off['steady_wall_ms']}
+    r = stats[mode]
+    log(f'  ledger, {mode}: {epoch} steps each way; wall {r["on_wall_ms"]:.2f}'
+        f' ms/step on, {r["off_wall_ms"]:.2f} off (cost '
+        f'{r["cost_ms_per_step"]:+.3f} ms/step; steady medians '
+        f'{r["on_steady_wall_ms"]:.2f} vs {r["off_steady_wall_ms"]:.2f}, '
+        f'{r["steady_cost_ms_per_step"]:+.3f}) [{card}]')
+  log(f'  ledger: {stats["records"]} records per run; serial and '
+      f'{WORKERS} workers equal key for key (the auditor exits 0: '
+      f'{audit.stdout.strip().splitlines()[-1]}); collate = lddl_tpu\'s '
+      'blake2b-8 digests (digests.json)')
+  return stats
+
+
+class DigestingLoader:
+  """Passes ``loader``'s batches on, keeping each one's batch_sha256."""
+
+  def __init__(self, loader):
+    self.loader = loader
+    self.batch_size = loader.batch_size
+    self.digests = []
+
+  def __iter__(self):
+    for batch in self.loader:
+      self.digests.append(batch_sha256(batch))
+      yield batch
+
+
+def codebert_through_workers(args, digests, card):
+  """8e: a few BERT-base steps from codebert/ through a TrainLoop whose
+  loader is get_codebert_pretrain_data_loader(..., num_workers=WORKERS):
+  finite losses, and the batches it took are lddl_tpu's (digests.json)."""
+  from lddl_tpu_torch.loader import get_codebert_pretrain_data_loader
+  from lddl_tpu_torch.training import TrainLoop
+
+  settings = digests['codebert']['settings']
+  build = pairs_build(args, dict(settings, masking='dynamic'))
+  del build['loader_kwargs']
+  loop = TrainLoop.build(**build)
+  loop.loader = DigestingLoader(get_codebert_pretrain_data_loader(
+      shard_path('codebert'), vocab_file=VOCAB_FILE,
+      num_workers=WORKERS, **settings))
+  n = CODEBERT_STEPS
+  t0 = time.perf_counter()
+  losses = loop.run(n, log_every=0)
+  seconds = time.perf_counter() - t0
+  got = loop.loader.digests
+  want = digests['codebert']['batches']
+  del loop
+  torch.cuda.empty_cache()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'codebert through workers: losses {losses}')
+  if len(got) < n or got != want[:len(got)]:
+    raise AssertionError(f'codebert: the {len(got)} batches the loop took '
+                         'are not lddl_tpu\'s (digests.json)')
+  check_no_segments('8e')
+  log(f'  codebert through {WORKERS} workers: {n} steps in {seconds:.1f} s '
+      f'(graph captures included), losses {losses[0]:.4f} -> '
+      f'{losses[-1]:.4f}; the {len(got)} batches taken = lddl_tpu\'s '
+      f'(digests.json) [{card}]')
+  return {'steps': n, 'seconds': seconds, 'losses': losses}
+
+
+def kill_a_worker(digests, card):
+  """8f: SIGKILL worker 1 of a WORKERS-worker pairs loader after the first
+  batch: the parent raises the RuntimeError naming it within its 5 s
+  poll (plus the batches already queued), and no segment is left."""
+  import multiprocessing
+  import signal
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  loader = get_bert_pretrain_data_loader(
+      shard_path('pairs'), vocab_file=VOCAB_FILE, num_workers=WORKERS,
+      queue_depth=1, **digests['pairs']['settings'])
+  it = iter(loader)
+  next(it)
+  victim = [p for p in multiprocessing.active_children()
+            if p.name == 'lddl-torch-loader-w1']
+  if len(victim) != 1:
+    raise AssertionError(f'8f: worker 1 not found: {victim}')
+  os.kill(victim[0].pid, signal.SIGKILL)
+  t0 = time.perf_counter()
+  try:
+    for _ in it:
+      pass
+  except RuntimeError as e:
+    message = str(e)
+  else:
+    raise AssertionError('8f: the epoch ended without an error after '
+                         'worker 1 was killed')
+  seconds = time.perf_counter() - t0
+  it.close()
+  if 'loader worker 1 died' not in message or seconds > 10:
+    raise AssertionError(f'8f: after {seconds:.1f} s: {message}')
+  left = [p for p in multiprocessing.active_children()
+          if p.name.startswith('lddl-torch-loader-')]
+  if left:
+    raise AssertionError(f'8f: workers still running: {left}')
+  check_no_segments('8f')
+  log(f'  killed worker 1 mid-epoch: the parent raised "{message}" '
+      f'{seconds:.2f} s later; no worker and no segment left [{card}]')
+  return {'seconds': seconds, 'message': message}
 
 
 def main():
@@ -1752,6 +2188,18 @@ def main():
   shards['pairs'] = train_from_shards(args, digests, card)
   shards['packed'] = train_packed_from_shards(args, digests, card)
   shards['cli'] = cli_from_shards(digests, card)
+  check_no_segments('phase 7')
+
+  log(f'== training from shards through {WORKERS} loader worker processes '
+      f'[{card}]')
+  workers = {'loader': loader_through_workers(digests, card)}
+  workers['pairs'] = train_through_workers(args, digests, card)
+  workers['packed'] = train_packed_from_shards(args, digests, card,
+                                               workers=WORKERS)
+  check_no_segments('8c')
+  workers['ledger'] = ledger_on_card(args, digests, card)
+  workers['codebert'] = codebert_through_workers(args, digests, card)
+  workers['kill'] = kill_a_worker(digests, card)
 
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
@@ -1793,6 +2241,9 @@ def main():
                   'shards': {k: ({kk: vv for kk, vv in v.items()
                                   if kk != 'losses'} if k != 'cli' else v)
                              for k, v in shards.items()},
+                  'workers': {k: ({kk: vv for kk, vv in v.items()
+                                   if kk != 'losses'})
+                              for k, v in workers.items()},
                   'card': card}, default=str))
   log(json.dumps({'kernels': summary}))
   log(card)

@@ -14,7 +14,11 @@ Snappy in host C++, ``csrc/codecs.cpp``), ``pipeline.shard_format``,
 ``balance`` (the sample-count cache), ``tokenization.wordpiece`` (a vocab
 map, no transformers), ``core.utils``, ``core.random``, ``core.log``,
 ``loader.dataset``, ``loader.columnar``, ``loader.shuffle_buffer``,
-``loader.binned``, ``loader.bert`` and ``loader.packed``. The step:
+``loader.binned``, ``loader.bert``, ``loader.packed`` and
+``loader.codebert``, with worker-process collate (``loader.workers``
+over the ``loader.shm`` batch ring) and the determinism ledger's
+``collate`` and ``device`` records (``telemetry.ledger``, audited by
+``python -m lddl_tpu_torch.telemetry.audit``). The step:
 ``models.bert``, ``models.convert``, ``models.flops``,
 ``ops.flash_attention``, ``parallel.train``, ``loader.device``,
 ``training.pretrain`` (``TrainLoop``, its step cache of one CUDA graph per

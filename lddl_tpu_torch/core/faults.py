@@ -17,6 +17,9 @@ independently)::
                     emergency-checkpoint hook is tested with)
             raise   raise OSError('injected fault ...')
             delay   sleep ``sec`` seconds (default 0.1)
+            corrupt flip one byte of a buffer the site hands in (only
+                    through :func:`corrupt_bytes`: the determinism
+                    ledger's silent-data-corruption drill)
   filters:  rank=R  only when the caller passes rank=R
             gi=N    only when the caller passes gi=N
             nth=K   only on the K-th matching hit in this process (1-based)
@@ -25,14 +28,18 @@ independently)::
                     not re-trip the same fault (the resume tests need
                     exactly this)
   extras:   sec=S   delay duration
+            at=B    corrupt: the byte to flip (default 0, modulo the
+                    buffer's length)
 
 The port instruments ``train.step`` (train-loop step entry, after the
 batch is pulled: a ``kill`` models a process dying mid-training, a
 ``term`` the preemption notice), ``train.ckpt`` (checkpoint write entry;
 it fires on the background writer thread under ``LDDL_ASYNC_CKPT``, so
-raise-specs exercise the first-error-wins surfacing) and
+raise-specs exercise the first-error-wins surfacing),
 ``sentinel.trigger`` (caught by the sentinel and turned into a forced
-trigger). ``inject()`` is a no-op (one env read) when ``LDDL_FAULTS`` is
+trigger) and ``ledger.corrupt`` (the loaders' ``collate`` boundary: the
+batch's first array, just before it is fingerprinted). ``inject()`` and
+``corrupt_bytes()`` are no-ops (one env read) when ``LDDL_FAULTS`` is
 unset.
 """
 
@@ -112,8 +119,8 @@ def inject(site, **ctx):
 
   Call at the top of a recoverable operation, passing whatever identity
   the filters should see (``gi=``, ``rank=``). No-op when ``LDDL_FAULTS``
-  is unset. The JAX package's ``corrupt`` specs (they need a buffer in
-  hand, and the port has no such site) are skipped.
+  is unset. ``corrupt`` specs are ignored here: they fire only through
+  :func:`corrupt_bytes`, which has the buffer to damage.
   """
   specs = os.environ.get('LDDL_FAULTS', '')
   if not specs:
@@ -125,3 +132,32 @@ def inject(site, **ctx):
     hit = _match(spec, site, ctx)
     if hit is not None:
       _fire(hit[0], site, hit[1])
+
+
+def corrupt_bytes(site, buf, **ctx):
+  """Flip one byte of ``buf`` when a ``corrupt:<site>`` spec matches:
+  the silent-data-corruption drill for the determinism ledger.
+
+  ``buf`` is any writable buffer-protocol object (a shm slot window, an
+  ndarray's ``.data``); byte ``at`` (default 0, modulo the buffer
+  length) is XORed with 0xFF. Same filters as :func:`inject`
+  (``rank=``/``gi=``/``nth=``/``once``), same no-op-when-unset cost.
+  Returns True when the buffer was damaged.
+  """
+  specs = os.environ.get('LDDL_FAULTS', '')
+  if not specs:
+    return False
+  hit = False
+  for spec in specs.split(';'):
+    spec = spec.strip()
+    if not spec or not spec.startswith('corrupt:'):
+      continue
+    m = _match(spec, site, ctx)
+    if m is None:
+      continue
+    mv = memoryview(buf).cast('B')
+    if len(mv):
+      i = int(m[1].get('at', '0')) % len(mv)
+      mv[i] ^= 0xFF
+      hit = True
+  return hit

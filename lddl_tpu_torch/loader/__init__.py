@@ -1,15 +1,34 @@
 """Training-time data loaders: balanced-shard streaming with deterministic
 shuffling, zero-communication binned iteration, dynamic or static MLM
-masking, the packed long-context collate, and the host-to-device feed."""
+masking, the packed long-context and CodeBERT collates, worker-process
+collate over a shared-memory batch ring, and the host-to-device feed.
+
+The device feed (:func:`prefetch_to_device`, :class:`SeqlenAwarePrefetcher`)
+imports torch, so it loads lazily on first access, as the JAX package
+keeps its device exports lazy: the loader's worker processes import this
+package and never pay for torch.
+"""
 from .bert import (IGNORE_INDEX, dynamic_mask_tokens,
                    get_bert_pretrain_data_loader)
 from .binned import BinnedIterator
+from .codebert import CodebertCollate, get_codebert_pretrain_data_loader
 from .dataset import ParquetShardDataset
-from .device import prefetch_to_device
 from .packed import PackedCollate, get_packed_pretrain_data_loader
 from .shuffle_buffer import ShuffleBuffer
+from .workers import MultiprocessLoader
 
-__all__ = ['IGNORE_INDEX', 'BinnedIterator', 'PackedCollate',
-           'ParquetShardDataset', 'ShuffleBuffer', 'dynamic_mask_tokens',
-           'get_bert_pretrain_data_loader', 'get_packed_pretrain_data_loader',
-           'prefetch_to_device']
+__all__ = ['IGNORE_INDEX', 'BinnedIterator', 'CodebertCollate',
+           'MultiprocessLoader', 'PackedCollate', 'ParquetShardDataset',
+           'SeqlenAwarePrefetcher', 'ShuffleBuffer', 'dynamic_mask_tokens',
+           'get_bert_pretrain_data_loader',
+           'get_codebert_pretrain_data_loader',
+           'get_packed_pretrain_data_loader', 'prefetch_to_device']
+
+_DEVICE_EXPORTS = ('prefetch_to_device', 'SeqlenAwarePrefetcher')
+
+
+def __getattr__(name):
+  if name in _DEVICE_EXPORTS:
+    from . import device
+    return getattr(device, name)
+  raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

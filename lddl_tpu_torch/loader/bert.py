@@ -14,12 +14,16 @@ collate is vectorized, and its 80/10/10 dynamic mask is keyed by (seed,
 epoch, rank, step), so a resumed run draws the same masks. Over the same
 shards, the port's batches equal the JAX package's byte for byte.
 
-Not ported yet, and not accepted as arguments: worker processes (the JAX
-package's ``num_workers``, transport settings and ``iter_steps``'s
-``step_shard``), the determinism ledger (its record in
-:meth:`BertPretrainLoader.__iter__` and ``coordinate_of_batch``), hub
-tokenizers, and the live monitor that the JAX package's
-:func:`build_pretrain_loader` starts.
+``num_workers > 0`` collates in worker processes
+(:mod:`.workers`: the same batches, byte for byte), and with
+``LDDL_LEDGER`` on, :meth:`BertPretrainLoader.__iter__` records each
+batch's ``collate`` fingerprint (:mod:`..telemetry.ledger`). Not ported
+yet, and not accepted as arguments: hub tokenizers (``tokenizer_name``)
+and the live monitor that the JAX package's :func:`build_pretrain_loader`
+starts.
+
+This module, like the rest of the worker's import chain, imports no
+torch.
 """
 
 import logging
@@ -27,13 +31,17 @@ import time
 
 import numpy as np
 
+from ..core import faults
 from ..core.log import DatasetLogger, warn_once
 from ..core.utils import (deserialize_np_array, get_all_bin_ids,
                           get_all_parquets_under, get_file_paths_for_bin_id)
-from ..telemetry import get_telemetry, get_tracer
+from ..telemetry.ledger import fingerprint_batch, first_ndarray, get_ledger
+from ..telemetry.metrics import get_telemetry
+from ..telemetry.trace import get_tracer
 from .binned import BinnedIterator
 from .columnar import gather_numeric, gather_token_counts, materialize_rows
 from .dataset import ParquetShardDataset
+from .workers import MultiprocessLoader
 
 IGNORE_INDEX = -100
 
@@ -355,6 +363,13 @@ class BertPretrainLoader:
     inverse of :meth:`seek`."""
     return self.epoch, self._batches_consumed
 
+  def coordinate_of_batch(self, ordinal):
+    """Collate key ``(epoch, index)`` of this rank's ``ordinal``-th batch
+    since the run began — the ledger coordinate a given global train
+    step consumed (one batch per rank per step)."""
+    full = self.batches_per_epoch
+    return ordinal // full, ordinal % full
+
   def _make_iterator(self):
     it = BinnedIterator(
         self._datasets,
@@ -366,9 +381,18 @@ class BertPretrainLoader:
     self._batches_consumed = 0
     return it
 
-  def iter_steps(self):
+  def iter_steps(self, step_shard=(0, 1)):
     """Yield ``(step, batch)`` for this epoch, ``step`` counting from the
-    epoch's first batch (a resumed epoch starts at its seek offset)."""
+    epoch's first batch (a resumed epoch starts at its seek offset),
+    collating only the steps of this shard.
+
+    ``step_shard=(w, W)`` advances the FULL deterministic row stream (the
+    shuffle-buffer sequence is position-dependent, so every worker must
+    replay it identically) but runs the expensive collate only for steps
+    with ``step % W == w`` — the unit of within-rank worker parallelism
+    (:mod:`.workers`). Sharding by step index keeps the produced batches
+    byte-identical for every W.
+    """
     # Capture the resume offset before _make_iterator() clears it: the
     # collate step counter must continue from where the interrupted run
     # stopped, or dynamic-mask Philox keys (keyed on step) would diverge
@@ -376,7 +400,10 @@ class BertPretrainLoader:
     consumed = self._batches_consumed
     it = self._make_iterator()
     epoch = self.epoch
+    w, num_shards = step_shard
     for step, (bin_idx, rows) in enumerate(it, start=consumed):
+      if step % num_shards != w:
+        continue
       batch = self._collate(rows, self._seqlen_of_bin(bin_idx), epoch, step)
       if self._micro is not None:
         batch = split_into_micro_batches(batch, self._micro)
@@ -384,9 +411,22 @@ class BertPretrainLoader:
     self.epoch += 1
 
   def __iter__(self):
-    # The JAX package records each batch's fingerprint in its determinism
-    # ledger here; the port has no ledger yet.
-    for _, batch in self.iter_steps():
+    # The collate boundary for serial consumption (num_workers=0):
+    # fingerprint each batch in delivery order, keyed (epoch, index) —
+    # the exact coordinates a resumed run replays. The worker path
+    # records the same boundary at its own delivery point (workers.py),
+    # never here: workers iterate iter_steps() directly, so no batch is
+    # ever recorded twice.
+    ledger = get_ledger()
+    epoch = self.epoch
+    for step, batch in self.iter_steps():
+      if ledger.enabled:
+        arr = first_ndarray(batch)
+        if arr is not None:
+          faults.corrupt_bytes('ledger.corrupt', arr.data,
+                               rank=ledger.rank, epoch=epoch, index=step)
+        ledger.record('collate', fingerprint_batch(batch), epoch=epoch,
+                      index=step)
       yield batch
 
 
@@ -499,6 +539,11 @@ def get_bert_pretrain_data_loader(
     log_dir=None,
     log_level=None,
     return_raw_samples=False,
+    num_workers=0,
+    transport=None,
+    queue_depth=None,
+    zero_copy=None,
+    slot_bytes=None,
 ):
   """Build the BERT pretraining loader over a balanced shard directory.
 
@@ -514,7 +559,18 @@ def get_bert_pretrain_data_loader(
   ``convert_tokens_to_ids``; by default a
   :class:`~lddl_tpu_torch.tokenization.wordpiece.BertVocab` over
   ``vocab_file``.
+  ``num_workers``: collate in this many worker processes; the batches
+  are byte-identical to ``num_workers=0`` (:mod:`.workers`). Workers
+  rebuild the tokenizer from ``vocab_file``, so a live ``tokenizer``
+  raises. ``transport``/``queue_depth``/``zero_copy``/``slot_bytes``:
+  the worker path's batch handoff (:class:`~.workers.MultiprocessLoader`),
+  the first three defaulting from their ``LDDL_LOADER_*`` knobs; ignored
+  when ``num_workers=0``.
   """
+  if num_workers:
+    return MultiprocessLoader.from_params(
+        locals(), ('lddl_tpu_torch.loader.bert',
+                   'get_bert_pretrain_data_loader'))
   if return_raw_samples:
     collate = lambda rows, seq_len, epoch, step: materialize_rows(rows)
     return build_pretrain_loader(

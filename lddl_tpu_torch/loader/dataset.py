@@ -29,7 +29,8 @@ from ..core.random import rng_from_key
 from ..core.utils import count_parquet_samples_strided
 from ..pipeline.parquet_io import ParquetFile
 from ..pipeline.shard_format import DELTA, scan_shard_format
-from ..telemetry import get_telemetry, get_tracer
+from ..telemetry.metrics import get_telemetry
+from ..telemetry.trace import get_tracer
 from .columnar import ColumnarBlock, DeltaRowView, RowView
 from .shuffle_buffer import ShuffleBuffer
 

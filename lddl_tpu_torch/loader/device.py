@@ -12,6 +12,18 @@ the step still reads it. At most ``size`` batches are in flight.
 With ``device='cpu'`` batches are plain ``torch.from_numpy`` copies (the
 tests' path).
 
+With ``LDDL_LEDGER`` on, the producer records each host batch's ``device``
+fingerprint (key: its index in this feed) before the pinned copy, as the
+JAX package's feed does before its transfer. A batch may be a zero-copy
+view into a worker's shared-memory slot
+(:class:`~lddl_tpu_torch.loader.workers.MultiprocessLoader` with
+``zero_copy=True``), valid until the producer pulls the next batch: the
+producer therefore copies each batch into fresh pinned memory
+(``pin_memory()`` copies synchronously) before it pulls the next, and
+never registers a slot as pinned memory or starts an asynchronous copy
+straight from it. When the producer ends, for whatever reason, it closes
+its source iterator, so a worker loader's processes and rings go with it.
+
 The producer does its CUDA work (pinning, issuing the copies) under
 :data:`CUDA_FEED_LOCK`: a CUDA graph capture in global mode fails on any
 other thread's CUDA call, so the train step's cache holds the lock while
@@ -20,6 +32,7 @@ it captures. Each batch's placement is timed into the
 the JAX package's feed.
 """
 
+import collections
 import os
 import queue
 import threading
@@ -28,7 +41,9 @@ import warnings
 import numpy as np
 import torch
 
-from ..telemetry import get_telemetry, get_tracer
+from ..telemetry.ledger import fingerprint_batch, get_ledger
+from ..telemetry.metrics import get_telemetry
+from ..telemetry.trace import get_tracer
 
 _DONE = object()
 # Held by a feed's producer thread while it pins and copies a batch, and
@@ -98,9 +113,15 @@ def prefetch_to_device(iterator, device, size=2):
         ready.record(side)
     return (placed if micro else placed[0]), ready
 
+  ledger = get_ledger()
+
   def _producer():
     try:
-      for batch in iterator:
+      for index, batch in enumerate(iterator):
+        if ledger.enabled:
+          # The device boundary: the last stop where the batch is still
+          # host bytes, hashed before the pinned copy.
+          ledger.record('device', fingerprint_batch(batch), index=index)
         with CUDA_FEED_LOCK, tracer.span('train.h2d'), h2d_hist.time():
           item = _to_device(batch)
         if not _put(item):
@@ -108,6 +129,13 @@ def prefetch_to_device(iterator, device, size=2):
     except BaseException as e:  # propagate into the consumer
       err.append(e)
     finally:
+      try:
+        # A worker loader's processes and rings end with its iterator.
+        close = getattr(iterator, 'close', None)
+        if close is not None:
+          close()
+      except BaseException as e:
+        err.append(e)
       _put(_DONE)
 
   t = threading.Thread(target=_producer, daemon=True,
@@ -135,3 +163,42 @@ def prefetch_to_device(iterator, device, size=2):
       warnings.warn('prefetch producer still running '
                     f'{_close_join_timeout():g}s after close(); abandoning '
                     'the daemon thread')
+
+
+class SeqlenAwarePrefetcher:
+  """Pull-style iterator with ``next_seqlen()`` lookahead for pipeline
+  schedulers (reference ``torch_mp/dataloader.py:103-133``): buffers one
+  decoded batch ahead so the upcoming static shape is known before the
+  batch is consumed. A copy of the JAX package's.
+  """
+
+  def __init__(self, loader_iter, seqlen_of_batch):
+    self._it = iter(loader_iter)
+    self._seqlen_of = seqlen_of_batch
+    self._pending = collections.deque()
+
+  def close(self):
+    """Close the wrapped iterator and drop the lookahead buffer.
+
+    Abandoning a :func:`prefetch_to_device` stream mid-epoch without this
+    leaks its producer thread (and the batches it holds): generator
+    ``close()`` only runs when the *generator* is dropped, and this
+    wrapper keeps a reference to it.
+    """
+    self._pending.clear()
+    close = getattr(self._it, 'close', None)
+    if close is not None:
+      close()
+
+  def next_seqlen(self):
+    if not self._pending:
+      self._pending.append(next(self._it))
+    return self._seqlen_of(self._pending[0])
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    if self._pending:
+      return self._pending.popleft()
+    return next(self._it)

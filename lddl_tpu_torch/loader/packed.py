@@ -15,8 +15,8 @@ rows of up to 8k-32k tokens) and yields fixed-shape batch dicts:
           the document index per token, -1 on padding)
 
 The collate never re-tokenizes: the id rows deserialize straight into the
-padded batch matrix. Worker processes are not ported (no
-``num_workers``).
+padded batch matrix. ``num_workers > 0`` collates in worker processes
+(:mod:`.workers`), byte for byte as serially.
 """
 
 import time
@@ -24,9 +24,11 @@ import time
 import numpy as np
 
 from ..core.utils import deserialize_np_array
-from ..telemetry import get_telemetry, get_tracer
+from ..telemetry.metrics import get_telemetry
+from ..telemetry.trace import get_tracer
 from .bert import build_pretrain_loader, dynamic_mask_tokens
 from .columnar import materialize_rows
+from .workers import MultiprocessLoader
 
 
 class PackedCollate:
@@ -136,17 +138,27 @@ def get_packed_pretrain_data_loader(
     log_level=None,
     return_raw_samples=False,
     block_diagonal=False,
+    num_workers=0,
+    transport=None,
+    queue_depth=None,
+    zero_copy=None,
+    slot_bytes=None,
 ):
   """Build the long-context packed loader over a (balanced) shard dir.
 
   Mirrors :func:`~lddl_tpu_torch.loader.bert.get_bert_pretrain_data_loader`
-  (same sharding, binning and resume semantics); only
-  the collate differs. Defaults are long-context-appropriate: small
-  batches, seq alignment 128 (ring/flash block multiples), smaller
-  shuffle buffer (rows are 64-256x BERT-row-sized). The returned loader
-  carries the same public ``seek(epoch, batch_index)``/``tell()``
-  positioning contract as the BERT loader.
+  (same sharding, binning, resume and worker-process semantics, the same
+  ``num_workers`` and handoff knobs); only the collate differs. Defaults
+  are long-context-appropriate: small batches, seq alignment 128
+  (ring/flash block multiples), smaller shuffle buffer (rows are
+  64-256x BERT-row-sized). The returned loader carries the same public
+  ``seek(epoch, batch_index)``/``tell()`` positioning contract as the
+  BERT loader.
   """
+  if num_workers:
+    return MultiprocessLoader.from_params(
+        locals(), ('lddl_tpu_torch.loader.packed',
+                   'get_packed_pretrain_data_loader'))
   common = dict(
       dp_rank=dp_rank, dp_world_size=dp_world_size,
       batch_size_per_rank=batch_size_per_rank,

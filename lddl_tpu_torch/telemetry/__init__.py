@@ -1,22 +1,41 @@
-"""Telemetry of the port: metrics, trace, roofline, profiler, sentinels.
+"""Telemetry of the port: metrics, trace, ledger, roofline, profiler,
+sentinels.
 
 Copies of the parts of :mod:`lddl_tpu.telemetry` that the train loop
-uses, with the same names, environment switches and file formats:
+and the loaders use, with the same names, environment switches and file
+formats:
 
   - :mod:`.metrics` (``LDDL_TELEMETRY``): counters, gauges, histograms;
     ``telemetry.rank<R>.jsonl`` snapshots;
   - :mod:`.trace` (``LDDL_TRACE``): the bounded event ring buffer,
     ``trace.rank<R>.jsonl`` and the Chrome-trace merge;
+  - :mod:`.ledger` (``LDDL_LEDGER``): the determinism ledger's
+    ``collate`` and ``device`` records, ``ledger.rank<R>.jsonl``;
+  - :mod:`.audit`: its offline auditor, ``python -m
+    lddl_tpu_torch.telemetry.audit``;
   - :mod:`.roofline`: card peaks, the roofline verdict, ``hbm.*`` gauges
     from the CUDA caching allocator;
   - :mod:`.profiling`: ``torch.profiler`` captures of N train steps;
   - :mod:`.sentinel` (``LDDL_SENTINEL``): streaming anomaly detectors;
   - :mod:`.perf`: the robust statistics the sentinel judges with.
 
-Everything is a no-op singleton when its switch is off. The JAX package's
-live monitor, report, ledger and audit are not ported yet.
+Everything is a no-op singleton when its switch is off. The roofline and
+profiler exports import torch, so they load lazily on first access (as
+the JAX package keeps its device exports lazy): the loader's worker
+processes import this package for metrics, trace and ledger only, and
+never pay for torch. The JAX package's live monitor and report are not
+ported yet.
 """
 
+from .ledger import (
+    NOOP_LEDGER,
+    Ledger,
+    disable_ledger,
+    enable_ledger,
+    fingerprint_batch,
+    fingerprint_packed,
+    get_ledger,
+)
 from .metrics import (
     NOOP,
     NoopTelemetry,
@@ -25,16 +44,6 @@ from .metrics import (
     enable,
     get_telemetry,
     rank_file_name,
-)
-from .roofline import (
-    resolve_peaks,
-    roofline_verdict,
-    sample_hbm,
-)
-from .profiling import (
-    StepProfiler,
-    get_step_profiler,
-    trace_capture,
 )
 from .trace import (
     NOOP_TRACER,
@@ -47,3 +56,20 @@ from .trace import (
     merge_trace_files,
     trace_file_name,
 )
+
+_LAZY = {
+    'resolve_peaks': 'roofline',
+    'roofline_verdict': 'roofline',
+    'sample_hbm': 'roofline',
+    'StepProfiler': 'profiling',
+    'get_step_profiler': 'profiling',
+    'trace_capture': 'profiling',
+}
+
+
+def __getattr__(name):
+  module = _LAZY.get(name)
+  if module is None:
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+  import importlib
+  return getattr(importlib.import_module(f'.{module}', __name__), name)

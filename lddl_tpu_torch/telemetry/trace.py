@@ -52,6 +52,9 @@ class NoopTracer:
   def set_identity(self, rank=None, per_pid=None):
     pass
 
+  def reset(self, rank=None, per_pid=None):
+    pass
+
   def span(self, name, args=None):
     return _NOOP_SPAN
 
@@ -138,6 +141,18 @@ class Tracer:
       self.rank = rank
     if per_pid is not None:
       self.per_pid = per_pid
+
+  def reset(self, rank=None, per_pid=None):
+    """Fresh buffer + anchor: called by child processes (loader
+    workers) that inherited the parent's recorder, so the child's file
+    holds only its own events under its own anchor."""
+    self._events.clear()
+    self.anchor_unix = time.time()
+    self.anchor_monotonic = time.monotonic()
+    self.main_thread = threading.get_ident()
+    self._last_flush = time.monotonic()
+    self._since_check = 0
+    self.set_identity(rank=rank, per_pid=per_pid)
 
   # ---- recording ----
 

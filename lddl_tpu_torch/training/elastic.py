@@ -11,7 +11,9 @@
   step boundary; the loop then flushes the writer and lands one final
   synchronous checkpoint.
 - :func:`reseek_loader`: positions a loader at a restored
-  ``samples_seen`` through its ``seek(epoch, batch_index)`` contract.
+  ``samples_seen`` through its ``seek(epoch, batch_index)`` contract
+  (the serial loaders and the worker-process
+  :class:`~lddl_tpu_torch.loader.workers.MultiprocessLoader` alike).
 
 The JAX package's ``RankMembership`` (lease-store membership over the
 comm backend) waits for the multi-GPU slice.

@@ -17,6 +17,10 @@ without a corpus; the caller attaches ``loop.loader``, any iterable of
 loader-format batch dicts with a ``batch_size`` attribute.
 :meth:`TrainLoop.restore` re-seeks a loader that has the loader's
 ``seek`` contract to the restored ``samples_seen``.
+``loader_kwargs={'num_workers': W, 'vocab_file': ...}`` (``tokenizer``
+None) collates in W worker processes
+(:class:`~lddl_tpu_torch.loader.workers.MultiprocessLoader`), which start
+afresh every epoch and end with the epoch's feed, whatever ends it.
 
 CLI: ``python -m lddl_tpu_torch.training.pretrain --path <balanced>
 --vocab-file <vocab> ...`` (:func:`main`).
@@ -331,10 +335,13 @@ class TrainLoop:
     ``tokenizer``: the special ids, ``vocab_size`` and
     ``convert_tokens_to_ids``
     (:func:`~lddl_tpu_torch.tokenization.wordpiece.load_bert_tokenizer`);
-    None loads one from ``loader_kwargs['vocab_file']``. The loader is
-    positioned at ``samples_seen`` and the step counter at
+    None loads one from ``loader_kwargs['vocab_file']``; with
+    ``loader_kwargs['num_workers']`` it must be None (each worker builds
+    its own from ``vocab_file``). The loader is positioned at
+    ``samples_seen`` and the step counter at
     ``samples_seen // (batch_size_per_rank * dp_world)``. ``dp_rank`` and
-    ``dp_world`` pick this rank's share of the shards. With ``path=None`` the loop has no loader: the caller
+    ``dp_world`` pick this rank's share of the shards. With ``path=None``
+    the loop has no loader: the caller
     attaches ``loop.loader``, and ``max_seq_length`` and ``masking``
     describe it for :func:`check_max_predictions`.
     """

@@ -14,9 +14,17 @@ Writes, under ``tests/assets/torch_shards/``:
     its balancer, with their default codec;
   - ``packed/``: documents of the same text through lddl_tpu's packed
     preprocess (``target_seq_length=8192``, unbinned), balanced;
-  - ``digests.json``: the loader settings of chip_smoke.py's phase 7 and
-    ``batch_sha256`` (chip_smoke.py) of every batch of epoch 0 that
-    lddl_tpu's loaders give over these shards with them.
+  - ``codebert/``: ``id<CODESPLIT>docstring<CODESPLIT>code`` records made
+    of the same text (a document's first sentence is its docstring, none
+    for every fourth; its other sentences are the code lines) through
+    lddl_tpu's CodeBERT preprocess with the same vocab (binned:
+    ``bin_size=128``, ``target_seq_length=512``), balanced;
+  - ``digests.json``: the loader settings of chip_smoke.py's phases 7 and
+    8 and, for every batch of epoch 0 that lddl_tpu's loaders give over
+    these shards with them, its ``batch_sha256`` (chip_smoke.py) and its
+    determinism-ledger fingerprint (``ledger``: lddl_tpu's
+    ``fingerprint_batch`` under blake2b-8, the digest the ledger writes
+    where ``xxhash`` is not installed, as on the card's machine).
 
 ``--digests-only`` keeps the committed shards and rewrites digests.json
 from them (after a change to the settings below, lddl_tpu's loaders or
@@ -24,9 +32,10 @@ from them (after a change to the settings below, lddl_tpu's loaders or
 
 Each set is drawn from a corpus seed; the script takes the first seed
 whose shards meet the phase's needs: every bin of ``pairs/`` holds at
-least two batches of 16 per epoch, and every row of ``packed/`` holds
+least two batches of 16 per epoch, every row of ``packed/`` holds
 12-16 documents in 6,144-8,192 tokens, with enough rows for the packed
-steps.
+steps, and ``codebert/`` gives at least CODEBERT_BATCHES batches of 16
+per epoch.
 """
 
 import json
@@ -53,7 +62,11 @@ PAIRS = dict(batch_size_per_rank=16, bin_size=128, max_seq_length=512,
              masking='dynamic', base_seed=2024, shuffle_buffer_size=16)
 PACKED = dict(batch_size_per_rank=2, max_seq_length=8192,
               block_diagonal=True, base_seed=2024, shuffle_buffer_size=4)
-PAIRS_SHARDS, PACKED_SHARDS = 2, 2
+CODEBERT = dict(batch_size_per_rank=16, bin_size=128, max_seq_length=512,
+                base_seed=2024, shuffle_buffer_size=16)
+PAIRS_SHARDS, PACKED_SHARDS, CODEBERT_SHARDS = 2, 2, 2
+CODEBERT_BYTES = 320 << 10       # source text of the CodeBERT corpus
+CODEBERT_BATCHES = 8             # per epoch, at least
 PAIRS_BYTES = 320 << 10          # source text of the pairs corpus
 PACKED_DOCS = (12, 16)           # documents per packed row
 PACKED_TOKENS = (6144, 8192)     # tokens per packed row
@@ -128,6 +141,44 @@ def make_packed(tmp, seed):
   return bal
 
 
+def make_codebert(tmp, seed):
+  """lddl_tpu's CodeBERT preprocess and balancer over records made of
+  synth text; returns the balanced directory."""
+  from lddl_tpu.balance import balance_directory
+  from lddl_tpu.pipeline import Executor
+  from lddl_tpu.preprocess import codebert
+  from lddl_tpu.preprocess.readers import read_code
+  src = os.path.join(tmp, f'codebert_src_{seed}')
+  os.makedirs(src)
+  with open(os.path.join(src, '0.txt'), 'w', encoding='utf-8',
+            newline='') as f:
+    for i, doc in enumerate(_synth_docs(20_000 + seed, CODEBERT_BYTES)):
+      lines = [x.strip() for x in doc.split('. ') if x.strip()]
+      if len(lines) < 2:
+        continue
+      docstring = '' if i % 4 == 3 else lines[0]
+      code = '\n'.join(lines[1:])
+      f.write(f'synth-{i}<CODESPLIT>{docstring}<CODESPLIT>{code}\r\n')
+  cfg = codebert.CodebertPretrainConfig(
+      vocab_file=VOCAB, lowercase=True,
+      target_seq_length=CODEBERT['max_seq_length'],
+      bin_size=CODEBERT['bin_size'], seed=seed)
+  sink = os.path.join(tmp, f'codebert_sink_{seed}')
+  bal = os.path.join(tmp, f'codebert_{seed}')
+  codebert.run(read_code(src, num_blocks=2), sink, cfg,
+               executor=Executor(num_local_workers=1))
+  balance_directory(sink, bal, CODEBERT_SHARDS)
+  return bal
+
+
+def codebert_ok(path):
+  from lddl_tpu.loader import get_codebert_pretrain_data_loader
+  n = sum(1 for _ in get_codebert_pretrain_data_loader(
+      path, vocab_file=VOCAB, **CODEBERT))
+  print(f'  codebert: {n} batches')
+  return n >= CODEBERT_BATCHES
+
+
 def pairs_ok(path):
   from lddl_tpu.loader import get_bert_pretrain_data_loader
   per_bin = {}
@@ -154,18 +205,29 @@ def packed_ok(path):
 
 
 def digests():
-  """The settings and the digest of every epoch-0 batch of lddl_tpu's
-  loaders over the committed shards."""
+  """The settings, and the digest and ledger fingerprint of every epoch-0
+  batch of lddl_tpu's loaders over the committed shards."""
   from chip_smoke import batch_sha256
   from lddl_tpu.loader import (get_bert_pretrain_data_loader,
+                               get_codebert_pretrain_data_loader,
                                get_packed_pretrain_data_loader)
+  from lddl_tpu.telemetry import ledger
   out = {}
-  for name, make, kw in (('pairs', get_bert_pretrain_data_loader, PAIRS),
-                         ('packed', get_packed_pretrain_data_loader, PACKED)):
-    loader = make(os.path.join(OUT, name), vocab_file=VOCAB, **kw)
-    out[name] = {'settings': kw,
-                 'batches': [batch_sha256(b) for b in loader]}
-    print(f'  {name}: {len(out[name]["batches"])} batches in epoch 0')
+  saved = ledger._xxhash
+  ledger._xxhash = None  # blake2b-8: the card's machine has no xxhash
+  try:
+    for name, make, kw in (
+        ('pairs', get_bert_pretrain_data_loader, PAIRS),
+        ('packed', get_packed_pretrain_data_loader, PACKED),
+        ('codebert', get_codebert_pretrain_data_loader, CODEBERT)):
+      loader = make(os.path.join(OUT, name), vocab_file=VOCAB, **kw)
+      batches = list(loader)
+      out[name] = {'settings': kw,
+                   'batches': [batch_sha256(b) for b in batches],
+                   'ledger': [ledger.fingerprint_batch(b) for b in batches]}
+      print(f'  {name}: {len(batches)} batches in epoch 0')
+  finally:
+    ledger._xxhash = saved
   return out
 
 
@@ -190,7 +252,9 @@ def main():
   else:
     with tempfile.TemporaryDirectory(prefix='torch_shards_') as tmp:
       seeds = {'pairs': _first(make_pairs, pairs_ok, tmp, 'pairs'),
-               'packed': _first(make_packed, packed_ok, tmp, 'packed')}
+               'packed': _first(make_packed, packed_ok, tmp, 'packed'),
+               'codebert': _first(make_codebert, codebert_ok, tmp,
+                                  'codebert')}
   out = digests()
   for name, seed in seeds.items():
     out[name]['corpus_seed'] = seed

@@ -43,7 +43,11 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.pipeline.codecs',
            'lddl_tpu_torch.pipeline.parquet_io',
            'lddl_tpu_torch.pipeline.shard_format',
-           'lddl_tpu_torch.tokenization.wordpiece')
+           'lddl_tpu_torch.tokenization.wordpiece',
+           'lddl_tpu_torch.loader', 'lddl_tpu_torch.loader.workers',
+           'lddl_tpu_torch.loader.shm', 'lddl_tpu_torch.loader.codebert',
+           'lddl_tpu_torch.telemetry.ledger',
+           'lddl_tpu_torch.telemetry.audit')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():

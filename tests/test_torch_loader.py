@@ -21,6 +21,8 @@ import pytest
 from lddl_tpu import telemetry as jtelemetry
 from lddl_tpu.balance import balance_directory
 from lddl_tpu.loader import get_bert_pretrain_data_loader as jax_bert_loader
+from lddl_tpu.loader import \
+    get_codebert_pretrain_data_loader as jax_codebert_loader
 from lddl_tpu.loader import get_packed_pretrain_data_loader as jax_packed_loader
 from lddl_tpu.pipeline import Executor
 from lddl_tpu.preprocess import bert, packed
@@ -28,6 +30,7 @@ from lddl_tpu.preprocess.readers import read_corpus
 from lddl_tpu.testing import write_word_corpus, write_word_vocab
 from lddl_tpu_torch import telemetry as ttelemetry
 from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
+                                   get_codebert_pretrain_data_loader,
                                    get_packed_pretrain_data_loader)
 from lddl_tpu_torch.loader.dataset import count_samples
 from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
@@ -204,18 +207,9 @@ def test_counts_from_footers_equal_the_cache(corpus, tmp_path):
   assert list(plain.values()) == list(cached.values())
 
 
-def test_workers_are_not_ported(corpus):
-  """Worker processes and hub tokenizers are not ported: the port's
-  loaders take none of the JAX package's arguments for them."""
-  with pytest.raises(TypeError, match='num_workers'):
-    get_bert_pretrain_data_loader(corpus['binned'],
-                                  vocab_file=corpus['vocab'], num_workers=2)
-  with pytest.raises(TypeError, match='transport'):
-    get_bert_pretrain_data_loader(corpus['binned'],
-                                  vocab_file=corpus['vocab'], transport='shm')
-  with pytest.raises(TypeError, match='num_workers'):
-    get_packed_pretrain_data_loader(corpus['packed'],
-                                    vocab_file=corpus['vocab'], num_workers=1)
+def test_hub_tokenizers_are_not_ported(corpus):
+  """Hub tokenizers are not ported: the port's loaders take a vocab file
+  (worker processes are, tests/test_torch_workers.py)."""
   with pytest.raises(TypeError, match='tokenizer_name'):
     get_bert_pretrain_data_loader(corpus['binned'],
                                   tokenizer_name='bert-base-uncased')
@@ -245,18 +239,26 @@ def test_vocab_map_matches_bert_tokenizer_fast():
   assert ours.convert_tokens_to_ids(['qqqzzz']) == [hf.unk_token_id]
 
 
-@pytest.mark.parametrize('name', ['pairs', 'packed'])
-def test_committed_shards_match_their_digests(batch_sha256, name):
+@pytest.mark.parametrize('name', ['pairs', 'packed', 'codebert'])
+def test_committed_shards_match_their_digests(batch_sha256, name,
+                                              monkeypatch):
   """digests.json is what lddl_tpu's loaders give over the committed
-  shards today, and the port's loaders give the same."""
+  shards today, and the port's loaders give the same; its ledger entries
+  are the port's blake2b-8 fingerprints of those batches (the card's
+  machine has no xxhash)."""
+  from lddl_tpu_torch.telemetry import ledger
+  monkeypatch.setattr(ledger, '_xxhash', None)
   with open(ASSETS / 'digests.json') as f:
     entry = json.load(f)[name]
   make = {'pairs': (jax_bert_loader, get_bert_pretrain_data_loader),
-          'packed': (jax_packed_loader, get_packed_pretrain_data_loader)}[name]
+          'packed': (jax_packed_loader, get_packed_pretrain_data_loader),
+          'codebert': (jax_codebert_loader,
+                       get_codebert_pretrain_data_loader)}[name]
   for loader in make:
-    got = [batch_sha256(b) for b in loader(
-        str(ASSETS / name), vocab_file=BENCH_VOCAB, **entry['settings'])]
-    assert got == entry['batches']
+    batches = list(loader(str(ASSETS / name), vocab_file=BENCH_VOCAB,
+                          **entry['settings']))
+    assert [batch_sha256(b) for b in batches] == entry['batches']
+  assert [ledger.fingerprint_batch(b) for b in batches] == entry['ledger']
   sizes = sum(p.stat().st_size for p in ASSETS.rglob('*') if p.is_file())
   assert sizes < 2 << 20
 
