@@ -120,11 +120,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
      losses, the batches = digests.json; (f) a worker SIGKILLed
      mid-epoch: the parent raises the RuntimeError naming it within its
      5 s poll. No ``lddltorch_`` shared-memory segment is left after any
-     phase from 7 on.
+     phase from 7 on;
+  9. data-parallel training across processes, each rank a process of this
+     script (``--rank-task``) in a session of its own, the world killed
+     and the phase failed past RANK_TIMEOUT: (a) under
+     ``torch.distributed.run`` at world 1 over NCCL, the CLI as 7d runs
+     it, 4 steps with a checkpoint then --resume for 2, with --comm null
+     and with --comm torch in one process, deterministic algorithms on:
+     the losses bit-equal (the one-rank all-reduces copy), and within the
+     print precision of 7d's; 12 launches per step of each segment-free
+     kernel and none of the segmented (counts at 0 just before each run,
+     read just after), one cache miss per bin, the all-reduces inside
+     the CUDA graphs (mode graph, backend nccl); then 16 more steps
+     timed through the same graphs each way, the step alone against
+     phase 7b's; (b) two ranks on the one card, gloo for CUDA tensors
+     (LDDL_DIST_CUDA_BACKEND=gloo, --device cuda:0; eager steps):
+     DP_NUMPY's numpy global batches (8 rows a rank, dropout off, the
+     first with halves masked at DP_UNEVEN's very different rates)
+     through the data-parallel step, the ranks bit-equal after every
+     step and within DP_LOSS_RTOL / DP_GRAD_NORM_RTOL of the world-1
+     step on the whole batches run by rank 0 (per step, and a held-out
+     batch's loss after them), where averaging per-rank means must miss
+     the global grad_norm; then the CLI from pairs/ with --comm torch, 4
+     steps with a checkpoint (launches, misses per rank); a world-1 NCCL
+     process resumes it: the state equal to the ranks' bit for bit, the
+     same samples_seen, the next 3 batches equal to a world-1 loader
+     re-seeked to it, 2 more finite steps; ms/step per rank; (c) no
+     ``lddltorch_`` segment and no rank process left.
 
-The last lines are the kernels' JSON summary, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
-script exits non-zero before printing any result.
+The last lines are the kernels' JSON summary (with phase 9's launch
+counts per rank), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``. Without a CUDA card the script exits non-zero before
+printing any result.
 """
 
 import argparse
@@ -1710,11 +1737,7 @@ def cli_from_shards(digests, card):
   resumed from it; rc 0 and finite losses both times."""
   settings = digests['pairs']['settings']
   base = [sys.executable, '-m', 'lddl_tpu_torch.training.pretrain',
-          '--path', shard_path('pairs'), '--vocab-file', VOCAB_FILE,
-          '--bin-size', str(settings['bin_size']),
-          '--max-seq-length', str(settings['max_seq_length']),
-          '--batch-size', str(settings['batch_size_per_rank']),
-          '--attention', 'flash', '--log-every', '1']
+          *cli_argv(digests, settings['batch_size_per_rank'])]
   out = {}
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_cli_') as ckpt:
     for label, extra in (('run', ['--steps', '4', '--checkpoint-every',
@@ -2120,6 +2143,548 @@ def kill_a_worker(digests, card):
   return {'seconds': seconds, 'message': message}
 
 
+# ---- phase 9: data-parallel training across processes ----
+
+# Every rank process of phase 9 lives at most this long (seconds): past
+# it the parent kills every process of the world and the phase fails.
+RANK_TIMEOUT = 420
+# 9a: the steps timed after the CLI's runs, through the same graphs (the
+# rest of the pairs epoch: 6 + 16 = 22 batches).
+DP_TIMED_STEPS = 16
+# 9b: numpy global batches (seq_len, global batch, steps), the masking
+# rates of the first batch's two halves (one per rank: very different
+# masked counts), and the ranks against the world-1 step on the whole
+# global batch, bf16: each rank runs 8-row GEMMs where the world-1 step
+# runs 16-row ones, so the sums round differently; the limits are phase
+# 5's flash-vs-dense ones, per-step loss and grad_norm, and the loss of a
+# held-out batch after the steps.
+DP_NUMPY = (128, 16, 3)
+DP_UNEVEN = (0.5, 0.03)
+DP_LOSS_RTOL, DP_GRAD_NORM_RTOL = DENSE_LOSS_RTOL, DENSE_GRAD_NORM_RTOL
+# 9a vs 7d's CLI run: 7d's losses are printed to 4 decimals and its steps
+# ran with deterministic algorithms off.
+CLI_PRINT_ATOL = 1e-4
+# Rank processes phase 9 started (9c: none may be left), and the script
+# they run.
+RANK_PROCS = []
+RANK_SCRIPT = os.path.abspath(__file__)
+
+
+def free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def cli_argv(digests, batch):
+  """7d's CLI arguments over pairs/, ``batch`` samples per rank."""
+  settings = digests['pairs']['settings']
+  return ['--path', shard_path('pairs'), '--vocab-file', VOCAB_FILE,
+          '--model', MODEL, '--bin-size', str(settings['bin_size']),
+          '--max-seq-length', str(settings['max_seq_length']),
+          '--batch-size', str(batch), '--attention', 'flash',
+          '--log-every', '1']
+
+
+def group_alive(pgid):
+  try:
+    os.killpg(pgid, 0)
+    return True
+  except ProcessLookupError:
+    return False
+
+
+def run_ranks(label, task, world, out_dir, extra=(), env=None,
+              torchrun=False):
+  """Run ``world`` rank processes of this script's ``--rank-task task``;
+  returns each rank's JSON result and the world's seconds.
+
+  By hand, each rank gets the rendezvous environment torch.distributed
+  reads (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``/
+  ``LOCAL_RANK``); with ``torchrun`` one ``torch.distributed.run``
+  launcher starts them. Every process runs in a session of its own; the
+  world has one deadline, RANK_TIMEOUT, past which every process of it
+  is killed and the phase fails, as it does for a non-zero exit or a
+  process left behind.
+  """
+  port = free_port()
+  script = [RANK_SCRIPT, '--rank-task', task, '--out', out_dir, *extra]
+  base_env = dict(os.environ, **(env or {}))
+  if torchrun:
+    cmds = [([sys.executable, '-m', 'torch.distributed.run', '--nnodes',
+              '1', '--nproc-per-node', str(world), '--master-addr',
+              'localhost', '--master-port', str(port), *script], base_env)]
+  else:
+    cmds = [([sys.executable, *script],
+             dict(base_env, MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                  RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r)))
+            for r in range(world)]
+  procs, logs = [], []
+  t0 = time.perf_counter()
+  deadline = time.monotonic() + RANK_TIMEOUT
+  try:
+    for i, (cmd, e) in enumerate(cmds):
+      logs.append(os.path.join(out_dir, f'{task}.proc{i}.log'))
+      with open(logs[-1], 'w') as f:
+        procs.append(subprocess.Popen(cmd, cwd=HERE, env=e, stdout=f,
+                                      stderr=subprocess.STDOUT,
+                                      start_new_session=True))
+      RANK_PROCS.append(procs[-1])
+    for p in procs:
+      try:
+        p.wait(max(deadline - time.monotonic(), 0.1))
+      except subprocess.TimeoutExpired:
+        raise AssertionError(f'{label}: a rank process outlived its '
+                             f'{RANK_TIMEOUT} s; the world is killed')
+    left = [p.pid for p in procs if group_alive(p.pid)]
+    if left:
+      raise AssertionError(f'{label}: processes of the sessions {left} are '
+                           'left after the ranks exited')
+  finally:
+    for p in procs:
+      if group_alive(p.pid):
+        os.killpg(p.pid, 9)
+      p.wait()
+  seconds = time.perf_counter() - t0
+  failed = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
+  if failed:
+    tails = ''.join(f'\n-- {path}:\n' + open(path).read()[-4000:]
+                    for path in logs)
+    raise AssertionError(f'{label}: rank processes exited {failed}{tails}')
+  results = []
+  for r in range(world):
+    with open(os.path.join(out_dir, f'{task}.rank{r}.json')) as f:
+      results.append(json.load(f))
+  return results, seconds
+
+
+def check_no_rank_processes():
+  """9c: every rank process phase 9 started has exited, and nothing of
+  its session is left."""
+  left = [p.pid for p in RANK_PROCS if p.poll() is None or
+          group_alive(p.pid)]
+  if left:
+    raise AssertionError(f'phase 9: rank processes left: {left}')
+  log(f'  9c: all {len(RANK_PROCS)} rank processes (and their sessions) '
+      'have exited')
+
+
+# ---- the rank processes' side ----
+
+
+class StepTimer:
+  """Wraps a loop's step cache: each step's time, synchronised, the
+  cache's hits apart."""
+
+  def __init__(self, cache):
+    self.cache = cache
+    self.hit_ms = []
+
+  def __call__(self, batch, dropout_seed):
+    misses = self.cache.misses
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = self.cache(batch, dropout_seed)
+    torch.cuda.synchronize()
+    if self.cache.misses == misses:
+      self.hit_ms.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def record_runs():
+  """Record what every TrainLoop.run of this process does, the CLI's
+  too: its losses and seconds, and the bins its steps ran (the seq lens
+  the step cache was called with)."""
+  from lddl_tpu_torch.training import pretrain
+  runs, seen = [], []
+  run, call = pretrain.TrainLoop.run, pretrain.CompiledStepCache.__call__
+
+  def recorded_run(self, *a, **k):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = run(self, *a, **k)
+    torch.cuda.synchronize()
+    runs.append({'losses': losses, 'seconds': time.perf_counter() - t0})
+    return losses
+
+  def recorded_call(self, batch, dropout_seed):
+    seen.append(int(batch['input_ids'].shape[1]))
+    return call(self, batch, dropout_seed)
+
+  pretrain.TrainLoop.run = recorded_run
+  pretrain.CompiledStepCache.__call__ = recorded_call
+  return runs, seen
+
+
+def cli_run(argv, runs, seen):
+  """``pretrain.main(argv)`` with the kernels' counts at 0 just before and
+  read just after; the run's losses, launches, cache and state."""
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.training import pretrain
+  seen.clear()
+  tfa.reset_launches()
+  loop = pretrain.main(argv)
+  counts, host = tfa.device_launches(), dict(tfa.launches)
+  cache = loop.step_cache
+  exchange = loop.step_fn.exchange
+  return loop, {
+      'losses': runs[-1]['losses'], 'seconds': runs[-1]['seconds'],
+      'launches': counts, 'host_launches': host,
+      'misses': cache.misses if cache else 0,
+      'hits': cache.hits if cache else 0,
+      'mode': cache.mode if cache else None, 'bins': sorted(set(seen)),
+      'backend': exchange.backend if exchange else None,
+      'step': loop.step, 'samples_seen': loop.samples_seen}
+
+
+def rank_result(args, result):
+  rank = int(os.environ.get('RANK', '0'))
+  with open(os.path.join(args.out, f'{args.rank_task}.rank{rank}.json'),
+            'w') as f:
+    json.dump(result, f, default=str)
+
+
+def rank_9a(args, digests):
+  """World 1 over NCCL (under torch.distributed.run): the CLI as 7d runs
+  it, one process (--comm null) and the world of one (--comm torch), 4
+  steps with a checkpoint then --resume for 2, deterministic algorithms
+  on; then the steps to the end of the epoch timed through the same
+  graphs, deterministic algorithms off (as phase 7)."""
+  runs, seen = record_runs()
+  batch = digests['pairs']['settings']['batch_size_per_rank']
+  out = {}
+  for comm in ('null', 'torch'):
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory(prefix='lddl_smoke_9a_') as ckpt:
+      per = []
+      for extra in (['--steps', '4', '--checkpoint-every', '2'],
+                    ['--resume', '--steps', '6']):
+        loop, r = cli_run(cli_argv(digests, batch) + extra +
+                          ['--comm', comm, '--checkpoint-dir', ckpt],
+                          runs, seen)
+        per.append(r)
+    torch.use_deterministic_algorithms(False)
+    timer = StepTimer(loop.step_cache)
+    loop.step_cache = timer
+    loop.run(loop.step + DP_TIMED_STEPS, log_every=0)
+    out[comm] = {'runs': per, 'step_ms': float(np.median(timer.hit_ms)),
+                 'timed_hits': len(timer.hit_ms)}
+    del loop, timer
+    torch.cuda.empty_cache()
+  rank_result(args, out)
+
+
+def dp_batches(seed):
+  """DP_NUMPY's global batches, the first with halves masked at
+  DP_UNEVEN's rates, plus one held out."""
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  s, b, steps = DP_NUMPY
+  out = []
+  for i in range(steps + 1):
+    rates = DP_UNEVEN if i == 0 else (0.15, 0.15)
+    halves = []
+    for h, rate in enumerate(rates):
+      def mask_fn(*a, mlm_probability, rate=rate, **k):
+        return dynamic_mask_tokens(*a, mlm_probability=rate, **k)
+      halves.append(BinLoader(s, b // 2, 1, seed * 100 + 2 * i + h,
+                              mask_fn).batches[0])
+    out.append({k: np.concatenate([x[k] for x in halves])
+                for k in halves[0]})
+  return out
+
+
+def to_device(batch):
+  return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def flat_params(model):
+  return torch.cat([p.detach().float().reshape(-1)
+                    for p in model.parameters()])
+
+
+def rank_9b(args, digests):
+  """One of two ranks on the one card, gloo for CUDA tensors: the numpy
+  global batches through the data-parallel step (rank 0 also runs the
+  world-1 step on the whole batches), then the CLI from shards, 4 steps
+  with a checkpoint."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.parallel import local_batch, make_mesh
+  from lddl_tpu_torch.parallel import train as ttrain
+  from lddl_tpu_torch.training import TrainLoop
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  runs, seen = record_runs()
+  torch.cuda.set_device(0)  # both ranks on the one card
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type=torch.device(DEVICE).type)
+  rank, world = comm.rank, comm.world_size
+  batches = dp_batches(args.seed)
+  steps = DP_NUMPY[2]
+  cfg = BertConfig(vocab_size=((VOCAB_REAL + 63) // 64) * 64,
+                   attention_impl='flash', dropout_rate=0.0,
+                   **MODEL_SIZES[MODEL])
+  build = dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+               warmup_steps=0, total_steps=100, seed=args.seed)
+  loop = TrainLoop.build(mesh=mesh, comm=comm, **build)
+  theta0 = flat_params(loop.model) if rank == 0 else None
+  out = {'backend': loop.step_fn.exchange.backend,
+         'masked': [int((local_batch(b, mesh)['labels'] != -100).sum())
+                    for b in batches[:1]],
+         'steps': []}
+  for b in batches[:steps]:
+    mine = to_device(local_batch(b, mesh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = loop.step_fn(mine, loop.dropout_seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    digest = hashlib.sha256(
+        flat_params(loop.model).cpu().numpy().tobytes()).hexdigest()
+    out['steps'].append({'metrics': {k: float(v) for k, v in m.items()},
+                         'ms': 1e3 * seconds,
+                         'digests': comm.allgather_object(digest)})
+  if rank == 0:
+    out['reference'] = world_one_reference(build, batches, steps, theta0,
+                                           loop.model, ttrain)
+  del loop
+  torch.cuda.empty_cache()
+  comm.barrier()
+  loop, out['cli'] = cli_run(
+      cli_argv(digests, digests['pairs']['settings']['batch_size_per_rank']
+               // world) +
+      ['--comm', 'torch', '--device', f'{DEVICE}:0', '--steps', '4',
+       '--checkpoint-every', '2', '--checkpoint-dir', args.ckpt], runs, seen)
+  out['cli']['digest'] = loop.state_digest()
+  rank_result(args, out)
+
+
+def world_one_reference(build, batches, steps, theta0, dp_model, ttrain):
+  """The world-1 step on the whole global batches from the same init:
+  per-step metrics, the held-out batch's loss under both models, the
+  update's cosine against the ranks', and the gradient norm that
+  averaging each half's own mean would give at the first batch."""
+  from lddl_tpu_torch.training import TrainLoop
+  ref = TrainLoop.build(**build)
+  model = ref.model
+  halves = []
+  for half in (slice(0, DP_NUMPY[1] // 2), slice(DP_NUMPY[1] // 2, None)):
+    model.zero_grad(set_to_none=True)
+    loss, _ = ttrain.pretrain_loss(
+        model, to_device({k: v[half] for k, v in batches[0].items()}))
+    loss.backward()
+    halves.append([p.grad.float().clone() for p in model.parameters()])
+  model.zero_grad(set_to_none=True)
+  ddp = float(ttrain.global_norm([(a + b) / 2 for a, b in zip(*halves)]))
+  del halves
+  metrics = []
+  for b in batches[:steps]:
+    m = ref.step_fn(to_device(b), ref.dropout_seed)
+    metrics.append({k: float(v) for k, v in m.items()})
+  held = to_device(batches[steps])
+  with torch.no_grad():
+    held_loss = [float(ttrain.pretrain_loss(x.eval(), held)[0])
+                 for x in (dp_model, model)]
+  upd_dp = flat_params(dp_model) - theta0
+  upd_ref = flat_params(model) - theta0
+  cosine = float(torch.dot(upd_dp, upd_ref) /
+                 (upd_dp.norm() * upd_ref.norm()))
+  del ref
+  return {'metrics': metrics, 'ddp_grad_norm': ddp,
+          'held_out_loss': held_loss, 'update_cosine': cosine}
+
+
+def rank_9b_resume(args, digests):
+  """World 1 over NCCL resumes 9b's world-2 checkpoint (the same global
+  batch): the state, samples_seen, and the next bins against a world-1
+  loader re-seeked to the same samples_seen; then 2 more steps."""
+  import itertools
+
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  runs, seen = record_runs()
+  settings = digests['pairs']['settings']
+  batch = settings['batch_size_per_rank']
+  argv = cli_argv(digests, batch) + ['--comm', 'torch', '--resume',
+                                     '--checkpoint-dir', args.ckpt]
+  loop, restored = cli_run(argv + ['--steps', '4'], runs, seen)
+  out = {'restored': restored, 'digest': loop.state_digest()}
+  fresh = get_bert_pretrain_data_loader(
+      shard_path('pairs'), dp_rank=0, dp_world_size=1,
+      batch_size_per_rank=batch, tokenizer=load_bert_tokenizer(VOCAB_FILE),
+      masking='dynamic', max_seq_length=settings['max_seq_length'],
+      bin_size=settings['bin_size'], base_seed=127,
+      samples_seen=loop.samples_seen)
+  out['next_bins'] = [[batch_sha256(b) for b in itertools.islice(
+      iter(x), 3)] for x in (loop.loader, fresh)]
+  losses = loop.run(loop.step + 2, log_every=0)
+  out['more_losses'] = losses
+  rank_result(args, out)
+
+
+RANK_TASKS = {'9a': rank_9a, '9b': rank_9b, '9b_resume': rank_9b_resume}
+
+
+# ---- phase 9: the parent's checks ----
+
+
+def check_cli_run(r, label, mode, backend):
+  """One CLI run of a rank: finite losses, one launch per layer and step
+  (12 for BERT-base) of each segment-free kernel and none of the
+  segmented (device = wrappers), one
+  cache miss per bin, the cache mode and the group's backend."""
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  n = len(r['losses'])
+  if not n or not all(np.isfinite(r['losses'])):
+    raise AssertionError(f'{label}: losses {r["losses"]}')
+  layers = MODEL_SIZES[MODEL]['num_layers']
+  want = {k: (layers * n if k in ('fwd', 'dq', 'dkv') else 0)
+          for k in ('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg')}
+  if r['launches'] != want or r['host_launches'] != r['launches']:
+    raise AssertionError(f'{label}: launches {r["launches"]} on the '
+                         f'device, {r["host_launches"]} by the wrappers; '
+                         f'want {want}')
+  bins = len(r['bins'])
+  if (r['misses'], r['hits'], r['mode'], r['backend']) != (
+      bins, n - bins, mode, backend):
+    raise AssertionError(
+        f'{label}: cache misses {r["misses"]} hits {r["hits"]} mode '
+        f'{r["mode"]} over bins {r["bins"]}, backend {r["backend"]}; want '
+        f'one miss per bin, mode {mode}, backend {backend}')
+
+
+def dp_world_one(digests, cli7d, shards7, card, out_dir):
+  """9a; returns its numbers."""
+  (res,), seconds = run_ranks('9a', '9a', 1, out_dir, torchrun=True)
+  for comm, mode, backend in (('null', 'graph', None),
+                              ('torch', 'graph', 'nccl')):
+    for r, label in zip(res[comm]['runs'], ('run', 'resume')):
+      check_cli_run(r, f'9a {comm} {label}', mode, backend)
+  for a, b, label in zip(res['null']['runs'], res['torch']['runs'],
+                         ('run', 'resume')):
+    if a['losses'] != b['losses'] or (a['step'], a['samples_seen']) != (
+        b['step'], b['samples_seen']):
+      raise AssertionError(f'9a {label}: world 1 over NCCL {b["losses"]} '
+                           f'!= one process {a["losses"]} (deterministic '
+                           'algorithms on: want bit-equal)')
+    want = cli7d[label]['losses']
+    if len(want) != len(b['losses']) or not np.allclose(
+        b['losses'], want, rtol=0, atol=CLI_PRINT_ATOL):
+      raise AssertionError(f'9a {label}: losses {b["losses"]} vs 7d\'s CLI '
+                           f'{want} (printed to 4 decimals)')
+  null_ms, torch_ms = res['null']['step_ms'], res['torch']['step_ms']
+  p7 = shards7['bins']['all']['compute_ms']
+  log(f'  9a: world 1 over NCCL (torch.distributed.run): losses '
+      f'{res["torch"]["runs"][0]["losses"]} + '
+      f'{res["torch"]["runs"][1]["losses"]} bit-equal to the one-process '
+      'CLI in the same process (deterministic algorithms on), and to 7d\'s '
+      'at its print precision; the all-reduces run inside the CUDA graphs '
+      f'(one miss per bin, {res["torch"]["runs"][0]["launches"]["fwd"]} + '
+      f'{res["torch"]["runs"][1]["launches"]["fwd"]} launches of each '
+      'kernel)')
+  log(f'  9a: step alone, median of {res["torch"]["timed_hits"]} graph '
+      f'replays: world 1 over NCCL {torch_ms:.2f} ms/step, one process '
+      f'{null_ms:.2f} ms/step (the group and its all-reduces: '
+      f'{torch_ms - null_ms:+.2f} ms); phase 7b {p7:.2f} ms/step; '
+      f'{seconds:.1f} s in all [{card}]')
+  return {'seconds': seconds, 'step_ms': torch_ms, 'one_process_ms': null_ms,
+          'phase7_step_ms': p7,
+          'launches': res['torch']['runs'][0]['launches'],
+          'losses': res['torch']['runs'][0]['losses'] +
+                    res['torch']['runs'][1]['losses']}
+
+
+def dp_world_two(args, digests, card, out_dir):
+  """9b; returns its numbers."""
+  ckpt = os.path.join(out_dir, 'ckpt_9b')
+  res, seconds = run_ranks(
+      '9b', '9b', 2, out_dir, extra=['--ckpt', ckpt, '--seed',
+                                     str(args.seed)],
+      env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+  masked = [r['masked'][0] for r in res]
+  if not masked[0] > 5 * masked[1]:
+    raise AssertionError(f'9b: the uneven batch\'s halves hold {masked} '
+                         'masked tokens')
+  ref = res[0]['reference']
+  for i, step in enumerate(res[0]['steps']):
+    if len(set(step['digests'])) != 1 or any(
+        r['steps'][i]['metrics'] != step['metrics'] for r in res):
+      raise AssertionError(f'9b step {i}: the ranks differ: '
+                           f'{[r["steps"][i] for r in res]}')
+    want = ref['metrics'][i]
+    for name, rtol in (('loss', DP_LOSS_RTOL),
+                       ('grad_norm', DP_GRAD_NORM_RTOL)):
+      got = step['metrics'][name]
+      if not abs(got - want[name]) <= rtol * abs(want[name]):
+        raise AssertionError(f'9b step {i}: {name} {got} vs the world-1 '
+                             f'step\'s {want[name]} (rtol {rtol})')
+  held = ref['held_out_loss']
+  if not abs(held[0] - held[1]) <= DP_LOSS_RTOL * abs(held[1]):
+    raise AssertionError(f'9b: held-out loss {held[0]} after the steps vs '
+                         f'the world-1 model\'s {held[1]}')
+  ddp, g0 = ref['ddp_grad_norm'], ref['metrics'][0]['grad_norm']
+  if abs(ddp - g0) <= DP_GRAD_NORM_RTOL * abs(g0):
+    raise AssertionError(f'9b: averaging per-rank means gives grad_norm '
+                         f'{ddp}, within tolerance of the global {g0}: the '
+                         'uneven batch does not test the normalizers')
+  for rank, r in enumerate(res):
+    check_cli_run(r['cli'], f'9b CLI rank {rank}', 'eager', 'gloo')
+  if (len({r['cli']['digest'] for r in res}) != 1 or
+      len({json.dumps(r['cli']['losses']) for r in res}) != 1):
+    raise AssertionError('9b CLI: the ranks end with different states or '
+                         'losses')
+  numpy_ms = [float(np.median([s['ms'] for s in r['steps'][1:]]))
+              for r in res]
+  cli_ms = [1e3 * r['cli']['seconds'] / len(r['cli']['losses'])
+            for r in res]
+  log(f'  9b: world 2 on the one card over gloo (eager steps): numpy '
+      f'batches of {DP_NUMPY[1]} ({masked} masked tokens in the first '
+      f'batch\'s halves), the ranks bit-equal after every step; vs the '
+      f'world-1 step: loss {[s["metrics"]["loss"] for s in res[0]["steps"]]}'
+      f' vs {[m["loss"] for m in ref["metrics"]]}, grad_norm '
+      f'{[s["metrics"]["grad_norm"] for s in res[0]["steps"]]} vs '
+      f'{[m["grad_norm"] for m in ref["metrics"]]}, held-out loss {held}, '
+      f'update cosine {ref["update_cosine"]:.6f}; averaging per-rank means '
+      f'would give grad_norm {ddp:.4f} at the first step')
+  log(f'  9b: ms/step per rank, numpy steps (median after the first) '
+      f'{[round(x, 2) for x in numpy_ms]}, CLI (run time / steps) '
+      f'{[round(x, 2) for x in cli_ms]}; launches per rank '
+      f'{[r["cli"]["launches"]["fwd"] for r in res]} of each kernel over '
+      f'the CLI\'s {len(res[0]["cli"]["losses"])} steps [{card}]')
+  (resumed,), resume_seconds = run_ranks(
+      '9b resume', '9b_resume', 1, out_dir, extra=['--ckpt', ckpt],
+      torchrun=True)
+  want = (res[0]['cli']['digest'], res[0]['cli']['samples_seen'])
+  got = (resumed['digest'], resumed['restored']['samples_seen'])
+  bins = resumed['next_bins']
+  more = resumed['more_losses']
+  if (got != want or bins[0] != bins[1] or resumed['restored']['losses']
+      or len(more) != 2 or not all(np.isfinite(more))):
+    raise AssertionError(f'9b resume at world 1: state/samples_seen {got} '
+                         f'vs saved {want}; next bins {bins}; losses {more}')
+  log(f'  9b: resumed at world 1 over NCCL: the state equals the world-2 '
+      f'ranks\' bit for bit, samples_seen {got[1]}, the next 3 batches '
+      f'equal a re-seeked world-1 loader\'s, 2 more steps {more} '
+      f'({resume_seconds:.1f} s) [{card}]')
+  return {'seconds': seconds, 'numpy_ms_per_rank': numpy_ms,
+          'cli_ms_per_rank': cli_ms, 'masked_halves': masked,
+          'reference': ref, 'launches_per_rank': [r['cli']['launches']
+                                                  for r in res],
+          'steps': [s['metrics'] for s in res[0]['steps']],
+          'resume_losses': more}
+
+
+def data_parallel(args, digests, cli7d, shards7, card):
+  """Phase 9: 9a, 9b, 9c."""
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_dp_') as out_dir:
+    dp = {'world1': dp_world_one(digests, cli7d, shards7, card, out_dir)}
+    dp['world2'] = dp_world_two(args, digests, card, out_dir)
+  check_no_segments('phase 9')
+  check_no_rank_processes()
+  return dp
+
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -2134,10 +2699,18 @@ def main():
                       help='timed packed s=8192 steps')
   parser.add_argument('--packed-warmup', type=int, default=2,
                       help='untimed packed steps before the timed ones')
+  parser.add_argument('--rank-task', choices=sorted(RANK_TASKS),
+                      help="phase 9's rank processes (the script starts "
+                      'them itself)')
+  parser.add_argument('--out', help='--rank-task: where it writes')
+  parser.add_argument('--ckpt', help='--rank-task: the checkpoint dir')
   args = parser.parse_args()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; nothing to check', file=sys.stderr)
     return 2
+  if args.rank_task:
+    RANK_TASKS[args.rank_task](args, load_digests())
+    return 0
   from lddl_tpu_torch.ops import _build
   from lddl_tpu_torch.ops import flash_attention as tfa
 
@@ -2201,6 +2774,9 @@ def main():
   workers['codebert'] = codebert_through_workers(args, digests, card)
   workers['kill'] = kill_a_worker(digests, card)
 
+  log(f'== data-parallel training across processes [{card}]')
+  dp = data_parallel(args, digests, shards['cli'], shards['pairs'], card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -2229,6 +2805,10 @@ def main():
                                     'mask' if seg else '') +
                    ', pinned to SDPBackend.EFFICIENT_ATTENTION'}
     entry.update(ptxas.get((name, r['body']), {}))
+    entry['phase9_launches'] = {
+        'world1_nccl': dp['world1']['launches'][name],
+        'world2_gloo_per_rank': [x[name] for x in
+                                 dp['world2']['launches_per_rank']]}
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],
@@ -2244,7 +2824,7 @@ def main():
                   'workers': {k: ({kk: vv for kk, vv in v.items()
                                    if kk != 'losses'})
                               for k, v in workers.items()},
-                  'card': card}, default=str))
+                  'data_parallel': dp, 'card': card}, default=str))
   log(json.dumps({'kernels': summary}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

@@ -24,6 +24,14 @@ over the ``loader.shm`` batch ring) and the determinism ledger's
 ``training.pretrain`` (``TrainLoop``, its step cache of one CUDA graph per
 bin, and the ``pretrain`` CLI), and the train loop's hooks: ``telemetry``
 (metrics, trace, roofline, profiler, sentinels), ``core.faults``,
-``training.elastic`` (preemption, async checkpoints, loader re-seek) and
-``pipeline.pool`` (its background writer).
+``training.elastic`` (preemption, async checkpoints, loader re-seek,
+rank membership) and ``pipeline.pool`` (its background writer).
+Data-parallel training across processes: ``comm`` (the null, file and
+``torch.distributed`` backends, with lease stores), ``core.topology``,
+``pipeline.executor`` (its lease timeout), ``parallel.mesh`` (the
+``data`` axis of a ``DeviceMesh``), ``parallel.train.DataParallel``
+(global-batch normalizers, the gradient all-reduce),
+``telemetry.live`` (straggler scores), ``telemetry.report`` (the
+cross-rank merge and its CLI) and the ledger's
+``divergence_over_comm``.
 """

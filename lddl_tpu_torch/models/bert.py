@@ -252,15 +252,19 @@ def _site_seeds(dropout_key, n):
 class BertForPretraining(nn.Module):
   """``forward`` returns (mlm_logits float32, nsp_logits [b, 2] float32).
 
-  ``mesh`` is the JAX model's multi-chip argument; multi-GPU placement
-  waits for a later slice, so only ``None`` is accepted.
+  ``mesh`` is the JAX model's multi-chip argument: None, or a mesh
+  (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`) whose only axis above
+  1 is ``data``, where every rank holds the whole model and the train
+  step reduces the gradients (:class:`~lddl_tpu_torch.parallel.train.
+  DataParallel`). Parameter placement over ``fsdp``/``tensor`` and ring
+  attention over ``seq`` raise :class:`NotImplementedError` (later
+  slices).
   """
 
   def __init__(self, cfg, mesh=None):
     super().__init__()
-    if mesh is not None:
-      raise NotImplementedError('multi-GPU (mesh, ring attention) is not '
-                                'ported yet; use mesh=None')
+    from ..parallel.mesh import check_mesh
+    check_mesh(mesh)
     if cfg.attention_impl not in ('dense', 'flash', 'ring', 'ring_flash'):
       raise ValueError(f'unknown attention_impl {cfg.attention_impl!r}')
     if cfg.ablate:

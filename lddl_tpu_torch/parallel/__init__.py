@@ -1,3 +1,7 @@
-from .train import AdamW, TrainStep, pretrain_loss, train_step
+from .mesh import MESH_AXES, batch_rows, local_batch, make_mesh, mesh_summary
+from .train import (AdamW, DataParallel, TrainStep, pretrain_loss,
+                    train_step)
 
-__all__ = ['AdamW', 'TrainStep', 'pretrain_loss', 'train_step']
+__all__ = ['AdamW', 'DataParallel', 'MESH_AXES', 'TrainStep', 'batch_rows',
+           'local_batch', 'make_mesh', 'mesh_summary', 'pretrain_loss',
+           'train_step']

@@ -1,11 +1,23 @@
-"""BERT-pretraining loss, AdamW and the train step, on one device.
+"""BERT-pretraining loss, AdamW and the train step, on one device or
+data-parallel over a process group.
 
-Counterpart of :mod:`lddl_tpu.parallel.train` (its mesh placement waits
-for the multi-GPU slice). Loss = masked-LM cross entropy (ignore label
--100, mean over masked positions) + next-sentence-prediction cross
-entropy, over exactly the dict the loader yields. A batch with a
-``segment_ids`` key (the packed loader with ``block_diagonal=True``) runs
-block-diagonal attention and :func:`per_doc_mlm_loss`.
+Counterpart of :mod:`lddl_tpu.parallel.train` (the ``data`` axis of its
+mesh; parameter placement is a later slice). Loss = masked-LM cross
+entropy (ignore label -100, mean over masked positions) + next-sentence-
+prediction cross entropy, over exactly the dict the loader yields. A
+batch with a ``segment_ids`` key (the packed loader with
+``block_diagonal=True``) runs block-diagonal attention and
+:func:`per_doc_mlm_loss`.
+
+Data parallelism (:class:`DataParallel`) computes what GSPMD computes
+for the JAX step over a ``data`` mesh: every normalizer is the global
+batch's. The MLM denominator, the documents with a target and the rows
+depend only on the labels, the segment ids and the masked-only head, so
+one small all-reduce of them runs before the forward; each rank's loss
+is then its share of the global loss, the gradients all-reduce as a sum,
+and the reported metrics and ``grad_norm`` are the global batch's.
+Averaging per-rank means, as ``DistributedDataParallel`` does, would
+weigh a rank's masked tokens by its own count instead.
 
 The optimizer is ``optax.adamw`` over
 ``warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1))``
@@ -39,7 +51,20 @@ def masked_positions(labels, max_predictions):
   return torch.argsort(unmasked, dim=1, stable=True)[:, :p]
 
 
-def per_doc_mlm_loss(mlm_ce, masked, seg, num_docs_cap):
+def _doc_targets(masked, seg, num_docs_cap):
+  """Per (row, document) segment: the float32 masked-target count, and
+  the flat segment index of every column."""
+  b = masked.shape[0]
+  rows = torch.arange(b, device=seg.device)[:, None]
+  ids = (seg.long().clamp(0, num_docs_cap - 1) +
+         num_docs_cap * rows).reshape(-1)
+  w = masked.float().reshape(-1)
+  zeros = torch.zeros(b * num_docs_cap, dtype=torch.float32,
+                      device=masked.device)
+  return zeros.index_add(0, ids, w), ids, w, zeros
+
+
+def per_doc_mlm_loss(mlm_ce, masked, seg, num_docs_cap, num_docs=None):
   """Packing-aware MLM normalization (arXiv:2107.02027 §3.2), as
   :func:`lddl_tpu.parallel.train.per_doc_mlm_loss`: each document's own
   masked-mean cross entropy, then the mean over the documents with at
@@ -50,23 +75,32 @@ def per_doc_mlm_loss(mlm_ce, masked, seg, num_docs_cap):
   (gathered at ``mlm_positions`` under the masked-only head); padding (-1)
   and unmasked columns carry weight 0. ``num_docs_cap``: the bound on docs
   per row (the sequence length). The per-document sums are float32
-  ``index_add`` over ``b * num_docs_cap`` segments.
+  ``index_add`` over ``b * num_docs_cap`` segments. ``num_docs``: the
+  global batch's count of documents with a target (data parallelism),
+  default this batch's.
   """
-  b = masked.shape[0]
-  rows = torch.arange(b, device=seg.device)[:, None]
-  ids = (seg.long().clamp(0, num_docs_cap - 1) +
-         num_docs_cap * rows).reshape(-1)
-  w = masked.float().reshape(-1)
-  zeros = torch.zeros(b * num_docs_cap, dtype=torch.float32,
-                      device=mlm_ce.device)
+  cnt, ids, w, zeros = _doc_targets(masked, seg, num_docs_cap)
   ce_sum = zeros.index_add(0, ids, mlm_ce.float().reshape(-1) * w)
-  cnt = zeros.index_add(0, ids, w)
   has = cnt > 0
   per_doc = torch.where(has, ce_sum / cnt.clamp_min(1.0), 0.0)
-  return per_doc.sum() / has.sum().clamp_min(1)
+  if num_docs is None:
+    num_docs = has.sum()
+  return per_doc.sum() / num_docs.clamp_min(1)
 
 
-def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
+def local_counts(masked, seg, num_docs_cap):
+  """This rank's share of the step's normalizers, int64 ``[3]``: masked
+  MLM targets, documents with a target (0 without ``seg``) and rows."""
+  docs = torch.zeros((), dtype=torch.int64, device=masked.device)
+  if seg is not None:
+    docs = (_doc_targets(masked, seg, num_docs_cap)[0] > 0).sum()
+  rows = torch.full((), masked.shape[0], dtype=torch.int64,
+                    device=masked.device)
+  return torch.stack([masked.sum(), docs, rows])
+
+
+def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
+                  reduce=None):
   """Scalar loss + metrics dict for one batch.
 
   ``dropout_key=None`` runs deterministically (the JAX function's
@@ -77,6 +111,12 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
 
   A ``segment_ids`` batch key switches on block-diagonal attention in the
   model and the :func:`per_doc_mlm_loss` normalization.
+
+  ``reduce``: data parallelism. It sums :func:`local_counts` over the
+  ranks (in place, returning the tensor) before the forward, and the
+  loss and metrics are then this rank's shares of the global batch's:
+  summed over the ranks they are the global values. With one rank they
+  equal ``reduce=None``'s bit for bit.
   """
   segment_ids = batch.get('segment_ids')
   labels = batch['labels'].long()
@@ -84,25 +124,33 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None):
   if max_predictions is not None:
     mlm_positions = masked_positions(labels, max_predictions)
     labels = torch.gather(labels, 1, mlm_positions)
+  masked = labels != IGNORE_INDEX
+  seg = segment_ids
+  if seg is not None and mlm_positions is not None:
+    seg = torch.gather(segment_ids, 1, mlm_positions)
+  num_docs_cap = batch['input_ids'].shape[1]
+  totals = None
+  if reduce is not None:
+    totals = reduce(local_counts(masked, seg, num_docs_cap))
   mlm_logits, nsp_logits = model(
       batch['input_ids'], batch['token_type_ids'], batch['attention_mask'],
       dropout_key=dropout_key, mlm_positions=mlm_positions,
       segment_ids=segment_ids)
-  masked = labels != IGNORE_INDEX
   safe_labels = torch.where(masked, labels, 0)
   mlm_ce = F.cross_entropy(mlm_logits.flatten(0, 1), safe_labels.flatten(),
                            reduction='none').view_as(labels)
-  denom = masked.sum().clamp_min(1)
+  denom = (masked.sum() if totals is None else totals[0]).clamp_min(1)
   if segment_ids is not None:
-    seg = segment_ids
-    if mlm_positions is not None:
-      seg = torch.gather(segment_ids, 1, mlm_positions)
-    mlm_loss = per_doc_mlm_loss(mlm_ce, masked, seg,
-                                num_docs_cap=batch['input_ids'].shape[1])
+    mlm_loss = per_doc_mlm_loss(
+        mlm_ce, masked, seg, num_docs_cap=num_docs_cap,
+        num_docs=None if totals is None else totals[1])
   else:
     mlm_loss = torch.where(masked, mlm_ce, 0.0).sum() / denom
   nsp_loss = F.cross_entropy(nsp_logits,
                              batch['next_sentence_labels'].long())
+  if totals is not None:
+    # This rank's rows' share of the global mean (exactly 1 on one rank).
+    nsp_loss = nsp_loss * (labels.shape[0] / totals[2])
   hits = masked & (mlm_logits.argmax(dim=-1) == labels)
   mlm_acc = hits.sum() / denom
   return mlm_loss + nsp_loss, {
@@ -202,25 +250,102 @@ def global_norm(tensors):
   return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+class DataParallel:
+  """The data-parallel exchange of one step over a process group (the
+  mesh's ``data`` group): the normalizers' all-reduce before the forward
+  (:func:`pretrain_loss`'s ``reduce``), the gradients' and the metrics'
+  after the backward, all sums.
+
+  The gradients are copied into one flat float32 buffer, made once, and
+  reduced in one call; the optimizer then reads views of it, so every
+  rank applies the same update to the same parameters and the ranks stay
+  bit-equal. With one rank each reduction is a copy and the step equals
+  the single-process step bit for bit.
+
+  :attr:`capturable`: whether the group's backend for the parameters'
+  device can run inside a CUDA graph (NCCL can; gloo, which stages CUDA
+  tensors through host memory, cannot).
+  """
+
+  def __init__(self, group, params):
+    import torch.distributed as dist
+    self._dist = dist
+    self.group = group
+    self.world = dist.get_world_size(group)
+    params = list(params)
+    device = params[0].device
+    self.flat = torch.empty(sum(p.numel() for p in params),
+                            dtype=torch.float32, device=device)
+    self.views, at = [], 0
+    for p in params:
+      self.views.append(self.flat[at:at + p.numel()].view_as(p))
+      at += p.numel()
+    self.backend = backend_for(group, device)
+    self.capturable = device.type == 'cuda' and self.backend == 'nccl'
+
+  def sum_(self, t):
+    """All-reduce ``t`` in place (a sum over the ranks); returns it."""
+    self._dist.all_reduce(t, group=self.group)
+    return t
+
+  def grads(self, grads):
+    """The global gradients: the sum of every rank's, as views of the
+    flat buffer aligned with ``grads``."""
+    torch._foreach_copy_(self.views, grads)
+    self.sum_(self.flat)
+    return self.views
+
+  def metrics(self, metrics):
+    """Sum each 0-d metric over the ranks (one all-reduce)."""
+    names = sorted(metrics)
+    total = self.sum_(torch.stack([metrics[k].float() for k in names]))
+    return dict(zip(names, total.unbind()))
+
+
+def backend_for(group, device):
+  """The name of ``group``'s backend for tensors on ``device``."""
+  import torch.distributed as dist
+  config = str(dist.get_backend_config(group))
+  for part in config.split(','):
+    dev, _, name = part.rpartition(':')
+    if not dev or dev == device.type:
+      return name
+  return config
+
+
 class TrainStep:
   """One train step, split where a CUDA graph needs it.
 
   :meth:`prepare` is host work: it reseeds the model's dropout
   generators from the dropout key ``(dropout_seed, opt.count)``, the JAX
   step's ``fold_in(rng, count)``, so a step is a pure function of
-  (state, batch). :meth:`body` is device work only (forward, backward,
-  grad norm, :meth:`AdamW.apply`) and can be captured and replayed;
-  :meth:`finish` advances the host count. Calling the step runs the
-  three in turn.
+  (state, batch); a data rank above 0 folds its rank in
+  (``(dropout_seed, opt.count, dp_rank)``), so ranks draw different
+  masks for their different rows and rank 0 draws what one process
+  draws. :meth:`body` is device work only (forward, backward, grad norm,
+  :meth:`AdamW.apply`, and with ``exchange`` (a :class:`DataParallel`)
+  its all-reduces) and can be captured and replayed; :meth:`finish`
+  advances the host count. Calling the step runs the three in turn.
   """
 
-  def __init__(self, model, opt, max_predictions=None):
+  def __init__(self, model, opt, max_predictions=None, exchange=None,
+               dp_rank=0):
     self.model = model
     self.opt = opt
     self.max_predictions = max_predictions
+    self.exchange = exchange
+    self.dp_rank = dp_rank
+
+  @property
+  def capturable(self):
+    """Whether :meth:`body` can be captured into a CUDA graph."""
+    return self.exchange is None or self.exchange.capturable
 
   def prepare(self, dropout_seed):
-    self.model.seed_dropout((dropout_seed, self.opt.count))
+    key = (dropout_seed, self.opt.count)
+    if self.dp_rank:
+      key += (self.dp_rank,)
+    self.model.seed_dropout(key)
 
   def generators(self):
     """The generators :meth:`body` draws from (what a CUDA graph of it
@@ -232,17 +357,23 @@ class TrainStep:
     tensors). ``grad_norm`` is the global norm of the raw gradients,
     before the optimizer."""
     opt = self.opt
+    exchange = self.exchange
     for p in opt.params:
       p.grad = None
-    loss, metrics = pretrain_loss(self.model, batch, dropout_key=SEEDED,
-                                  max_predictions=self.max_predictions)
+    loss, metrics = pretrain_loss(
+        self.model, batch, dropout_key=SEEDED,
+        max_predictions=self.max_predictions,
+        reduce=None if exchange is None else exchange.sum_)
     loss.backward()
     grads = [p.grad for p in opt.params]
+    metrics['loss'] = loss
+    if exchange is not None:
+      grads = exchange.grads(grads)
+      metrics = exchange.metrics({k: v.detach() for k, v in metrics.items()})
     metrics['grad_norm'] = global_norm(grads)
     opt.apply(grads)
     for p in opt.params:
       p.grad = None
-    metrics['loss'] = loss
     # Detached, so no metric keeps the step's autograd graph alive (a
     # captured graph's outputs live as long as the graph).
     return {k: v.detach() for k, v in metrics.items()}

@@ -23,10 +23,9 @@ Instrumented boundaries in the port and their coordinate keys:
 
 The JAX package's ``shard``, ``serve.tx``/``serve.rx`` and ``step``
 boundaries are not recorded by the port yet (its preprocessing, data
-service and the ``step`` record are not ported), nor is
-``divergence_over_comm``, the live cross-rank exchange: it needs the
-comm backend, which the port does not have yet. :func:`compare_signals`
-(the verdict that exchange computes) is here.
+service and the ``step`` record are not ported).
+:func:`divergence_over_comm`, the live cross-rank exchange, computes
+:func:`compare_signals`' verdict over the port's comm backend.
 
 Fingerprints are representation-independent: :func:`fingerprint_batch`
 walks a live batch object (dicts / sequences / ndarrays) and
@@ -472,6 +471,35 @@ def compare_signals(per_rank, replicated=None):
   return {'status': status, 'boundaries': boundaries,
           'first': first_overall}
 
+
+
+def divergence_over_comm(comm, ledger=None, telemetry=None):
+  """Fleet divergence verdict over the run's own comm backend (as
+  :func:`lddl_tpu.telemetry.ledger.divergence_over_comm`).
+
+  Every rank contributes its ledger signals; the allgather rides the
+  backend's normal collective stream tagged with the collective seq, all
+  ranks compute the identical verdict, and the result is stashed on the
+  ledger (:meth:`Ledger.set_fleet_verdict`) plus counted into
+  ``ledger.divergences`` when it names a divergence. No-op (returns
+  None) when the ledger is disabled.
+  """
+  led = ledger if ledger is not None else get_ledger()
+  if not led.enabled:
+    return None
+  seq = getattr(comm, 'collective_seq', None)
+  gathered = comm.allgather_object(
+      {'rank': comm.rank, 'seq': seq, 'ledger': led.signals()})
+  verdict = compare_signals({e['rank']: e['ledger'] for e in gathered})
+  seqs = {e['seq'] for e in gathered if e.get('seq') is not None}
+  verdict['seq'] = max(seqs) if seqs else None
+  if len(seqs) > 1:
+    verdict['seq_mismatch'] = sorted(seqs)
+  led.set_fleet_verdict(verdict)
+  tele = telemetry if telemetry is not None else get_telemetry()
+  if tele.enabled and verdict['status'] == 'diverged':
+    tele.counter('ledger.divergences').add(1)
+  return verdict
 
 def determinism_verdict(ledger=None):
   """The ``verdict.determinism`` block of the JAX package's live

@@ -33,13 +33,27 @@ do not interchange with the JAX loop's orbax checkpoints.
 one compiled executable per bin: on the card it captures the step into
 one CUDA graph per batch signature and replays it (``LDDL_STEP_CACHE=0``
 runs every step eagerly). :meth:`TrainLoop.run` carries the JAX loop's
-hooks for one process: ``train.*`` telemetry and trace spans, MFU, the
-sentinels, the step profiler, fault injection, the preemption guard and
-the async checkpoint writer. PyTorch has no compiler cost model, so the
-cache never bills ``train.xla_flops`` / ``train.xla_bytes``, and MFU
-takes the analytic FLOP count as its numerator, as the JAX loop does
-when no cost model exists. The flight recorder, the determinism ledger,
-rank membership and the live monitor are not ported yet.
+hooks: ``train.*`` telemetry and trace spans, MFU, the sentinels, the
+step profiler, fault injection, the preemption guard, the async
+checkpoint writer and rank membership. PyTorch has no compiler cost
+model, so the cache never bills ``train.xla_flops`` /
+``train.xla_bytes``, and MFU takes the analytic FLOP count as its
+numerator, as the JAX loop does when no cost model exists. The flight
+recorder, the ledger's ``step`` record and the live monitor are not
+ported yet.
+
+Data parallelism: ``build(..., mesh=make_mesh(), comm=...)`` over a
+``torch.distributed`` group gives each rank its share of the shards and
+a step that reduces over the mesh's ``data`` group
+(:class:`~lddl_tpu_torch.parallel.train.DataParallel`); the global batch
+is ``batch_size_per_rank * dp_world``. The replicated state is written
+by rank 0 behind a barrier, so a checkpoint restores at any world size.
+Under ``--comm file`` the ranks are independent single-process worlds
+that share membership and telemetry only, as in the JAX package.
+Launch the CLI multi-process with ``python -m torch.distributed.run
+--nproc-per-node N -m lddl_tpu_torch.training.pretrain --comm torch
+...``; ranks that share one card need ``LDDL_DIST_CUDA_BACKEND=gloo``
+and ``--device cuda:0``.
 """
 
 import argparse
@@ -57,21 +71,26 @@ from collections import namedtuple
 
 import torch
 
+from ..comm import NullBackend, get_backend
 from ..core import faults
+from ..core.topology import discover_topology
 from ..loader.bert import get_bert_pretrain_data_loader
 from ..loader.device import CUDA_FEED_LOCK, prefetch_to_device
 from ..loader.packed import get_packed_pretrain_data_loader
 from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
 from ..ops import flash_attention as tfa
-from ..parallel.train import AdamW, TrainStep, check_max_predictions
+from ..parallel.mesh import (check_axes, data_group, data_rank, data_size,
+                             make_mesh, mesh_summary)
+from ..parallel.train import (AdamW, DataParallel, TrainStep,
+                              check_max_predictions)
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
 from ..telemetry.sentinel import get_sentinel
 from ..tokenization.wordpiece import load_bert_tokenizer
 from .elastic import (AsyncCheckpointWriter, PreemptionGuard,
-                      async_ckpt_enabled, reseek_loader)
+                      async_ckpt_enabled, maybe_membership, reseek_loader)
 
 MODEL_SIZES = {
     'tiny': dict(hidden_size=128, num_layers=2, num_heads=2,
@@ -172,7 +191,11 @@ class CompiledStepCache:
   on whether deterministic algorithms were on. The outputs of a hit are
   the graph's static tensors, overwritten by the entry's next replay.
   Batches on the CPU run the step eagerly and are counted the same way
-  (the kernel wrappers take their plain versions there).
+  (the kernel wrappers take their plain versions there); so does a
+  data-parallel step whose group cannot run inside a graph (gloo for
+  CUDA tensors, :attr:`~lddl_tpu_torch.parallel.train.DataParallel.
+  capturable`): :attr:`mode` says which the card runs. Under NCCL the
+  step's all-reduces are captured with the rest of it.
 
   ``last_costs`` stays None: PyTorch has no compiler cost model, so
   ``train.xla_flops`` / ``train.xla_bytes`` are not billed.
@@ -192,6 +215,11 @@ class CompiledStepCache:
     self._misses_c = tele.counter('train.step_cache_misses')
     self._retrace_h = tele.histogram('train.retrace_seconds')
 
+  @property
+  def mode(self):
+    """``'graph'``, or ``'eager'`` when the step cannot be captured."""
+    return 'graph' if getattr(self.step, 'capturable', True) else 'eager'
+
   @staticmethod
   def key_of(batch):
     return tuple(
@@ -201,7 +229,8 @@ class CompiledStepCache:
     key = (self.key_of(batch), torch.are_deterministic_algorithms_enabled())
     if key not in self._graphs:
       t0 = time.perf_counter()
-      if next(iter(batch.values())).device.type == 'cuda':
+      if (next(iter(batch.values())).device.type == 'cuda' and
+          self.mode == 'graph'):
         metrics, self._graphs[key] = self._miss(key, batch, dropout_seed)
       else:
         metrics, self._graphs[key] = self.step(batch, dropout_seed), None
@@ -269,37 +298,54 @@ def _step_cache_enabled():
       '0', 'false', 'off', 'no')
 
 
-def export_telemetry(rank=0):
-  """Write this process's telemetry and trace under ``LDDL_TELEMETRY_DIR``:
-  ``telemetry.rank<R>.jsonl`` when telemetry is on, with the ``hbm.*``
-  gauges sampled just before (the port has no monitor to sample them
-  while the run goes), and ``trace.rank<R>.jsonl`` when tracing is on.
-  Returns the paths written; nothing without the directory. One process,
-  no cross-rank merge (the JAX package's report waits for the comm
-  backend)."""
+def export_telemetry(comm=None):
+  """Write this rank's telemetry and trace under ``LDDL_TELEMETRY_DIR``,
+  then merge every rank's telemetry over ``comm`` (default a one-rank
+  :class:`~lddl_tpu_torch.comm.NullBackend`) and print the cross-rank
+  report on rank 0 (:mod:`~lddl_tpu_torch.telemetry.report`), as the
+  JAX package's ``export_telemetry(comm)``.
+
+  The files are ``telemetry.rank<R>.jsonl`` when telemetry is on, with
+  the ``hbm.*`` gauges sampled just before (the port has no monitor to
+  sample them while the run goes), and ``trace.rank<R>.jsonl`` when
+  tracing is on. Returns the paths written; nothing without the
+  directory. Every rank must call it when telemetry is on (the merge is
+  a collective).
+  """
+  from ..telemetry.report import aggregate_over_comm, render_report
+  comm = comm or NullBackend()
+  rank = comm.rank
   out_dir = os.environ.get('LDDL_TELEMETRY_DIR')
-  if not out_dir:
-    return []
   written = []
   tracer = get_tracer()
-  if tracer.enabled:
+  if tracer.enabled and out_dir:
     tracer.set_identity(rank=rank)
     written.append(tracer.write_jsonl(trace_file_name(out_dir, rank),
                                       rank=rank))
   tele = get_telemetry()
-  if tele.enabled:
-    sample_hbm(tele)
+  if not tele.enabled:
+    return written
+  sample_hbm(tele)
+  if out_dir:
     written.append(tele.write_jsonl(rank_file_name(out_dir, rank),
                                     rank=rank))
+  merged = aggregate_over_comm(comm, telemetry=tele)
+  if rank == 0:
+    print(render_report(merged))
   return written
 
 
 class TrainLoop:
   """Owns the model, the optimizer, the loader, the step and its cache,
-  and the step counters."""
+  and the step counters.
+
+  ``mesh``: None (one process holds the whole batch) or a data-parallel
+  mesh (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`), whose ``data``
+  group the step reduces over and the checkpoint barrier waits on.
+  """
 
   def __init__(self, model, opt, device, dropout_seed, loader=None,
-               max_predictions=None, dp_rank=0, dp_world=1):
+               max_predictions=None, dp_rank=0, dp_world=1, mesh=None):
     self.model = model
     self.opt = opt
     self.device = device
@@ -308,7 +354,12 @@ class TrainLoop:
     self.max_predictions = max_predictions
     self.dp_rank = dp_rank
     self.dp_world = dp_world
-    self.step_fn = TrainStep(model, opt, max_predictions)
+    self.mesh = mesh
+    exchange = None
+    if mesh is not None:
+      exchange = DataParallel(data_group(mesh), opt.params)
+    self.step_fn = TrainStep(model, opt, max_predictions, exchange,
+                             dp_rank=dp_rank)
     # Made by the first run() with LDDL_STEP_CACHE on and kept, so repeated
     # run() calls, epochs and restore() replay the same per-bin graphs.
     self.step_cache = None
@@ -325,12 +376,19 @@ class TrainLoop:
             weight_decay=0.01, batch_size_per_rank=64, bin_size=None,
             max_seq_length=512, masking='dynamic', seed=127, samples_seen=0,
             loader_kwargs=None, max_predictions=None, data_format='pairs',
-            block_diagonal=False, dp_rank=0, dp_world=1):
+            block_diagonal=False, dp_rank=None, dp_world=None, mesh=None,
+            comm=None):
     """A loop with freshly initialised params (flax's init distributions,
     drawn from ``seed`` on the CPU, then moved to ``device``) and the
     corpus loader over ``path``, as the JAX loop's ``build``
     (``lddl_tpu/training/pretrain.py:201-278``); :meth:`restore` moves it
     to a checkpoint.
+
+    ``dp_rank``/``dp_world`` default to ``comm``'s rank and world size
+    (the JAX ``build`` takes ``jax.process_index()``/``process_count()``);
+    with a ``mesh`` they must be its ``data`` coordinates, since the
+    loader's shard and the gradient group must agree. Every rank draws
+    the same initial parameters from ``seed``.
 
     ``tokenizer``: the special ids, ``vocab_size`` and
     ``convert_tokens_to_ids``
@@ -348,6 +406,14 @@ class TrainLoop:
     if block_diagonal and data_format != 'packed':
       raise ValueError("block_diagonal requires data_format='packed' "
                        '(pair shards carry no doc_offsets)')
+    comm = comm or NullBackend()
+    dp_rank = comm.rank if dp_rank is None else dp_rank
+    dp_world = comm.world_size if dp_world is None else dp_world
+    if mesh is not None and (dp_rank, dp_world) != (data_rank(mesh),
+                                                    data_size(mesh)):
+      raise ValueError(f'dp_rank={dp_rank} dp_world={dp_world} disagree '
+                       f'with the mesh ({mesh_summary(mesh)}, data rank '
+                       f'{data_rank(mesh)})')
     device = resolve_device(device)
     if path is None:
       loader = None
@@ -382,7 +448,7 @@ class TrainLoop:
           base_seed=seed,
           samples_seen=samples_seen,
           **(loader_kwargs or {}))
-    model = BertForPretraining(model_cfg)
+    model = BertForPretraining(model_cfg, mesh=mesh)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(device)
     schedule = functools.partial(lr_schedule, peak=learning_rate,
@@ -395,7 +461,7 @@ class TrainLoop:
           mlm_probability=(loader_kwargs or {}).get('mlm_probability', 0.15))
     loop = cls(model, opt, device, dropout_seed=seed + 1, loader=loader,
                max_predictions=max_predictions, dp_rank=dp_rank,
-               dp_world=dp_world)
+               dp_world=dp_world, mesh=mesh)
     loop.samples_seen = samples_seen
     loop.step = samples_seen // (batch_size_per_rank * dp_world)
     return loop
@@ -412,6 +478,15 @@ class TrainLoop:
             'opt': self.opt.state_dict(),
             'dropout_seed': self.dropout_seed}
 
+  def _shared(self):
+    """Whether several ranks hold this one replicated state (a
+    data-parallel mesh above one rank): rank 0 alone writes it."""
+    return self.mesh is not None and data_size(self.mesh) > 1
+
+  def _barrier(self):
+    import torch.distributed as dist
+    dist.barrier(group=data_group(self.mesh))
+
   def save(self, ckpt_dir, keep=3, writer=None):
     """Write the state at the current step; keep the newest ``keep``.
 
@@ -421,14 +496,25 @@ class TrainLoop:
     AsyncCheckpointWriter`) the file write then runs on its background
     thread; a failed write surfaces on the next ``submit`` /
     ``raise_pending`` / ``flush`` (first-error-wins).
+
+    On a data-parallel mesh the state is the same on every rank, so rank
+    0 writes it whole and the other ranks wait at a barrier until the
+    write is done (with ``writer``: at the barrier after :meth:`run`'s
+    flush), which makes the checkpoint independent of the world size:
+    :meth:`restore` reads it at any.
     """
-    state = _cpu_copy(self._state())
-    meta = {'step': self.step, 'samples_seen': self.samples_seen}
-    if writer is not None:
-      writer.submit(self._write_ckpt, ckpt_dir, keep, self.step, state, meta)
-      get_telemetry().gauge('train.ckpt_backlog').set(writer.backlog)
-    else:
-      self._write_ckpt(ckpt_dir, keep, self.step, state, meta)
+    shared = self._shared()
+    if not shared or data_rank(self.mesh) == 0:
+      state = _cpu_copy(self._state())
+      meta = {'step': self.step, 'samples_seen': self.samples_seen}
+      if writer is not None:
+        writer.submit(self._write_ckpt, ckpt_dir, keep, self.step, state,
+                      meta)
+        get_telemetry().gauge('train.ckpt_backlog').set(writer.backlog)
+      else:
+        self._write_ckpt(ckpt_dir, keep, self.step, state, meta)
+    if shared and writer is None:
+      self._barrier()
     self._last_saved = self.step
     return self.step
 
@@ -481,7 +567,13 @@ class TrainLoop:
     into the live parameters and optimizer tensors, so the step cache's
     graphs stay valid, and re-seek ``loop.loader`` to the restored
     ``samples_seen`` (:func:`~lddl_tpu_torch.training.elastic.
-    reseek_loader`; a loader without ``seek`` is left to the caller)."""
+    reseek_loader`; a loader without ``seek`` is left to the caller).
+
+    The checkpoint holds the whole replicated state and the global
+    ``samples_seen``, so a run of any world size restores it: each rank
+    loads the same state and re-seeks its own loader with the loop's
+    ``dp_world`` (the counterpart of the JAX ``restore`` with
+    ``reshard_pytree``)."""
     if step is None:
       meta = self.latest_meta(ckpt_dir)
       if meta is None:
@@ -517,14 +609,17 @@ class TrainLoop:
   # ---- the loop ----
 
   def run(self, max_steps, ckpt_dir=None, ckpt_every=0, log_every=50,
-          prefetch=2, async_ckpt=None):
+          prefetch=2, membership=None, async_ckpt=None):
     """Train until ``max_steps`` (global); returns the per-step losses.
 
-    Hook for hook as the JAX loop's ``run`` on one process: a SIGTERM (or
-    an ``LDDL_PREEMPTION_FILE`` notice) stops the loop at the next step
+    Hook for hook as the JAX loop's ``run``: a SIGTERM (or an
+    ``LDDL_PREEMPTION_FILE`` notice) stops the loop at the next step
     boundary (``stop_reason='preempted'``) behind one final synchronous
     checkpoint; so does a non-finite loss (``'nonfinite_loss'``) unless
-    ``LDDL_NONFINITE=ignore``. ``async_ckpt`` overrides
+    ``LDDL_NONFINITE=ignore``, and a fleet event that ``membership`` (a
+    :class:`~lddl_tpu_torch.training.elastic.RankMembership`, polled at
+    its heartbeat cadence) reports: a dead peer (``'dead_rank:<r>'``) or
+    a shed verdict (``'shed:rank<r>'``). ``async_ckpt`` overrides
     ``LDDL_ASYNC_CKPT``: in-loop checkpoints then ride the background
     writer. With ``LDDL_STEP_CACHE`` on (the default) steps go through
     the loop's :class:`CompiledStepCache`. The device is synchronised
@@ -561,6 +656,10 @@ class TrainLoop:
     use_async = async_ckpt_enabled() if async_ckpt is None else async_ckpt
     writer = AsyncCheckpointWriter() if (ckpt_dir and use_async) else None
     guard = PreemptionGuard().install()
+    # Membership polls once per heartbeat (the first step boundary, then
+    # each beat), and the steps_per_sec window it publishes.
+    polled_beat = -1
+    rate_anchor = (self.step, time.monotonic())
     losses = []
     self.model.train()
     try:
@@ -588,7 +687,7 @@ class TrainLoop:
             # After the batch pull, before the step: a 'kill' here models
             # the process dying mid-training, a 'term' the preemption
             # notice.
-            faults.inject('train.step', rank=0)
+            faults.inject('train.step', rank=self.dp_rank)
             steps_this_epoch += 1
             step_no = self.step
             metrics = step_fn(batch, self.dropout_seed)
@@ -654,6 +753,22 @@ class TrainLoop:
               writer.raise_pending()
             if guard.requested:
               self.stop_reason = 'preempted'
+            elif membership is not None and (
+                membership.beats != polled_beat):
+              # One lease-store sweep per heartbeat: a late poll delays
+              # noticing a fleet event, it never changes any verdict.
+              polled_beat = membership.beats
+              now_m = time.monotonic()
+              w_step, w_t = rate_anchor
+              membership.publish_signals(
+                  {'steps_per_sec':
+                   (self.step - w_step) / max(now_m - w_t, 1e-9)})
+              rate_anchor = (self.step, now_m)
+              # A quiet poll (None) must not wipe a stop reason an
+              # earlier check set (a non-finite loss).
+              reason = membership.poll()
+              if reason is not None:
+                self.stop_reason = reason
             if self.stop_reason is not None:
               break
             if ckpt_dir and ckpt_every and self.step % ckpt_every == 0:
@@ -670,8 +785,11 @@ class TrainLoop:
       profiler.close()
       if writer is not None:
         writer.flush()
-      # After a preemption or a non-finite loss this synchronous trailing
-      # save is the emergency checkpoint, complete before the return.
+        if self._shared():
+          self._barrier()
+      # After a preemption, a membership event or a non-finite loss this
+      # synchronous trailing save is the emergency checkpoint, complete
+      # before the return.
       if ckpt_dir and self._last_saved != self.step:
         self.save(ckpt_dir)
     finally:
@@ -688,10 +806,10 @@ class TrainLoop:
 
 def attach_args(parser):
   """The JAX CLI's arguments (``lddl_tpu/training/pretrain.py:785-853``),
-  plus ``--device``. Left out until the slices that port them: the mesh
-  sizes (``--dp``, ``--fsdp``, ``--tp``, ``--sp``), ``--comm`` and ring
-  attention (the port trains on one card), ``--tokenizer`` (a hub
-  tokenizer needs the network) and ``--prng`` (a JAX setting)."""
+  plus ``--device``. ``--comm`` takes ``torch`` where the JAX CLI takes
+  ``jax``; ``--fsdp``, ``--tp`` and ``--sp`` are accepted and raise above
+  1 (later slices). Left out: ring attention, ``--tokenizer`` (a
+  hub tokenizer needs the network) and ``--prng`` (a JAX setting)."""
   parser.add_argument('--path', required=True, help='balanced shard dir')
   parser.add_argument('--vocab-file', required=True)
   parser.add_argument('--model', choices=sorted(MODEL_SIZES),
@@ -700,6 +818,11 @@ def attach_args(parser):
                       choices=['dense', 'flash'],
                       default='dense')
   parser.add_argument('--remat', action='store_true')
+  parser.add_argument('--dp', type=int, default=None,
+                      help='data-parallel ranks; default: the world size')
+  parser.add_argument('--fsdp', type=int, default=1)
+  parser.add_argument('--tp', type=int, default=1)
+  parser.add_argument('--sp', type=int, default=1)
   parser.add_argument('--batch-size', type=int, default=64,
                       help='per-process samples per step')
   parser.add_argument('--bin-size', type=int, default=None)
@@ -729,9 +852,16 @@ def attach_args(parser):
                       help='resume from the newest checkpoint in '
                            '--checkpoint-dir (model state AND data '
                            'stream position)')
+  parser.add_argument('--comm', choices=['null', 'file', 'torch'],
+                      default='null',
+                      help="'torch': a torch.distributed group from the "
+                      "launcher's environment, gradients all-reduced over "
+                      "the mesh's data axis; 'file': independent ranks "
+                      'that share membership over LDDL_COMM_DIR')
   parser.add_argument('--device', default=None,
-                      help="torch device; default the CUDA card (raises "
-                      "without one). 'cpu' runs on the CPU")
+                      help="torch device; default the CUDA card "
+                      "cuda:<local rank> (raises without one). 'cpu' runs "
+                      'on the CPU')
   return parser
 
 
@@ -743,6 +873,12 @@ def main(args=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)).parse_args(
             args)
+  comm = get_backend(args.comm)
+  tracer = get_tracer()
+  if tracer.enabled:
+    # Identity up front, so the crash-tail flushes during the run land at
+    # this rank's trace file.
+    tracer.set_identity(rank=comm.rank)
   tokenizer = load_bert_tokenizer(args.vocab_file)
   vocab = ((tokenizer.vocab_size + 63) // 64) * 64
   cfg = BertConfig(
@@ -751,8 +887,29 @@ def main(args=None):
       attention_impl=args.attention,
       remat=args.remat,
       **MODEL_SIZES[args.model])
-  device = resolve_device(args.device)
-  print(f'device: {device}; model={args.model} attention={args.attention}')
+  device = args.device
+  if device is None and torch.cuda.is_available():
+    device = f'cuda:{discover_topology(comm).local_rank}'
+  device = resolve_device(device)
+  if device.type == 'cuda':
+    if device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    # Before the mesh: DeviceMesh picks cuda:<LOCAL_RANK> for a process
+    # that has not chosen, and ranks sharing one card have chosen cuda:0.
+    torch.cuda.set_device(device)
+  if args.comm == 'torch':
+    mesh = make_mesh(data=args.dp or 1, fsdp=args.fsdp, tensor=args.tp,
+                     seq=args.sp, device_type=device.type)
+  else:
+    # No process group: the process holds its whole batch (under file the
+    # ranks are independent single-process worlds, as in the JAX CLI).
+    check_axes(args.fsdp, args.tp, args.sp)
+    if (args.dp or 1) != 1:
+      raise ValueError(f'--dp {args.dp} needs --comm torch')
+    mesh = None
+  print(f'device: {device}; mesh: {mesh_summary(mesh)}; rank {comm.rank} '
+        f'of {comm.world_size}; model={args.model} '
+        f'attention={args.attention}')
 
   samples_seen = 0
   resume = False
@@ -772,13 +929,26 @@ def main(args=None):
       seed=args.seed, samples_seen=samples_seen,
       max_predictions=args.max_predictions,
       data_format=args.data_format,
-      block_diagonal=args.block_diagonal)
+      block_diagonal=args.block_diagonal, mesh=mesh, comm=comm)
   if resume:
     loop.restore(args.checkpoint_dir)
-  losses = loop.run(args.steps, ckpt_dir=args.checkpoint_dir,
-                    ckpt_every=args.checkpoint_every,
-                    log_every=args.log_every)
-  export_telemetry()
+  exchange = loop.step_fn.exchange
+  if exchange is not None:
+    graphs = (device.type == 'cuda' and _step_cache_enabled() and
+              exchange.capturable)
+    print(f'data-parallel step over {exchange.world} rank(s), '
+          f'{exchange.backend} for {device.type} tensors: ' +
+          ('the all-reduces run inside the CUDA graphs' if graphs else
+           'eager steps'))
+  membership = maybe_membership(comm, step=loop.step)
+  try:
+    losses = loop.run(args.steps, ckpt_dir=args.checkpoint_dir,
+                      ckpt_every=args.checkpoint_every,
+                      log_every=args.log_every, membership=membership)
+  finally:
+    if membership is not None:
+      membership.stop()
+  export_telemetry(comm)
   if losses:
     print(json.dumps({'final_step': loop.step,
                       'final_loss': round(losses[-1], 4),

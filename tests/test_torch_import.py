@@ -47,7 +47,12 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.loader', 'lddl_tpu_torch.loader.workers',
            'lddl_tpu_torch.loader.shm', 'lddl_tpu_torch.loader.codebert',
            'lddl_tpu_torch.telemetry.ledger',
-           'lddl_tpu_torch.telemetry.audit')
+           'lddl_tpu_torch.telemetry.audit', 'lddl_tpu_torch.comm',
+           'lddl_tpu_torch.comm.backend', 'lddl_tpu_torch.core.topology',
+           'lddl_tpu_torch.parallel.mesh',
+           'lddl_tpu_torch.pipeline.executor',
+           'lddl_tpu_torch.telemetry.report',
+           'lddl_tpu_torch.telemetry.live')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():

@@ -334,14 +334,23 @@ def test_cli_trains_from_shards_and_resumes(shards, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flag', [['--dp', '2'], ['--tp', '2'],
-                                  ['--comm', 'file'],
+                                  ['--comm', 'jax'],
                                   ['--attention', 'ring']])
 def test_cli_refuses_what_is_not_ported(shards, flag, capsys):
-  """Meshes, comm backends and ring attention wait for the multi-GPU
-  slice: the CLI does not offer their flags, so argparse refuses them."""
+  """Parameter placement and ring attention wait for later slices: the
+  CLI raises for ``--tp`` above 1, and for ``--dp`` above 1 without a
+  process group (``--comm torch``); it offers no ``jax`` backend and no
+  ring attention, so argparse refuses those."""
   from lddl_tpu_torch.training.pretrain import main
+  argv = ['--path', shards['pairs'], '--vocab-file', shards['vocab'],
+          '--device', 'cpu'] + flag
+  raised = {'--dp': (ValueError, '--dp 2 needs --comm torch'),
+            '--tp': (NotImplementedError, 'tensor=2')}.get(flag[0])
+  if raised is not None:
+    with pytest.raises(raised[0], match=raised[1]):
+      main(argv)
+    return
   with pytest.raises(SystemExit) as exc:
-    main(['--path', shards['pairs'], '--vocab-file', shards['vocab'],
-          '--device', 'cpu'] + flag)
+    main(argv)
   assert exc.value.code == 2
   assert flag[0] in capsys.readouterr().err

@@ -1,0 +1,281 @@
+"""Spawned ranks for the port's multi-process CPU tests.
+
+:func:`run_world` starts ``world`` spawned processes, each running
+``fn(rank, world, *args)`` with the ``torch.distributed`` rendezvous
+environment set (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+``WORLD_SIZE``, the port from ``bind(('localhost', 0))``), and returns
+``{rank: result}``. The whole world has one deadline: a rank that has
+not reported by then, or that dies without reporting, fails the call,
+and every process still alive is killed, so a stuck rank fails its test
+instead of holding the tier-1 run.
+
+The rank functions live here, not in the test files: a spawned child
+imports the module of its target, and this one imports torch and the
+port only (never jax or lddl_tpu).
+"""
+
+import multiprocessing
+import os
+import queue
+import socket
+import time
+import traceback
+
+import numpy as np
+
+WORLD_TIMEOUT = 120.0
+
+
+def free_port():
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def _entry(fn, rank, world, port, env, args, q):
+  os.environ.update(env)
+  os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                    RANK=str(rank), WORLD_SIZE=str(world),
+                    LOCAL_RANK=str(rank))
+  try:
+    q.put((rank, 'ok', fn(rank, world, *args)))
+  except BaseException:
+    # Reported to the parent (it fails the test with the traceback).
+    q.put((rank, 'error', traceback.format_exc()))
+    raise
+  finally:
+    import torch.distributed as dist
+    if dist.is_initialized():
+      dist.destroy_process_group()
+
+
+def start_world(fn, world, args=(), env=None, rank_env=None):
+  """Start the ranks; returns ``(procs, queue)`` for :func:`join_world`.
+  ``rank_env``: extra environment per rank (``{rank: {...}}``)."""
+  ctx = multiprocessing.get_context('spawn')
+  q = ctx.Queue()
+  port = free_port()
+  procs = []
+  for r in range(world):
+    e = dict(env or {})
+    e.update((rank_env or {}).get(r, {}))
+    procs.append(ctx.Process(target=_entry,
+                             args=(fn, r, world, port, e, args, q),
+                             daemon=True))
+  for p in procs:
+    p.start()
+  return procs, q
+
+
+def join_world(procs, q, timeout=WORLD_TIMEOUT, expect=None):
+  """Collect the reports of the ranks in ``expect`` (default all) within
+  ``timeout`` seconds, join every process, kill what is left; raises on
+  a rank's error, a silent death or the deadline."""
+  expect = set(range(len(procs)) if expect is None else expect)
+  deadline = time.monotonic() + timeout
+  results, errors = {}, {}
+  try:
+    while expect - set(results) - set(errors):
+      left = deadline - time.monotonic()
+      if left <= 0:
+        raise TimeoutError(f'ranks {sorted(expect - set(results))} did not '
+                           f'report within {timeout:.0f}s')
+      try:
+        rank, kind, payload = q.get(timeout=min(left, 0.5))
+      except queue.Empty:
+        silent = [r for r in expect - set(results) - set(errors)
+                  if procs[r].exitcode is not None]
+        if silent:
+          # A rank that exited may still have a report in flight.
+          try:
+            rank, kind, payload = q.get(timeout=2.0)
+          except queue.Empty:
+            raise RuntimeError(
+                f'rank {silent[0]} exited with {procs[silent[0]].exitcode} '
+                'without reporting') from None
+        else:
+          continue
+      (results if kind == 'ok' else errors)[rank] = payload
+    for p in procs:
+      p.join(max(deadline - time.monotonic(), 0.1))
+  finally:
+    for p in procs:
+      if p.is_alive():
+        p.kill()
+        p.join(5)
+  if errors:
+    raise RuntimeError('rank failures:\n' + '\n'.join(
+        f'-- rank {r}:\n{e}' for r, e in sorted(errors.items())))
+  return results
+
+
+def run_world(fn, world, args=(), env=None, timeout=WORLD_TIMEOUT):
+  procs, q = start_world(fn, world, args, env)
+  return join_world(procs, q, timeout)
+
+
+# ---- rank functions ----
+
+
+def comm_file_ranks(rank, world, d, n_gc=20):
+  """tests/test_comm.py's FileBackend cases on the port's backend."""
+  from lddl_tpu_torch.comm import FileBackend
+  b = FileBackend(d, rank, world, timeout=30.0)
+  got = b.allgather_object({'rank': rank, 'sq': rank * rank,
+                            'pad': 'x' * (rank + 1) * 100})
+  total = b.allreduce_sum(np.full((3,), rank, dtype=np.uint64))
+  b.barrier()
+  root_val = b.broadcast_object(f'from-{rank}', root=1)
+  for i in range(n_gc):
+    b.allgather_object(i)
+  b.barrier()
+  return got, total.tolist(), root_val
+
+
+def comm_torch_ranks(rank, world):
+  """The same cases on TorchDistBackend, plus its lease store (CAS,
+  index listing, heartbeats) and topology."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.core.topology import discover_topology
+  from lddl_tpu_torch.parallel.train import backend_for
+  b = get_backend('torch')
+  out = {'rank': b.rank, 'world': b.world_size,
+         'backend': backend_for(b.group, torch.device('cpu'))}
+  out['got'] = b.allgather_object({'rank': rank,
+                                   'payload': 'x' * (rank + 1) * 100})
+  out['total'] = b.allreduce_sum(np.full((4,), rank + 1,
+                                         dtype=np.int64)).tolist()
+  out['ftotal'] = b.allreduce_sum(np.full((2,), 0.5 * (rank + 1),
+                                          dtype=np.float32)).tolist()
+  out['utotal'] = b.allreduce_sum(np.full((2,), rank, np.uint64)).tolist()
+  b.barrier()
+  out['root'] = b.broadcast_object(f'from-{rank}', root=1)
+  out['topology'] = tuple(discover_topology(b))
+  store = b.lease_store('ph.0')
+  b.barrier()
+  out['claim'] = store.try_claim('claim.5.g0')
+  out['claim_again'] = store.try_claim('claim.5.g0')
+  store.publish(f'done.{rank}', f'r{rank}'.encode())
+  store.heartbeat(7 + rank)
+  b.barrier()
+  out['claims'] = store.list('claim.')
+  out['done'] = store.list('done.')
+  out['reads'] = [store.read(f'done.{r}') for r in range(world)]
+  out['missing'] = store.read('done.99')
+  out['hb'] = [store.read_heartbeat(r) for r in range(world)]
+  out['seq'] = b.collective_seq
+  return out
+
+
+def dp_steps(rank, world, cfg_kw, state, batches, opt_kw, seed=5):
+  """Data-parallel steps of the port on this rank's rows of each global
+  batch (:class:`TrainLoop` over ``make_mesh()`` and TorchDistBackend,
+  CPU, gloo): per step the metrics and a digest of the parameters."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.parallel import local_batch, make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu')
+  cfg = BertConfig(dtype=torch.float32, **cfg_kw)
+  loop = TrainLoop.build(model_cfg=cfg, device='cpu', mesh=mesh, comm=comm,
+                         seed=seed, **opt_kw)
+  loop.model.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state.items()})
+  loop.model.train()
+  out = []
+  for batch in batches:
+    mine = {k: torch.from_numpy(v) for k, v in
+            local_batch(batch, mesh).items()}
+    m = loop.step_fn(mine, loop.dropout_seed)
+    out.append({'metrics': {k: float(v) for k, v in m.items()},
+                'params': param_digest(loop.model)})
+  return {'steps': out, 'dp': (loop.dp_rank, loop.dp_world),
+          'backend': loop.step_fn.exchange.backend}
+
+
+def param_digest(model):
+  import hashlib
+  h = hashlib.sha256()
+  for name, t in model.state_dict().items():
+    h.update(name.encode())
+    h.update(t.detach().cpu().contiguous().numpy().tobytes())
+  return h.hexdigest()
+
+
+def shard_loop(rank, world, shards, vocab_file, batch, samples_seen=0,
+               comm='torch', **kw):
+  """A TrainLoop over the committed pairs shards at the tiny size, on
+  the port's comm backend ``comm`` (``torch``: the data mesh)."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+  backend = get_backend(comm)
+  mesh = make_mesh(device_type='cpu') if comm == 'torch' else None
+  tok = load_bert_tokenizer(vocab_file)
+  cfg = BertConfig(vocab_size=((tok.vocab_size + 63) // 64) * 64,
+                   hidden_size=32, num_layers=2, num_heads=2,
+                   intermediate_size=64, max_position_embeddings=512,
+                   dropout_rate=0.0, dtype=torch.float32)
+  return TrainLoop.build(
+      shards, tok, model_cfg=cfg, device='cpu', learning_rate=1e-3,
+      warmup_steps=2, total_steps=100, batch_size_per_rank=batch,
+      bin_size=128, max_seq_length=512, seed=5, samples_seen=samples_seen,
+      mesh=mesh, comm=backend, loader_kwargs={'shuffle_buffer_size': 16},
+      **kw)
+
+
+def bin_seq(loop, n=6):
+  import itertools
+  return [b['input_ids'].shape[1]
+          for b in itertools.islice(iter(loop.loader), n)]
+
+
+def train_and_save(rank, world, shards, vocab_file, ckpt, batch, steps):
+  """World ``world`` trains ``steps`` steps from the shards and saves
+  (rank 0 writes behind a barrier)."""
+  loop = shard_loop(rank, world, shards, vocab_file, batch)
+  losses = loop.run(steps, ckpt_dir=ckpt, log_every=0)
+  return {'losses': losses, 'digest': loop.state_digest(),
+          'meta': (loop.step, loop.samples_seen),
+          'params': param_digest(loop.model)}
+
+
+def restore_and_draw(rank, world, shards, vocab_file, ckpt, batch,
+                     samples_seen):
+  """World ``world`` restores the checkpoint and draws the next bins."""
+  loop = shard_loop(rank, world, shards, vocab_file, batch,
+                    samples_seen=samples_seen).restore(ckpt)
+  return {'digest': loop.state_digest(),
+          'meta': (loop.step, loop.samples_seen), 'bins': bin_seq(loop)}
+
+
+def file_fleet_rank(rank, world, rdv, shards, vocab_file, ckpt_dir):
+  """One rank of an elastic --comm file fleet (independent
+  single-process worlds sharing a FileBackend membership store), as
+  tests/test_faults.py's ``_train_rank``; the injected fault SIGKILLs
+  rank 1 mid-training and rank 0 must detect it, checkpoint and stop."""
+  from lddl_tpu_torch.comm import FileBackend
+  from lddl_tpu_torch.training.elastic import RankMembership
+  be = FileBackend(rdv, rank, world, timeout=60.0, run_id='train')
+  loop = shard_loop(rank, world, shards, vocab_file, 4, comm='null',
+                    dp_rank=rank, dp_world=world)
+  membership = RankMembership(be.lease_store('train.membership'), rank,
+                              world).start()
+  be.barrier()  # both ranks are members before any fault can fire
+  try:
+    # max_steps is unreachable: only a membership event ends rank 0's run.
+    losses = loop.run(100, ckpt_dir=(ckpt_dir if rank == 0 else None),
+                      ckpt_every=2, log_every=0, membership=membership)
+  finally:
+    membership.stop()
+  return {'stop_reason': loop.stop_reason, 'step': loop.step,
+          'samples_seen': loop.samples_seen, 'steps_run': len(losses)}
