@@ -146,10 +146,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      process resumes it: the state equal to the ranks' bit for bit, the
      same samples_seen, the next 3 batches equal to a world-1 loader
      re-seeked to it, 2 more finite steps; ms/step per rank; (c) no
-     ``lddltorch_`` segment and no rank process left.
+     ``lddltorch_`` segment and no rank process left;
+  10. the network data service and the live monitor, BERT-base from
+     pairs/ with the step cache on: (a) ``python -m
+     lddl_tpu_torch.loader.service`` (a process that imports no torch)
+     serves digests.json's pairs loader; TrainLoop.build with
+     LDDL_LOADER_TRANSPORT=network finds it by its announce and trains
+     SERVE_EPOCHS epochs (deterministic algorithms on, the ledger on, the
+     monitor on): every batch = the serial loader's (epoch 0 =
+     digests.json), the collate records = its blake2b-8 digests, every
+     batch over the wire, the server served one per step, 0 fallbacks,
+     12 launches per step of K1-K3 and none of K4 (counts at 0 just
+     before, read just after), one miss per bin, the losses bit-equal to
+     a serial-loader run in a fresh loop, and the server holds no CUDA
+     context; then, for the record, the window per step and the data
+     wait from the server, the serial loader and W=2 workers (S N W W N
+     S); (c) during (a) a scraper GETs /snapshot every SCRAPE_S while
+     the graphs are captured (no error, one miss per bin, mode graph,
+     hbm.bytes_limit = the card's memory, headroom in (0, 1)), /metrics
+     parses as Prometheus text, /profile?steps=2 writes a torch.profiler
+     trace with 24 calls of each of K1-K3, and ``python -m
+     lddl_tpu_torch.telemetry.monitor --dir ... --once --json`` lists
+     rank 0 and the server; the window per step with the monitor off and
+     on at a 1 s scrape; (b) the server SIGKILLed before
+     SERVE_KILL_STEP: the monitor CLI lists it dead, the client degrades
+     once to its local loader at the exact step, re-attaches to a
+     restarted server after SERVE_REATTACH batches, every batch is still
+     the serial loader's; no server process and no announce left.
 
-The last lines are the kernels' JSON summary (with phase 9's launch
-counts per rank), the card's name and power limit, and ``{"ok": true,
+The last lines are the kernels' JSON summary (with the launch counts of
+phases 9 and 10), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``. Without a CUDA card the script exits non-zero before
 printing any result.
 """
@@ -2684,6 +2710,677 @@ def data_parallel(args, digests, cli7d, shards7, card):
   return dp
 
 
+# ---- phase 10: the network data service and the live monitor ----
+
+# The data client's knobs, set in the environment as a user sets them: a
+# killed server costs the trainer 3 connection attempts (~0.4 s of
+# backoff) before it degrades, and the degraded client probes for a
+# server every SERVE_REATTACH local batches.
+SERVE_REATTACH = 4
+SERVE_ENV = {'LDDL_DATA_TIMEOUT': '5', 'LDDL_DATA_RETRIES': '2',
+             'LDDL_DATA_REATTACH_EVERY': str(SERVE_REATTACH)}
+SERVE_EPOCHS = 2
+# 10b: the server is SIGKILLed just before this step of the run.
+SERVE_KILL_STEP = 5
+# A server's window in 10b: both epochs, so the restarted server (which
+# starts at batch 0) holds the batch the re-attached client asks for.
+SERVE_KILL_WINDOW = 64
+# The scraper's period through the main path (10a/10c) and in 10c's
+# monitor-on timing, seconds.
+SCRAPE_S = 0.05
+SCRAPE_SLOW_S = 1.0
+# A data server announces within this many seconds of its start.
+SERVER_START_TIMEOUT = 60
+# Prometheus text exposition: a sample line.
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$')
+
+
+class ServerProc:
+  """``python -m lddl_tpu_torch.loader.service`` over pairs/, started as
+  a user starts it: digests.json's pairs loader through ``--factory``,
+  its serve announce into ``fleet`` (where the trainer discovers it), in
+  a session of its own. With ``monitor_dir`` it runs its own monitor
+  (LDDL_MONITOR, telemetry on), announced there, apart from the
+  trainer's rank 0."""
+
+  def __init__(self, settings, fleet, log_path, window=None,
+               monitor_dir=None):
+    kwargs = dict(path=shard_path('pairs'), vocab_file=VOCAB_FILE,
+                  **settings)
+    self.cmd = [sys.executable, '-m', 'lddl_tpu_torch.loader.service',
+                '--factory',
+                'lddl_tpu_torch.loader.bert:get_bert_pretrain_data_loader',
+                '--kwargs-json', json.dumps(kwargs), '--announce-dir', fleet]
+    if window:
+      self.cmd += ['--window', str(window)]
+    self.env = {k: v for k, v in os.environ.items()
+                if k not in ('LDDL_MONITOR', 'LDDL_MONITOR_DIR',
+                             'LDDL_TELEMETRY', 'LDDL_TELEMETRY_DIR')}
+    if monitor_dir:
+      self.env.update(LDDL_MONITOR='1', LDDL_MONITOR_DIR=monitor_dir,
+                      LDDL_TELEMETRY='1')
+    self.fleet, self.log_path, self.monitor_dir = fleet, log_path, monitor_dir
+    self.proc = self.url = None
+
+  @property
+  def pid(self):
+    return self.proc.pid
+
+  def start(self):
+    from lddl_tpu_torch.loader.service import discover_data_servers
+    t0 = time.perf_counter()
+    with open(self.log_path, 'w') as f:
+      self.proc = subprocess.Popen(self.cmd, cwd=HERE, env=self.env, stdout=f,
+                                   stderr=subprocess.STDOUT,
+                                   start_new_session=True)
+    deadline = time.monotonic() + SERVER_START_TIMEOUT
+    while time.monotonic() < deadline:
+      mine = [i for i in discover_data_servers(self.fleet)
+              if i.get('pid') == self.pid and not i['dead']]
+      if mine:
+        self.url = mine[0]['url']
+        self.start_seconds = time.perf_counter() - t0
+        return self
+      if self.proc.poll() is not None:
+        break
+      time.sleep(0.05)
+    self.stop()
+    raise AssertionError(f'phase 10: the data server did not announce:\n'
+                         + open(self.log_path).read()[-4000:])
+
+  def served(self):
+    """The server's ``serve.batches_served``, from its own monitor."""
+    from lddl_tpu_torch.telemetry import monitor
+    urls = monitor.discover_endpoints(self.monitor_dir)
+    if len(urls) != 1:
+      raise AssertionError(f'phase 10: server monitor endpoints {urls}')
+    snap = monitor.fetch_snapshot(urls[0], timeout=10)
+    if snap['pid'] != self.pid:
+      raise AssertionError(f'phase 10: monitor of pid {snap["pid"]}')
+    return next((x['total'] for x in snap['metrics']
+                 if x.get('name') == 'serve.batches_served'), 0)
+
+  def kill(self):
+    os.killpg(self.pid, 9)
+    self.proc.wait(30)
+
+  def stop(self):
+    """SIGTERM (the server's clean teardown), SIGKILL past 30 s; returns
+    the exit code."""
+    if self.proc is None:
+      return None
+    if self.proc.poll() is None:
+      self.proc.terminate()
+      try:
+        self.proc.wait(30)
+      except subprocess.TimeoutExpired:
+        pass
+    if group_alive(self.pid):
+      os.killpg(self.pid, 9)
+    self.proc.wait()
+    return self.proc.returncode
+
+
+def check_no_cuda_context(pid, label):
+  """The process ``pid`` holds no CUDA context: nvidia-smi does not list
+  it, and it has neither the CUDA driver nor torch mapped."""
+  out = subprocess.run(['nvidia-smi', '--query-compute-apps=pid',
+                        '--format=csv,noheader'], capture_output=True,
+                       text=True, check=True, timeout=60)
+  pids = sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+  with open(f'/proc/{pid}/maps') as f:
+    maps = f.read()
+  mapped = [lib for lib in ('libcuda.so', 'libtorch') if lib in maps]
+  if pid in pids or mapped:
+    raise AssertionError(f'{label}: the data server (pid {pid}) holds CUDA '
+                         f'state: nvidia-smi compute pids {pids}, mapped '
+                         f'{mapped}')
+  seen = os.getpid() in pids
+  where = ('among them' if seen else
+           'not among them: the query sees another pid namespace')
+  log(f'  {label}: the data server (pid {pid}) holds no CUDA context: '
+      f'nvidia-smi lists compute pids {pids} (this trainer, pid '
+      f'{os.getpid()}, {where}); neither libcuda nor libtorch is mapped in '
+      'it')
+  return {'compute_pids': pids, 'trainer_listed': seen}
+
+
+def monitor_cli(fleet):
+  """``python -m lddl_tpu_torch.telemetry.monitor --dir fleet --once
+  --json``: its exit code and payload."""
+  r = subprocess.run([sys.executable, '-m', 'lddl_tpu_torch.telemetry.monitor',
+                      '--dir', fleet, '--once', '--json'], cwd=HERE,
+                     capture_output=True, text=True, timeout=120,
+                     check=False)
+  try:
+    payload = json.loads(r.stdout)
+  except ValueError:
+    raise AssertionError(f'phase 10: the monitor CLI printed no JSON '
+                         f'(rc {r.returncode}):\n{r.stdout}\n{r.stderr}')
+  return r.returncode, payload
+
+
+class Scraper:
+  """A thread that GETs the trainer's ``/snapshot`` every ``period``
+  seconds from the moment its monitor serves until :meth:`stop`, keeping
+  the errors, the scrapes made before ``steps[0]`` reached ``first``,
+  and the last snapshot; with ``arm_at`` it GETs ``/profile?steps=2``
+  once ``steps[0]`` reaches it."""
+
+  def __init__(self, monitor, period, steps=None, first=0, arm_at=None):
+    import threading
+    self.monitor, self.period, self.steps = monitor, period, steps or [0]
+    self.first, self.arm_at = first, arm_at
+    self.errors, self.scrapes, self.scrapes_first = [], 0, 0
+    self.last = self.armed = self.metrics = None
+    self._stop = threading.Event()
+    self._thread = threading.Thread(target=self._run, name='smoke-scraper',
+                                    daemon=True)
+    self._thread.start()
+
+  def _get(self, path):
+    import urllib.request
+    with urllib.request.urlopen(self.monitor.url + path, timeout=10) as r:
+      return r.read().decode()
+
+  def _run(self):
+    while not self.monitor.url and not self._stop.wait(0.005):
+      pass
+    while not self._stop.is_set():
+      try:
+        if (self.arm_at is not None and self.armed is None and
+            self.steps[0] >= self.arm_at):
+          self.armed = json.loads(self._get('/profile?steps=2'))
+        self.last = json.loads(self._get('/snapshot'))
+        self.scrapes += 1
+        if self.steps[0] < self.first:
+          self.scrapes_first += 1
+      except Exception as e:  # every failure is a finding of the phase
+        self.errors.append(repr(e))
+      self._stop.wait(self.period)
+
+  def stop(self):
+    self._stop.set()
+    self._thread.join(30)
+    if self.monitor.url:
+      try:
+        self.metrics = self._get('/metrics')
+      except OSError as e:
+        self.errors.append(repr(e))
+
+
+@contextlib.contextmanager
+def on_steps(loop, hooks):
+  """Counts the steps ``loop`` takes inside (``taken[0]``) and runs
+  ``hooks[i]()`` on the loop's thread just before the i-th of them."""
+  from lddl_tpu_torch.training import CompiledStepCache
+  if loop.step_cache is None:
+    loop.step_cache = CompiledStepCache(loop.step_fn)
+  cache = loop.step_cache
+  taken = [0]
+
+  def step(batch, dropout_seed):
+    hook = hooks.get(taken[0])
+    if hook is not None:
+      hook()
+    taken[0] += 1
+    return cache(batch, dropout_seed)
+
+  loop.step_cache = step
+  try:
+    yield taken
+  finally:
+    loop.step_cache = cache
+
+
+def read_ledger(path):
+  """``{boundary: [digest, ...]}`` in (epoch, index/gi) order."""
+  with open(path) as f:
+    lines = [json.loads(x) for x in f.read().splitlines()]
+  if lines[0].get('algo') != 'blake2b8':
+    raise AssertionError(f'phase 10: ledger meta {lines[0]}')
+  out = {}
+  for r in lines[1:]:
+    key = (r.get('epoch'), r.get('index', r.get('gi')))
+    out.setdefault(r['boundary'], []).append((key, r['digest']))
+  return {b: [d for _, d in sorted(v)] for b, v in out.items()}
+
+
+@contextlib.contextmanager
+def blake2b8():
+  """The ledger's digests are blake2b-8 inside (what digests.json's
+  ``ledger`` entries hold), wherever xxhash is installed."""
+  from lddl_tpu_torch.telemetry import ledger
+  saved = ledger._xxhash, ledger.ALGO
+  ledger._xxhash, ledger.ALGO = None, 'blake2b8'
+  try:
+    yield
+  finally:
+    ledger._xxhash, ledger.ALGO = saved
+
+
+@contextlib.contextmanager
+def blake2b8_ledger(directory):
+  """The determinism ledger on, with blake2b-8 digests, for the enclosed
+  run."""
+  from lddl_tpu_torch.telemetry import ledger
+  with blake2b8():
+    ledger.enable_ledger(directory=directory, rank=0)
+    try:
+      yield
+    finally:
+      ledger.disable_ledger()
+
+
+def serve_expected(digests):
+  """What the service must deliver over SERVE_EPOCHS epochs: the port's
+  serial loader's batches (its epoch 0 held against digests.json here) as
+  batch_sha256 and as blake2b-8 ledger digests, and their bins."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.telemetry import ledger
+  loader = get_bert_pretrain_data_loader(
+      shard_path('pairs'), vocab_file=VOCAB_FILE,
+      **digests['pairs']['settings'])
+  batches = [b for _ in range(SERVE_EPOCHS) for b in loader]
+  sha = [batch_sha256(b) for b in batches]
+  with blake2b8():
+    fp = [ledger.fingerprint_batch(b) for b in batches]
+  bins = len({b['input_ids'].shape[1] for b in batches})
+  n = len(digests['pairs']['batches'])
+  check_digests('10: the serial loader', sha[:n], digests['pairs']['batches'])
+  if fp[:n] != digests['pairs']['ledger']:
+    raise AssertionError('10: the serial loader\'s blake2b-8 digests are not '
+                         'digests.json\'s ledger entries')
+  return sha, fp, bins
+
+
+def flash_calls_in_trace(trace_dir):
+  """Calls of each flash kernel in a torch.profiler Chrome trace."""
+  with open(os.path.join(trace_dir, 'trace.json')) as f:
+    events = json.load(f)['traceEvents']
+  calls = {}
+  for e in events:
+    m = FLASH_KERNEL_NAME.search(str(e.get('name', '')))
+    if m and e.get('cat') == 'kernel':
+      name = m.group(1) + ('_seg' if m.group(2) == 'true' else '')
+      calls[name] = calls.get(name, 0) + 1
+  return calls
+
+
+def check_prometheus(text, label):
+  samples = [x for x in text.splitlines() if x and not x.startswith('#')]
+  bad = [x for x in samples if not PROM_SAMPLE.match(x)]
+  for x in samples:
+    float(x.rsplit(' ', 1)[1])
+  if bad or not samples or '# TYPE lddl_train_steps_total counter' not in text:
+    raise AssertionError(f'{label}: /metrics is not Prometheus text: '
+                         f'{bad[:3]} ({len(samples)} samples)')
+  return len(samples)
+
+
+def serve_healthy(args, digests, want, root, fleet, servers, card):
+  """10a, with 10c's checks during it: BERT-base from a data server
+  through TrainLoop with LDDL_LOADER_TRANSPORT=network, the endpoint
+  found by discovery, deterministic algorithms on, the ledger on, the
+  monitor on (LDDL_MONITOR=1) with a scraper every SCRAPE_S; then the
+  same steps through the serial loader in a fresh loop, bit-equal."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader import MultiprocessLoader
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.telemetry import profiling, server
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+
+  settings = digests['pairs']['settings']
+  want_sha, want_fp, bins = want
+  srv = ServerProc(settings, fleet, os.path.join(root, 'srv_a.log'),
+                   monitor_dir=os.path.join(root, 'srv_a_monitor')).start()
+  servers.append(srv)
+  build = pairs_build(args, settings, num_workers=WORKERS,
+                      vocab_file=VOCAB_FILE)
+  os.environ['LDDL_LOADER_TRANSPORT'] = 'network'
+  try:
+    loop = TrainLoop.build(shard_path('pairs'), **build)
+  finally:
+    del os.environ['LDDL_LOADER_TRANSPORT']
+  if not (isinstance(loop.loader, MultiprocessLoader) and
+          loop.loader.transport == 'network'):
+    raise AssertionError(f'10a: TrainLoop.build made {loop.loader!r}')
+  epoch = loop.loader.batches_per_epoch
+  n = SERVE_EPOCHS * epoch
+  loop.loader = taken_batches = DigestingLoader(loop.loader)
+  cfg = build['model_cfg']
+  cli = {}
+  os.environ['LDDL_MONITOR'] = '1'
+  server.stop_monitor()
+  mon = server.get_monitor()  # resolved here, started by run()
+  ledger_dir = os.path.join(root, 'ledger_a')
+  tele = telemetry.enable()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    with blake2b8_ledger(ledger_dir), on_steps(
+        loop, {epoch + 2: lambda: cli.update(live=monitor_cli(fleet))}) as \
+        steps:
+      scraper = Scraper(mon, SCRAPE_S, steps, first=epoch, arm_at=epoch)
+      try:
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        losses = loop.run(n, log_every=0)
+        seconds = time.perf_counter() - t0
+        counts = tfa.device_launches()
+        host = dict(tfa.launches)
+      finally:
+        scraper.stop()
+    client = {k: tele.counter(f'serve.{k}').total
+              for k in ('client_pulls', 'fallbacks', 'reattaches')}
+  finally:
+    torch.use_deterministic_algorithms(False)
+    telemetry.disable()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'10a: {len(losses)} losses of {n}: {losses}')
+  check_digests('10a, the batches the loop took', taken_batches.digests,
+                want_sha)
+  records = read_ledger(os.path.join(ledger_dir, 'ledger.rank0.jsonl'))
+  if records.get('collate') != want_fp:
+    raise AssertionError('10a: the ledger\'s collate digests are not the '
+                         'serial loader\'s (epoch 0: digests.json)')
+  if len(records.get('serve.rx', [])) != n:
+    raise AssertionError(f'10a: {len(records.get("serve.rx", []))} batches '
+                         f'came over the wire, want all {n}')
+  served = srv.served()
+  if client['fallbacks'] or client['reattaches'] or served != n:
+    raise AssertionError(f'10a: fallbacks {client["fallbacks"]}, '
+                         f'reattaches {client["reattaches"]}, the server '
+                         f'served {served}; want 0, 0, {n}')
+  per_step = {'fwd': cfg.num_layers, 'dq': cfg.num_layers,
+              'dkv': cfg.num_layers, 'fwd_seg': 0, 'dq_seg': 0, 'dkv_seg': 0}
+  check_launches(counts, host, {k: m * n for k, m in per_step.items()},
+                 f'10a, from the data server, {n} steps')
+  check_cache(loop.step_cache, bins, n, '10a, under a scraper every '
+              f'{1e3 * SCRAPE_S:.0f} ms')
+  if loop.step_cache.mode != 'graph':
+    raise AssertionError(f'10a: step cache mode {loop.step_cache.mode}')
+  # 10c, during the same run.
+  if scraper.errors or not scraper.scrapes_first:
+    raise AssertionError(f'10c: scraper errors {scraper.errors[:3]}, '
+                         f'{scraper.scrapes_first} scrapes in epoch 0')
+  hbm = scraper.last['hbm']
+  total = torch.cuda.mem_get_info(0)[1]
+  if hbm['bytes_limit'] != total or not 0 < hbm['headroom_frac'] < 1:
+    raise AssertionError(f'10c: /snapshot hbm {hbm}; the card has {total} '
+                         'bytes')
+  prom = check_prometheus(scraper.metrics, '10c')
+  trace = profiling.get_step_profiler().last_trace_dir
+  if not scraper.armed or not trace:
+    raise AssertionError(f'10c: /profile answered {scraper.armed}; trace '
+                         f'{trace}')
+  calls = flash_calls_in_trace(trace)
+  if calls != {k: 2 * v for k, v in per_step.items() if v}:
+    raise AssertionError(f'10c: the /profile trace of 2 steps names the '
+                         f'flash kernels {calls}; want 24 calls of each of '
+                         'K1-K3 and none of K4')
+  rc, fleet_json = cli['live']
+  live = [d for d in fleet_json.get('data_servers', [])
+          if d['url'] == srv.url and not d['dead']]
+  if rc != 0 or list(fleet_json['ranks']) != ['0'] or not live or \
+      fleet_json['errors']:
+    raise AssertionError(f'10c: the monitor CLI exited {rc} with ranks '
+                         f'{list(fleet_json["ranks"])}, data servers '
+                         f'{fleet_json.get("data_servers")}, errors '
+                         f'{fleet_json["errors"]}')
+  context = check_no_cuda_context(srv.pid, '10a')
+  if srv.stop() != 0:
+    raise AssertionError(f'10a: the data server exited {srv.proc.returncode}')
+  log(f'  10a: {n} steps ({SERVE_EPOCHS} epochs) from the data server in '
+      f'{seconds:.1f} s (graph captures included), losses {losses[0]:.4f} '
+      f'-> {losses[-1]:.4f}; the {n} batches = the serial loader\'s (epoch 0 '
+      f'= digests.json), collate records = its blake2b-8 digests, {n} '
+      f'serve.rx; the server served {served}, the client pulled '
+      f'{client["client_pulls"]} times, 0 fallbacks; server start '
+      f'{srv.start_seconds:.2f} s [{card}]')
+  log(f'  10c: {scraper.scrapes} scrapes of /snapshot every '
+      f'{1e3 * SCRAPE_S:.0f} ms ({scraper.scrapes_first} in epoch 0, while '
+      f'{bins} graphs were captured), no error; hbm.bytes_limit {total} = '
+      f'the card\'s, headroom {hbm["headroom_frac"]:.4f}; /metrics {prom} '
+      f'Prometheus samples; /profile?steps=2 -> {trace}: {calls}; the '
+      'monitor CLI listed rank 0 and the data server [' + card + ']')
+
+  tok = load_bert_tokenizer(VOCAB_FILE)
+  ref = TrainLoop.build(shard_path('pairs'), tok, **pairs_build(args,
+                                                                 settings))
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    ref_losses = ref.run(n, log_every=0)
+  finally:
+    torch.use_deterministic_algorithms(False)
+  del ref
+  torch.cuda.empty_cache()
+  if ref_losses != losses:
+    bad = next(i for i, (a, b) in enumerate(zip(ref_losses, losses))
+               if a != b)
+    raise AssertionError(f'10a: step {bad}: loss {losses[bad]} from the data '
+                         f'server, {ref_losses[bad]} from the serial loader '
+                         '(deterministic algorithms on)')
+  log(f'  10a: the {n} losses equal a serial-loader run\'s in a fresh loop '
+      'bit for bit (deterministic algorithms on)')
+  return loop, epoch, {
+      'steps': n, 'seconds': seconds, 'losses': losses,
+      'served': served, 'client': client, 'launches': counts,
+      'server_start_s': srv.start_seconds, 'cuda_context': context,
+      'scrapes': scraper.scrapes, 'scrapes_epoch0': scraper.scrapes_first,
+      'hbm': hbm, 'prometheus_samples': prom, 'profile_calls': calls}
+
+
+def serve_timing(loop, digests, epoch, root, fleet, servers, card):
+  """10a's record: the loop's whole window per step and the data wait,
+  from the data server (N), the serial loader (S) and W=2 workers (W),
+  in the order S N W W N S through the same loop and graphs
+  (deterministic algorithms off, as 7b and 8b); a fresh server for each
+  network run."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.telemetry import server
+  server.stop_monitor()
+  os.environ.pop('LDDL_MONITOR', None)
+  settings = digests['pairs']['settings']
+  n = SERVE_EPOCHS * epoch
+
+  def make(**kw):
+    return get_bert_pretrain_data_loader(shard_path('pairs'),
+                                         vocab_file=VOCAB_FILE, **settings,
+                                         **kw)
+  loaders = {'serial': make(), 'workers': make(num_workers=WORKERS,
+                                                transport='shm')}
+  runs = {}
+  for i, name in enumerate(('serial', 'network', 'workers', 'workers',
+                            'network', 'serial')):
+    srv = None
+    if name == 'network':
+      srv = ServerProc(settings, fleet, os.path.join(root, f'srv_t{i}.log'))
+      servers.append(srv.start())
+      loader = make(num_workers=WORKERS, transport='network')
+    else:
+      loader = loaders[name]
+    runs.setdefault(name, []).append(timed_epochs(loop, loader, epoch, n))
+    if srv is not None:
+      srv.stop()
+  stats = {'order': 'S N W W N S', 'steps_per_run': n, 'runs': {}}
+  for name, rs in runs.items():
+    per = [step_stats(r['steps'])['all'] for r in rs]
+    r = {k: float(np.mean([p[k] for p in per])) for k in
+         ('wall_ms', 'steady_wall_ms', 'compute_ms', 'wait_ms')}
+    r['epoch_first_wait_ms'] = [x for p in per
+                                for x in p['epoch_first_wait_ms']]
+    stats['runs'][name] = r
+    log(f'  10a record, {name}: {len(rs)} runs of {n} steps; window mean of '
+        f'hits {r["wall_ms"]:.2f} ms/step, median not first '
+        f'{r["steady_wall_ms"]:.2f}; the step alone {r["compute_ms"]:.2f}; '
+        f'data wait mean not first {r["wait_ms"]:.3f} ms, epochs\' first '
+        f'steps {", ".join(f"{x:.1f}" for x in r["epoch_first_wait_ms"])} '
+        f'ms [{card}]')
+  return stats
+
+
+def monitor_cost(loop, digests, epoch, card):
+  """10c's record: the window per step with the monitor off and on with
+  a scrape every SCRAPE_SLOW_S, off on on off, serial loader."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.telemetry import server
+  loader = get_bert_pretrain_data_loader(
+      shard_path('pairs'), vocab_file=VOCAB_FILE,
+      **digests['pairs']['settings'])
+  n = SERVE_EPOCHS * epoch
+  runs = {}
+  for mode in ('off', 'on', 'on', 'off'):
+    server.stop_monitor()
+    if mode == 'on':
+      os.environ['LDDL_MONITOR'] = '1'
+    else:
+      os.environ.pop('LDDL_MONITOR', None)
+    mon = server.get_monitor()
+    scraper = Scraper(mon, SCRAPE_SLOW_S) if mode == 'on' else None
+    try:
+      run = timed_epochs(loop, loader, epoch, n)
+    finally:
+      if scraper is not None:
+        scraper.stop()
+    if scraper is not None and (scraper.errors or not scraper.scrapes):
+      raise AssertionError(f'10c: 1 Hz scraper: {scraper.errors[:3]}')
+    runs.setdefault(mode, []).append(step_stats(run['steps'])['all'])
+  server.stop_monitor()
+  stats = {mode: {k: float(np.mean([p[k] for p in per]))
+                  for k in ('wall_ms', 'steady_wall_ms')}
+           for mode, per in runs.items()}
+  log(f'  10c record: window mean of hits {stats["off"]["wall_ms"]:.2f} '
+      f'ms/step with the monitor off, {stats["on"]["wall_ms"]:.2f} on with a '
+      f'scrape every {SCRAPE_SLOW_S:.0f} s (medians not first '
+      f'{stats["off"]["steady_wall_ms"]:.2f} / '
+      f'{stats["on"]["steady_wall_ms"]:.2f}); off on on off, serial loader, '
+      f'{n} steps a run [{card}]')
+  return stats
+
+
+def serve_kill(loop, digests, want, epoch, root, fleet, servers, card):
+  """10b: the data server SIGKILLed before step SERVE_KILL_STEP; the
+  monitor CLI lists it dead; a restarted server is re-attached after
+  SERVE_REATTACH local batches; every batch is still the serial
+  loader's."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.core import log as tlog
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.loader.service import discover_data_servers
+  from lddl_tpu_torch.telemetry import server
+  settings = digests['pairs']['settings']
+  want_sha = want[0]
+  n = SERVE_EPOCHS * epoch
+  os.environ['LDDL_MONITOR'] = '1'
+  server.stop_monitor()
+  first = ServerProc(settings, fleet, os.path.join(root, 'srv_k.log'),
+                     window=SERVE_KILL_WINDOW).start()
+  servers.append(first)
+  events = {}
+
+  def kill():
+    first.kill()
+    events['dead_cli'] = monitor_cli(fleet)
+    events['restarted'] = ServerProc(
+        settings, fleet, os.path.join(root, 'srv_r.log'),
+        window=SERVE_KILL_WINDOW).start()
+    servers.append(events['restarted'])
+
+  tele = telemetry.enable()
+  ledger_dir = os.path.join(root, 'ledger_b')
+  try:
+    loader = DigestingLoader(get_bert_pretrain_data_loader(
+        shard_path('pairs'), vocab_file=VOCAB_FILE, num_workers=WORKERS,
+        transport='network', **settings))
+    loop.loader = loader
+    with blake2b8_ledger(ledger_dir), on_steps(loop,
+                                               {SERVE_KILL_STEP: kill}):
+      losses = loop.run(loop.step + n, log_every=0)
+    client = {k: tele.counter(f'serve.{k}').total
+              for k in ('client_pulls', 'fallbacks', 'reattaches')}
+  finally:
+    telemetry.disable()
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'10b: {len(losses)} losses of {n}: {losses}')
+  check_digests('10b, the batches the loop took', loader.digests, want_sha)
+  rx = len(read_ledger(os.path.join(ledger_dir, 'ledger.rank0.jsonl'))
+           .get('serve.rx', []))
+  warned = [m for m in tlog._WARNED if 'server unreachable' in m]
+  if (client['fallbacks'], client['reattaches'], n - rx) != (
+      1, 1, SERVE_REATTACH) or len(warned) != 1:
+    raise AssertionError(f'10b: fallbacks {client["fallbacks"]}, '
+                         f'reattaches {client["reattaches"]}, {n - rx} '
+                         f'local batches, warnings {warned}; want 1, 1, '
+                         f'{SERVE_REATTACH} and one warning')
+  rc, fleet_json = events['dead_cli']
+  dead = [d for d in fleet_json.get('data_servers', [])
+          if d['pid'] == first.pid and d['dead']]
+  errors = [e for k, e in fleet_json['errors'].items()
+            if first.url in k and 'dead' in e]
+  if rc != 0 or not dead or not errors or list(fleet_json['ranks']) != ['0']:
+    raise AssertionError(f'10c: after the kill the monitor CLI exited {rc} '
+                         f'with data servers {fleet_json.get("data_servers")}'
+                         f', errors {fleet_json["errors"]}, ranks '
+                         f'{list(fleet_json["ranks"])}')
+  restarted = events['restarted']
+  context = check_no_cuda_context(restarted.pid, '10b')
+  if restarted.stop() != 0:
+    raise AssertionError(f'10b: the restarted server exited '
+                         f'{restarted.proc.returncode}')
+  left = discover_data_servers(fleet)
+  if left or group_alive(first.pid) or first.proc.poll() is None:
+    raise AssertionError(f'10b: left behind: announces {left}, the killed '
+                         f'server alive {group_alive(first.pid)}')
+  log(f'  10b: the server SIGKILLed before step {SERVE_KILL_STEP}: the client '
+      f'degraded once ("{warned[0][:60]}..."), took {SERVE_REATTACH} batches '
+      f'from its local loader, re-attached to the restarted server '
+      f'({client["reattaches"]}); all {n} batches = the serial loader\'s, '
+      f'{rx} over the wire; the monitor CLI listed the dead server as dead '
+      f'("{errors[0][:50]}..."); no announce and no process left [{card}]')
+  return {'steps': n, 'client': client, 'wire': rx, 'local': n - rx,
+          'cuda_context': context}
+
+
+def data_service(args, digests, card):
+  """Phase 10: 10a, its timing record, 10c's monitor cost, 10b."""
+  from lddl_tpu_torch.telemetry import server
+  want = serve_expected(digests)
+  keys = (*SERVE_ENV, 'LDDL_MONITOR', 'LDDL_MONITOR_DIR', 'LDDL_TELEMETRY_DIR',
+          'LDDL_LOADER_TRANSPORT')
+  saved = {k: os.environ.get(k) for k in keys}
+  servers = []
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_serve_') as root:
+    fleet = os.path.join(root, 'fleet')
+    os.environ.update(SERVE_ENV, LDDL_MONITOR_DIR=fleet,
+                      LDDL_TELEMETRY_DIR=os.path.join(root, 'telemetry'))
+    try:
+      loop, epoch, stats = serve_healthy(args, digests, want, root, fleet,
+                                         servers, card)
+      stats['timing'] = serve_timing(loop, digests, epoch, root, fleet,
+                                     servers, card)
+      stats['monitor_cost'] = monitor_cost(loop, digests, epoch, card)
+      stats['kill'] = serve_kill(loop, digests, want, epoch, root, fleet,
+                                 servers, card)
+    finally:
+      for s in servers:
+        s.stop()
+      server.stop_monitor()
+      for k, v in saved.items():
+        if v is None:
+          os.environ.pop(k, None)
+        else:
+          os.environ[k] = v
+  del loop
+  torch.cuda.empty_cache()
+  check_no_segments('phase 10')
+  left = [s.pid for s in servers if s.proc.poll() is None or
+          group_alive(s.pid)]
+  if left:
+    raise AssertionError(f'phase 10: data server processes left: {left}')
+  log(f'  phase 10: all {len(servers)} data server processes have exited')
+  return stats
+
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -2777,6 +3474,9 @@ def main():
   log(f'== data-parallel training across processes [{card}]')
   dp = data_parallel(args, digests, shards['cli'], shards['pairs'], card)
 
+  log(f'== the network data service and the live monitor [{card}]')
+  served = data_service(args, digests, card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -2809,6 +3509,7 @@ def main():
         'world1_nccl': dp['world1']['launches'][name],
         'world2_gloo_per_rank': [x[name] for x in
                                  dp['world2']['launches_per_rank']]}
+    entry['phase10_launches'] = served['launches'][name]
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],
@@ -2824,7 +3525,10 @@ def main():
                   'workers': {k: ({kk: vv for kk, vv in v.items()
                                    if kk != 'losses'})
                               for k, v in workers.items()},
-                  'data_parallel': dp, 'card': card}, default=str))
+                  'data_parallel': dp,
+                  'data_service': {k: v for k, v in served.items()
+                                   if k != 'losses'},
+                  'card': card}, default=str))
   log(json.dumps({'kernels': summary}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

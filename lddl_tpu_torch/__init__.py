@@ -33,5 +33,11 @@ Data-parallel training across processes: ``comm`` (the null, file and
 (global-batch normalizers, the gradient all-reduce),
 ``telemetry.live`` (straggler scores), ``telemetry.report`` (the
 cross-rank merge and its CLI) and the ledger's
-``divergence_over_comm``.
+``divergence_over_comm``. The network data service: ``loader.service``
+(``DataServer``, ``NetworkBatchSource``, ``python -m
+lddl_tpu_torch.loader.service``; ``transport='network'`` in
+``loader.workers``), and the live monitor: ``telemetry.live``,
+``telemetry.server`` (``LDDL_MONITOR``) and ``telemetry.monitor``
+(``python -m lddl_tpu_torch.telemetry.monitor``), with ``testing``'s
+``SyntheticBatchLoader``.
 """

@@ -18,9 +18,11 @@ shards, the port's batches equal the JAX package's byte for byte.
 (:mod:`.workers`: the same batches, byte for byte), and with
 ``LDDL_LEDGER`` on, :meth:`BertPretrainLoader.__iter__` records each
 batch's ``collate`` fingerprint (:mod:`..telemetry.ledger`). Not ported
-yet, and not accepted as arguments: hub tokenizers (``tokenizer_name``)
-and the live monitor that the JAX package's :func:`build_pretrain_loader`
-starts.
+yet, and not accepted as arguments: hub tokenizers (``tokenizer_name``).
+The JAX package's :func:`build_pretrain_loader` also starts the live
+monitor; the port's does not (every worker process and data server
+rebuilds the loader): :meth:`~lddl_tpu_torch.training.pretrain.
+TrainLoop.run` starts it.
 
 This module, like the rest of the worker's import chain, imports no
 torch.
@@ -454,7 +456,8 @@ def build_pretrain_loader(
   scoped :class:`~lddl_tpu_torch.core.log.DatasetLogger` (reference
   constructs it inside the factory too, ``lddl/torch/bert.py:367-372``)."""
   # One process: the loader's dp_rank stands where the JAX package asks
-  # discover_topology(comm), and no live monitor is started.
+  # discover_topology(comm), and no live monitor is started (the train
+  # loop starts it).
   logger = DatasetLogger(
       log_dir=log_dir,
       log_level=logging.WARNING if log_level is None else log_level,

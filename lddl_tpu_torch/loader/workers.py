@@ -26,8 +26,10 @@ Batch transport (``transport=`` / ``LDDL_LOADER_TRANSPORT``):
     the next), but ``list(loader)`` does not.
   - ``'pickle'``: the classic ``mp.Queue`` handoff (full pickle + pipe
     crossing per batch), kept for comparison and exotic batch payloads.
-  - ``'network'`` (the JAX package's data-service client) is not ported
-    yet: it needs the comm backend.
+  - ``'network'``: pull the epoch from a data server (:mod:`.service`)
+    instead of starting workers: the server already collated once for
+    the whole fleet. A client that loses its server degrades to the
+    local serial loader at its exact position and re-attaches later.
 
 All transports deliver byte-identical batches; a batch that does not fit
 its shm slot falls back to pickling for that step (counted in
@@ -121,12 +123,8 @@ def _start(procs):
 def _resolve_transport(transport):
   t = (transport or os.environ.get(_TRANSPORT_ENV, '').strip().lower()
        or 'shm')
-  if t == 'network':
-    raise NotImplementedError(
-        "transport='network' (the data-service client) is not ported yet: "
-        'it needs the comm backend')
-  if t not in ('shm', 'pickle'):
-    raise ValueError(f'unknown loader transport {t!r} (shm|pickle)')
+  if t not in ('shm', 'pickle', 'network'):
+    raise ValueError(f'unknown loader transport {t!r} (shm|pickle|network)')
   return t
 
 
@@ -301,7 +299,9 @@ class MultiprocessLoader:
 
   ``transport``/``queue_depth``/``zero_copy``/``slot_bytes`` tune the
   batch handoff (see the module docstring); the first three default from
-  their ``LDDL_LOADER_*`` environment knobs. :attr:`start_seconds` holds,
+  their ``LDDL_LOADER_*`` environment knobs. ``transport='network'``
+  starts no worker (``num_workers`` may then be 0) and drains a data
+  server as ``build_kwargs['comm']``'s rank. :attr:`start_seconds` holds,
   per epoch, the seconds from the start of its iteration to its first
   batch (the workers' start and their loader's build included).
   """
@@ -319,12 +319,18 @@ class MultiprocessLoader:
       raise ValueError('the loader factory must be importable by module '
                        'name (workers do not import __main__)')
     self._kwargs = dict(build_kwargs)
-    # Workers take part in no collective; the port has no comm backend.
+    # The network transport's lease-based multi-client drain needs the
+    # rank's real comm backend (for lease_store('serve')); capture it
+    # before the workers' substitution below.
+    self._client_comm = build_kwargs.get('comm')
+    # Workers (and the network client's local fallback loader) take part
+    # in no collective.
     self._kwargs['comm'] = None
     self._num_workers = int(num_workers)
-    if self._num_workers < 1:
-      raise ValueError(f'num_workers must be >= 1, got {num_workers}')
     self._transport = _resolve_transport(transport)
+    if self._num_workers < 1 and self._transport != 'network':
+      raise ValueError(f'num_workers must be >= 1, got {num_workers}')
+    self._net_source = None  # the network transport's client, made lazily
     self._queue_depth = _resolve_queue_depth(queue_depth)
     self._zero_copy = _resolve_zero_copy(zero_copy)
     self._serial = _resolve_factory(self._factory)(**build_kwargs)
@@ -415,7 +421,35 @@ class MultiprocessLoader:
               f'loader worker {w} died without reporting '
               f'(exitcode {proc.exitcode})')
 
+  def _iter_network(self):
+    """``transport='network'``: pull the epoch from a data server
+    (:mod:`.service`) instead of starting collate workers. Same
+    epoch/resume contract as the process path: the serial loader keeps
+    the position, so a degraded client (or the next epoch) resumes at
+    the exact deterministic step."""
+    from .service import NetworkBatchSource
+    epoch, first_step = self._serial.tell()
+    self._serial.seek(epoch, 0)
+    if self._net_source is None:
+      self._net_source = NetworkBatchSource(
+          build_kwargs=self._kwargs, factory=self._factory,
+          comm=self._client_comm)
+    ledger = get_ledger()
+    for gi, batch in self._net_source.iter_steps(epoch, first_step):
+      if ledger.enabled:
+        # Same collate boundary as the process transports, recorded at
+        # the same point (delivery to the consumer), keyed by the served
+        # global index: for a single client gi IS the serial step, so
+        # the stream audits against a local run's ledger.
+        ledger.record('collate', fingerprint_batch(batch), epoch=epoch,
+                      index=gi)
+      yield batch
+    self._serial.epoch = epoch + 1
+
   def __iter__(self):
+    if self._transport == 'network':
+      yield from self._iter_network()
+      return
     t_start = time.perf_counter()
     epoch, first_step = self._serial.tell()
     # Mirror the serial loader exactly: it clears the resume offset the

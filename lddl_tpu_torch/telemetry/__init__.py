@@ -17,14 +17,20 @@ formats:
     from the CUDA caching allocator;
   - :mod:`.profiling`: ``torch.profiler`` captures of N train steps;
   - :mod:`.sentinel` (``LDDL_SENTINEL``): streaming anomaly detectors;
-  - :mod:`.perf`: the robust statistics the sentinel judges with.
+  - :mod:`.perf`: the robust statistics the sentinel judges with;
+  - :mod:`.live` + :mod:`.server` (``LDDL_MONITOR``): windowed deltas,
+    the live verdict, straggler and goodput signals, and the per-process
+    HTTP endpoint (``/snapshot``, ``/metrics``, ``/healthz``,
+    ``/profile``); :mod:`.monitor` is its terminal dashboard, ``python
+    -m lddl_tpu_torch.telemetry.monitor``;
+  - :mod:`.report`: the cross-rank merge and its CLI.
 
 Everything is a no-op singleton when its switch is off. The roofline and
 profiler exports import torch, so they load lazily on first access (as
 the JAX package keeps its device exports lazy): the loader's worker
 processes import this package for metrics, trace and ledger only, and
-never pay for torch. The JAX package's live monitor and report are not
-ported yet.
+never pay for torch. The live plane's exports load lazily as well, so a
+worker never imports the HTTP server.
 """
 
 from .ledger import (
@@ -40,6 +46,7 @@ from .metrics import (
     NOOP,
     NoopTelemetry,
     Telemetry,
+    diff_snapshot_lines,
     disable,
     enable,
     get_telemetry,
@@ -58,6 +65,21 @@ from .trace import (
 )
 
 _LAZY = {
+    'SnapshotWindow': 'live',
+    'goodput_meters': 'live',
+    'live_status': 'live',
+    'live_verdict': 'live',
+    'rank_signals': 'live',
+    'stage_rates': 'live',
+    'straggler_over_comm': 'live',
+    'straggler_scores': 'live',
+    'NOOP_MONITOR': 'server',
+    'MonitorServer': 'server',
+    'NoopMonitor': 'server',
+    'get_monitor': 'server',
+    'maybe_start_monitor': 'server',
+    'prometheus_lines': 'server',
+    'stop_monitor': 'server',
     'resolve_peaks': 'roofline',
     'roofline_verdict': 'roofline',
     'sample_hbm': 'roofline',

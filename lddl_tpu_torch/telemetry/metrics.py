@@ -1,8 +1,9 @@
 """Counters, gauges, histograms and spans: the port's metric registry.
 
 A copy of :mod:`lddl_tpu.telemetry.metrics` (stdlib only; the port keeps
-its own copy and imports nothing of :mod:`lddl_tpu`), without the live
-plane's ``diff_snapshot_lines``, which has no consumer in the port yet.
+its own copy and imports nothing of :mod:`lddl_tpu`), with the live
+plane's :func:`diff_snapshot_lines`, the windowed delta the monitor's
+rates are taken over.
 
 Disabled must cost ~nothing: with ``LDDL_TELEMETRY`` unset every metric
 handle is a shared immutable singleton whose methods are empty. Enabled,
@@ -249,8 +250,11 @@ class Telemetry:
     # metric snapshots from different ranks can be cross-aligned.
     lines = [{'kind': 'meta', 'rank': rank, 'pid': os.getpid(),
               'unix_time': time.time(), 'monotonic': time.monotonic()}]
-    for name in sorted(self._metrics):
-      kind, metric = self._metrics[name]
+    # One C-level copy of the items: the monitor's HTTP thread snapshots
+    # while the train loop may register a metric, and iterating the live
+    # dict across that insert would raise.
+    for name, (kind, metric) in sorted(list(self._metrics.items()),
+                                       key=lambda e: e[0]):
       line = {'kind': kind, 'rank': rank, 'name': name}
       line.update(metric.to_dict())
       lines.append(line)
@@ -279,6 +283,83 @@ class Telemetry:
 def rank_file_name(directory, rank):
   """Canonical per-rank export path (what ``telemetry-report`` globs)."""
   return os.path.join(directory, f'telemetry.rank{rank}.jsonl')
+
+
+def diff_snapshot_lines(old, new):
+  """Windowed delta between two :meth:`Telemetry.snapshot_lines` captures.
+
+  Returns lines in the same wire format (so they feed straight into
+  :func:`~lddl_tpu_torch.telemetry.report.merge_metric_lines` and the verdict
+  logic), but with cumulative kinds reduced to the window:
+
+    - the meta line carries ``window_sec`` — the *monotonic* distance
+      between the two captures, so rates derived from the delta never
+      depend on wall clock;
+    - counters subtract (``total`` = events inside the window);
+    - histograms subtract count/sum/buckets; min/max are not windowable
+      from cumulative state, so the new capture's values pass through as
+      a conservative envelope;
+    - gauges pass through the new capture (last-value semantics).
+
+  Metrics that first appear in ``new`` diff against zero. A negative
+  ``window_sec`` (monotonic clocks from different boots) clamps to
+  zero. A cumulative metric that went *backwards* means the process
+  restarted and its registry reset — the old anchor belongs to a dead
+  incarnation, so the window re-anchors at the reset: the new
+  cumulative value passes through as the window's delta (every event
+  it counts happened since the restart, which is inside this window)
+  and the line is marked ``reset: true``. The old clamp-to-zero
+  behavior made a restarted rank read as 0 events/sec for a full
+  window, which ``straggler_scores`` maps to ``inf`` — a false
+  straggler verdict against the one rank that just recovered.
+  """
+  old_by_name, old_meta = {}, None
+  for line in old:
+    if line.get('kind') == 'meta':
+      old_meta = line
+    else:
+      old_by_name[line['name']] = line
+  out = []
+  for line in new:
+    if line.get('kind') == 'meta':
+      meta = dict(line)
+      if old_meta is not None:
+        meta['window_sec'] = max(
+            line.get('monotonic', 0.0) - old_meta.get('monotonic', 0.0), 0.0)
+      else:
+        meta['window_sec'] = 0.0
+      out.append(meta)
+      continue
+    prev = old_by_name.get(line['name'])
+    kind = line['kind']
+    if kind == 'gauge' or prev is None:
+      out.append(dict(line))
+      continue
+    d = dict(line)
+    if kind == 'counter':
+      if line.get('total', 0) < prev.get('total', 0):
+        d['total'] = line.get('total', 0)  # re-anchor at the restart
+        d['reset'] = True
+      else:
+        d['total'] = line.get('total', 0) - prev.get('total', 0)
+    elif kind == 'histogram':
+      if line.get('count', 0) < prev.get('count', 0):
+        # Re-anchor: the new capture IS the since-restart window.
+        d['reset'] = True
+      else:
+        d['count'] = line.get('count', 0) - prev.get('count', 0)
+        d['sum'] = max(line.get('sum', 0.0) - prev.get('sum', 0.0), 0.0)
+        old_b = prev.get('buckets') or {}
+        d['buckets'] = {
+            k: v - old_b.get(k, 0)
+            for k, v in (line.get('buckets') or {}).items()
+            if v - old_b.get(k, 0) > 0
+        }
+        if d['count'] == 0:
+          d.pop('min', None)
+          d.pop('max', None)
+    out.append(d)
+  return out
 
 
 _ENV = 'LDDL_TELEMETRY'

@@ -16,11 +16,14 @@ The port's counterpart of :mod:`lddl_tpu.telemetry.roofline`:
 model for an eager or captured step, so the port's step cache never
 bills ``train.xla_flops`` / ``train.xla_bytes`` and the verdict reads
 "unknown" for want of them; MFU takes the analytic FLOP count instead.
+
+torch is imported where a function needs the card, not with the module:
+the live monitor's verdict imports this module in every monitored
+process, the data server included, which never imports torch.
 """
 
 import math
-
-import torch
+import sys
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +45,8 @@ def resolve_peaks(refresh=False):
   global _peaks_cache
   if _peaks_cache is not None and not refresh:
     return _peaks_cache
+  import torch
+
   from ..models.flops import peak_flops_per_device, peak_hbm_bytes_per_device
   on_card = torch.cuda.is_available()
   kind = torch.cuda.get_device_name(0) if on_card else 'cpu'
@@ -162,12 +167,41 @@ def bound_class(merged, window_sec, peaks=None):
 # ---------------------------------------------------------------------------
 # HBM telemetry (the CUDA caching allocator's statistics)
 
-_hbm_supported = None  # None: not yet probed this process
+_hbm_limits = None  # per-card total memory; None: not yet read
+
+
+def hbm_limits():
+  """Each visible card's total memory in bytes (``mem_get_info``), read
+  once per process and cached; ``()`` on a host without a card.
+
+  Returns None, and caches nothing, while this process has not
+  initialised CUDA (or not even imported torch): the caller must not be
+  the one that creates a context (a data server that never touched the
+  card) or makes a CUDA runtime call from a thread other than the loop's
+  (the monitor's, in the middle of a graph capture).
+  :meth:`~lddl_tpu_torch.training.pretrain.TrainLoop.run` reads it on
+  the loop's thread before it starts the monitor, so a scrape afterwards
+  only reads the cache.
+  """
+  global _hbm_limits
+  if _hbm_limits is None:
+    torch = sys.modules.get('torch')
+    if torch is None:
+      return None  # the data server: no torch, so no card memory
+    if not torch.cuda.is_available():
+      _hbm_limits = ()
+    elif not torch.cuda.is_initialized():
+      return None
+    else:
+      _hbm_limits = tuple(int(torch.cuda.mem_get_info(i)[1])
+                          for i in range(torch.cuda.device_count()))
+  return _hbm_limits
 
 
 def sample_hbm(telemetry=None):
   """Sample the card's memory into ``hbm.*`` gauges; returns the summary
-  dict, or None without a CUDA card (probed once, then free).
+  dict, or None without a card (or before this process initialised
+  CUDA: see :func:`hbm_limits`).
 
   PyTorch's caching allocator takes device memory in segments and keeps
   them (CUDA graph pools included), so what limits the next allocation is
@@ -177,26 +211,24 @@ def sample_hbm(telemetry=None):
     - ``bytes_in_use``: reserved now (``reserved_bytes.all.current``);
     - ``peak_bytes_in_use``: the high-water mark of the reserve
       (``reserved_bytes.all.peak``);
-    - ``bytes_limit``: the card's total memory (``mem_get_info``);
+    - ``bytes_limit``: the card's total memory (:func:`hbm_limits`);
     - ``headroom_frac``: the OOM-headroom meter, the least over the cards
       of ``1 - peak_bytes_in_use / bytes_limit``.
 
-  Gauges are set only when telemetry is enabled.
+  Past the first call only the allocator's host-side counters are read
+  (``memory_stats``): no CUDA runtime call, so the monitor's HTTP thread
+  may sample while the loop captures a graph. Gauges are set only when
+  telemetry is enabled.
   """
-  global _hbm_supported
-  if _hbm_supported is False:
+  limits = hbm_limits()
+  if not limits:
     return None
-  if not torch.cuda.is_available():
-    _hbm_supported = False
-    return None
-  _hbm_supported = True
+  import torch
   totals = {'bytes_in_use': 0, 'peak_bytes_in_use': 0, 'bytes_limit': 0}
   headroom = math.inf
-  n = torch.cuda.device_count()
-  for i in range(n):
+  for i, limit in enumerate(limits):
     stats = torch.cuda.memory_stats(i)
     peak = int(stats.get('reserved_bytes.all.peak', 0))
-    limit = int(torch.cuda.mem_get_info(i)[1])
     totals['bytes_in_use'] += int(stats.get('reserved_bytes.all.current', 0))
     totals['peak_bytes_in_use'] += peak
     totals['bytes_limit'] += limit
@@ -204,7 +236,7 @@ def sample_hbm(telemetry=None):
       headroom = min(headroom, 1.0 - peak / limit)
   summary = dict(totals,
                  headroom_frac=headroom if math.isfinite(headroom) else None,
-                 devices=n)
+                 devices=len(limits))
   if telemetry is None:
     from .metrics import get_telemetry
     telemetry = get_telemetry()
@@ -219,7 +251,7 @@ def sample_hbm(telemetry=None):
 
 
 def _reset_for_tests():
-  """Clear the cached peak table and HBM support probe."""
-  global _peaks_cache, _hbm_supported
+  """Clear the cached peak table and card memory."""
+  global _peaks_cache, _hbm_limits
   _peaks_cache = None
-  _hbm_supported = None
+  _hbm_limits = None

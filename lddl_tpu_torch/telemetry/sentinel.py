@@ -13,10 +13,15 @@ loop already produced:
   ``data_stall``      one batch wait exceeded a wall-time budget
   ``hbm_headroom``    :func:`~lddl_tpu_torch.telemetry.roofline.sample_hbm`
                       headroom fell below a floor (probed every N steps)
+  ``serve_backlog``   the data service's in-memory window hit its runaway
+                      threshold (observed at the producer's backlog-gauge
+                      site, on the server's producer thread)
 
-The JAX package's ``serve_backlog`` (the data service) and
-``ledger_divergence`` (the determinism ledger) wait for the slices that
-port those subsystems; naming either in ``LDDL_SENTINEL`` raises.
+The JAX package's ``ledger_divergence`` (the determinism ledger's live
+fleet verdict) waits for the slice that ports it; naming it in
+``LDDL_SENTINEL`` raises. :func:`sentinel_status` is the monitor's
+``/snapshot`` block (trigger count, last trigger; the port has no flight
+recorder, so its incident list stays empty).
 
 ``LDDL_SENTINEL`` unset gives a shared no-op singleton whose
 ``observe_step`` is an empty method; ``LDDL_SENTINEL=1`` enables every
@@ -41,7 +46,7 @@ _ENV = 'LDDL_SENTINEL'
 
 #: Every detector, in the order ``LDDL_SENTINEL=1`` enables them.
 DETECTORS = ('nonfinite_loss', 'loss_spike', 'grad_spike', 'data_stall',
-             'hbm_headroom')
+             'hbm_headroom', 'serve_backlog')
 
 
 def _env_float(name, default):
@@ -71,6 +76,12 @@ class NoopSentinel:
   def observe_step(self, step, loss=None, grad_norm=None, data_wait=None):
     return None
 
+  def observe_backlog(self, backlog):
+    return None
+
+  def status(self):
+    return None
+
 
 NOOP_SENTINEL = NoopSentinel()
 
@@ -79,7 +90,8 @@ class Sentinel:
   """Online anomaly detectors over the step loop's existing scalars.
 
   One instance per process; ``observe_step`` runs on the training
-  thread, ``status`` wherever a caller asks. Shared mutable state is
+  thread, ``observe_backlog`` on the data service's producer thread,
+  ``status`` on the monitor's HTTP thread. Shared mutable state is
   lock-protected, but the per-step fast path (window append +
   median/MAD over <= ``window`` floats) takes the lock only to publish a
   fire.
@@ -89,7 +101,8 @@ class Sentinel:
 
   def __init__(self, detectors=None, window=None, warmup=None,
                z_threshold=None, min_rel=None, stall_sec=None,
-               headroom_min=None, cooldown=None, hbm_every=None):
+               headroom_min=None, backlog_max=None, cooldown=None,
+               hbm_every=None):
     spec = detectors if detectors is not None else DETECTORS
     unknown = [d for d in spec if d not in DETECTORS]
     if unknown:
@@ -110,6 +123,8 @@ class Sentinel:
         'LDDL_SENTINEL_STALL_SEC', 60.0)
     self.headroom_min = (headroom_min if headroom_min is not None
                          else _env_float('LDDL_SENTINEL_HEADROOM', 0.03))
+    self.backlog_max = backlog_max if backlog_max is not None else _env_int(
+        'LDDL_SENTINEL_BACKLOG', 256)
     self.cooldown = cooldown if cooldown is not None else _env_int(
         'LDDL_SENTINEL_COOLDOWN', 32)
     self.hbm_every = hbm_every if hbm_every is not None else _env_int(
@@ -117,6 +132,7 @@ class Sentinel:
     self._losses = []    # bounded manually: pop(0) past self.window
     self._grads = []
     self._cooldown_until = None   # step number triggers are muted below
+    self._backlog_muted = False   # backlog refires once per excursion
     self.triggers = 0
     self.last_trigger = None
     self._lock = threading.Lock()
@@ -244,6 +260,38 @@ class Sentinel:
                  if summary.get(k) is not None})
     return None
 
+  def observe_backlog(self, backlog):
+    """Data-service producer hook: fires when the in-memory window hits
+    the runaway threshold, then mutes until the backlog recovers below
+    half the threshold (one trigger per excursion, not per batch)."""
+    if 'serve_backlog' not in self._det:
+      return None
+    backlog = int(backlog)
+    with self._lock:
+      if backlog < self.backlog_max:
+        if backlog <= self.backlog_max // 2:
+          self._backlog_muted = False
+        return None
+      if self._backlog_muted:
+        return None
+      self._backlog_muted = True
+    return self._fire(
+        'serve_backlog', None,
+        f'serve backlog {backlog} reached the runaway threshold '
+        f'{self.backlog_max}', value=backlog, force=True)
+
+  def status(self):
+    """Snapshot for ``live_status``/``/snapshot``: detectors, trigger
+    count, last trigger, and the (always empty: no flight recorder)
+    incident list the JAX package's payload carries."""
+    with self._lock:
+      return {
+          'detectors': list(self.detectors),
+          'triggers': self.triggers,
+          'last': dict(self.last_trigger) if self.last_trigger else None,
+          'incidents': [],
+      }
+
 
 # -- module gate: resolved once from the environment, no-op when unset
 
@@ -287,3 +335,10 @@ def disable_sentinel():
   global _active
   with _active_lock:
     _active = NOOP_SENTINEL
+
+
+def sentinel_status():
+  """``live_status`` hook: the active sentinel's status dict, or None
+  when the gate is off (so quiet dashboards stay quiet)."""
+  sent = get_sentinel()
+  return sent.status() if sent.enabled else None

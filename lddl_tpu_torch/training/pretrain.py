@@ -38,9 +38,10 @@ step profiler, fault injection, the preemption guard, the async
 checkpoint writer and rank membership. PyTorch has no compiler cost
 model, so the cache never bills ``train.xla_flops`` /
 ``train.xla_bytes``, and MFU takes the analytic FLOP count as its
-numerator, as the JAX loop does when no cost model exists. The flight
-recorder, the ledger's ``step`` record and the live monitor are not
-ported yet.
+numerator, as the JAX loop does when no cost model exists. With
+``LDDL_MONITOR`` set, ``run`` starts the live monitor
+(:mod:`~lddl_tpu_torch.telemetry.server`) for this rank. The flight
+recorder and the ledger's ``step`` record are not ported yet.
 
 Data parallelism: ``build(..., mesh=make_mesh(), comm=...)`` over a
 ``torch.distributed`` group gives each rank its share of the shards and
@@ -87,6 +88,8 @@ from ..parallel.train import (AdamW, DataParallel, TrainStep,
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
+from ..telemetry.roofline import hbm_limits
+from ..telemetry.server import get_monitor, maybe_start_monitor
 from ..telemetry.sentinel import get_sentinel
 from ..tokenization.wordpiece import load_bert_tokenizer
 from .elastic import (AsyncCheckpointWriter, PreemptionGuard,
@@ -306,11 +309,11 @@ def export_telemetry(comm=None):
   JAX package's ``export_telemetry(comm)``.
 
   The files are ``telemetry.rank<R>.jsonl`` when telemetry is on, with
-  the ``hbm.*`` gauges sampled just before (the port has no monitor to
-  sample them while the run goes), and ``trace.rank<R>.jsonl`` when
-  tracing is on. Returns the paths written; nothing without the
-  directory. Every rank must call it when telemetry is on (the merge is
-  a collective).
+  the ``hbm.*`` gauges sampled just before (while the run goes, the live
+  monitor samples them at its scrape cadence), and
+  ``trace.rank<R>.jsonl`` when tracing is on. Returns the paths written;
+  nothing without the directory. Every rank must call it when telemetry
+  is on (the merge is a collective).
   """
   from ..telemetry.report import aggregate_over_comm, render_report
   comm = comm or NullBackend()
@@ -627,8 +630,15 @@ class TrainLoop:
     """
     if self.loader is None:
       raise ValueError('attach loop.loader before run()')
-    # Armed through the API (get_step_profiler().arm(n)); unarmed,
-    # on_step() is two attribute reads.
+    # Live metrics endpoint (LDDL_MONITOR): the no-op singleton when
+    # unset. The card's memory size is read first, here on the loop's
+    # thread: the monitor's scrapes then read only the allocator's host
+    # counters, never making a CUDA call beside a graph capture.
+    if get_monitor().enabled:
+      hbm_limits()
+    maybe_start_monitor(rank=max(self.dp_rank, 0))
+    # Armed through the API (get_step_profiler().arm(n)) or the monitor's
+    # /profile; unarmed, on_step() is two attribute reads.
     profiler = get_step_profiler()
     sentinel = get_sentinel()
     nonfinite_stop = (os.environ.get('LDDL_NONFINITE', '')

@@ -52,7 +52,10 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.parallel.mesh',
            'lddl_tpu_torch.pipeline.executor',
            'lddl_tpu_torch.telemetry.report',
-           'lddl_tpu_torch.telemetry.live')
+           'lddl_tpu_torch.telemetry.live',
+           'lddl_tpu_torch.telemetry.server',
+           'lddl_tpu_torch.telemetry.monitor',
+           'lddl_tpu_torch.loader.service', 'lddl_tpu_torch.testing')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():
@@ -65,6 +68,20 @@ def test_import_loads_no_jax_and_no_lddl_tpu():
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                        capture_output=True, text=True, check=True, timeout=120)
   assert out.stdout.strip() == '[]', out.stdout
+
+
+def test_the_data_server_and_the_monitor_import_no_torch():
+  """The data server's process (and the monitor it may run) imports no
+  torch, so it can never hold a CUDA context."""
+  code = ('import sys\n'
+          'import lddl_tpu_torch.loader.service, '
+          'lddl_tpu_torch.telemetry.server, '
+          'lddl_tpu_torch.telemetry.monitor, lddl_tpu_torch.testing\n'
+          'print("torch" in sys.modules)\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, check=True, timeout=120)
+  assert out.stdout.strip() == 'False', out.stdout
 
 
 def _imported_roots(path):

@@ -200,6 +200,31 @@ def test_sentinel_fires_what_jax_fires():
       (31, 'nonfinite_loss'), (36, 'grad_spike')]
 
 
+def test_sentinel_serve_backlog_fires_what_jax_fires():
+  """The data server's producer feeds its backlog gauge to the sentinel:
+  both packages fire on the same sequence (at the threshold, once per
+  excursion, re-armed below half of it) and report the same status."""
+  backlogs = [1, 2, 4, 8, 8, 3, 2, 7, 8, 9, 8, 4, 1, 8]
+  got, want = [], []
+  port = tsentinel.Sentinel(detectors=('serve_backlog',), backlog_max=8)
+  ref = jsentinel.Sentinel(detectors=('serve_backlog',), backlog_max=8)
+  for i, b in enumerate(backlogs):
+    for sent, out in ((port, got), (ref, want)):
+      trig = sent.observe_backlog(b)
+      if trig is not None:
+        out.append((i, trig['detector'], trig['reason'], trig['value']))
+  assert got == want
+  assert [i for i, *_ in got] == [3, 8, 13]
+  status = {k: v for k, v in port.status().items() if k != 'last'}
+  assert status == {k: v for k, v in ref.status().items() if k != 'last'}
+  assert status['triggers'] == 3
+  assert tsentinel.Sentinel(detectors=('loss_spike',)).observe_backlog(
+      999) is None
+  assert tsentinel.NOOP_SENTINEL.observe_backlog(999) is None
+  tsentinel.disable_sentinel()
+  assert tsentinel.sentinel_status() is None
+
+
 def test_sentinel_hbm_headroom_on_the_card_only(monkeypatch):
   sent = tsentinel.Sentinel(detectors=('hbm_headroom',), hbm_every=1,
                             headroom_min=0.5)
@@ -216,7 +241,7 @@ def test_sentinel_gate_and_detectors(monkeypatch):
   tsentinel._active = None
   assert tsentinel.get_sentinel().detectors == tsentinel.DETECTORS
   assert set(tsentinel.DETECTORS) == set(jsentinel.DETECTORS) - {
-      'serve_backlog', 'ledger_divergence'}
+      'ledger_divergence'}
   for spec in ('0', '', 'off'):
     assert tsentinel._parse_spec(spec) is None
   with pytest.raises(ValueError, match='ledger_divergence'):
@@ -268,6 +293,7 @@ def test_resolve_peaks_takes_the_overrides(monkeypatch):
 
 def _fake_card(monkeypatch, reserved_peak, total, reserved=None):
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+  monkeypatch.setattr(torch.cuda, 'is_initialized', lambda: True)
   monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
   monkeypatch.setattr(torch.cuda, 'memory_stats', lambda i: {
       'reserved_bytes.all.current': reserved or reserved_peak // 2,

@@ -216,9 +216,11 @@ def test_env_knobs_pick_the_handoff(shards, batch_sha256, serial_digests,
 
 def test_what_workers_refuse(shards):
   _, make, name, kw = KINDS['dynamic']
-  with pytest.raises(NotImplementedError, match='not ported'):
+  with pytest.raises(ValueError, match='unknown loader transport'):
     make(shards[name], vocab_file=shards['vocab'], num_workers=2,
-         transport='network', **kw)
+         transport='carrier-pigeon', **kw)
+  with pytest.raises(ValueError, match='num_workers'):
+    MultiprocessLoader({}, 0, transport='shm')
   with pytest.raises(ValueError, match='vocab_file'):
     make(shards[name], tokenizer=load_bert_tokenizer(shards['vocab']),
          num_workers=2, **kw)
