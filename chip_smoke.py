@@ -172,10 +172,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      SERVE_KILL_STEP: the monitor CLI lists it dead, the client degrades
      once to its local loader at the exact step, re-attaches to a
      restarted server after SERVE_REATTACH batches, every batch is still
-     the serial loader's; no server process and no announce left.
+     the serial loader's; no server process and no announce left;
+  11. the ledger's step record, step replay and the flight recorder,
+     BERT-base from pairs/: (a) RECORD_STEPS steps through TrainLoop with
+     the ledger (blake2b-8) and the sentinel on (so deterministic
+     algorithms), a checkpoint every RECORD_CKPT_EVERY steps and an
+     injected sentinel trigger (RECORD_FAULT): 12 launches a step of each
+     of K1-K3 and none of K4 (counts at 0 just before, read just after),
+     one miss per bin, step lines at the checkpoints with the JAX line's
+     keys, the collate digests = the serial loader's (epoch 0 =
+     digests.json), exactly one incident (in the sentinel's status), and
+     the trace the incident armed (LDDL_FLIGHT_PROFILE_STEPS) naming
+     K1-K3; (c) ``python -m lddl_tpu_torch.replay.cli batch`` at BATCH_KEYS
+     = the ledger, ``bundle`` of each batch from the incident's
+     checkpoint to its suspect, and with corrupt:replay.read the bundled
+     step refused with exit 1; (b) in a fresh process (``--rank-task
+     11b``) the replay CLI's ``step`` at REPLAYS from the corpus (from a
+     mid-epoch checkpoint, and across the epoch's end) and from the
+     bundles with no corpus: each matches its step line bit for bit, 12
+     launches a replayed step of each of K1-K3 counted in that process;
+     (d) beside it, ``python -m lddl_tpu_torch.training.flight replay
+     <incident> -- <step args>`` exits 0 with a match; the manifest's
+     trigger, step, replay_step, suspect (its digest = the ledger's) and
+     checkpoint, and the incident CLI's list, show and replay; (e) for
+     the record: the ops that warn under deterministic algorithms (an
+     epoch of pairs/ and a packed step, eager), ms/step with
+     deterministic algorithms off and on (O N N O), the window with the
+     ledger and the recorder off and on (F T T F), and the cost of one
+     step fingerprint.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9 and 10), the card's name and power limit, and ``{"ok": true,
+phases 9-11), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``. Without a CUDA card the script exits non-zero before
 printing any result.
 """
@@ -3382,6 +3409,521 @@ def data_service(args, digests, card):
   return stats
 
 
+# ---- phase 11: the ledger's step record, step replay, the flight recorder
+
+# Checkpoints 8, 16 and 24 (the loop keeps three): the replays restore 8
+# and 16, and the epoch ends at 22.
+RECORD_STEPS = 24
+RECORD_CKPT_EVERY = 8
+# The 16th observed step is step 15: its incident's replay_step, 16, has a
+# step line (a step line is written at a checkpoint), and 11b replays it.
+RECORD_FAULT = 'raise:sentinel.trigger:nth=16'
+RECORD_INCIDENT_STEP = 15
+# The ring holds the batches of steps 9..16 (ordinals 8..15) at the capture,
+# with the feed's prefetch beyond them.
+RECORD_RING = 12
+# (the step replayed, the checkpoint it restores): mid-epoch 0, and across
+# the epoch's end at 22.
+REPLAYS = ((16, 8), (24, 16))
+# Within what 11a's ledger holds: its 24 steps and the feed's prefetch
+# reach batch (1, 4).
+BATCH_KEYS = ((0, 3), (0, 21), (1, 2))
+FLIGHT_PROFILE_STEPS = 2
+FINGERPRINT_REPS = 2
+# The keys of a step line, the JAX loop's.
+STEP_LINE_KEYS = ['boundary', 'digest', 'loss', 'n', 'rolling', 'samples',
+                  'step']
+
+
+def replay_loader_argv(digests):
+  """The replay CLI's loader spec for pairs/ at the settings of the loop
+  that recorded (pairs_build's)."""
+  s = digests['pairs']['settings']
+  return ['--vocab-file', VOCAB_FILE, '--batch-size',
+          str(s['batch_size_per_rank']), '--bin-size', str(s['bin_size']),
+          '--max-seq-length', str(s['max_seq_length']), '--masking',
+          s['masking'], '--shuffle-buffer-size',
+          str(s['shuffle_buffer_size']), '--base-seed', str(s['base_seed'])]
+
+
+def replay_model_argv(args, digests):
+  """The replay CLI's model arguments for the loop pairs_build makes."""
+  s = digests['pairs']['settings']
+  return ['--model', MODEL, '--attention', 'flash', '--seed',
+          str(s['base_seed']), '--learning-rate', '1e-4', '--warmup-steps',
+          '10', '--total-steps', '1000', '--max-predictions',
+          str(args.max_predictions), '--device', DEVICE]
+
+
+def run_cli(main_fn, argv):
+  """``main_fn(argv)`` in this process: its exit code and its stdout
+  (with its stderr after it when the exit code is not 0)."""
+  import io
+  out, err = io.StringIO(), io.StringIO()
+  with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    rc = main_fn(argv)
+  return rc, out.getvalue() + (err.getvalue() if rc else '')
+
+
+@contextlib.contextmanager
+def environ(**env):
+  """The enclosed code sees ``env`` in os.environ (None: unset)."""
+  saved = {k: os.environ.get(k) for k in env}
+  try:
+    for k, v in env.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+    yield
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
+def ledger_lines(path):
+  with open(os.path.join(path, 'ledger.rank0.jsonl')) as f:
+    return [json.loads(x) for x in f.read().splitlines()]
+
+
+def record_run(args, digests, root, card):
+  """11a: BERT-base from pairs/ through TrainLoop with the ledger and the
+  sentinel on, checkpoints every RECORD_CKPT_EVERY steps, an injected
+  sentinel trigger; returns the loop and what 11b-11e check against."""
+  from lddl_tpu_torch.core import faults
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.telemetry import profiling, sentinel
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop, flight
+
+  _, fp, bins = serve_expected(digests)
+  settings = digests['pairs']['settings']
+  paths = {k: os.path.join(root, k) for k in ('ckpt', 'ledger', 'incidents',
+                                               'telemetry')}
+  loop = TrainLoop.build(shard_path('pairs'), load_bert_tokenizer(VOCAB_FILE),
+                         **pairs_build(args, settings))
+  with environ(LDDL_SENTINEL='1', LDDL_FLIGHT_DIR=paths['incidents'],
+               LDDL_FLIGHT_RING=str(RECORD_RING),
+               LDDL_FLIGHT_PROFILE_STEPS=str(FLIGHT_PROFILE_STEPS),
+               LDDL_TELEMETRY_DIR=paths['telemetry'],
+               LDDL_FAULTS=RECORD_FAULT):
+    faults.reset()
+    sentinel.enable_sentinel()
+    flight.enable_flight()
+    try:
+      with blake2b8_ledger(paths['ledger']):
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        losses, printed = run_cli(lambda _: loop.run(
+            RECORD_STEPS, ckpt_dir=paths['ckpt'],
+            ckpt_every=RECORD_CKPT_EVERY, log_every=0), None)
+        seconds = time.perf_counter() - t0
+        counts = tfa.device_launches()
+        host = dict(tfa.launches)
+      status = sentinel.sentinel_status()
+    finally:
+      sentinel.disable_sentinel()
+      flight.disable_flight()
+      faults.reset()
+  if len(losses) != RECORD_STEPS or not all(np.isfinite(losses)):
+    raise AssertionError(f'11a: losses {losses}')
+  n = RECORD_STEPS
+  cfg = loop.model.cfg
+  per_step = {'fwd': cfg.num_layers, 'dq': cfg.num_layers,
+              'dkv': cfg.num_layers, 'fwd_seg': 0, 'dq_seg': 0, 'dkv_seg': 0}
+  check_launches(counts, host, {k: m * n for k, m in per_step.items()},
+                 f'11a, recording {n} steps')
+  check_cache(loop.step_cache, bins, n, '11a, deterministic (ledger on)')
+  lines = ledger_lines(paths['ledger'])
+  if lines[0].get('algo') != 'blake2b8':
+    raise AssertionError(f'11a: ledger meta {lines[0]}')
+  steps = [r for r in lines[1:] if r['boundary'] == 'step']
+  want_steps = sorted({*range(RECORD_CKPT_EVERY, n + 1, RECORD_CKPT_EVERY),
+                       n})
+  if [r['step'] for r in steps] != want_steps or any(
+      sorted(r) != STEP_LINE_KEYS or
+      r['samples'] != r['step'] * settings['batch_size_per_rank']
+      for r in steps):
+    raise AssertionError(f'11a: step lines {steps}; want steps {want_steps} '
+                         f'with the keys {STEP_LINE_KEYS}')
+  collate = sorted((r['epoch'], r['index'], r['digest']) for r in lines[1:]
+                   if r['boundary'] == 'collate')
+  # The feed's prefetch collates a batch or two beyond the run's last.
+  if len(collate) < n or [d for _, _, d in collate] != fp[:len(collate)]:
+    raise AssertionError('11a: the collate digests are not the serial '
+                         'loader\'s (epoch 0: digests.json)')
+  if 'incident captured' not in printed:
+    raise AssertionError(f'11a: the loop printed {printed!r}')
+  incidents = flight.scan_incidents(paths['incidents'])
+  if len(incidents) != 1 or [i['dir'] for i in status['incidents']] != [
+      incidents[0]['dir']]:
+    raise AssertionError(f'11a: incidents {incidents}, sentinel status '
+                         f'{status}; want exactly one')
+  trace_dir = profiling.get_step_profiler().last_trace_dir
+  traced = flash_calls_in_trace(trace_dir)
+  want_traced = {k: FLIGHT_PROFILE_STEPS * m for k, m in per_step.items()
+                 if m}
+  if traced != want_traced:
+    raise AssertionError(f'11a: the trace the incident armed ({trace_dir}) '
+                         f'has flash calls {traced}; want {want_traced}')
+  log(f'  11a: {n} steps recorded in {seconds:.1f} s (deterministic, the '
+      f'ledger and the sentinel on); step lines at {want_steps} with the '
+      f'JAX line\'s keys; {len(collate)} collate digests = the serial '
+      f'loader\'s (epoch 0 = digests.json); one incident, '
+      f'{incidents[0]["dir"]}, in the sentinel\'s status; the trace it '
+      f'armed for {FLIGHT_PROFILE_STEPS} steps has flash calls {traced} '
+      f'[{card}]')
+  return loop, {'paths': paths, 'fp': fp, 'steps': steps,
+                'incident': incidents[0], 'launches': counts,
+                'record_seconds': seconds, 'losses': losses,
+                'vocab_size': cfg.vocab_size}
+
+
+def check_incident(rec, epoch):
+  """11d's manifest checks: the trigger, its steps, the suspect and its
+  digest against the ledger, the checkpoint, the ring."""
+  inc = rec['incident']
+  man = inc['manifest']
+  s = RECORD_INCIDENT_STEP
+  suspect = {'epoch': s // epoch, 'index': s % epoch}
+  recorded = rec['fp'][s]
+  ring = [e['ordinal'] for e in man['ring']]
+  ckpt = {'dir': os.path.abspath(rec['paths']['ckpt']),
+          'step': (s // RECORD_CKPT_EVERY) * RECORD_CKPT_EVERY}
+  if (man['trigger']['detector'] != 'injected' or man['step'] != s or
+      man['replay_step'] != s + 1 or man['suspect']['coordinate'] != suspect
+      or man['suspect']['digest'] != recorded or man['checkpoint'] != ckpt
+      or not set(range(ckpt['step'], s + 1)) <= set(ring)):
+    raise AssertionError(
+        f'11d: manifest trigger {man["trigger"]}, step {man["step"]}, '
+        f'replay_step {man["replay_step"]}, suspect {man["suspect"]}, '
+        f'checkpoint {man["checkpoint"]}, ring {ring}; want injected at '
+        f'{s}, {s + 1}, suspect {suspect} with the ledger\'s {recorded}, '
+        f'{ckpt}, ordinals {ckpt["step"]}..{s} in the ring')
+  log(f'  11d: the manifest: trigger injected at step {s}, replay_step '
+      f'{s + 1}, suspect {suspect} digest {recorded} = the ledger\'s collate '
+      f'line, checkpoint {ckpt["step"]}, ring ordinals {ring[0]}..{ring[-1]}')
+
+
+def batches_and_bundles(args, digests, rec, root):
+  """11c in this process: ``batch`` at BATCH_KEYS against the ledger, a
+  ``bundle`` of each batch from the incident's checkpoint to its suspect,
+  and the corrupt drill (``corrupt:replay.read``: the bundled step is
+  refused with exit 1)."""
+  from lddl_tpu_torch.replay import cli
+  paths = rec['paths']
+  epoch = len(digests['pairs']['batches'])
+  loader = ['--path', shard_path('pairs')] + replay_loader_argv(digests)
+  got = []
+  for e, i in BATCH_KEYS:
+    rc, out = run_cli(cli.main, ['batch', paths['ledger'], '--key',
+                                 f'epoch={e},index={i}', '--boundary',
+                                 'collate', '--json'] + loader)
+    res = json.loads(out) if rc in (0, 1) else {'printed': out[-2000:]}
+    want = rec['fp'][e * epoch + i]
+    if rc != 0 or not res['match'] or res.get('reconstructed') != want:
+      raise AssertionError(f'11c: batch ({e}, {i}) exit {rc}: {res}; '
+                           f'want {want}')
+    got.append(res['reconstructed'])
+  first = (RECORD_INCIDENT_STEP // RECORD_CKPT_EVERY) * RECORD_CKPT_EVERY
+  bundles = []
+  for i in range(first, RECORD_INCIDENT_STEP + 1):
+    bundles.append(os.path.join(root, 'bundles', f'i{i}'))
+    rc, out = run_cli(cli.main, [
+        'bundle', paths['ledger'], '--key', f'epoch=0,index={i}', '--out',
+        bundles[-1], '--boundary', 'collate', '--checkpoint-dir',
+        paths['ckpt'], '--checkpoint-step', str(first)] + loader)
+    if rc != 0:
+      raise AssertionError(f'11c: bundle (0, {i}) exit {rc}: {out}')
+  step = ['step', '--checkpoint-dir', paths['ckpt'], '--step',
+          str(RECORD_INCIDENT_STEP + 1), '--ledger', paths['ledger']]
+  for b in bundles:
+    step += ['--bundle', b]
+  # No corpus and no vocab file: the bundles hold the batches.
+  step += replay_model_argv(args, digests) + [
+      '--vocab-size', str(rec['vocab_size'])]
+  from lddl_tpu_torch.core import faults
+  with environ(LDDL_FAULTS='corrupt:replay.read'):
+    faults.reset()
+    try:
+      rc, out = run_cli(cli.main, step)
+    finally:
+      faults.reset()
+  if rc != 1:
+    raise AssertionError(f'11c: a corrupt bundle gave exit {rc}: {out}; '
+                         'want 1')
+  log(f'  11c: batch at {list(BATCH_KEYS)}: digests {got} = the ledger\'s; '
+      f'{len(bundles)} bundles (0, {first})..(0, {RECORD_INCIDENT_STEP}) '
+      'written; with corrupt:replay.read the bundled step replay exits 1')
+  return {'batch_digests': got, 'bundles': bundles, 'step_argv': step}
+
+
+def rank_11b(args, digests):
+  """11b and the bundled step of 11c, in a fresh process: the replay
+  CLI's ``step`` in this process, each replay's launches counted by the
+  kernels on the device."""
+  from lddl_tpu_torch.ops import _build
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.replay import cli
+  _build.library()
+  with open(os.path.join(args.ckpt, 'replay_jobs.json')) as f:
+    jobs = json.load(f)
+  out = []
+  for label, argv in jobs:
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    rc, printed = run_cli(cli.main, argv + ['--json'])
+    seconds = time.perf_counter() - t0
+    res = json.loads(printed) if rc in (0, 1) else {'printed': printed[-2000:]}
+    res.pop('losses', None)
+    out.append({'label': label, 'rc': rc, 'result': res,
+                'launches': tfa.device_launches(), 'seconds': seconds})
+  rank_result(args, out)
+
+
+def replays_in_fresh_processes(args, digests, rec, bundled):
+  """11b (with 11c's bundled step) in a child of this script, and 11d's
+  ``python -m lddl_tpu_torch.training.flight replay`` beside it: every
+  replay matches the recorded step line, 12 launches a replayed step of
+  each of K1-K3 in the child."""
+  paths = rec['paths']
+  model = replay_model_argv(args, digests)
+  corpus = ['--path', shard_path('pairs')] + replay_loader_argv(digests)
+  jobs = [(f'step {s} from checkpoint {c}, from the corpus',
+           ['step', '--checkpoint-dir', paths['ckpt'], '--step', str(s),
+            '--ledger', paths['ledger']] + corpus + model)
+          for s, c in REPLAYS]
+  jobs.append((f'step {RECORD_INCIDENT_STEP + 1} from '
+               f'{len(bundled["bundles"])} bundles, no corpus',
+               bundled['step_argv']))
+  root = os.path.dirname(paths['ckpt'])
+  with open(os.path.join(root, 'replay_jobs.json'), 'w') as f:
+    json.dump(jobs, f)
+  inc = rec['incident']['dir']
+  flight_cmd = [sys.executable, '-m', 'lddl_tpu_torch.training.flight',
+                'replay', inc, '--', '--checkpoint-dir', paths['ckpt'],
+                '--step', str(RECORD_INCIDENT_STEP + 1), '--ledger',
+                paths['ledger'], '--json', '--vocab-size',
+                str(rec['vocab_size'])] + model
+  log_path = os.path.join(root, 'flight_replay.log')
+  with open(log_path, 'w') as f:
+    flight_proc = subprocess.Popen(flight_cmd, cwd=HERE, stdout=f,
+                                   stderr=subprocess.STDOUT,
+                                   start_new_session=True)
+  RANK_PROCS.append(flight_proc)
+  try:
+    (child,), seconds = run_ranks('11b', '11b', 1, root,
+                                  extra=['--ckpt', root])
+    flight_rc = flight_proc.wait(RANK_TIMEOUT)
+  finally:
+    if group_alive(flight_proc.pid):
+      os.killpg(flight_proc.pid, 9)
+    flight_proc.wait()
+  from lddl_tpu_torch.training import MODEL_SIZES
+  layers = MODEL_SIZES[MODEL]['num_layers']
+  want_restored = [c for _, c in REPLAYS] + [
+      (RECORD_INCIDENT_STEP // RECORD_CKPT_EVERY) * RECORD_CKPT_EVERY]
+  wanted_steps = [s for s, _ in REPLAYS] + [RECORD_INCIDENT_STEP + 1]
+  for job, restored, target in zip(child, want_restored, wanted_steps):
+    res = job['result']
+    per = {'fwd': layers, 'dq': layers, 'dkv': layers, 'fwd_seg': 0,
+           'dq_seg': 0, 'dkv_seg': 0}
+    want = {k: m * (target - restored) for k, m in per.items()}
+    if (job['rc'] != 0 or res.get('match') is not True or
+        res.get('restored_step') != restored or job['launches'] != want):
+      raise AssertionError(f'11b: {job["label"]}: exit {job["rc"]}, '
+                           f'{res}, launches {job["launches"]}; want a '
+                           f'match from checkpoint {restored}, {want}')
+    log(f'  11b: {job["label"]}: restored {restored}, bit-identical to the '
+        f'recorded step line ({res["digest"]}), {job["seconds"]:.1f} s; '
+        f'launches in the child, counted on the device: {job["launches"]}')
+  with open(log_path) as f:
+    printed = f.read()
+  if flight_rc != 0 or '"match": true' not in printed:
+    raise AssertionError(f'11d: the incident CLI\'s replay exited '
+                         f'{flight_rc}:\n{printed[-3000:]}')
+  log(f'  11d: python -m lddl_tpu_torch.training.flight replay <incident> '
+      f'-- ... --step {RECORD_INCIDENT_STEP + 1}: exit 0, a match (its '
+      f'ring\'s bundles from checkpoint {want_restored[-1]} on); the child '
+      f'and it took {seconds:.1f} s side by side')
+  return {'child': child, 'seconds': seconds}
+
+
+def incident_cli(rec):
+  """11d: the incident CLI's ``list``, ``show`` and ``replay`` (the
+  suspect bundle's check) in this process."""
+  from lddl_tpu_torch.training import flight
+  inc = rec['incident']['dir']
+  rcs = {}
+  for argv in (['list', '--root', rec['paths']['incidents']], ['show', inc],
+               ['replay', inc]):
+    rc, out = run_cli(flight.main, argv)
+    rcs[argv[0]] = rc
+    if rc != 0 or (argv[0] == 'replay' and 'bundle ok' not in out) or (
+        argv[0] == 'list' and inc not in out):
+      raise AssertionError(f'11d: incident CLI {argv[0]} exit {rc}: {out}')
+  log(f'  11d: the incident CLI\'s list, show and replay (the suspect '
+      f'bundle\'s check) exit {rcs}')
+
+
+def warned_ops(args, digests, loop):
+  """Module 1: one epoch of pairs/ (every bin) and one packed step,
+  eagerly, under deterministic algorithms with warn_only: the ops that
+  warn (have no deterministic kernel)."""
+  import warnings
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+  epoch = len(digests['pairs']['batches'])
+  packed = digests['packed']['settings']
+  s = packed['max_seq_length']
+  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                   max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
+  messages = set()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    with environ(LDDL_STEP_CACHE='0'), warnings.catch_warnings(
+        record=True) as caught:
+      warnings.simplefilter('always')
+      loop.loader.seek(0, 0)
+      loop.run(loop.step + epoch, log_every=0)
+      ploop = TrainLoop.build(
+          shard_path('packed'), load_bert_tokenizer(VOCAB_FILE),
+          model_cfg=cfg, device=DEVICE, seed=packed['base_seed'],
+          max_predictions=PACKED[2],
+          batch_size_per_rank=packed['batch_size_per_rank'],
+          max_seq_length=s, data_format='packed',
+          block_diagonal=packed['block_diagonal'],
+          loader_kwargs={'shuffle_buffer_size':
+                         packed['shuffle_buffer_size']})
+      ploop.run(1, log_every=0)
+      del ploop
+      torch.cuda.empty_cache()
+    messages = sorted({str(w.message).split('\n')[0][:200] for w in caught
+                       if 'determinis' in str(w.message)})
+  finally:
+    torch.use_deterministic_algorithms(False)
+  log(f'  11e: ops that warn under deterministic algorithms (one step of '
+      f'each bin of pairs/, eager; one packed s={s} step): '
+      f'{messages or "none"}')
+  return messages
+
+
+def phase11_timing(args, digests, loop, root, card):
+  """11e, for the record: ms/step with deterministic algorithms off and
+  on (O N N O), then the loop's window per step with the ledger and the
+  flight recorder off and on, deterministic both ways (F T T F); each run
+  one epoch of pairs/ through the loop's graphs."""
+  from lddl_tpu_torch.telemetry import sentinel
+  from lddl_tpu_torch.training import flight
+  epoch = len(digests['pairs']['batches'])
+  det, rec = {False: [], True: []}, {False: [], True: []}
+  for on in (False, True, True, False):
+    torch.use_deterministic_algorithms(on)
+    try:
+      run = timed_epochs(loop, loop.loader, epoch, epoch)
+    finally:
+      torch.use_deterministic_algorithms(False)
+    det[on].append(step_stats(run['steps'])['all'])
+  for i, on in enumerate((False, True, True, False)):
+    torch.use_deterministic_algorithms(True)
+    try:
+      if on:
+        sentinel.enable_sentinel()
+        flight.enable_flight(out_dir=os.path.join(root, f'quiet{i}'))
+        with blake2b8_ledger(os.path.join(root, f'ledger_e{i}')):
+          run = timed_epochs(loop, loop.loader, epoch, epoch)
+      else:
+        run = timed_epochs(loop, loop.loader, epoch, epoch)
+    finally:
+      sentinel.disable_sentinel()
+      flight.disable_flight()
+      torch.use_deterministic_algorithms(False)
+    rec[on].append(step_stats(run['steps'])['all'])
+  out = {
+      'det_off_step_ms': [x['compute_ms'] for x in det[False]],
+      'det_on_step_ms': [x['compute_ms'] for x in det[True]],
+      'det_off_window_ms': [x['wall_ms'] for x in det[False]],
+      'det_on_window_ms': [x['wall_ms'] for x in det[True]],
+      'recorder_off_window_ms': [x['wall_ms'] for x in rec[False]],
+      'recorder_on_window_ms': [x['wall_ms'] for x in rec[True]],
+      'recorder_off_step_ms': [x['compute_ms'] for x in rec[False]],
+      'recorder_on_step_ms': [x['compute_ms'] for x in rec[True]]}
+  log(f'  11e: the step alone, median of hits, deterministic off '
+      f'{fmt_ms(out["det_off_step_ms"])} / on {fmt_ms(out["det_on_step_ms"])}'
+      f' ms (O N N O; windows {fmt_ms(out["det_off_window_ms"])} / '
+      f'{fmt_ms(out["det_on_window_ms"])}) [{card}]')
+  log(f'  11e: the window per step, mean of hits, deterministic, ledger and '
+      f'recorder off {fmt_ms(out["recorder_off_window_ms"])} / on '
+      f'{fmt_ms(out["recorder_on_window_ms"])} ms (F T T F; the step alone '
+      f'{fmt_ms(out["recorder_off_step_ms"])} / '
+      f'{fmt_ms(out["recorder_on_step_ms"])}) [{card}]')
+  return out
+
+
+def fmt_ms(xs):
+  return ', '.join(f'{x:.2f}' for x in xs)
+
+
+def fingerprint_cost(loop, card):
+  """11e: ms of one ``step`` fingerprint at BERT-base: the CPU copy that
+  save() makes anyway, and the hash, in blake2b-8 and in this host's own
+  algorithm."""
+  from lddl_tpu_torch.telemetry import ledger
+  from lddl_tpu_torch.training.pretrain import _cpu_copy, state_fingerprint
+  out = {'copy_ms': [], 'hash_ms': {}}
+  snap = None
+  for _ in range(FINGERPRINT_REPS):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = _cpu_copy(loop._state())
+    out['copy_ms'].append(1e3 * (time.perf_counter() - t0))
+  nbytes = sum(t.numel() * t.element_size() for t in
+               [*snap['model'].values(), *snap['opt']['mu'],
+                *snap['opt']['nu']])
+  for label, ctx in (('blake2b8', blake2b8), (ledger.ALGO,
+                                               contextlib.nullcontext)):
+    with ctx():
+      ms = []
+      for _ in range(FINGERPRINT_REPS):
+        t0 = time.perf_counter()
+        state_fingerprint(snap)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out['hash_ms'][label] = ms
+  out['state_bytes'] = nbytes
+  log(f'  11e: one step fingerprint of {nbytes / 2**30:.2f} GiB of state: '
+      f'the CPU copy {fmt_ms(out["copy_ms"])} ms; the hash ' +
+      '; '.join(f'{k} {fmt_ms(v)} ms' for k, v in out['hash_ms'].items()) +
+      f' [{card}]')
+  return out
+
+
+def record_and_replay(args, digests, card):
+  """Phase 11: 11a, 11c, 11b with 11d's replay, 11d, 11e."""
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_replay_') as root:
+    loop, rec = record_run(args, digests, root, card)
+    check_incident(rec, len(digests['pairs']['batches']))
+    bundled = batches_and_bundles(args, digests, rec, root)
+    replays = replays_in_fresh_processes(args, digests, rec, bundled)
+    incident_cli(rec)
+    warned = warned_ops(args, digests, loop)
+    timing = phase11_timing(args, digests, loop, root, card)
+    cost = fingerprint_cost(loop, card)
+  del loop
+  torch.cuda.empty_cache()
+  return {'launches': rec['launches'],
+          'replay_launches': [j['launches'] for j in replays['child']],
+          'record_seconds': rec['record_seconds'],
+          'replay_seconds': replays['seconds'], 'warned_ops': warned,
+          'timing': timing, 'fingerprint': cost}
+
+
+RANK_TASKS['11b'] = rank_11b
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -3477,6 +4019,10 @@ def main():
   log(f'== the network data service and the live monitor [{card}]')
   served = data_service(args, digests, card)
 
+  log(f'== the ledger\'s step record, step replay and the flight recorder '
+      f'[{card}]')
+  replayed = record_and_replay(args, digests, card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -3510,6 +4056,10 @@ def main():
         'world2_gloo_per_rank': [x[name] for x in
                                  dp['world2']['launches_per_rank']]}
     entry['phase10_launches'] = served['launches'][name]
+    entry['phase11_launches'] = {
+        'record': replayed['launches'][name],
+        'replays_in_a_fresh_process': [x[name] for x in
+                                       replayed['replay_launches']]}
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],
@@ -3528,6 +4078,7 @@ def main():
                   'data_parallel': dp,
                   'data_service': {k: v for k, v in served.items()
                                    if k != 'losses'},
+                  'record_and_replay': replayed,
                   'card': card}, default=str))
   log(json.dumps({'kernels': summary}))
   log(card)

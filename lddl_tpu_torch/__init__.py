@@ -39,5 +39,11 @@ lddl_tpu_torch.loader.service``; ``transport='network'`` in
 ``loader.workers``), and the live monitor: ``telemetry.live``,
 ``telemetry.server`` (``LDDL_MONITOR``) and ``telemetry.monitor``
 (``python -m lddl_tpu_torch.telemetry.monitor``), with ``testing``'s
-``SyntheticBatchLoader``.
+``SyntheticBatchLoader``. Deterministic replay: the ledger's ``step``
+record (``training.pretrain.state_fingerprint``; with the ledger on the
+loop runs deterministic algorithms), ``replay`` (``rematerialize``,
+``bundle``, ``steps``, ``python -m lddl_tpu_torch.replay.cli``) and the
+flight recorder, ``training.flight`` (``python -m
+lddl_tpu_torch.training.flight``), which the sentinel's incident
+registry lists.
 """

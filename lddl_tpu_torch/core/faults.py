@@ -37,8 +37,15 @@ batch is pulled: a ``kill`` models a process dying mid-training, a
 it fires on the background writer thread under ``LDDL_ASYNC_CKPT``, so
 raise-specs exercise the first-error-wins surfacing),
 ``sentinel.trigger`` (caught by the sentinel and turned into a forced
-trigger) and ``ledger.corrupt`` (the loaders' ``collate`` boundary: the
-batch's first array, just before it is fingerprinted). ``inject()`` and
+trigger), ``ledger.corrupt`` (the loaders' ``collate`` boundary: the
+batch's first array, just before it is fingerprinted), ``replay.read``
+(:func:`corrupt_bytes` on a repro bundle's packed payload as the replay
+loads it: a damaged bundle is refused with the mismatch named at its
+coordinate), ``replay.step`` (step replay, before each re-executed step)
+and ``flight.dump`` (the flight recorder's incident capture: a raise-spec
+kills the dump at entry and training goes on, a corrupt-spec flips a byte
+of one bundle payload mid-dump so the replay reader refuses it).
+``inject()`` and
 ``corrupt_bytes()`` are no-ops (one env read) when ``LDDL_FAULTS`` is
 unset.
 """

@@ -306,6 +306,9 @@ class BertPretrainLoader:
     self._base_seed = base_seed
     self.epoch = start_epoch
     self._batches_consumed = batches_consumed
+    # Batches an exact seek skips at the head of the next epoch's
+    # uninterrupted stream (their draws run, their collates do not).
+    self._skip = 0
     self._micro = micro_batch_size
 
   @property
@@ -319,7 +322,7 @@ class BertPretrainLoader:
     progress bars honest across resumes."""
     full = sum(d.samples_per_rank_per_epoch // self._batch
                for d in self._datasets)
-    return full - self._batches_consumed
+    return full - self._batches_consumed - self._skip
 
   @property
   def samples_per_epoch(self):
@@ -331,7 +334,7 @@ class BertPretrainLoader:
     return sum(d.samples_per_rank_per_epoch // self._batch
                for d in self._datasets)
 
-  def seek(self, epoch, batch_index):
+  def seek(self, epoch, batch_index, exact=False):
     """Position the loader at ledger coordinate ``(epoch, batch_index)``.
 
     The next ``__iter__``/``iter_steps`` resumes epoch ``epoch`` with
@@ -345,8 +348,11 @@ class BertPretrainLoader:
     A mid-epoch seek carries *resume* semantics: the skipped draws
     reposition the datasets but the shuffle buffer restarts fresh, so
     batch contents are not byte-identical to the uninterrupted stream
-    (loader/binned.py). Byte-exact rematerialization seeks to
-    ``(epoch, 0)`` and drives the full draw sequence.
+    (loader/binned.py). ``exact=True`` positions byte-exactly instead:
+    the next iteration drives the epoch's draws from its start and skips
+    the batches before ``batch_index`` without collating them, so it
+    yields the uninterrupted stream's batches (rematerialization, step
+    replay, the data service's local fallback).
     """
     epoch, batch_index = int(epoch), int(batch_index)
     if epoch < 0 or batch_index < 0:
@@ -357,13 +363,14 @@ class BertPretrainLoader:
       raise ValueError(f'seek({epoch}, {batch_index}): epoch has only '
                        f'{full} batches on this rank')
     self.epoch = epoch
-    self._batches_consumed = batch_index
+    self._batches_consumed = 0 if exact else batch_index
+    self._skip = batch_index if exact else 0
     return self
 
   def tell(self):
     """``(epoch, batch_index)`` the next iteration starts from — the
     inverse of :meth:`seek`."""
-    return self.epoch, self._batches_consumed
+    return self.epoch, self._batches_consumed + self._skip
 
   def coordinate_of_batch(self, ordinal):
     """Collate key ``(epoch, index)`` of this rank's ``ordinal``-th batch
@@ -381,6 +388,7 @@ class BertPretrainLoader:
         batches_consumed=self._batches_consumed,
         seqlen_of_bin=self._seqlen_of_bin)
     self._batches_consumed = 0
+    self._skip = 0
     return it
 
   def iter_steps(self, step_shard=(0, 1)):
@@ -399,12 +407,12 @@ class BertPretrainLoader:
     # collate step counter must continue from where the interrupted run
     # stopped, or dynamic-mask Philox keys (keyed on step) would diverge
     # from the uninterrupted run.
-    consumed = self._batches_consumed
+    consumed, skip = self._batches_consumed, self._skip
     it = self._make_iterator()
     epoch = self.epoch
     w, num_shards = step_shard
     for step, (bin_idx, rows) in enumerate(it, start=consumed):
-      if step % num_shards != w:
+      if step < skip or step % num_shards != w:
         continue
       batch = self._collate(rows, self._seqlen_of_bin(bin_idx), epoch, step)
       if self._micro is not None:

@@ -955,19 +955,16 @@ class NetworkBatchSource:
     deterministic position, until the epoch completes or the server
     answers again."""
     loader = self._local_loader()
-    # From the epoch's start, not from the frontier: a mid-epoch seek has
-    # resume semantics in the binned loaders (their shuffle buffer
-    # restarts fresh), so its batches would differ from the server's
-    # uninterrupted stream. Replaying the draws and skipping what is
-    # resolved gives the served bytes exactly.
-    loader.seek(epoch, 0)
+    # Byte-exact from the frontier: a plain mid-epoch seek has resume
+    # semantics in the binned loaders (their shuffle buffer restarts
+    # fresh), so its batches would differ from the server's
+    # uninterrupted stream.
+    loader.seek(epoch, state.frontier, exact=True)
     probe_every = reattach_every()
     n = 0
     last = state.frontier - 1
     for step, batch in loader.iter_steps((0, 1)):
       last = step
-      if step < state.frontier:
-        continue
       if claimer is not None and not self._win_locally(epoch, step,
                                                        claimer):
         continue
@@ -1023,7 +1020,7 @@ class NetworkBatchSource:
     from .workers import _resolve_factory
     wanted = set(gis)
     loader = _resolve_factory(self._factory)(**self._kwargs)
-    loader.seek(epoch, 0)  # byte-exact replay (see _local_phase)
+    loader.seek(epoch, min(wanted), exact=True)
     for step, batch in loader.iter_steps((0, 1)):
       if step in wanted:
         yield step, batch

@@ -211,7 +211,7 @@ def _await_done(q, proc):
       pass
 
 
-def _worker_main(env, build_kwargs, factory, epoch, first_step, w,
+def _worker_main(env, build_kwargs, factory, epoch, first_step, exact, w,
                  num_workers, q, free_q, ring_desc):
   _adopt_env(env)
   tele = get_telemetry()
@@ -235,7 +235,10 @@ def _worker_main(env, build_kwargs, factory, epoch, first_step, w,
     # observed — whether it came baked into the factory kwargs
     # (samples_seen) or from a parent-side seek(); the freshly built
     # loader here knows only about the former.
-    loader.seek(epoch, first_step)
+    if exact:
+      loader.seek(epoch, first_step, exact=True)
+    else:  # the plain contract, which any factory's loader has
+      loader.seek(epoch, first_step)
     for step, batch in loader.iter_steps((w, num_workers)):
       if ring is None:
         _put(q, ('batch', step, batch))
@@ -331,6 +334,7 @@ class MultiprocessLoader:
     if self._num_workers < 1 and self._transport != 'network':
       raise ValueError(f'num_workers must be >= 1, got {num_workers}')
     self._net_source = None  # the network transport's client, made lazily
+    self._exact = False  # the next epoch's seek was byte-exact
     self._queue_depth = _resolve_queue_depth(queue_depth)
     self._zero_copy = _resolve_zero_copy(zero_copy)
     self._serial = _resolve_factory(self._factory)(**build_kwargs)
@@ -390,12 +394,15 @@ class MultiprocessLoader:
   def batches_per_epoch(self):
     return self._serial.batches_per_epoch
 
-  def seek(self, epoch, batch_index):
+  def seek(self, epoch, batch_index, exact=False):
     """Position the next iteration at collate key ``(epoch,
     batch_index)`` — delegates to the serial loader, which owns resume
     state for every transport (see :meth:`lddl_tpu_torch.loader.bert.
-    BertPretrainLoader.seek`). Returns ``self``."""
+    BertPretrainLoader.seek`); ``exact`` reaches the workers' loaders.
+    The network transport's stream is the server's uninterrupted one
+    either way. Returns ``self``."""
     self._serial.seek(epoch, batch_index)
+    self._exact = bool(exact)
     return self
 
   def tell(self):
@@ -452,6 +459,7 @@ class MultiprocessLoader:
       return
     t_start = time.perf_counter()
     epoch, first_step = self._serial.tell()
+    exact, self._exact = self._exact, False
     # Mirror the serial loader exactly: it clears the resume offset the
     # moment an iteration starts, so len() of an abandoned-then-restarted
     # epoch reports the full count either way.
@@ -485,8 +493,8 @@ class MultiprocessLoader:
       procs = [
           ctx.Process(
               target=_worker_main,
-              args=(env, self._kwargs, self._factory, epoch, first_step, w,
-                    W, queues[w], free_qs[w], ring_descs[w]),
+              args=(env, self._kwargs, self._factory, epoch, first_step,
+                    exact, w, W, queues[w], free_qs[w], ring_descs[w]),
               daemon=True, name=f'lddl-torch-loader-w{w}')
           for w in range(W)
       ]

@@ -10,7 +10,8 @@ formats:
   - :mod:`.trace` (``LDDL_TRACE``): the bounded event ring buffer,
     ``trace.rank<R>.jsonl`` and the Chrome-trace merge;
   - :mod:`.ledger` (``LDDL_LEDGER``): the determinism ledger's
-    ``collate`` and ``device`` records, ``ledger.rank<R>.jsonl``;
+    ``collate``, ``device``, ``serve.*`` and ``step`` records,
+    ``ledger.rank<R>.jsonl`` (replayed by :mod:`lddl_tpu_torch.replay`);
   - :mod:`.audit`: its offline auditor, ``python -m
     lddl_tpu_torch.telemetry.audit``;
   - :mod:`.roofline`: card peaks, the roofline verdict, ``hbm.*`` gauges

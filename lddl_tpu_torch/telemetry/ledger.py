@@ -20,10 +20,16 @@ Instrumented boundaries in the port and their coordinate keys:
   ``device``     host batch entering the
                  device feed, before the
                  pinned copy                   key: ``index``
+  ``serve.tx`` / data-service frames, sent
+  ``serve.rx``   and received                  key: ``(epoch, gi)``
+  ``step``       full train state at every
+                 checkpoint (:func:`~lddl_tpu_torch.training.pretrain.
+                 state_fingerprint`)           key: ``step``
 
-The JAX package's ``shard``, ``serve.tx``/``serve.rx`` and ``step``
-boundaries are not recorded by the port yet (its preprocessing, data
-service and the ``step`` record are not ported).
+The JAX package's ``shard`` boundary (its preprocessing) is not recorded
+by the port, which reads shards ``lddl_tpu`` wrote. ``step`` digests do
+not compare across the frameworks (the arithmetic differs); the lines'
+keys and fields do.
 :func:`divergence_over_comm`, the live cross-rank exchange, computes
 :func:`compare_signals`' verdict over the port's comm backend.
 
@@ -35,8 +41,12 @@ raw C-order array bytes) — so the worker's shm slot and a plain
 in-process batch of equal content produce the same digest. The hash is
 xxh64 when the ``xxhash`` wheel is importable, else stdlib ``blake2b``
 (8-byte digest); the ledger meta line records which, and the auditor
-refuses to compare mixed-algorithm ledgers. Never builtin ``hash()``:
-it is salted per interpreter (``PYTHONHASHSEED``).
+refuses to compare mixed-algorithm ledgers. :func:`fingerprint_batch`
+and :func:`fingerprint_packed` also take the algorithm by name
+(``algo=``), so the replay verifies a ledger in the algorithm its meta
+line names: blake2b-8 on any host, xxh64 where the wheel is installed.
+Never builtin ``hash()``: it is salted per interpreter
+(``PYTHONHASHSEED``).
 
 Discipline mirrors :mod:`.metrics` / :mod:`.trace`:
 
@@ -86,8 +96,25 @@ ALGO = 'xxh64' if _xxhash is not None else 'blake2b8'
 KEY_FIELDS = ('epoch', 'index', 'gi', 'step', 'path')
 
 
-def _hasher():
-  if _xxhash is not None:
+#: The digest algorithms a ledger's meta line may name.
+ALGOS = ('xxh64', 'blake2b8')
+
+
+def algo_available(algo):
+  """Whether this process can hash in ``algo`` (a name in :data:`ALGOS`)."""
+  return algo == 'blake2b8' or (algo == 'xxh64' and _xxhash is not None)
+
+
+def _hasher(algo=None):
+  """A fresh hasher in ``algo``; None is this process's own (:data:`ALGO`).
+  Raises ``ValueError`` for an algorithm this process cannot compute."""
+  if algo is None:
+    algo = 'xxh64' if _xxhash is not None else 'blake2b8'
+  if not algo_available(algo):
+    raise ValueError(
+        f'cannot hash in {algo!r} here (known: {", ".join(ALGOS)}; xxh64 '
+        'needs the xxhash wheel)')
+  if algo == 'xxh64':
     return _xxhash.xxh64()
   return hashlib.blake2b(digest_size=8)
 
@@ -163,17 +190,18 @@ def _feed_packed(h, spec, buf):
   h.update(f'py{spec[1]!r}'.encode())  # 'py'
 
 
-def fingerprint_batch(obj):
-  """Digest of a live batch (dicts / sequences / ndarrays / leaves)."""
-  h = _hasher()
+def fingerprint_batch(obj, algo=None):
+  """Digest of a live batch (dicts / sequences / ndarrays / leaves), in
+  ``algo`` (None: this process's :data:`ALGO`)."""
+  h = _hasher(algo)
   _feed_batch(h, obj)
   return h.hexdigest()
 
 
-def fingerprint_packed(spec, buf):
+def fingerprint_packed(spec, buf, algo=None):
   """Digest of a packed batch from its ``_pack_into`` spec + buffer;
   equal to :func:`fingerprint_batch` of the original object."""
-  h = _hasher()
+  h = _hasher(algo)
   _feed_packed(h, spec, buf)
   return h.hexdigest()
 

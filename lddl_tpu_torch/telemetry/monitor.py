@@ -322,7 +322,8 @@ def render_frame(fleet, clear=True):
         out.append(f'    {last["reason"]}')
       for inc in (s.get('incidents') or [])[-3:]:
         out.append(f'    incident {inc.get("dir")} — triage with: '
-                   f'lddl-incident show {inc.get("dir")}')
+                   'python -m lddl_tpu_torch.training.flight show '
+                   f'{inc.get("dir")}')
   return '\n'.join(out)
 
 

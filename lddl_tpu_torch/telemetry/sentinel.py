@@ -20,8 +20,10 @@ loop already produced:
 The JAX package's ``ledger_divergence`` (the determinism ledger's live
 fleet verdict) waits for the slice that ports it; naming it in
 ``LDDL_SENTINEL`` raises. :func:`sentinel_status` is the monitor's
-``/snapshot`` block (trigger count, last trigger; the port has no flight
-recorder, so its incident list stays empty).
+``/snapshot`` block: trigger count, last trigger, and the incidents the
+flight recorder (:mod:`lddl_tpu_torch.training.flight`) registered back
+here through :meth:`Sentinel.note_incident` (the sentinel only detects;
+capture is the recorder's job).
 
 ``LDDL_SENTINEL`` unset gives a shared no-op singleton whose
 ``observe_step`` is an empty method; ``LDDL_SENTINEL=1`` enables every
@@ -47,6 +49,9 @@ _ENV = 'LDDL_SENTINEL'
 #: Every detector, in the order ``LDDL_SENTINEL=1`` enables them.
 DETECTORS = ('nonfinite_loss', 'loss_spike', 'grad_spike', 'data_stall',
              'hbm_headroom', 'serve_backlog')
+
+#: How many incident registrations ``note_incident`` retains.
+MAX_INCIDENT_NOTES = 16
 
 
 def _env_float(name, default):
@@ -77,6 +82,9 @@ class NoopSentinel:
     return None
 
   def observe_backlog(self, backlog):
+    return None
+
+  def note_incident(self, path, trigger):
     return None
 
   def status(self):
@@ -135,6 +143,7 @@ class Sentinel:
     self._backlog_muted = False   # backlog refires once per excursion
     self.triggers = 0
     self.last_trigger = None
+    self.incidents = []
     self._lock = threading.Lock()
     tele = get_telemetry()
     self._trigger_c = tele.counter('sentinel.triggers')
@@ -280,16 +289,27 @@ class Sentinel:
         f'serve backlog {backlog} reached the runaway threshold '
         f'{self.backlog_max}', value=backlog, force=True)
 
+  # -- incident registry (written by the flight recorder)
+
+  def note_incident(self, path, trigger):
+    with self._lock:
+      self.incidents.append({
+          'dir': str(path),
+          'detector': trigger.get('detector'),
+          'step': trigger.get('step'),
+          'unix_time': time.time(),
+      })
+      del self.incidents[:-MAX_INCIDENT_NOTES]
+
   def status(self):
     """Snapshot for ``live_status``/``/snapshot``: detectors, trigger
-    count, last trigger, and the (always empty: no flight recorder)
-    incident list the JAX package's payload carries."""
+    count, last trigger, registered incident dirs."""
     with self._lock:
       return {
           'detectors': list(self.detectors),
           'triggers': self.triggers,
           'last': dict(self.last_trigger) if self.last_trigger else None,
-          'incidents': [],
+          'incidents': [dict(i) for i in self.incidents],
       }
 
 

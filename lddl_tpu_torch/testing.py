@@ -47,9 +47,11 @@ class SyntheticBatchLoader:
   def batches_per_epoch(self):
     return self._steps
 
-  def seek(self, epoch, batch_index):
+  def seek(self, epoch, batch_index, exact=False):
     """Public positioning contract (see
-    :meth:`lddl_tpu_torch.loader.bert.BertPretrainLoader.seek`)."""
+    :meth:`lddl_tpu_torch.loader.bert.BertPretrainLoader.seek`). Every
+    seek is byte-exact here (a batch is a function of its step), so
+    ``exact`` changes nothing."""
     epoch, batch_index = int(epoch), int(batch_index)
     if epoch < 0 or batch_index < 0:
       raise ValueError(f'seek({epoch}, {batch_index}): coordinates must '

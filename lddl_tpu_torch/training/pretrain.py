@@ -14,9 +14,10 @@ whose ``block_diagonal=True`` batches carry ``segment_ids``: the feed
 copies every key and the train step then runs block-diagonal attention
 and the per-document MLM loss. ``build(path=None, ...)`` makes a loop
 without a corpus; the caller attaches ``loop.loader``, any iterable of
-loader-format batch dicts with a ``batch_size`` attribute.
-:meth:`TrainLoop.restore` re-seeks a loader that has the loader's
-``seek`` contract to the restored ``samples_seen``.
+loader-format batch dicts with a ``batch_size`` attribute, or replays
+steps from bundled batches (:func:`~lddl_tpu_torch.replay.steps.
+replay_steps`). :meth:`TrainLoop.restore` re-seeks a loader that has the
+loader's ``seek`` contract to the restored ``samples_seen``.
 ``loader_kwargs={'num_workers': W, 'vocab_file': ...}`` (``tokenizer``
 None) collates in W worker processes
 (:class:`~lddl_tpu_torch.loader.workers.MultiprocessLoader`), which start
@@ -40,8 +41,23 @@ model, so the cache never bills ``train.xla_flops`` /
 ``train.xla_bytes``, and MFU takes the analytic FLOP count as its
 numerator, as the JAX loop does when no cost model exists. With
 ``LDDL_MONITOR`` set, ``run`` starts the live monitor
-(:mod:`~lddl_tpu_torch.telemetry.server`) for this rank. The flight
-recorder and the ledger's ``step`` record are not ported yet.
+(:mod:`~lddl_tpu_torch.telemetry.server`) for this rank.
+
+With ``LDDL_LEDGER`` on, every checkpoint also records the ledger's
+``step`` line: :func:`state_fingerprint` of the state it writes (params,
+AdamW moments and count, dropout key), keyed by ``step`` with
+``samples`` and ``loss`` as context, as the JAX loop records it; and
+``run`` then runs under deterministic algorithms
+(:func:`deterministic_algorithms`), so the recorded steps re-execute
+bit for bit (:mod:`lddl_tpu_torch.replay`, ``python -m
+lddl_tpu_torch.replay.cli``). ``build`` for a CUDA device then sets the
+deterministic cuBLAS workspace (:func:`require_deterministic_cublas`)
+before the model brings CUDA up; a ledger turned on after CUDA started
+without it makes ``run`` refuse. Step digests do not compare across the
+two frameworks; the lines' keys and fields do. With ``LDDL_SENTINEL``
+on, ``run`` tees the host batches into the flight recorder's ring
+(:mod:`~lddl_tpu_torch.training.flight`) and freezes an incident
+directory when a sentinel fires.
 
 Data parallelism: ``build(..., mesh=make_mesh(), comm=...)`` over a
 ``torch.distributed`` group gives each rank its share of the shards and
@@ -58,8 +74,8 @@ and ``--device cuda:0``.
 """
 
 import argparse
+import contextlib
 import functools
-import hashlib
 import json
 import logging
 import math
@@ -88,6 +104,7 @@ from ..parallel.train import (AdamW, DataParallel, TrainStep,
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
+from ..telemetry.ledger import fingerprint_batch, get_ledger
 from ..telemetry.roofline import hbm_limits
 from ..telemetry.server import get_monitor, maybe_start_monitor
 from ..telemetry.sentinel import get_sentinel
@@ -134,6 +151,70 @@ def _read_meta(path):
   with open(os.path.join(path, _META_FILE)) as f:
     meta = json.load(f)
   return int(meta['step']), int(meta['samples_seen'])
+
+
+#: The cuBLAS workspace settings under which its GEMMs repeat bit for
+#: bit (``torch.use_deterministic_algorithms`` requires one of them).
+DETERMINISTIC_CUBLAS = (':4096:8', ':16:8')
+
+
+def require_deterministic_cublas():
+  """Make sure ``CUBLAS_WORKSPACE_CONFIG`` holds a deterministic
+  setting. cuBLAS reads it when the process first uses the card, so it
+  is set here while CUDA is not initialised yet; a process whose CUDA
+  began without it is refused with ``ValueError`` (its GEMMs may not
+  repeat, whatever the flags say now)."""
+  if os.environ.get('CUBLAS_WORKSPACE_CONFIG') in DETERMINISTIC_CUBLAS:
+    return
+  if torch.cuda.is_initialized():
+    raise ValueError(
+        'deterministic training needs CUBLAS_WORKSPACE_CONFIG='
+        f'{DETERMINISTIC_CUBLAS[0]} set before CUDA initialises; this '
+        'process initialised CUDA without it (set it in the environment '
+        'that starts the process)')
+  os.environ['CUBLAS_WORKSPACE_CONFIG'] = DETERMINISTIC_CUBLAS[0]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(device):
+  """Run the enclosed steps under ``torch.use_deterministic_algorithms
+  (True)`` (an op without a deterministic kernel raises, it never warns),
+  with the deterministic cuBLAS workspace on a CUDA ``device``; the
+  previous setting comes back after. :meth:`TrainLoop.run` runs so while
+  the ledger is on, and step replay always: a recorded ``step`` line is
+  reproducible by construction, as the JAX package's TPU steps are."""
+  if torch.device(device).type == 'cuda':
+    require_deterministic_cublas()
+  was = (torch.are_deterministic_algorithms_enabled(),
+         torch.is_deterministic_algorithms_warn_only_enabled())
+  torch.use_deterministic_algorithms(True)
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _host_arrays(obj):
+  """``obj`` with every (CPU) tensor as a numpy array."""
+  if torch.is_tensor(obj):
+    return obj.detach().cpu().numpy()
+  if isinstance(obj, dict):
+    return {k: _host_arrays(v) for k, v in obj.items()}
+  if isinstance(obj, (list, tuple)):
+    return type(obj)(_host_arrays(v) for v in obj)
+  return obj
+
+
+def state_fingerprint(snap, algo=None):
+  """Content fingerprint of a train-state snapshot (the CPU copy
+  :meth:`TrainLoop.save` writes: model params, the AdamW count and
+  moments, the dropout seed), the digest the ledger's ``step`` boundary
+  records: :func:`~lddl_tpu_torch.telemetry.ledger.fingerprint_batch` in
+  the ledger's algorithm (or ``algo``), as the JAX package's
+  ``state_fingerprint``. Module-level so :mod:`lddl_tpu_torch.replay` can
+  diff a re-executed step against the recorded line without a live
+  ledger."""
+  return fingerprint_batch(_host_arrays(snap), algo)
 
 
 def _cpu_copy(obj):
@@ -372,6 +453,9 @@ class TrainLoop:
     # None when it ran to max_steps.
     self.stop_reason = None
     self._last_saved = -1
+    # The latest step loss, carried onto the ledger's ``step`` record as
+    # context (never part of its key).
+    self._last_loss = None
 
   @classmethod
   def build(cls, path=None, tokenizer=None, *, model_cfg, device=None,
@@ -418,6 +502,10 @@ class TrainLoop:
                        f'with the mesh ({mesh_summary(mesh)}, data rank '
                        f'{data_rank(mesh)})')
     device = resolve_device(device)
+    if device.type == 'cuda' and get_ledger().enabled:
+      # run() records under deterministic algorithms, whose cuBLAS
+      # workspace must be set before the model brings CUDA up.
+      require_deterministic_cublas()
     if path is None:
       loader = None
     elif data_format == 'packed':
@@ -505,21 +593,42 @@ class TrainLoop:
     write is done (with ``writer``: at the barrier after :meth:`run`'s
     flush), which makes the checkpoint independent of the world size:
     :meth:`restore` reads it at any.
+
+    With the ledger on, every rank records the ``step`` line of the
+    state, fingerprinted here from the CPU copy the writer serializes
+    (:meth:`_record_step_fingerprint`).
     """
     shared = self._shared()
+    ledger = get_ledger()
     if not shared or data_rank(self.mesh) == 0:
       state = _cpu_copy(self._state())
       meta = {'step': self.step, 'samples_seen': self.samples_seen}
+      if ledger.enabled:
+        self._record_step_fingerprint(ledger, state)
       if writer is not None:
         writer.submit(self._write_ckpt, ckpt_dir, keep, self.step, state,
                       meta)
         get_telemetry().gauge('train.ckpt_backlog').set(writer.backlog)
       else:
         self._write_ckpt(ckpt_dir, keep, self.step, state, meta)
+    elif ledger.enabled:
+      self._record_step_fingerprint(ledger, _cpu_copy(self._state()))
     if shared and writer is None:
       self._barrier()
     self._last_saved = self.step
     return self.step
+
+  def _record_step_fingerprint(self, ledger, snap):
+    """The ledger's ``step`` boundary: :func:`state_fingerprint` of the
+    full train state at a checkpoint, keyed by the global step, with
+    ``samples`` and the last step's ``loss`` as context (the JAX loop's
+    line, key for key). The state is the same on every rank after the
+    gradient all-reduce, so this is the boundary the cross-rank verdict
+    compares, and the one step replay verifies against."""
+    coords = {'step': self.step, 'samples': self.samples_seen}
+    if self._last_loss is not None:
+      coords['loss'] = self._last_loss
+    ledger.record('step', state_fingerprint(snap), **coords)
 
   @staticmethod
   def _write_ckpt(ckpt_dir, keep, step, state, meta):
@@ -596,18 +705,13 @@ class TrainLoop:
     reseek_loader(self.loader, self.samples_seen, self.dp_world)
     return self
 
-  def state_digest(self):
-    """sha256 over the CPU bytes of the params, the optimizer state and
-    the dropout key (the generator state: every step reseeds from it)."""
-    h = hashlib.sha256()
-    for name, t in self.model.state_dict().items():
-      h.update(name.encode())
-      h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    h.update(str(self.opt.count).encode())
-    for t in self.opt.mu + self.opt.nu:
-      h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    h.update(str(self.dropout_seed).encode())
-    return h.hexdigest()
+  def state_digest(self, algo=None):
+    """:func:`state_fingerprint` of the loop's live train state (the
+    params, the optimizer state and the dropout key: every step reseeds
+    its generators from it) — equal to the ledger's ``step`` record when
+    the loop sits at that step (hashed in ``algo``, default the
+    ledger's)."""
+    return state_fingerprint(_cpu_copy(self._state()), algo)
 
   # ---- the loop ----
 
@@ -627,6 +731,13 @@ class TrainLoop:
     writer. With ``LDDL_STEP_CACHE`` on (the default) steps go through
     the loop's :class:`CompiledStepCache`. The device is synchronised
     once per step, by the loss read.
+
+    With the ledger on the steps run under :func:`deterministic_algorithms`
+    and every checkpoint records the ``step`` line. With the sentinel on,
+    the flight recorder (:func:`~lddl_tpu_torch.training.flight.
+    get_flight_recorder`) tees the host batches before the device feed,
+    keeps each step's scalars and the newest checkpoint, and a trigger
+    freezes an incident directory (``incident captured`` is printed).
     """
     if self.loader is None:
       raise ValueError('attach loop.loader before run()')
@@ -640,7 +751,12 @@ class TrainLoop:
     # Armed through the API (get_step_profiler().arm(n)) or the monitor's
     # /profile; unarmed, on_step() is two attribute reads.
     profiler = get_step_profiler()
+    # Streaming sentinels and the black-box recorder (LDDL_SENTINEL): both
+    # the shared no-op singletons when the gate is off. (Imported here:
+    # ``python -m lddl_tpu_torch.training.flight`` loads this package.)
+    from .flight import get_flight_recorder
     sentinel = get_sentinel()
+    flight = get_flight_recorder()
     nonfinite_stop = (os.environ.get('LDDL_NONFINITE', '')
                       .strip().lower() != 'ignore')
     global_batch = self.loader.batch_size * max(self.dp_world, 1)
@@ -665,6 +781,10 @@ class TrainLoop:
     self.stop_reason = None
     use_async = async_ckpt_enabled() if async_ckpt is None else async_ckpt
     writer = AsyncCheckpointWriter() if (ckpt_dir and use_async) else None
+    modes = contextlib.ExitStack()
+    if get_ledger().enabled:
+      # A recorded step line must re-execute bit for bit (replay).
+      modes.enter_context(deterministic_algorithms(self.device))
     guard = PreemptionGuard().install()
     # Membership polls once per heartbeat (the first step boundary, then
     # each beat), and the steps_per_sec window it publishes.
@@ -674,8 +794,13 @@ class TrainLoop:
     self.model.train()
     try:
       while self.step < max_steps and self.stop_reason is None:
-        stream = prefetch_to_device(iter(self.loader), self.device,
-                                    size=prefetch)
+        # The recorder tees the *host* batches (the device copies cannot
+        # be packed); ordinal0 is the global step the next batch feeds, so
+        # each ring entry carries its ledger collate coordinate.
+        stream = prefetch_to_device(
+            flight.wrap_host_stream(iter(self.loader), self.loader,
+                                    ordinal0=self.step),
+            self.device, size=prefetch)
         t0 = time.perf_counter()
         steps_this_epoch = 0
         try:
@@ -707,6 +832,7 @@ class TrainLoop:
             loss = float(metrics['loss'])
             grad_norm = float(metrics['grad_norm'])
             losses.append(loss)
+            self._last_loss = loss
             self.step += 1
             self.samples_seen += global_batch
             if not math.isfinite(loss) and nonfinite_stop:
@@ -715,9 +841,16 @@ class TrainLoop:
             trigger = sentinel.observe_step(step_no, loss=loss,
                                             grad_norm=grad_norm,
                                             data_wait=data_wait)
+            flight.record_step(step_no, loss=loss, grad_norm=grad_norm,
+                               data_wait=data_wait)
             if trigger is not None:
-              print(f'sentinel: {trigger["detector"]} fired at step '
-                    f'{step_no} ({trigger["reason"]})')
+              incident = flight.capture(trigger)
+              if incident:
+                print(f'sentinel: {trigger["detector"]} fired at step '
+                      f'{step_no} — incident captured to {incident}')
+              else:
+                print(f'sentinel: {trigger["detector"]} fired at step '
+                      f'{step_no} ({trigger["reason"]})')
             finished_trace = profiler.on_step()
             if finished_trace:
               print(f'profiler: wrote trace for step {self.step} window to '
@@ -783,6 +916,7 @@ class TrainLoop:
               break
             if ckpt_dir and ckpt_every and self.step % ckpt_every == 0:
               self.save(ckpt_dir, writer=writer)
+              flight.note_checkpoint(ckpt_dir, self.step)
             if self.step >= max_steps:
               break
         finally:
@@ -802,8 +936,10 @@ class TrainLoop:
       # before the return.
       if ckpt_dir and self._last_saved != self.step:
         self.save(ckpt_dir)
+        flight.note_checkpoint(ckpt_dir, self.step)
     finally:
       guard.uninstall()
+      modes.close()
       if writer is not None:
         # Idempotent after flush(); raise_errors=False so cleanup never
         # masks an exception already propagating.
@@ -883,6 +1019,10 @@ def main(args=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)).parse_args(
             args)
+  if get_ledger().enabled and not str(args.device).startswith('cpu'):
+    # The ledger's step lines are recorded under deterministic algorithms,
+    # whose cuBLAS workspace must be set before CUDA initialises.
+    require_deterministic_cublas()
   comm = get_backend(args.comm)
   tracer = get_tracer()
   if tracer.enabled:

@@ -55,7 +55,10 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.telemetry.live',
            'lddl_tpu_torch.telemetry.server',
            'lddl_tpu_torch.telemetry.monitor',
-           'lddl_tpu_torch.loader.service', 'lddl_tpu_torch.testing')
+           'lddl_tpu_torch.loader.service', 'lddl_tpu_torch.testing',
+           'lddl_tpu_torch.replay', 'lddl_tpu_torch.replay.rematerialize',
+           'lddl_tpu_torch.replay.bundle', 'lddl_tpu_torch.replay.steps',
+           'lddl_tpu_torch.replay.cli', 'lddl_tpu_torch.training.flight')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():
@@ -77,6 +80,18 @@ def test_the_data_server_and_the_monitor_import_no_torch():
           'import lddl_tpu_torch.loader.service, '
           'lddl_tpu_torch.telemetry.server, '
           'lddl_tpu_torch.telemetry.monitor, lddl_tpu_torch.testing\n'
+          'print("torch" in sys.modules)\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, check=True, timeout=120)
+  assert out.stdout.strip() == 'False', out.stdout
+
+
+def test_batch_replay_and_bundles_import_no_torch():
+  """Rebuilding a recorded batch or reading a bundle needs no torch (a
+  data host can verify a ledger's batches without one)."""
+  code = ('import sys\n'
+          'import lddl_tpu_torch.replay\n'
           'print("torch" in sys.modules)\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
