@@ -199,10 +199,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
      epoch of pairs/ and a packed step, eager), ms/step with
      deterministic algorithms off and on (O N N O), the window with the
      ledger and the recorder off and on (F T T F), and the cost of one
-     step fingerprint.
+     step fingerprint; (f) the recording run resumed at its mid-epoch
+     checkpoint RESUME_AT (resume semantics: another shuffle) to
+     RESUME_TO with the ledger and tracing on, its ledger 11a's up to the
+     step line at RESUME_AT: 12 launches a step of each of K1-K3 (counts
+     at 0 just before, read just after), losses that are not 11a's; in
+     11b's child, the replay CLI's ``step`` of RESUME_TO bit for bit with
+     that ledger and ``bisect --ledger`` over (RESUME_AT, RESUME_TO]
+     giving the resumed run's losses bit for bit (the recorded stream);
+     (g) after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
+     --gate`` with 11a's ledger (``--audit``, ``--replay-smoke`` over the
+     pairs loader), phase 11's incident tree and phase 12's bench
+     history: exit 1 for the injected incident, the audit and the smoke
+     ok, a verdict per series and no regression; ``python -m
+     lddl_tpu_torch.telemetry.trace`` over (f)'s trace: exit 0 and a
+     merged document with events, exit 2 over a directory with none;
+  12. the K-step scan window (make_scan_train_step over
+     stack_batch_window) at BERT-base width with dropout 0.1, at
+     SCAN_CELLS (s=128 x 64 and s=512 x 16 with K=8, packed s=8192 x 2
+     with K=4), numpy batches from --seed: (a) under deterministic
+     algorithms, from one state, one window equals K hits of the
+     per-step graph (CompiledStepCache) bit for bit: params, AdamW's mu,
+     nu, count_t, the host count and the last step's metrics; (b) one
+     window's launches, counted on the device (counts at 0 just before,
+     read just after): K x 12 of each kernel of the path, none of the
+     others; (c) one capture per (signature, K), every later window a
+     hit; (d) mode graph; for the record, with the batches already on
+     the card, ms/step of windows (W), of per-step hits reading every
+     loss (S) and of per-step hits queued (Q), in the order W S Q Q S W;
+     device busy and idle by torch.profiler over one window against K
+     hits; the capture and instantiation time; each graph's pool and the
+     peak allocated over its hits; stack_batch_window's host time a
+     window against the feed's train.h2d_seconds a batch. Each timed
+     window's ms/step goes into a bench-history JSONL that 11g gates.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-11), the card's name and power limit, and ``{"ok": true,
+phases 9-12), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``. Without a CUDA card the script exits non-zero before
 printing any result.
 """
@@ -214,6 +246,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -325,8 +358,24 @@ FLASH_KERNEL_NAME = re.compile(
     r'flash_(fwd|dq|dkv)(?:_mma)?_kernel<\d+, (true|false)>')
 
 
+# (header, perf_counter) of each phase's '== ' line, for the phases'
+# seconds at the end.
+PHASE_STARTS = []
+
+
 def log(*args):
+  if args and str(args[0]).startswith('== '):
+    PHASE_STARTS.append((str(args[0])[3:].split(' [')[0],
+                         time.perf_counter()))
   print(*args, flush=True)
+
+
+def phase_seconds():
+  """Seconds from each phase's header to the next one's (the last to
+  now)."""
+  ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+  return {name: round(end - t, 1)
+          for (name, t), end in zip(PHASE_STARTS, ends)}
 
 
 def batch_sha256(batch):
@@ -3430,6 +3479,9 @@ REPLAYS = ((16, 8), (24, 16))
 BATCH_KEYS = ((0, 3), (0, 21), (1, 2))
 FLIGHT_PROFILE_STEPS = 2
 FINGERPRINT_REPS = 2
+# 11f: the recording run resumed at its mid-epoch checkpoint RESUME_AT and
+# run to RESUME_TO (a checkpoint there, every RECORD_CKPT_EVERY).
+RESUME_AT, RESUME_TO = 8, 16
 # The keys of a step line, the JAX loop's.
 STEP_LINE_KEYS = ['boundary', 'digest', 'loss', 'n', 'rolling', 'samples',
                   'step']
@@ -3678,17 +3730,20 @@ def rank_11b(args, digests):
     rc, printed = run_cli(cli.main, argv + ['--json'])
     seconds = time.perf_counter() - t0
     res = json.loads(printed) if rc in (0, 1) else {'printed': printed[-2000:]}
-    res.pop('losses', None)
+    if argv[0] == 'step':
+      res.pop('losses', None)
     out.append({'label': label, 'rc': rc, 'result': res,
                 'launches': tfa.device_launches(), 'seconds': seconds})
   rank_result(args, out)
 
 
-def replays_in_fresh_processes(args, digests, rec, bundled):
-  """11b (with 11c's bundled step) in a child of this script, and 11d's
-  ``python -m lddl_tpu_torch.training.flight replay`` beside it: every
-  replay matches the recorded step line, 12 launches a replayed step of
-  each of K1-K3 in the child."""
+def replays_in_fresh_processes(args, digests, rec, bundled, resumed):
+  """11b (with 11c's bundled step and 11f's resumed replay and bisect) in
+  a child of this script, and 11d's ``python -m
+  lddl_tpu_torch.training.flight replay`` beside it: every replay matches
+  the recorded step line, 12 launches a replayed step of each of K1-K3 in
+  the child; the bisect of the resumed run over its ledger gives that
+  run's losses bit for bit."""
   paths = rec['paths']
   model = replay_model_argv(args, digests)
   corpus = ['--path', shard_path('pairs')] + replay_loader_argv(digests)
@@ -3699,6 +3754,16 @@ def replays_in_fresh_processes(args, digests, rec, bundled):
   jobs.append((f'step {RECORD_INCIDENT_STEP + 1} from '
                f'{len(bundled["bundles"])} bundles, no corpus',
                bundled['step_argv']))
+  rp = resumed['paths']
+  jobs.append((f'step {RESUME_TO} of the run resumed at {RESUME_AT}, from '
+               'the corpus', ['step', '--checkpoint-dir', rp['ckpt'],
+                              '--step', str(RESUME_TO), '--ledger',
+                              rp['ledger']] + corpus + model))
+  jobs.append((f'bisect ({RESUME_AT}, {RESUME_TO}] of the resumed run, with '
+               'its ledger', ['bisect', '--checkpoint-dir', rp['ckpt'],
+                              '--lo', str(RESUME_AT), '--hi',
+                              str(RESUME_TO), '--ledger', rp['ledger']] +
+               corpus + model))
   root = os.path.dirname(paths['ckpt'])
   with open(os.path.join(root, 'replay_jobs.json'), 'w') as f:
     json.dump(jobs, f)
@@ -3725,12 +3790,14 @@ def replays_in_fresh_processes(args, digests, rec, bundled):
   from lddl_tpu_torch.training import MODEL_SIZES
   layers = MODEL_SIZES[MODEL]['num_layers']
   want_restored = [c for _, c in REPLAYS] + [
-      (RECORD_INCIDENT_STEP // RECORD_CKPT_EVERY) * RECORD_CKPT_EVERY]
-  wanted_steps = [s for s, _ in REPLAYS] + [RECORD_INCIDENT_STEP + 1]
+      (RECORD_INCIDENT_STEP // RECORD_CKPT_EVERY) * RECORD_CKPT_EVERY,
+      RESUME_AT]
+  wanted_steps = [s for s, _ in REPLAYS] + [RECORD_INCIDENT_STEP + 1,
+                                            RESUME_TO]
+  per = {'fwd': layers, 'dq': layers, 'dkv': layers, 'fwd_seg': 0,
+         'dq_seg': 0, 'dkv_seg': 0}
   for job, restored, target in zip(child, want_restored, wanted_steps):
     res = job['result']
-    per = {'fwd': layers, 'dq': layers, 'dkv': layers, 'fwd_seg': 0,
-           'dq_seg': 0, 'dkv_seg': 0}
     want = {k: m * (target - restored) for k, m in per.items()}
     if (job['rc'] != 0 or res.get('match') is not True or
         res.get('restored_step') != restored or job['launches'] != want):
@@ -3740,6 +3807,19 @@ def replays_in_fresh_processes(args, digests, rec, bundled):
     log(f'  11b: {job["label"]}: restored {restored}, bit-identical to the '
         f'recorded step line ({res["digest"]}), {job["seconds"]:.1f} s; '
         f'launches in the child, counted on the device: {job["launches"]}')
+  job = child[len(wanted_steps)]
+  res = job['result']
+  want = {k: m * (RESUME_TO - RESUME_AT) for k, m in per.items()}
+  got = [x for _, x in res.get('losses', [])]
+  if (job['rc'] != 0 or got != resumed['losses'] or
+      res.get('stream_checked') is not True or job['launches'] != want):
+    raise AssertionError(f'11f: {job["label"]}: exit {job["rc"]}, {res}, '
+                         f'launches {job["launches"]}; want the resumed '
+                         f'run\'s losses {resumed["losses"]}, {want}')
+  log(f'  11f: {job["label"]}: the resumed run\'s losses bit for bit '
+      f'(spike at step {res["spike_step"]}, batch '
+      f'{res.get("batch_coordinate")}), {job["seconds"]:.1f} s; launches '
+      f'in the child: {job["launches"]}')
   with open(log_path) as f:
     printed = f.read()
   if flight_rc != 0 or '"match": true' not in printed:
@@ -3901,27 +3981,485 @@ def fingerprint_cost(loop, card):
   return out
 
 
-def record_and_replay(args, digests, card):
-  """Phase 11: 11a, 11c, 11b with 11d's replay, 11d, 11e."""
-  with tempfile.TemporaryDirectory(prefix='lddl_smoke_replay_') as root:
-    loop, rec = record_run(args, digests, root, card)
-    check_incident(rec, len(digests['pairs']['batches']))
-    bundled = batches_and_bundles(args, digests, rec, root)
-    replays = replays_in_fresh_processes(args, digests, rec, bundled)
-    incident_cli(rec)
-    warned = warned_ops(args, digests, loop)
-    timing = phase11_timing(args, digests, loop, root, card)
-    cost = fingerprint_cost(loop, card)
+def resumed_run(loop, rec, root, card):
+  """11f: the recording run preempted after its checkpoint RESUME_AT and
+  resumed there to RESUME_TO (``restore`` re-seeks the loader with resume
+  semantics: another shuffle than the uninterrupted run's), with the
+  ledger and tracing on. Its ledger is 11a's up to the step line at
+  RESUME_AT, as a run killed after that checkpoint leaves it, then the
+  resumed session's; its trace and telemetry are exported."""
+  import shutil
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.training import export_telemetry
+  from lddl_tpu_torch.training.pretrain import _step_dirs
+  paths = {k: os.path.join(root, f'resumed_{k}')
+           for k in ('ckpt', 'ledger', 'telemetry')}
+  with open(os.path.join(rec['paths']['ledger'], 'ledger.rank0.jsonl')) as f:
+    lines = f.read().splitlines()
+  cut = next(i for i, x in enumerate(lines)
+             if json.loads(x).get('boundary') == 'step' and
+             json.loads(x)['step'] == RESUME_AT)
+  os.makedirs(paths['ledger'])
+  with open(os.path.join(paths['ledger'], 'ledger.rank0.jsonl'), 'w') as f:
+    f.write('\n'.join(lines[:cut + 1]) + '\n')
+  src = dict(_step_dirs(rec['paths']['ckpt']))[RESUME_AT]
+  shutil.copytree(src, os.path.join(paths['ckpt'], os.path.basename(src)))
+  loop.restore(paths['ckpt'], step=RESUME_AT)
+  with environ(LDDL_TELEMETRY_DIR=paths['telemetry']):
+    telemetry.enable()
+    telemetry.enable_trace()
+    try:
+      with blake2b8_ledger(paths['ledger']):
+        tfa.reset_launches()
+        losses, _ = run_cli(lambda _: loop.run(
+            RESUME_TO, ckpt_dir=paths['ckpt'], ckpt_every=RECORD_CKPT_EVERY,
+            log_every=0), None)
+        counts = tfa.device_launches()
+        host = dict(tfa.launches)
+      written, _ = run_cli(lambda _: export_telemetry(), None)
+    finally:
+      telemetry.disable()
+      telemetry.disable_trace()
+  n = RESUME_TO - RESUME_AT
+  if len(losses) != n or not all(np.isfinite(losses)):
+    raise AssertionError(f'11f: losses {losses}')
+  layers = loop.model.cfg.num_layers
+  check_launches(counts, host, {k: (n * layers if k in ('fwd', 'dq', 'dkv')
+                                    else 0) for k in counts},
+                 f'11f, the run resumed at {RESUME_AT}')
+  if losses == rec['losses'][RESUME_AT:RESUME_TO]:
+    raise AssertionError('11f: the resumed run fed the uninterrupted run\'s '
+                         'batches; a mid-epoch restore re-seeks with resume '
+                         'semantics')
+  steps = [r['step'] for r in ledger_lines(paths['ledger'])
+           if r.get('boundary') == 'step']
+  if steps[-1] != RESUME_TO or sorted(
+      os.path.basename(p) for p in written) != ['telemetry.rank0.jsonl',
+                                                'trace.rank0.jsonl']:
+    raise AssertionError(f'11f: step lines {steps}, exported {written}')
+  log(f'  11f: resumed at checkpoint {RESUME_AT} and run to {RESUME_TO} with '
+      f'the ledger and tracing on: losses {losses[0]:.4f} -> '
+      f'{losses[-1]:.4f} (not the uninterrupted run\'s), step lines '
+      f'{steps}, trace and telemetry exported [{card}]')
+  return {'paths': paths, 'losses': losses, 'launches': counts}
+
+
+def gate_and_trace(digests, rec, resumed, history, card):
+  """11g, after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
+  --gate`` with 11e's two ledgers of one epoch each (``--audit``: the
+  first verified against the second; the replay smoke over the pairs
+  loader), phase 11's incident tree and phase 12's bench history: exit 1
+  for the one injected incident, the audit and the smoke ok, a verdict
+  line per series and no regression; then ``python -m
+  lddl_tpu_torch.telemetry.trace`` over 11f's traced run (exit 0, a merged
+  document with events) and over an empty directory (exit 2).
+
+  Not 11a's ledger: it spans two epochs, and the feed numbers its
+  ``device`` records from 0 in each epoch's feed (as the JAX feed does),
+  so the auditor's self-check reads the second epoch's as replays that
+  came back different."""
+  from lddl_tpu_torch.telemetry.perf import load_history_jsonl
+  kwargs = dict(path=shard_path('pairs'), vocab_file=VOCAB_FILE,
+                **digests['pairs']['settings'])
+  root = os.path.dirname(rec['paths']['ledger'])
+  ledgers = [os.path.join(root, f'ledger_e{i}') for i in (1, 2)]
+  cmd = [sys.executable, '-m', 'lddl_tpu_torch.telemetry.perf', '--gate',
+         '--audit', *ledgers, '--replay-smoke',
+         '--replay-factory',
+         'lddl_tpu_torch.loader.bert:get_bert_pretrain_data_loader',
+         '--replay-kwargs-json', json.dumps(kwargs), '--incidents',
+         rec['paths']['incidents'], '--root', os.path.dirname(history)]
+  t0 = time.perf_counter()
+  p = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                     timeout=RANK_TIMEOUT)
+  seconds = time.perf_counter() - t0
+  verdicts = dict(
+      (m.group(2), m.group(1)) for m in
+      re.finditer(r'^\s*(ok|regression|insufficient-data)\s+(\S+)\s+n=',
+                  p.stdout, re.M))
+  series = sorted(load_history_jsonl(history))
+  step = RECORD_INCIDENT_STEP
+  if (p.returncode != 1 or 'lddl-perf: determinism audit ok' not in p.stdout
+      or not re.search(r'replay-smoke collate: ok', p.stdout)
+      or f'injected at step {step}' not in p.stderr
+      or 'concurrency lint unavailable' not in p.stderr
+      or sorted(verdicts) != series
+      or 'regression' in verdicts.values()):
+    raise AssertionError(f'11g: the perf gate exited {p.returncode}, '
+                         f'verdicts {verdicts} for series {series}:\n'
+                         f'{p.stdout[-3000:]}\n{p.stderr[-3000:]}')
+  log(f'  11g: python -m lddl_tpu_torch.telemetry.perf --gate: exit 1 for '
+      f'the injected incident at step {step}; determinism audit ok, replay '
+      f'smoke ok; verdicts {verdicts} over phase 12\'s history '
+      f'({seconds:.1f} s)')
+  traced = resumed['paths']['telemetry']
+  merged = os.path.join(traced, 'merged.json')
+  empty = os.path.join(os.path.dirname(traced), 'no_trace')
+  os.makedirs(empty)
+  rcs = []
+  for argv in (['--dir', traced, '-o', merged], ['--dir', empty]):
+    rcs.append(subprocess.run(
+        [sys.executable, '-m', 'lddl_tpu_torch.telemetry.trace', *argv],
+        cwd=HERE, capture_output=True, text=True,
+        timeout=RANK_TIMEOUT).returncode)
+  with open(merged) as f:
+    doc = json.load(f)
+  events = len(doc['traceEvents'])
+  if rcs != [0, 2] or not events or doc['metadata']['lddl']['ranks'] != [0]:
+    raise AssertionError(f'11g: the trace CLI exited {rcs}; {events} events')
+  log(f'  11g: python -m lddl_tpu_torch.telemetry.trace over 11f\'s run: '
+      f'exit 0, {events} events; over a directory with no trace: exit 2')
+  return {'gate_rc': p.returncode, 'verdicts': verdicts,
+          'gate_seconds': seconds, 'trace_events': events}
+
+
+def record_and_replay(args, digests, root, card):
+  """Phase 11: 11a, 11c, 11f, 11b with 11d's replay, 11d, 11e; its files
+  stay under ``root`` for 11g."""
+  loop, rec = record_run(args, digests, root, card)
+  check_incident(rec, len(digests['pairs']['batches']))
+  bundled = batches_and_bundles(args, digests, rec, root)
+  resumed = resumed_run(loop, rec, root, card)
+  replays = replays_in_fresh_processes(args, digests, rec, bundled, resumed)
+  incident_cli(rec)
+  warned = warned_ops(args, digests, loop)
+  timing = phase11_timing(args, digests, loop, root, card)
+  cost = fingerprint_cost(loop, card)
   del loop
   torch.cuda.empty_cache()
   return {'launches': rec['launches'],
+          'resumed_launches': resumed['launches'],
           'replay_launches': [j['launches'] for j in replays['child']],
           'record_seconds': rec['record_seconds'],
           'replay_seconds': replays['seconds'], 'warned_ops': warned,
-          'timing': timing, 'fingerprint': cost}
+          'timing': timing, 'fingerprint': cost}, rec, resumed
 
 
 RANK_TASKS['11b'] = rank_11b
+
+
+# ---- phase 12: the K-step scan window ----
+
+# (label, seq_len, batch, K, packed): phases 5 and 6's widths; K=4 packed
+# is long_context_bench.py's default window.
+SCAN_CELLS = (('s128_b64_k8', 128, 64, 8, False),
+              ('s512_b16_k8', 512, 16, 8, False),
+              ('packed_s8192_b2_k4', PACKED[0], PACKED[1], 4, True))
+# Windows in each timed window run (W); a per-step run (S) takes as many
+# steps.
+SCAN_TIMED_WINDOWS = 3
+
+
+def card_memory():
+  """(bytes reserved, bytes allocated at peak) on the card."""
+  return torch.cuda.memory_reserved(), torch.cuda.max_memory_allocated()
+
+
+def pool_bytes(fn):
+  """Bytes the card's allocator holds more after ``fn()`` (a capture:
+  its graph's private pool) than before, the caches emptied around it."""
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  before = card_memory()[0]
+  fn()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  return card_memory()[0] - before
+
+
+def peak_bytes(fn):
+  """Peak bytes allocated on the card while ``fn()`` runs."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  fn()
+  torch.cuda.synchronize()
+  return card_memory()[1]
+
+
+def device_busy(fn, steps):
+  """torch.profiler over ``fn()`` (``steps`` train steps): device busy ms
+  per step, kernels per step and the flash kernels' calls per step."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  flash = {}
+  for e in kernels:
+    m = FLASH_KERNEL_NAME.search(e.key)
+    if m:
+      name = m.group(1) + ('_seg' if m.group(2) == 'true' else '')
+      flash[name] = flash.get(name, 0) + e.count / steps
+  return (sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+          sum(e.count for e in kernels) / steps, flash)
+
+
+def train_state(loop):
+  """Copies of everything a step changes: params, AdamW's mu, nu,
+  count_t and host count."""
+  opt = loop.opt
+  return ([p.detach().clone() for p in opt.params],
+          [t.clone() for t in opt.mu], [t.clone() for t in opt.nu],
+          opt.count_t.clone(), opt.count)
+
+
+def load_train_state(loop, state):
+  """Put ``state`` (train_state's) back into the live tensors, in place,
+  so the captured graphs stay valid."""
+  with torch.no_grad():
+    for p, t in zip(loop.opt.params, state[0]):
+      p.copy_(t)
+  loop.opt.load_state_dict({'count': state[4], 'mu': state[1],
+                            'nu': state[2]})
+
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+def same_bits(a, b):
+  """Whether two lists of tensors (or two tensors) are equal bit for
+  bit (floats compared as their bits: NaN payloads and signed zeros
+  count)."""
+  if isinstance(a, torch.Tensor):
+    a, b = [a], [b]
+
+  def bits(t):
+    return t.view(_INT_OF_SIZE[t.element_size()]) if (
+        t.is_floating_point()) else t
+
+  return len(a) == len(b) and all(
+      x.dtype == y.dtype and x.shape == y.shape and
+      torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def check_window_bits(loop, label, batches, windows, seed, k):
+  """(a) Under deterministic algorithms with dropout on, from one state:
+  K per-step cache hits and one window hit over the same K batches leave
+  the params, mu, nu, count_t and the host count, and the last step's
+  metrics, bit-equal. Returns the two graphs' counts."""
+  from lddl_tpu_torch.parallel.train import make_scan_train_step
+  from lddl_tpu_torch.training.pretrain import CompiledStepCache
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    cache = CompiledStepCache(loop.step_fn)
+    win = make_scan_train_step(loop.model, loop.opt, loop.max_predictions)
+    cache(batches[0], seed)
+    win(windows[0], seed)
+    start = train_state(loop)
+    for b in batches[k:2 * k]:
+      want = cache(b, seed)
+    want = {n: t.clone() for n, t in want.items()}
+    stepped = train_state(loop)
+    load_train_state(loop, start)
+    got = win(windows[1], seed)
+    windowed = train_state(loop)
+  finally:
+    torch.use_deterministic_algorithms(False)
+  parts = ('params', 'mu', 'nu', 'count_t')
+  diff = [n for n, x, y in zip(parts, windowed, stepped) if not same_bits(x, y)]
+  if windowed[4] != stepped[4]:
+    diff.append(f'host count {windowed[4]} vs {stepped[4]}')
+  if sorted(got) != sorted(want) or not all(
+      same_bits(got[n], want[n]) for n in want):
+    diff.append(f'metrics {got} vs {want}')
+  counts = {'cache': (cache.misses, cache.hits),
+            'window': (win.captures, win.hits)}
+  if diff or counts != {'cache': (1, k), 'window': (1, 1)}:
+    raise AssertionError(f'12a ({label}): one window vs {k} per-step cache '
+                         f'hits, deterministic, dropout 0.1: {diff} differ; '
+                         f'graph counts {counts}')
+  log(f'  12a ({label}): one window = {k} per-step cache hits bit for bit '
+      f'(params, mu, nu, count_t, host count {windowed[4]}, the last '
+      f'step\'s metrics: loss {float(got["loss"]):.6f}), deterministic, '
+      'dropout 0.1')
+  del cache, win
+  return counts
+
+
+def scan_cell(args, card, history, label, s, b, k, packed):
+  """Phase 12 at one width: the window against the per-step graph."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  from lddl_tpu_torch.loader.device import prefetch_to_device
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel.train import (make_scan_train_step,
+                                             stack_batch_window)
+  from lddl_tpu_torch.telemetry.perf import append_history
+  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+  from lddl_tpu_torch.training.pretrain import CompiledStepCache
+
+  cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                   max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
+  max_predictions = PACKED[2] if packed else args.max_predictions
+  loop = TrainLoop.build(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+                         warmup_steps=10, total_steps=1000, seed=args.seed,
+                         max_predictions=max_predictions, max_seq_length=s)
+  if cfg.dropout_rate != 0.1:
+    raise AssertionError('phase 12 runs with dropout 0.1')
+  host = (PackedLoader(s, b, 2 * k, args.seed) if packed else
+          BinLoader(s, b, 2 * k, args.seed, dynamic_mask_tokens)).batches
+  seed = loop.dropout_seed
+  batches = [{n: torch.from_numpy(v).to(DEVICE) for n, v in x.items()}
+             for x in host]
+  windows = [stack_batch_window(host[i * k:(i + 1) * k], DEVICE)
+             for i in range(2)]
+  seg = '_seg' if packed else ''
+  per_step = {n + x: (cfg.num_layers if x == seg else 0)
+              for n in ('fwd', 'dq', 'dkv') for x in ('', '_seg')}
+  out = {'label': label, 'seq_len': s, 'batch': b, 'k': k}
+
+  # The per-step graph and the window: their captures and pools.
+  cache = CompiledStepCache(loop.step_fn)
+  win = make_scan_train_step(loop.model, loop.opt, max_predictions)
+  out['step_pool_gib'] = pool_bytes(lambda: cache(batches[0], seed)) / 2**30
+  out['window_pool_gib'] = pool_bytes(lambda: win(windows[0], seed)) / 2**30
+  out['window_capture_s'] = win.capture_seconds
+  out['window_miss_s'] = win.miss_seconds
+  out['step_miss_s'] = cache.retrace_seconds
+
+  # (b) one window's launches, counted on the device: counts at 0 just
+  # before, read just after.
+  tfa.reset_launches()
+  metrics = win(windows[1], seed)
+  counts = tfa.device_launches()
+  check_launches(counts, dict(tfa.launches),
+                 {n: m * k for n, m in per_step.items()},
+                 f'12b, one window of {k} steps ({label})')
+  out['window_launches'] = counts
+  if not np.isfinite(float(metrics['loss'])):
+    raise AssertionError(f'12 ({label}): loss {metrics["loss"]}')
+
+  # Timed in alternating runs, W S S W, the batches already on the card.
+  def run_windows():
+    times = []
+    for j in range(SCAN_TIMED_WINDOWS):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      win(windows[j % 2], seed)
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+    return times
+
+  def run_steps(read_loss):
+    n = SCAN_TIMED_WINDOWS * k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+      metrics = cache(batches[i % len(batches)], seed)
+      if read_loss:
+        float(metrics['loss'])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+  # W: windows, each read once (a sync a window). S: per-step hits, each
+  # step's loss read as TrainLoop.run reads it. Q: per-step hits queued
+  # with no read (the device never waits for the host if the host keeps
+  # ahead).
+  w_ms, s_ms, q_ms = [], [], []
+  for kind in 'WSQQSW':
+    if kind == 'W':
+      times = run_windows()
+      w_ms.append(1e3 * sum(times) / len(times) / k)
+      for t in times:
+        append_history(history, {'cell': label,
+                                 f'window_step_ms_{label}': 1e3 * t / k})
+    else:
+      (s_ms if kind == 'S' else q_ms).append(1e3 * run_steps(kind == 'S'))
+  out['window_ms_per_step'], out['step_ms_per_step'] = w_ms, s_ms
+  out['queued_step_ms_per_step'] = q_ms
+  out['window_peak_gib'] = peak_bytes(lambda: win(windows[0], seed)) / 2**30
+  out['step_peak_gib'] = peak_bytes(
+      lambda: [cache(x, seed) for x in batches[:k]]) / 2**30
+
+  # The idle share by profiler: one window against K per-step hits.
+  wb, wk, wf = device_busy(lambda: win(windows[0], seed), k)
+  sb, sk, sf = device_busy(lambda: [cache(x, seed) for x in batches[:k]], k)
+  want_flash = {n: m for n, m in per_step.items() if m}
+  if wf != want_flash or sf != want_flash:
+    raise AssertionError(f'12 ({label}): the profiler saw flash calls per '
+                         f'step {wf} (window), {sf} (per step); want '
+                         f'{want_flash}')
+  w_mean, s_mean = float(np.mean(w_ms)), float(np.mean(s_ms))
+  out.update(window_busy_ms=wb, step_busy_ms=sb, window_kernels=wk,
+             step_kernels=sk, window_idle=1 - wb / w_mean,
+             step_idle=1 - sb / s_mean)
+
+  # (c) one capture per (signature, K), every later window a hit; the
+  # per-step graph one miss. (d) the card runs the graph.
+  runs = 2 + 2 * SCAN_TIMED_WINDOWS + 2
+  graphs = {'window': (win.captures, win.hits),
+            'cache': (cache.misses, cache.hits)}
+  want = {'window': (1, runs - 1),
+          'cache': (1, 4 * SCAN_TIMED_WINDOWS * k + 2 * k)}
+  if graphs != want or win.mode != 'graph':
+    raise AssertionError(f'12c/d ({label}): graph counts {graphs}, want '
+                         f'{want}; mode {win.mode}')
+  del cache, win
+  torch.cuda.empty_cache()
+
+  # (a) bit-equality under deterministic algorithms.
+  out['deterministic_graphs'] = check_window_bits(loop, label, batches,
+                                                  windows, seed, k)
+
+  # The copies: stack_batch_window per window, host time of the call and
+  # to the copies' end, against the feed's train.h2d_seconds per batch.
+  stack_s, done_s = [], []
+  for j in range(4):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack_batch_window(host[(j % 2) * k:(j % 2 + 1) * k], DEVICE)
+    stack_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    done_s.append(time.perf_counter() - t0)
+  tele = telemetry.enable()
+  try:
+    for _ in prefetch_to_device(iter(host), DEVICE):
+      pass
+    h2d = histogram(tele, 'train.h2d_seconds')
+  finally:
+    telemetry.disable()
+  out.update(stack_ms_per_window=1e3 * float(np.median(stack_s[1:])),
+             stack_done_ms_per_window=1e3 * float(np.median(done_s[1:])),
+             feed_h2d_ms_per_batch=1e3 * h2d[1] / max(h2d[0], 1))
+  log(f'  12 ({label}): ms/step window {fmt_ms(w_ms)} vs per-step graph '
+      f'{fmt_ms(s_ms)} with each loss read, {fmt_ms(q_ms)} queued (W S Q Q '
+      f'S W, {SCAN_TIMED_WINDOWS} windows of {k} a W); device busy '
+      f'{wb:.2f} vs {sb:.2f} ms/step, idle {100 * out["window_idle"]:.1f}% '
+      f'vs {100 * out["step_idle"]:.1f}% (against the loss-read per-step '
+      f'time), kernels/step {wk:.0f} vs {sk:.0f} [{card}]')
+  log(f'  12 ({label}): capture + instantiate {capture_summary(out)}; '
+      f'graph pool {out["window_pool_gib"]:.2f} GiB (window) vs '
+      f'{out["step_pool_gib"]:.2f} GiB (per step), peak allocated over the '
+      f'hits {out["window_peak_gib"]:.2f} vs {out["step_peak_gib"]:.2f} '
+      f'GiB; stack_batch_window {out["stack_ms_per_window"]:.2f} ms a '
+      f'window ({out["stack_done_ms_per_window"]:.2f} ms to the copies\' '
+      f'end) vs the feed\'s h2d {out["feed_h2d_ms_per_batch"]:.2f} ms a '
+      f'batch [{card}]')
+  del loop, batches, windows
+  torch.cuda.empty_cache()
+  return out
+
+
+def capture_summary(out):
+  """The window's capture time beside its miss and the per-step graph's
+  miss."""
+  return (f'{out["window_capture_s"]:.2f} s of a {out["window_miss_s"]:.2f} '
+          f's miss (the rest ran the K steps eagerly; the per-step graph\'s '
+          f'miss {out["step_miss_s"]:.2f} s)')
+
+
+def scan_window(args, card, history):
+  """Phase 12: the K-step scan window at SCAN_CELLS' widths, each
+  window's time appended to ``history`` (a bench-history JSONL)."""
+  cells = [scan_cell(args, card, history, *cell) for cell in SCAN_CELLS]
+  return {c['label']: c for c in cells}
 
 
 def main():
@@ -4019,9 +4557,22 @@ def main():
   log(f'== the network data service and the live monitor [{card}]')
   served = data_service(args, digests, card)
 
-  log(f'== the ledger\'s step record, step replay and the flight recorder '
-      f'[{card}]')
-  replayed = record_and_replay(args, digests, card)
+  replay_root = tempfile.mkdtemp(prefix='lddl_smoke_replay_')
+  try:
+    log(f'== the ledger\'s step record, step replay and the flight '
+        f'recorder [{card}]')
+    replayed, rec, resumed = record_and_replay(args, digests, replay_root,
+                                               card)
+
+    log(f'== the K-step scan window as one CUDA graph [{card}]')
+    history = os.path.join(replay_root, 'bench', 'bench_history.jsonl')
+    scanned = scan_window(args, card, history)
+
+    log(f'== phase 11, the gate and the trace CLI over phases 11 and 12 '
+        f'[{card}]')
+    replayed['gate'] = gate_and_trace(digests, rec, resumed, history, card)
+  finally:
+    shutil.rmtree(replay_root, ignore_errors=True)
 
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
@@ -4058,8 +4609,11 @@ def main():
     entry['phase10_launches'] = served['launches'][name]
     entry['phase11_launches'] = {
         'record': replayed['launches'][name],
+        'resumed': replayed['resumed_launches'][name],
         'replays_in_a_fresh_process': [x[name] for x in
                                        replayed['replay_launches']]}
+    entry['phase12_launches_per_window'] = {
+        label: c['window_launches'][name] for label, c in scanned.items()}
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],
@@ -4079,7 +4633,9 @@ def main():
                   'data_service': {k: v for k, v in served.items()
                                    if k != 'losses'},
                   'record_and_replay': replayed,
+                  'scan_window': scanned,
                   'card': card}, default=str))
+  log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

@@ -45,5 +45,10 @@ loop runs deterministic algorithms), ``replay`` (``rematerialize``,
 ``bundle``, ``steps``, ``python -m lddl_tpu_torch.replay.cli``) and the
 flight recorder, ``training.flight`` (``python -m
 lddl_tpu_torch.training.flight``), which the sentinel's incident
-registry lists.
+registry lists; bisect over the stream the ledger records. The K-step
+scan window (``parallel.train.make_scan_train_step`` and
+``stack_batch_window``: K steps in one CUDA graph), the bench-history
+perf gate (``python -m lddl_tpu_torch.telemetry.perf``), the trace CLI
+(``python -m lddl_tpu_torch.telemetry.trace``) and the sentinel's
+``ledger_divergence``.
 """

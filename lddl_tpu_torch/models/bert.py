@@ -32,6 +32,7 @@ recompute redraws the forward's masks without saving them or reading a
 generator's state (which a capture could not do).
 """
 
+import contextlib
 import dataclasses
 import math
 
@@ -307,9 +308,31 @@ class BertForPretraining(nn.Module):
       return []
     device = self.word_embeddings.weight.device
     if self._dropout_gens is None or self._dropout_gens[0].device != device:
-      n = self.cfg.num_layers * (2 if self.cfg.remat else 1) + 1
-      self._dropout_gens = [torch.Generator(device=device) for _ in range(n)]
+      self._dropout_gens = self.new_dropout_generators()
     return self._dropout_gens
+
+  def new_dropout_generators(self):
+    """A fresh set of generators shaped like :meth:`dropout_generators`'
+    (unseeded), for :meth:`drawing_from`."""
+    if self.cfg.dropout_rate == 0.0:
+      return []
+    device = self.word_embeddings.weight.device
+    n = self.cfg.num_layers * (2 if self.cfg.remat else 1) + 1
+    return [torch.Generator(device=device) for _ in range(n)]
+
+  @contextlib.contextmanager
+  def drawing_from(self, gens):
+    """Inside, ``gens`` (from :meth:`new_dropout_generators`) is the
+    model's generator set: :meth:`seed_dropout` seeds it and a
+    :data:`SEEDED` forward draws from it. A scan window gives each of its
+    steps a set of its own, since no host reseed runs between the steps
+    of one CUDA graph."""
+    saved = self._dropout_gens
+    self._dropout_gens = gens or saved
+    try:
+      yield
+    finally:
+      self._dropout_gens = saved
 
   def seed_dropout(self, dropout_key):
     """Reseed every generator from ``dropout_key`` (a tuple of ints), a

@@ -29,17 +29,24 @@ count, the bias corrections and the schedule are float32 values on the
 device, updated inside the step, so the step bakes no host number into a
 launch and can be captured into a CUDA graph and replayed
 (:class:`TrainStep`, :class:`~lddl_tpu_torch.training.pretrain.
-CompiledStepCache`).
+CompiledStepCache`), or K steps into one graph (:func:`make_scan_train_step`
+over a :func:`stack_batch_window` window, the JAX package's scan).
 """
 
+import collections
 import math
+import os
+import time
+import traceback
 import warnings
 
 import torch
 import torch.nn.functional as F
 
 from ..loader.bert import IGNORE_INDEX
+from ..loader.device import CUDA_FEED_LOCK
 from ..models.bert import SEEDED
+from ..ops import flash_attention as tfa
 
 
 def masked_positions(labels, max_predictions):
@@ -341,11 +348,15 @@ class TrainStep:
     """Whether :meth:`body` can be captured into a CUDA graph."""
     return self.exchange is None or self.exchange.capturable
 
-  def prepare(self, dropout_seed):
-    key = (dropout_seed, self.opt.count)
+  def dropout_key(self, dropout_seed, ahead=0):
+    """The dropout key of the step ``ahead`` steps after the next one."""
+    key = (dropout_seed, self.opt.count + ahead)
     if self.dp_rank:
       key += (self.dp_rank,)
-    self.model.seed_dropout(key)
+    return key
+
+  def prepare(self, dropout_seed):
+    self.model.seed_dropout(self.dropout_key(dropout_seed))
 
   def generators(self):
     """The generators :meth:`body` draws from (what a CUDA graph of it
@@ -392,6 +403,251 @@ def train_step(model, opt, batch, dropout_seed, max_predictions=None):
   """One eager train step (:class:`TrainStep`); returns the metrics dict
   (0-d tensors)."""
   return TrainStep(model, opt, max_predictions)(batch, dropout_seed)
+
+
+def signature(batch):
+  """A batch's (or window's) graph signature: its keys, shapes and
+  dtypes."""
+  return tuple(
+      sorted((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
+
+
+def _where_raised(exc):
+  """``file:line: source`` of the innermost frame outside torch itself
+  in ``exc``'s traceback: the op of the step that raised."""
+  frames = traceback.extract_tb(exc.__traceback__)
+  torch_dir = os.path.dirname(torch.__file__)
+  ours = [f for f in frames if not f.filename.startswith(torch_dir)]
+  f = (ours or frames)[-1]
+  return f'{f.filename}:{f.lineno}: {f.line}'
+
+
+def capture_step(stream, warm_up, body, generators, what):
+  """Capture train-step work into one CUDA graph: the miss of
+  :class:`~lddl_tpu_torch.training.pretrain.CompiledStepCache` and of
+  :class:`ScanTrainStep`.
+
+  ``warm_up()`` runs the real work eagerly on the side ``stream`` (the
+  warm-up a capture needs, and the step itself); then ``body()`` is
+  captured on that stream into a ``torch.cuda.CUDAGraph`` with its own
+  memory pool, ``generators`` registered so that a replay draws from
+  their state at the replay. The capture runs in global mode under
+  :data:`~lddl_tpu_torch.loader.device.CUDA_FEED_LOCK`: another thread's
+  CUDA call would break it, so the feed's producers wait until it is
+  over. Capture executes nothing, so the kernels' launch counters
+  (``tfa.launches``) are put back and the launches of one replay are
+  returned. A capture that fails raises and names the op (``what`` says
+  what was captured); nothing falls back to eager.
+
+  Returns ``(warm_up's result, graph, body's outputs, launches per
+  replay)``.
+  """
+  current = torch.cuda.current_stream()
+  stream.wait_stream(current)
+  with torch.cuda.stream(stream):
+    result = warm_up()
+  graph = torch.cuda.CUDAGraph()
+  for gen in generators:
+    graph.register_generator_state(gen)
+  before = dict(tfa.launches)
+  try:
+    with CUDA_FEED_LOCK, torch.cuda.graph(graph, stream=stream,
+                                          capture_error_mode='global'):
+      outputs = body()
+  except Exception as e:
+    raise RuntimeError(f'capturing {what} into a CUDA graph failed at '
+                       f'{_where_raised(e)}: {e}') from e
+  finally:
+    launches = {n: tfa.launches[n] - before[n] for n in before}
+    tfa.launches.update(before)
+  current.wait_stream(stream)
+  return result, graph, outputs, launches
+
+
+# One captured step or window: the graph, the static input buffers it
+# reads, the outputs it writes (a window's: its last step's) and the kernel
+# launches it makes per replay.
+CapturedGraph = collections.namedtuple('CapturedGraph',
+                                       'graph inputs outputs launches')
+
+
+class ScanTrainStep:
+  """K train steps as one program: the counterpart of the JAX package's
+  ``make_scan_train_step`` (``lax.scan`` over a window of batches).
+
+  ``run(window, dropout_seed)`` takes a window (dict of ``[K, ...]``
+  tensors, :func:`stack_batch_window`) and returns the metrics of its
+  last step, as the JAX function does (``m[-1]``). K steps run this way
+  leave the model, AdamW's ``mu``, ``nu``, ``count_t`` and the host
+  ``count`` exactly as K :class:`TrainStep` calls over the K batches
+  would.
+
+  **Dropout.** A step reseeds its dropout generators on the host from
+  ``(dropout_seed, count)`` (:meth:`TrainStep.prepare`), and no host
+  work runs between the steps of one CUDA graph. So the window keeps K
+  generator sets, one per step slot
+  (:meth:`~lddl_tpu_torch.models.bert.BertForPretraining.drawing_from`):
+  before every run slot i's set is seeded from step i's key
+  (:meth:`TrainStep.dropout_key`), and step i draws from it, in a graph
+  and on the CPU alike. The device-side count (``count_t``) carries the
+  learning rate from step to step inside the window; the host count
+  advances by K after it.
+
+  **On the card** (CUDA window, :attr:`TrainStep.capturable` step), the
+  first run of a (signature, K, deterministic algorithms) key copies the
+  window into static input buffers, runs the K steps eagerly on a side
+  stream and captures the K step bodies into one CUDA graph reading
+  slices of those buffers (:func:`capture_step`, shared with the step
+  cache); every later run copies the window in (one copy per key),
+  seeds the K sets and replays once, and adds the launches recorded at
+  capture to the wrappers' counters. A CPU window, or a step whose group
+  cannot be captured (gloo), runs the K step bodies in turn;
+  :attr:`mode` says which the card runs, as the step cache's does.
+  ``captures`` and ``hits`` count the graph runs; ``miss_seconds`` is
+  the time of the captures' runs, ``capture_seconds`` the part of it
+  that capturing and instantiating the graphs took (the rest ran the K
+  steps eagerly).
+  """
+
+  def __init__(self, model, opt, max_predictions=None, exchange=None,
+               dp_rank=0):
+    self.step = TrainStep(model, opt, max_predictions, exchange, dp_rank)
+    self.model = model
+    self._graphs = {}
+    self._slots = []      # one dropout generator set per step slot
+    self._stream = None   # the side stream captures run on
+    self.captures = 0
+    self.hits = 0
+    self.miss_seconds = 0.0
+    self.capture_seconds = 0.0
+
+  @property
+  def mode(self):
+    """``'graph'``, or ``'eager'`` when the step cannot be captured."""
+    return 'graph' if self.step.capturable else 'eager'
+
+  def generators(self):
+    """Every generator the window's steps draw from."""
+    return [g for gens in self._slots for g in gens]
+
+  def _seed(self, k, dropout_seed):
+    """Slot i's set seeded from step i's dropout key, i < ``k``."""
+    while len(self._slots) < k:
+      self._slots.append(self.model.new_dropout_generators())
+    for i in range(k):
+      with self.model.drawing_from(self._slots[i]):
+        self.model.seed_dropout(self.step.dropout_key(dropout_seed, i))
+
+  def _bodies(self, window, k):
+    """The K step bodies over ``window``'s slices, step i drawing from
+    slot i; the last step's metrics."""
+    metrics = None
+    for i in range(k):
+      with self.model.drawing_from(self._slots[i]):
+        metrics = self.step.body({name: t[i] for name, t in window.items()})
+    return metrics
+
+  def __call__(self, window, dropout_seed):
+    first = next(iter(window.values()))
+    k = first.shape[0]
+    self._seed(k, dropout_seed)
+    if first.device.type == 'cuda' and self.mode == 'graph':
+      metrics = self._graph_run(window, k)
+    else:
+      metrics = self._bodies(window, k)
+    for _ in range(k):
+      self.step.finish()
+    return metrics
+
+  def _graph_run(self, window, k):
+    key = (signature(window), k, torch.are_deterministic_algorithms_enabled())
+    entry = self._graphs.get(key)
+    if entry is not None:
+      for name, t in window.items():
+        entry.inputs[name].copy_(t)
+      entry.graph.replay()
+      for name, n in entry.launches.items():
+        tfa.launches[name] += n
+      self.hits += 1
+      return entry.outputs
+    t0 = time.perf_counter()
+    if self._stream is None:
+      self._stream = torch.cuda.Stream()
+    inputs = {name: t.clone() for name, t in window.items()}
+    eager = []
+
+    def warm_up():
+      t = time.perf_counter()
+      metrics = self._bodies(inputs, k)
+      torch.cuda.synchronize()
+      eager.append(time.perf_counter() - t)
+      return metrics
+
+    metrics, graph, outputs, launches = capture_step(
+        self._stream, warm_up, lambda: self._bodies(inputs, k),
+        self.generators(),
+        f'a window of {k} train steps of signature {key[0]}')
+    self._graphs[key] = CapturedGraph(graph, inputs, outputs, launches)
+    self.captures += 1
+    seconds = time.perf_counter() - t0
+    self.miss_seconds += seconds
+    self.capture_seconds += seconds - eager[0]
+    return metrics
+
+
+def make_scan_train_step(model, opt, max_predictions=None, exchange=None,
+                         dp_rank=0):
+  """``run(window, dropout_seed) -> metrics of the window's last step``:
+  a :class:`ScanTrainStep` (the JAX package's ``make_scan_train_step``;
+  ``exchange``/``dp_rank`` as :class:`TrainStep`'s)."""
+  return ScanTrainStep(model, opt, max_predictions, exchange, dp_rank)
+
+
+# (signature, K, pinned) -> [{key: host [K, ...] tensor}, the CUDA event
+# after the last copy out of it, or None].
+WINDOW_STACKS = {}
+
+
+def stack_batch_window(batches, device):
+  """Stack K same-signature host batches (numpy arrays or CPU tensors)
+  into one window of ``[K, ...]`` tensors on ``device``: the JAX
+  package's ``stack_batch_window`` (its mesh has no counterpart here:
+  data-parallel ranks hold their local rows, as in :class:`TrainStep`).
+
+  The host stack is one tensor per key, pinned for a CUDA device, kept
+  per (signature, K) in :data:`WINDOW_STACKS` and reused from window to
+  window (after the previous window's copies out of it are done); each
+  key then takes one ``non_blocking`` copy onto ``device``. Batches of
+  mixed signatures raise ``ValueError``.
+  """
+  batches = [{k: torch.as_tensor(v) for k, v in b.items()} for b in batches]
+  if not batches:
+    raise ValueError('an empty window')
+  sig = signature(batches[0])
+  for b in batches[1:]:
+    if signature(b) != sig:
+      raise ValueError(f'a window of mixed batch signatures: {sig} and '
+                       f'{signature(b)}')
+  device = torch.device(device)
+  pinned = device.type == 'cuda'
+  k = len(batches)
+  entry = WINDOW_STACKS.get((sig, k, pinned))
+  if entry is None:
+    entry = WINDOW_STACKS[(sig, k, pinned)] = [{
+        name: torch.empty((k, *t.shape), dtype=t.dtype, pin_memory=pinned)
+        for name, t in batches[0].items()}, None]
+  host, copied = entry
+  if copied is not None:
+    copied.synchronize()
+  out = {}
+  for name, stack in host.items():
+    torch.stack([b[name] for b in batches], out=stack)
+    out[name] = torch.empty_like(stack, device=device).copy_(
+        stack, non_blocking=pinned)
+  if pinned:
+    entry[1] = torch.cuda.Event()
+    entry[1].record()
+  return out
 
 
 def check_max_predictions(max_predictions, seq_len, masking,

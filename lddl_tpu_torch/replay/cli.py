@@ -17,9 +17,12 @@ e.g. ``epoch=0,index=3`` / ``epoch=1,gi=7`` / ``step=42``):
   to S through the step cache under deterministic algorithms, and diff
   the state fingerprint against the recorded ``step=S`` ledger line;
   ``--bundle`` may repeat, one bundle per step to re-execute, in order;
-- ``bisect --checkpoint-dir D --lo A --hi B <loader spec>`` — walk the
-  step window, report the largest loss jump and the batch (optionally
-  sample) coordinate that fed it;
+- ``bisect --checkpoint-dir D --lo A --hi B [--ledger L] <loader
+  spec>`` — walk the step window, report the largest loss jump and the
+  batch (optionally sample) coordinate that fed it; with ``--ledger``
+  over the batches the run fed (exit 2 when no stream of the loader
+  matches them), without it over the uninterrupted stream, unchecked
+  (one line on stderr says so);
 - ``smoke LEDGER <loader spec>`` — one random coordinate per boundary,
   replayed and verified.
 
@@ -271,9 +274,13 @@ def _cmd_step(args):
 def _cmd_bisect(args):
   from .steps import bisect_window
   loop = build_loop(args)
+  if args.ledger is None:
+    print('replay: bisect feeds the uninterrupted stream, not checked '
+          'against a recording (pass --ledger)', file=sys.stderr)
   result = bisect_window(loop, args.checkpoint_dir, args.lo, args.hi,
                          prefetch=args.prefetch,
-                         per_sample=args.per_sample)
+                         per_sample=args.per_sample,
+                         ledger_path=args.ledger)
   if args.as_json:
     print(json.dumps(result, indent=2, default=str))
   else:
@@ -353,6 +360,9 @@ def attach_args(parser):
   p.add_argument('--hi', type=int, required=True)
   p.add_argument('--per-sample', action='store_true',
                  help='re-score the spike batch row by row')
+  p.add_argument('--ledger', default=None,
+                 help='the run\'s ledger: feed the batches it records the '
+                      'run fed')
   p.add_argument('--json', action='store_true', dest='as_json')
   _attach_loader_args(p)
   _attach_model_args(p)

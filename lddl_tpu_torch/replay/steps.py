@@ -40,6 +40,10 @@ largest per-step loss jump, and name the ``(epoch, index)`` batch
 coordinate that fed it — optionally re-scoring that batch per sample
 (:func:`~lddl_tpu_torch.parallel.train.pretrain_loss` on singleton
 slices, no dropout) to attribute the spike below batch granularity.
+With a ledger it feeds the stream the ledger says the run fed, as step
+replay does, per-sample scoring included; without one, the
+uninterrupted stream, unchecked. (The JAX package's bisect takes no
+ledger and feeds the loader ``restore`` re-seeked mid-epoch.)
 """
 
 import torch
@@ -112,6 +116,16 @@ def _fed_collate(run, rank, target_step):
     elif rec['boundary'] == 'collate' and 'index' in rec:
       fed[(rec['epoch'], rec['index'])] = rec['digest']
   return fed, ckpts
+
+
+def _recorded(run, rank, target_step, algo):
+  """``recorded_stream``'s ``recorded`` from a loaded ledger: the fed
+  batches and checkpoints of ``rank``'s session that reached
+  ``target_step`` (:func:`_fed_collate`), and the ledger's algorithm."""
+  if rank not in run:
+    raise LookupError(f'the ledger holds no rank {rank} (ranks '
+                      f'{sorted(run)})')
+  return (*_fed_collate(run, rank, target_step), algo)
 
 
 def _feeds(loader, epoch, index, origin, want, algo):
@@ -253,9 +267,8 @@ def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
     algo = _check_algo(run)
     recorded, hits = lookup_digest(run, (('step', target_step),),
                                    boundary='step')
-    fed_rank = hits[0][0] if rank is None else rank
-    fed, ckpts = _fed_collate(run, fed_rank, target_step)
-    fed = (fed, ckpts, algo)
+    fed = _recorded(run, hits[0][0] if rank is None else rank, target_step,
+                    algo)
   meta = type(loop).latest_meta(ckpt_dir, max_step=target_step - 1)
   if meta is None:
     raise FileNotFoundError(
@@ -273,7 +286,8 @@ def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
   return out
 
 
-def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False):
+def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False,
+                  ledger_path=None):
   """Walk steps ``(lo, hi]`` and attribute the largest loss jump.
 
   Restores the newest checkpoint at or below ``lo``, replays through
@@ -284,16 +298,29 @@ def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False):
   ``per_sample=True`` additionally re-restores at the spike step's
   predecessor and scores the spike batch row by row with the pre-spike
   params, naming the sample index that contributed most.
+
+  ``ledger_path``: the run's ledger (the loop's data rank's file). The
+  replay and the per-sample batch then come from the stream the ledger
+  says the run fed (:func:`recorded_stream`: the uninterrupted one, or
+  the run resumed at a recorded checkpoint), every fed batch checked
+  against the ``collate`` digests of the session that reached ``hi``;
+  none matching is ``ValueError``. Without it the uninterrupted stream
+  is fed, unchecked: wrong for a run that resumed mid-epoch inside the
+  window's epoch.
   """
   lo, hi = int(lo), int(hi)
   if hi <= lo:
     raise ValueError(f'empty bisect window ({lo}, {hi}]')
+  recorded = None
+  if ledger_path is not None:
+    run = load_run(ledger_path, rank=loop.dp_rank)
+    recorded = _recorded(run, loop.dp_rank, hi, _check_algo(run))
   meta = type(loop).latest_meta(ckpt_dir, max_step=lo)
   if meta is None:
     raise FileNotFoundError(
         f'no checkpoint at or below step {lo} under {ckpt_dir}')
   loop.restore(ckpt_dir, step=meta[0])
-  losses = replay_steps(loop, hi, prefetch=prefetch)
+  losses = replay_steps(loop, hi, prefetch=prefetch, recorded=recorded)
   by_step = dict(losses)
   deltas = [(by_step[s] - by_step[s - 1], s)
             for s in range(max(lo, meta[0] + 1) + 1, hi + 1)
@@ -305,33 +332,44 @@ def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False):
   delta, spike = max(deltas)
   out = {'window': [lo, hi], 'restored_step': meta[0],
          'losses': losses, 'spike_step': spike,
-         'spike_loss': by_step[spike], 'delta': delta}
+         'spike_loss': by_step[spike], 'delta': delta,
+         'stream_checked': recorded is not None}
   if loop.loader is not None:
     epoch, index = loop.loader.coordinate_of_batch(spike - 1)
     out['batch_coordinate'] = {'epoch': epoch, 'index': index}
     if per_sample:
-      out['per_sample'] = _per_sample_losses(loop, ckpt_dir, spike)
+      out['per_sample'] = _per_sample_losses(loop, ckpt_dir, spike,
+                                             recorded)
       out['spike_sample'] = max(
           range(len(out['per_sample'])), key=out['per_sample'].__getitem__)
   return out
 
 
-def _per_sample_losses(loop, ckpt_dir, spike_step):
+def _per_sample_losses(loop, ckpt_dir, spike_step, recorded=None):
   """Loss of each row of the batch feeding ``spike_step``, scored with
   the params the spike step started from (leaves ``loop`` positioned at
-  ``spike_step - 1``) and no dropout. The batch is the uninterrupted
-  stream's, from the loader's byte-exact seek (the JAX package re-seeks
-  mid-epoch here, which gives a resumed batch). Single process only."""
+  ``spike_step - 1``) and no dropout. The batch is the one
+  :func:`recorded_stream` feeds at that ordinal from the newest
+  checkpoint below the spike (``recorded``: the ledger's account, as
+  the bisect's replay used; None: the uninterrupted stream). The JAX
+  package re-seeks mid-epoch here, which gives a resumed batch. Single
+  process only."""
   meta = type(loop).latest_meta(ckpt_dir, max_step=spike_step - 1)
   loop.restore(ckpt_dir, step=meta[0])
-  if loop.step < spike_step - 1:
-    replay_steps(loop, spike_step - 1)
-  epoch, index = loop.loader.coordinate_of_batch(spike_step - 1)
-  loop.loader.seek(epoch, index, exact=True)
-  batch = next(iter(loop.loader.iter_steps()))[1]
+  stream = recorded_stream(loop.loader, recorded,
+                           range(meta[0], spike_step))
+  try:
+    for _ in range(spike_step - 1 - meta[0]):
+      next(stream)
+    batch = next(stream)
+  finally:
+    stream.close()
   if not isinstance(batch, dict):
     raise ValueError('per-sample attribution supports dict batches only '
                      '(micro-batch loaders yield lists)')
+  loop.restore(ckpt_dir, step=meta[0])
+  if loop.step < spike_step - 1:
+    replay_steps(loop, spike_step - 1, recorded=recorded)
   rows = batch['input_ids'].shape[0]
   out = []
   loop.model.eval()

@@ -1,8 +1,7 @@
 """Streaming anomaly sentinels over signals the train loop already pays for.
 
-A copy of :mod:`lddl_tpu.telemetry.sentinel` for the detectors whose
-signals the port has. Each is a cheap online test over a scalar the step
-loop already produced:
+A copy of :mod:`lddl_tpu.telemetry.sentinel`. Each detector is a cheap
+online test over a signal the run already produced:
 
   ``nonfinite_loss``  loss is NaN/Inf
   ``loss_spike``      robust z-score of the latest loss against a
@@ -16,10 +15,12 @@ loop already produced:
   ``serve_backlog``   the data service's in-memory window hit its runaway
                       threshold (observed at the producer's backlog-gauge
                       site, on the server's producer thread)
+  ``ledger_divergence`` the determinism ledger's live fleet verdict
+                      (:func:`~lddl_tpu_torch.telemetry.ledger.
+                      divergence_over_comm` stores it on the ledger) reads
+                      diverged: once per new verdict, keyed by its ``seq``
 
-The JAX package's ``ledger_divergence`` (the determinism ledger's live
-fleet verdict) waits for the slice that ports it; naming it in
-``LDDL_SENTINEL`` raises. :func:`sentinel_status` is the monitor's
+:func:`sentinel_status` is the monitor's
 ``/snapshot`` block: trigger count, last trigger, and the incidents the
 flight recorder (:mod:`lddl_tpu_torch.training.flight`) registered back
 here through :meth:`Sentinel.note_incident` (the sentinel only detects;
@@ -35,6 +36,7 @@ decides what to do with it. A ``raise:sentinel.trigger`` spec in
 forced trigger (detector ``injected``).
 """
 
+import json
 import math
 import os
 import threading
@@ -48,7 +50,7 @@ _ENV = 'LDDL_SENTINEL'
 
 #: Every detector, in the order ``LDDL_SENTINEL=1`` enables them.
 DETECTORS = ('nonfinite_loss', 'loss_spike', 'grad_spike', 'data_stall',
-             'hbm_headroom', 'serve_backlog')
+             'hbm_headroom', 'serve_backlog', 'ledger_divergence')
 
 #: How many incident registrations ``note_incident`` retains.
 MAX_INCIDENT_NOTES = 16
@@ -141,6 +143,7 @@ class Sentinel:
     self._grads = []
     self._cooldown_until = None   # step number triggers are muted below
     self._backlog_muted = False   # backlog refires once per excursion
+    self._diverged_seq = None     # last fleet-verdict seq already fired
     self.triggers = 0
     self.last_trigger = None
     self.incidents = []
@@ -248,6 +251,8 @@ class Sentinel:
     if (fired is None and 'hbm_headroom' in det and self.hbm_every > 0
         and step % self.hbm_every == 0):
       fired = self._check_hbm(step)
+    if fired is None and 'ledger_divergence' in det:
+      fired = self._check_divergence(step)
     return fired
 
   def _check_hbm(self, step):
@@ -268,6 +273,30 @@ class Sentinel:
                  ('peak_bytes_in_use', 'bytes_limit', 'devices')
                  if summary.get(k) is not None})
     return None
+
+  def _check_divergence(self, step):
+    """Fire once per *new* diverged fleet verdict: the fleet's
+    cross-rank comparison is stashed on the ledger
+    (``set_fleet_verdict``) with a sequence number; refiring on the same
+    verdict would dump an identical incident every step."""
+    from .ledger import get_ledger
+    led = get_ledger()
+    if not led.enabled:
+      return None
+    verdict = led.fleet_verdict()
+    if not verdict or verdict.get('status') != 'diverged':
+      return None
+    seq = verdict.get('seq', json.dumps(verdict, sort_keys=True,
+                                        default=str))
+    with self._lock:
+      if seq == self._diverged_seq:
+        return None
+      self._diverged_seq = seq
+    return self._fire(
+        'ledger_divergence', step,
+        'live fleet verdict reads diverged: '
+        + str(verdict.get('detail') or verdict.get('boundary') or ''),
+        value=None, stats={'verdict': verdict}, force=True)
 
   def observe_backlog(self, backlog):
     """Data-service producer hook: fires when the in-memory window hits

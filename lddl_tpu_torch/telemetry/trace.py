@@ -1,9 +1,12 @@
 """Event-level execution tracing: a bounded ring buffer -> Perfetto.
 
-A copy of :mod:`lddl_tpu.telemetry.trace` (stdlib only), without its
-``telemetry-trace`` command line, which the port does not carry yet: the
-merge (:func:`load_trace_files` + :func:`merge_trace_files`) is here, so a
-caller can write the Chrome-trace JSON itself.
+A copy of :mod:`lddl_tpu.telemetry.trace` (stdlib only), with its
+``telemetry-trace`` command line: ``python -m
+lddl_tpu_torch.telemetry.trace --dir <dir> [-o out.json]`` merges every
+``trace.rank*.jsonl`` under ``dir`` (:func:`load_trace_files` +
+:func:`merge_trace_files`, with the stage verdict of the
+``telemetry.rank*.jsonl`` files beside them when there are any) into one
+Chrome-trace JSON for Perfetto; a directory without trace files exits 2.
 
 With ``LDDL_TRACE`` unset :func:`get_tracer` hands out the shared
 :data:`NOOP_TRACER`, whose every method is empty. Enabled, events append
@@ -437,3 +440,48 @@ def merge_trace_files(files, verdict=None):
     meta_out['bottleneck'] = verdict
   return {'traceEvents': out, 'displayTimeUnit': 'ms',
           'metadata': {'lddl': meta_out}}
+
+
+def attach_args(parser):
+  parser.add_argument('--dir', required=True,
+                      help='directory holding trace.rank*.jsonl files '
+                           '(and optionally telemetry.rank*.jsonl for '
+                           'the embedded bottleneck verdict)')
+  parser.add_argument('--output', '-o', default=None,
+                      help='output path for the merged Chrome-trace '
+                           'JSON (default <dir>/trace.merged.json)')
+  return parser
+
+
+def main(args=None):
+  import argparse
+  parser = attach_args(argparse.ArgumentParser(
+      prog='python -m lddl_tpu_torch.telemetry.trace',
+      description=__doc__,
+      formatter_class=argparse.RawDescriptionHelpFormatter))
+  args = parser.parse_args(args)
+  try:
+    files = load_trace_files(args.dir)
+  except FileNotFoundError as e:
+    # Same contract as the report: one clear line, exit code 2.
+    print(f'telemetry-trace: {e}', file=sys.stderr)
+    return 2
+  verdict = None
+  try:  # metrics snapshots are optional company for the trace files
+    from .report import load_rank_files, merge_metric_lines, summarize_stages
+    verdict = summarize_stages(merge_metric_lines(load_rank_files(args.dir)))
+  except FileNotFoundError:
+    pass
+  doc = merge_trace_files(files, verdict=verdict)
+  out = args.output or os.path.join(args.dir, 'trace.merged.json')
+  with open(out, 'w') as f:
+    json.dump(doc, f)
+  print(f'wrote {out}: {len(doc["traceEvents"])} events from '
+        f'{len(files)} process file(s), ranks '
+        f'{doc["metadata"]["lddl"]["ranks"]} — load in '
+        'https://ui.perfetto.dev or chrome://tracing')
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

@@ -58,7 +58,9 @@ lddl_tpu_torch.training.flight``: ``list``/``show`` incidents,
 lddl_tpu_torch.replay.cli``. ``replay`` with step arguments feeds the
 step replay every ring bundle from the incident's checkpoint to its
 ``replay_step`` (the JAX CLI feeds the suspect's alone, which covers only
-a checkpoint at the suspect's step).
+a checkpoint at the suspect's step). ``bisect <incident> -- --ledger L
+...`` hands the run's ledger to the bisect, which then feeds the batches
+the run fed (the manifest names no ledger).
 """
 
 import argparse
@@ -544,6 +546,8 @@ def _cmd_bisect(args):
   # where no checkpoint may be).
   lo = max(int(ckpt.get('step') or 0),
            int(replay_step) - max(len(man.get('ring') or []), 1))
+  # The loader and model arguments pass through, --ledger among them:
+  # the manifest names no ledger.
   rest = [a for a in (args.rest or []) if a != '--']
   from ..replay.cli import main as replay_main
   return replay_main(['bisect', '--checkpoint-dir', ckpt['dir'],
@@ -569,8 +573,8 @@ def attach_args(parser):
   p.set_defaults(fn=_cmd_replay)
   p = sub.add_parser(
       'bisect', help='pass through to the replay CLI\'s bisect over the '
-                     'steps the ring covers (loader/model args pass '
-                     'through)')
+                     'steps the ring covers (loader/model args and '
+                     '--ledger pass through)')
   p.add_argument('incident', help='incident directory')
   p.add_argument('rest', nargs=argparse.REMAINDER,
                  help='forwarded to the replay CLI\'s bisect')

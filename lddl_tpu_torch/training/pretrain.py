@@ -83,8 +83,6 @@ import os
 import shutil
 import tempfile
 import time
-import traceback
-from collections import namedtuple
 
 import torch
 
@@ -92,15 +90,16 @@ from ..comm import NullBackend, get_backend
 from ..core import faults
 from ..core.topology import discover_topology
 from ..loader.bert import get_bert_pretrain_data_loader
-from ..loader.device import CUDA_FEED_LOCK, prefetch_to_device
+from ..loader.device import prefetch_to_device
 from ..loader.packed import get_packed_pretrain_data_loader
 from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
 from ..ops import flash_attention as tfa
 from ..parallel.mesh import (check_axes, data_group, data_rank, data_size,
                              make_mesh, mesh_summary)
-from ..parallel.train import (AdamW, DataParallel, TrainStep,
-                              check_max_predictions)
+from ..parallel.train import (AdamW, CapturedGraph, DataParallel, TrainStep,
+                              capture_step, check_max_predictions,
+                              signature)
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
@@ -229,21 +228,6 @@ def _cpu_copy(obj):
   return obj
 
 
-# One captured step: the graph, the static input buffers it reads, the
-# outputs it writes, and the kernel launches it makes per replay.
-_Graph = namedtuple('_Graph', 'graph inputs outputs launches')
-
-
-def _where_raised(exc):
-  """``file:line: source`` of the innermost frame outside torch itself
-  in ``exc``'s traceback: the op of the step that raised."""
-  frames = traceback.extract_tb(exc.__traceback__)
-  torch_dir = os.path.dirname(torch.__file__)
-  ours = [f for f in frames if not f.filename.startswith(torch_dir)]
-  f = (ours or frames)[-1]
-  return f'{f.filename}:{f.lineno}: {f.line}'
-
-
 class CompiledStepCache:
   """Per-bin captured train step: one CUDA graph per batch signature.
 
@@ -252,16 +236,19 @@ class CompiledStepCache:
   :class:`~lddl_tpu_torch.parallel.train.TrainStep`; calling the cache
   with ``(batch, dropout_seed)`` runs one step and returns its metrics.
 
-  - **A miss** (the first batch of a signature, :meth:`key_of`) copies
-    the batch into new static input buffers, runs the real step eagerly
-    on a side stream (the warm-up that capture needs, and the step
-    itself), then captures the step into a ``torch.cuda.CUDAGraph`` with
-    its own memory pool, reading those buffers. Capture executes nothing;
-    the host count does not advance and the kernels' launch counters are
-    put back, the capture's launches kept as the entry's per-replay
-    count. A capture that fails raises and names the op; it never falls
-    back to eager. The miss is timed into ``train.retrace_seconds`` and
-    counted in ``train.step_cache_misses``.
+  - **A miss** (the first batch of a signature,
+    :func:`~lddl_tpu_torch.parallel.train.signature`) copies the batch
+    into new static input buffers, runs the real step eagerly on a side
+    stream (the warm-up that capture needs, and the step itself), then
+    captures the step into a ``torch.cuda.CUDAGraph`` with its own memory
+    pool, reading those buffers
+    (:func:`~lddl_tpu_torch.parallel.train.capture_step`). Capture
+    executes nothing; the host count does not advance and the kernels'
+    launch counters are put back, the capture's launches kept as the
+    entry's per-replay count. A capture that fails raises and names the
+    op; it never falls back to eager. The miss is timed into
+    ``train.retrace_seconds`` and counted in
+    ``train.step_cache_misses``.
   - **A hit** copies the batch into the entry's static inputs on the
     current stream (which the feed made wait for the batch), reseeds the
     dropout generators the graph registered, replays, and adds the
@@ -287,7 +274,7 @@ class CompiledStepCache:
 
   def __init__(self, step):
     self.step = step
-    # (signature, deterministic) -> _Graph, or None for a CPU batch's.
+    # (signature, deterministic) -> CapturedGraph, or None for a CPU batch's.
     self._graphs = {}
     self._stream = None   # the side stream misses run and capture on
     self.hits = 0
@@ -304,13 +291,8 @@ class CompiledStepCache:
     """``'graph'``, or ``'eager'`` when the step cannot be captured."""
     return 'graph' if getattr(self.step, 'capturable', True) else 'eager'
 
-  @staticmethod
-  def key_of(batch):
-    return tuple(
-        sorted((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
-
   def __call__(self, batch, dropout_seed):
-    key = (self.key_of(batch), torch.are_deterministic_algorithms_enabled())
+    key = (signature(batch), torch.are_deterministic_algorithms_enabled())
     if key not in self._graphs:
       t0 = time.perf_counter()
       if (next(iter(batch.values())).device.type == 'cuda' and
@@ -346,35 +328,16 @@ class CompiledStepCache:
     self._retrace_h.observe(seconds)
 
   def _miss(self, key, batch, dropout_seed):
-    current = torch.cuda.current_stream()
     if self._stream is None:
       self._stream = torch.cuda.Stream()
-    side = self._stream
     inputs = {name: t.clone() for name, t in batch.items()}
-    side.wait_stream(current)
     self.step.prepare(dropout_seed)
-    with torch.cuda.stream(side):
-      metrics = self.step.body(inputs)
-    graph = torch.cuda.CUDAGraph()
-    for gen in self.step.generators():
-      graph.register_generator_state(gen)
-    before = dict(tfa.launches)
-    try:
-      # Global capture mode: another thread's CUDA call would break the
-      # capture, so the feed's producers wait until it is over.
-      with CUDA_FEED_LOCK, torch.cuda.graph(graph, stream=side,
-                                            capture_error_mode='global'):
-        outputs = self.step.body(inputs)
-    except Exception as e:
-      raise RuntimeError(
-          f'capturing the train step for batch signature {key[0]} into a '
-          f'CUDA graph failed at {_where_raised(e)}: {e}') from e
-    finally:
-      launches = {n: tfa.launches[n] - before[n] for n in before}
-      tfa.launches.update(before)
-    current.wait_stream(side)
+    metrics, graph, outputs, launches = capture_step(
+        self._stream, lambda: self.step.body(inputs),
+        lambda: self.step.body(inputs), self.step.generators(),
+        f'the train step for batch signature {key[0]}')
     self.step.finish()
-    return metrics, _Graph(graph, inputs, outputs, launches)
+    return metrics, CapturedGraph(graph, inputs, outputs, launches)
 
 
 def _step_cache_enabled():

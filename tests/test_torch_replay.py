@@ -641,6 +641,78 @@ def test_a_stream_the_ledger_does_not_know_is_refused(resumed_run,
   assert not isinstance(e.value, ReplayMismatch)
 
 
+def test_bisect_feeds_the_recorded_stream_after_a_mid_epoch_resume(
+    resumed_run):
+  """bisect over (8, 16] of the run resumed at 8, with its ledger: the
+  resumed run's losses bit for bit, per-sample scoring from the same
+  stream; without the ledger it replays the uninterrupted stream, which
+  that run never fed."""
+  out = bisect_window(_port_loop(PAIRS), resumed_run['ckpt'], 8, 16,
+                      ledger_path=resumed_run['led'], per_sample=True)
+  assert out['restored_step'] == 8 and out['stream_checked'] is True
+  assert [s for s, _ in out['losses']] == list(range(9, 17))
+  np.testing.assert_array_equal([x for _, x in out['losses']],
+                                resumed_run['losses'][:8])
+  assert len(out['per_sample']) == TRAIN['batch_size_per_rank']
+  unchecked = bisect_window(_port_loop(PAIRS), resumed_run['ckpt'], 8, 16)
+  assert unchecked['stream_checked'] is False
+  assert [x for _, x in unchecked['losses']] != resumed_run['losses'][:8]
+
+
+def _bisect_argv(resumed_run):
+  return ['--checkpoint-dir', resumed_run['ckpt'], '--lo', '8', '--hi',
+          '16', '--json']
+
+
+def test_bisect_cli_refuses_a_ledger_no_stream_matches(
+    resumed_run, tmp_path, monkeypatch, capsys):
+  """The replay CLI's bisect: exit 2 when no stream of the loader feeds
+  the ledger's batches (a collate digest changed at the resume); without
+  --ledger, exit 0 and one stderr line saying the stream was not
+  checked."""
+  from lddl_tpu_torch.replay import cli
+  monkeypatch.setattr(cli, 'build_loop', lambda args: _port_loop(PAIRS))
+  led = tmp_path / 'led'
+  led.mkdir()
+  with open(os.path.join(resumed_run['led'], 'ledger.rank0.jsonl')) as f:
+    recs = [json.loads(x) for x in f.read().splitlines()]
+  for rec in recs:
+    if rec.get('boundary') == 'collate' and rec['index'] == 8:
+      rec['digest'] = '0' * len(rec['digest'])
+  with open(led / 'ledger.rank0.jsonl', 'w') as f:
+    f.write(''.join(json.dumps(r) + '\n' for r in recs))
+  argv = ['bisect'] + _bisect_argv(resumed_run)
+  assert cli.main(argv + ['--ledger', str(led)]) == 2
+  assert 'no stream of this loader' in capsys.readouterr().err
+  assert cli.main(argv) == 0
+  err = capsys.readouterr().err.strip().splitlines()
+  assert err == ['replay: bisect feeds the uninterrupted stream, not '
+                 'checked against a recording (pass --ledger)']
+
+
+def test_incident_bisect_forwards_the_ledger(resumed_run, tmp_path,
+                                             monkeypatch, capsys):
+  """``python -m lddl_tpu_torch.training.flight bisect <incident> --
+  --ledger L``: the ledger reaches the replay CLI's bisect, which feeds
+  the resumed run's batches (its losses, bit for bit)."""
+  from lddl_tpu_torch.replay import cli
+  from lddl_tpu_torch.training import flight
+  monkeypatch.setattr(cli, 'build_loop', lambda args: _port_loop(PAIRS))
+  inc = tmp_path / 'incident'
+  inc.mkdir()
+  with open(inc / flight.MANIFEST, 'w') as f:
+    json.dump({'version': 1, 'trigger': {'detector': 'injected'},
+               'step': 15, 'replay_step': 16,
+               'checkpoint': {'dir': resumed_run['ckpt'], 'step': 8},
+               'ring': [{'ordinal': o} for o in range(8, 16)]}, f)
+  assert flight.main(['bisect', str(inc), '--', '--ledger',
+                      resumed_run['led'], '--json']) == 0
+  out = json.loads(capsys.readouterr().out)
+  assert out['window'] == [8, 16] and out['stream_checked'] is True
+  np.testing.assert_array_equal([x for _, x in out['losses']],
+                                resumed_run['losses'][:8])
+
+
 @pytest.mark.parametrize('kind', ['serial', 'workers', 'synthetic'])
 def test_exact_seek_yields_the_uninterrupted_stream(kind):
   """seek(e, i, exact=True): the next epoch is batches i.. of the

@@ -240,12 +240,13 @@ def test_sentinel_gate_and_detectors(monkeypatch):
   tsentinel.disable_sentinel()
   tsentinel._active = None
   assert tsentinel.get_sentinel().detectors == tsentinel.DETECTORS
-  assert set(tsentinel.DETECTORS) == set(jsentinel.DETECTORS) - {
-      'ledger_divergence'}
+  assert tsentinel.DETECTORS == jsentinel.DETECTORS
   for spec in ('0', '', 'off'):
     assert tsentinel._parse_spec(spec) is None
-  with pytest.raises(ValueError, match='ledger_divergence'):
-    tsentinel.Sentinel(detectors=('ledger_divergence',))
+  assert tsentinel.Sentinel(detectors=('ledger_divergence',)).detectors == (
+      'ledger_divergence',)
+  with pytest.raises(ValueError, match='no_such_detector'):
+    tsentinel.Sentinel(detectors=('no_such_detector',))
   monkeypatch.setenv('LDDL_FAULTS', 'raise:sentinel.trigger:nth=2')
   sent = tsentinel.Sentinel(detectors=('loss_spike',))
   assert sent.observe_step(0, loss=1.0) is None

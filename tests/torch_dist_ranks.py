@@ -279,3 +279,29 @@ def file_fleet_rank(rank, world, rdv, shards, vocab_file, ckpt_dir):
     membership.stop()
   return {'stop_reason': loop.stop_reason, 'step': loop.step,
           'samples_seen': loop.samples_seen, 'steps_run': len(losses)}
+
+
+def ledger_divergence_ranks(rank, world, directory, diverge):
+  """Each rank records six collate digests (rank 1's fourth differs when
+  ``diverge``), exchanges its ledger signals twice by
+  ``divergence_over_comm`` over gloo, and asks a ledger_divergence
+  sentinel after each exchange, twice: the verdicts and what fired."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.telemetry import ledger
+  from lddl_tpu_torch.telemetry.sentinel import Sentinel
+  comm = get_backend('torch')
+  led = ledger.enable_ledger(directory=directory, rank=rank)
+  try:
+    for i in range(6):
+      digest = 'f' * 16 if diverge and rank == 1 and i == 3 else f'{i:016x}'
+      led.record('collate', digest, epoch=0, index=i)
+    sent = Sentinel(detectors=('ledger_divergence',))
+    verdicts, fired = [], []
+    for step in (1, 3):
+      verdicts.append(ledger.divergence_over_comm(comm))
+      for s in (step, step + 1):
+        trig = sent.observe_step(s)
+        fired.append(trig and trig['detector'])
+    return verdicts, fired
+  finally:
+    ledger.disable_ledger()
