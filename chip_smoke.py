@@ -208,10 +208,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      that ledger and ``bisect --ledger`` over (RESUME_AT, RESUME_TO]
      giving the resumed run's losses bit for bit (the recorded stream);
      (g) after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
-     --gate`` with 11a's ledger (``--audit``, ``--replay-smoke`` over the
-     pairs loader), phase 11's incident tree and phase 12's bench
+     --gate`` with 11a's two-epoch ledger (``--audit``: the self-check,
+     its device records keyed by (epoch, index); ``--replay-smoke`` over
+     the pairs loader), phase 11's incident tree and phase 12's bench
      history: exit 1 for the injected incident, the audit and the smoke
-     ok, a verdict per series and no regression; ``python -m
+     ok, a verdict per series and no regression; 11e's two ledgers
+     verified one against the other (exit 0); ``python -m
      lddl_tpu_torch.telemetry.trace`` over (f)'s trace: exit 0 and a
      merged document with events, exit 2 over a directory with none;
   12. the K-step scan window (make_scan_train_step over
@@ -231,12 +233,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      hits; the capture and instantiation time; each graph's pool and the
      peak allocated over its hits; stack_batch_window's host time a
      window against the feed's train.h2d_seconds a batch. Each timed
-     window's ms/step goes into a bench-history JSONL that 11g gates.
+     window's ms/step goes into a bench-history JSONL that 11g gates;
+  13. the BART text-infilling loader (no model: lddl_tpu has no BART
+     model) over tests/assets/torch_shards/bart/ at the loader's defaults
+     (batch 64, 128 tokens, noise density 0.3, Poisson lambda 3): (a)
+     build the native WordPiece library (lddl_tpu_torch/native/src,
+     the host's c++) and print its seconds; (b) every chunk through the
+     port's tokenizer: the sha256 of the ids and offsets = digests.json's
+     (lddl_tpu's HF tokenizer), tokens/s at 1 and 8 threads; (c) the
+     serial loader, epochs 0 and 1: every batch_sha256 = digests.json,
+     samples/s, collate p50/p99; (d) through 2 worker processes: the same
+     digests, no ``lddltorch_`` segment left; (e) a data server process
+     serving the BART factory, drained over loopback: the same digests,
+     every batch over the wire; (f) the ledger on (blake2b-8): collate
+     and device records (epoch, index) = digests.json's, the auditor's
+     self-check exit 0, ``replay.cli batch --factory`` on one coordinate
+     exit 0; (g) each epoch through prefetch_to_device onto the card, every
+     batch read back equal to its host batch.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``. Without a CUDA card the script exits non-zero before
-printing any result.
+phases 9-12; phase 13 runs no kernel), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``. Without a CUDA card the script
+exits non-zero before printing any result.
 """
 
 import argparse
@@ -390,6 +408,14 @@ def batch_sha256(batch):
     h.update(value.dtype.str.encode() + b'\0')
     h.update(repr(value.shape).encode() + b'\0')
     h.update(value.tobytes())
+  return h.hexdigest()
+
+
+def token_sha256(ids, offsets):
+  """The digest of a tokenizer's output over many texts: sha256 over the
+  flat ids as int32, then the [n+1] offsets as int64 (little-endian)."""
+  h = hashlib.sha256(np.ascontiguousarray(ids, dtype='<i4').tobytes())
+  h.update(np.ascontiguousarray(offsets, dtype='<i8').tobytes())
   return h.hexdigest()
 
 
@@ -2817,14 +2843,15 @@ class ServerProc:
   its serve announce into ``fleet`` (where the trainer discovers it), in
   a session of its own. With ``monitor_dir`` it runs its own monitor
   (LDDL_MONITOR, telemetry on), announced there, apart from the
-  trainer's rank 0."""
+  trainer's rank 0. ``factory`` and ``kwargs`` serve another loader."""
 
   def __init__(self, settings, fleet, log_path, window=None,
-               monitor_dir=None):
-    kwargs = dict(path=shard_path('pairs'), vocab_file=VOCAB_FILE,
-                  **settings)
+               monitor_dir=None, factory=None, kwargs=None):
+    if kwargs is None:
+      kwargs = dict(path=shard_path('pairs'), vocab_file=VOCAB_FILE,
+                    **settings)
     self.cmd = [sys.executable, '-m', 'lddl_tpu_torch.loader.service',
-                '--factory',
+                '--factory', factory or
                 'lddl_tpu_torch.loader.bert:get_bert_pretrain_data_loader',
                 '--kwargs-json', json.dumps(kwargs), '--announce-dir', fleet]
     if window:
@@ -4047,25 +4074,35 @@ def resumed_run(loop, rec, root, card):
 
 def gate_and_trace(digests, rec, resumed, history, card):
   """11g, after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
-  --gate`` with 11e's two ledgers of one epoch each (``--audit``: the
-  first verified against the second; the replay smoke over the pairs
-  loader), phase 11's incident tree and phase 12's bench history: exit 1
-  for the one injected incident, the audit and the smoke ok, a verdict
-  line per series and no regression; then ``python -m
-  lddl_tpu_torch.telemetry.trace`` over 11f's traced run (exit 0, a merged
-  document with events) and over an empty directory (exit 2).
-
-  Not 11a's ledger: it spans two epochs, and the feed numbers its
-  ``device`` records from 0 in each epoch's feed (as the JAX feed does),
-  so the auditor's self-check reads the second epoch's as replays that
-  came back different."""
+  --gate`` with 11a's ledger of two epochs (``--audit``: the auditor's
+  self-check, ``diff run run``, which the device records keyed by their
+  batch's (epoch, index) pass; the replay smoke over the pairs loader),
+  phase 11's incident tree and phase 12's bench history: exit 1 for the
+  one injected incident, the audit and the smoke ok, a verdict line per
+  series and no regression; ``python -m lddl_tpu_torch.telemetry.audit
+  verify`` of 11e's two ledgers of one epoch each, the first against the
+  second: exit 0; then ``python -m lddl_tpu_torch.telemetry.trace`` over
+  11f's traced run (exit 0, a merged document with events) and over an
+  empty directory (exit 2)."""
   from lddl_tpu_torch.telemetry.perf import load_history_jsonl
   kwargs = dict(path=shard_path('pairs'), vocab_file=VOCAB_FILE,
                 **digests['pairs']['settings'])
+  epochs = sorted({r['epoch'] for r in ledger_lines(rec['paths']['ledger'])
+                   if r.get('boundary') == 'device'})
+  if epochs != [0, 1]:
+    raise AssertionError(f'11g: 11a\'s device records span epochs {epochs}')
   root = os.path.dirname(rec['paths']['ledger'])
   ledgers = [os.path.join(root, f'ledger_e{i}') for i in (1, 2)]
+  p = subprocess.run([sys.executable, '-m', 'lddl_tpu_torch.telemetry.audit',
+                      'verify', *ledgers], cwd=HERE, capture_output=True,
+                     text=True, timeout=RANK_TIMEOUT)
+  if p.returncode != 0:
+    raise AssertionError(f'11g: audit verify of 11e\'s ledgers exited '
+                         f'{p.returncode}:\n{p.stdout[-3000:]}')
+  log('  11g: python -m lddl_tpu_torch.telemetry.audit verify over 11e\'s '
+      'two ledgers: exit 0')
   cmd = [sys.executable, '-m', 'lddl_tpu_torch.telemetry.perf', '--gate',
-         '--audit', *ledgers, '--replay-smoke',
+         '--audit', rec['paths']['ledger'], '--replay-smoke',
          '--replay-factory',
          'lddl_tpu_torch.loader.bert:get_bert_pretrain_data_loader',
          '--replay-kwargs-json', json.dumps(kwargs), '--incidents',
@@ -4090,9 +4127,9 @@ def gate_and_trace(digests, rec, resumed, history, card):
                          f'verdicts {verdicts} for series {series}:\n'
                          f'{p.stdout[-3000:]}\n{p.stderr[-3000:]}')
   log(f'  11g: python -m lddl_tpu_torch.telemetry.perf --gate: exit 1 for '
-      f'the injected incident at step {step}; determinism audit ok, replay '
-      f'smoke ok; verdicts {verdicts} over phase 12\'s history '
-      f'({seconds:.1f} s)')
+      f'the injected incident at step {step}; determinism audit of 11a\'s '
+      f'two-epoch ledger ok, replay smoke ok; verdicts {verdicts} over phase '
+      f'12\'s history ({seconds:.1f} s)')
   traced = resumed['paths']['telemetry']
   merged = os.path.join(traced, 'merged.json')
   empty = os.path.join(os.path.dirname(traced), 'no_trace')
@@ -4462,6 +4499,264 @@ def scan_window(args, card, history):
   return {c['label']: c for c in cells}
 
 
+# ---- phase 13: the BART text-infilling loader on the card ----
+
+BART_FACTORY = 'lddl_tpu_torch.loader.bart:get_bart_pretrain_data_loader'
+BART_EPOCHS = 2          # digests.json holds epochs 0 and 1
+BART_WORKERS = 2
+BART_THREADS = (1, 8)    # the encoder's thread counts timed in 13b
+TOKENIZE_REPS = 5
+# (f) the replay CLI rebuilds the recorded batch at this (epoch, index).
+BART_REPLAY_KEY = (1, 3)
+
+
+def bart_kwargs(digests, **kw):
+  """The BART loader at digests.json's settings (the loader's defaults:
+  batch 64, 128 tokens, noise density 0.3, Poisson lambda 3)."""
+  return dict(path=shard_path('bart'), vocab_file=VOCAB_FILE,
+              **digests['bart']['settings'], **kw)
+
+
+def bart_want(digests):
+  return digests['bart']['batches_by_epoch'][:BART_EPOCHS]
+
+
+def bart_chunks():
+  """Every ``sentences`` chunk of bart/, read by the port's Parquet
+  reader in the loaders' file order, rows in file order."""
+  from lddl_tpu_torch.core.utils import get_all_parquets_under
+  from lddl_tpu_torch.pipeline.parquet_io import ParquetFile
+  chunks = []
+  for path in get_all_parquets_under(shard_path('bart')):
+    with ParquetFile(path) as pf:
+      for batch in pf.iter_batches():
+        chunks += list(batch.column('sentences'))
+  return chunks
+
+
+def bart_build(card):
+  """13a: build the wordpiece library from the checkout's source."""
+  from lddl_tpu_torch.native import build as native_build
+  t0 = time.perf_counter()
+  native_build.library()
+  seconds = time.perf_counter() - t0
+  built = native_build.build_info['seconds']
+  how = (f'built with {native_build._toolchain()[0]} in {built:.2f} s'
+         if built is not None else 'built before this run, loaded')
+  log(f'  13a: {native_build.library_path().name}: {how} ({seconds:.2f} s '
+      f'to first use) [{card}]')
+  return {'build_seconds': built, 'first_use_seconds': seconds}
+
+
+def bart_tokenize(digests, card):
+  """13b: every chunk of bart/ through the port's tokenizer: the sha256 of
+  its ids and offsets = digests.json's (lddl_tpu's HF tokenizer); then
+  the encoder alone at each of BART_THREADS, timed."""
+  from lddl_tpu_torch.native import NativeWordPiece
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  want = digests['bart']['token_sha256']
+  chunks = bart_chunks()
+  tok = load_bert_tokenizer(VOCAB_FILE)
+  ids, offsets = tok.encode_batch_ids(chunks)
+  if (token_sha256(ids, offsets) != want or
+      len(chunks) != digests['bart']['chunks']):
+    raise AssertionError(f'13b: the ids of {len(chunks)} chunks are not '
+                         'lddl_tpu\'s HF tokenizer\'s (digests.json)')
+  nbytes = sum(len(c.encode()) for c in chunks)
+  rates = {}
+  for threads in BART_THREADS:
+    enc = NativeWordPiece(tok.vocab_words, num_threads=threads)
+    times = []
+    for _ in range(TOKENIZE_REPS):
+      t0 = time.perf_counter()
+      got = enc.encode_batch_ids(chunks)
+      times.append(time.perf_counter() - t0)
+      if token_sha256(*got) != want:
+        raise AssertionError(f'13b: {threads} threads give other ids')
+    best = float(np.median(times))
+    rates[threads] = {'ms': 1e3 * best, 'tokens_per_s': len(ids) / best,
+                      'mb_per_s': nbytes / best / 1e6}
+  log(f'  13b: {len(chunks)} chunks, {len(ids)} tokens, {nbytes} bytes: '
+      f'sha256 = digests.json (lddl_tpu\'s HF tokenizer); ' + ', '.join(
+          f'{t} thread(s) {r["tokens_per_s"]:.3e} tokens/s '
+          f'({r["ms"]:.2f} ms, median of {TOKENIZE_REPS})'
+          for t, r in rates.items()) + f' [{card}]')
+  return {'chunks': len(chunks), 'tokens': len(ids), 'bytes': nbytes,
+          'threads': rates}
+
+
+def bart_serial(digests, card):
+  """13c: the serial loader, BART_EPOCHS epochs, every batch = digests.json;
+  samples/s over the epochs and each collate's time."""
+  from lddl_tpu_torch.loader import get_bart_pretrain_data_loader
+  loader = get_bart_pretrain_data_loader(**bart_kwargs(digests))
+  collate, collate_s = loader._collate, []
+
+  def timed(*a):
+    t0 = time.perf_counter()
+    out = collate(*a)
+    collate_s.append(time.perf_counter() - t0)
+    return out
+
+  loader._collate = timed
+  t0 = time.perf_counter()
+  epochs = [list(loader) for _ in range(BART_EPOCHS)]
+  seconds = time.perf_counter() - t0
+  for e, (got, want) in enumerate(zip(epochs, bart_want(digests))):
+    check_digests(f'13c, epoch {e}', [batch_sha256(b) for b in got], want)
+  n = sum(len(e) for e in epochs)
+  samples = n * loader.batch_size
+  stats = {'batches': n, 'samples_per_s': samples / seconds,
+           'seconds': seconds,
+           'collate_p50_ms': ms(collate_s, np.median),
+           'collate_p99_ms': ms(collate_s, lambda x: np.percentile(x, 99))}
+  log(f'  13c: serial, {BART_EPOCHS} epochs of {n // BART_EPOCHS} batches of '
+      f'{loader.batch_size} = digests.json; {stats["samples_per_s"]:.0f} '
+      f'samples/s, collate p50 {stats["collate_p50_ms"]:.2f} ms, p99 '
+      f'{stats["collate_p99_ms"]:.2f} ms [{card}]')
+  return stats, epochs
+
+
+def bart_workers(digests, card):
+  """13d: the same through BART_WORKERS worker processes over the shm
+  ring: the same digests, and no ``lddltorch_`` segment left."""
+  from lddl_tpu_torch.loader import get_bart_pretrain_data_loader
+  loader = get_bart_pretrain_data_loader(
+      **bart_kwargs(digests, num_workers=BART_WORKERS))
+  t0 = time.perf_counter()
+  got = [[batch_sha256(b) for b in loader] for _ in range(BART_EPOCHS)]
+  seconds = time.perf_counter() - t0
+  for e, (g, want) in enumerate(zip(got, bart_want(digests))):
+    check_digests(f'13d, epoch {e}', g, want)
+  check_no_segments('13d')
+  samples = sum(map(len, got)) * loader.batch_size
+  log(f'  13d: {BART_WORKERS} workers: the same digests; '
+      f'{samples / seconds:.0f} samples/s (workers\' start included); no '
+      f'segment left [{card}]')
+  return {'samples_per_s': samples / seconds, 'seconds': seconds}
+
+
+def bart_served(digests, card):
+  """13e: a ``python -m lddl_tpu_torch.loader.service`` process serving
+  the BART factory, drained over loopback by the factory's network
+  transport: the same digests, every batch over the wire."""
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader import get_bart_pretrain_data_loader
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_bart_') as root:
+    srv = ServerProc(None, os.path.join(root, 'fleet'),
+                     os.path.join(root, 'server.log'), factory=BART_FACTORY,
+                     kwargs=bart_kwargs(digests))
+    tele = telemetry.enable()
+    try:
+      srv.start()
+      with environ(LDDL_DATA_SERVER=srv.url, LDDL_LOADER_TRANSPORT=None):
+        loader = get_bart_pretrain_data_loader(
+            **bart_kwargs(digests, num_workers=1, transport='network'))
+        t0 = time.perf_counter()
+        got = [[batch_sha256(b) for b in loader] for _ in range(BART_EPOCHS)]
+        seconds = time.perf_counter() - t0
+      client = {k: tele.counter(f'serve.{k}').total
+                for k in ('client_pulls', 'fallbacks', 'reattaches')}
+    finally:
+      telemetry.disable()
+      rc = srv.stop()
+  for e, (g, want) in enumerate(zip(got, bart_want(digests))):
+    check_digests(f'13e, epoch {e}', g, want)
+  n = sum(map(len, got))
+  # A pull per batch and one per epoch's end.
+  if (client['fallbacks'] or client['reattaches'] or
+      client['client_pulls'] < n or group_alive(srv.pid)):
+    raise AssertionError(f'13e: client {client} over {n} batches; the '
+                         f'server exited {rc}')
+  log(f'  13e: a data server process (start {srv.start_seconds:.1f} s) '
+      f'served the BART factory: {n} batches over the wire '
+      f'({client["client_pulls"]} pulls), 0 fallbacks, the same digests; {n * loader.batch_size / seconds:.0f} samples/s '
+      f'[{card}]')
+  return {'batches': n, 'samples_per_s': n * loader.batch_size / seconds,
+          'server_start_seconds': srv.start_seconds}
+
+
+def bart_ledger_and_feed(digests, card):
+  """13f and 13g: the serial loader again with the ledger on (blake2b-8),
+  each epoch fed by prefetch_to_device onto the card with its loader's
+  coordinates: every batch read back from the card equals the host batch,
+  the collate fingerprints = digests.json's, the device records keyed by
+  (epoch, index) = the collate ones; the auditor's self-check (``diff run
+  run``) exits 0, and ``python -m lddl_tpu_torch.replay.cli batch
+  --factory`` rebuilds the batch at BART_REPLAY_KEY bit for bit."""
+  from lddl_tpu_torch.loader import get_bart_pretrain_data_loader
+  from lddl_tpu_torch.loader.device import (coordinate_from,
+                                            prefetch_to_device)
+  from lddl_tpu_torch.telemetry.audit import main as audit_main
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_bart_led_') as led:
+    loader = get_bart_pretrain_data_loader(**bart_kwargs(digests))
+    hosts, placed, fed = [], 0, []
+    with blake2b8_ledger(led):
+      for _ in range(BART_EPOCHS):
+        host = []
+
+        def tee(it, host=host):
+          for b in it:
+            host.append({k: np.array(v, copy=True) for k, v in b.items()})
+            yield b
+
+        coordinate = coordinate_from(loader)
+        stream = prefetch_to_device(tee(iter(loader)), DEVICE,
+                                    coordinate=coordinate)
+        t0 = time.perf_counter()
+        for i, batch in enumerate(stream):
+          if any(t.device.type != torch.device(DEVICE).type
+                 for t in batch.values()):
+            raise AssertionError('13g: a batch is not on the card')
+          back = {k: t.cpu().numpy() for k, t in batch.items()}
+          if batch_sha256(back) != batch_sha256(host[i]):
+            raise AssertionError(f'13g: batch {i} read back from the card '
+                                 'differs from the host batch')
+          placed += 1
+        torch.cuda.synchronize()
+        fed.append(time.perf_counter() - t0)
+        hosts.append(host)
+    records = read_ledger(os.path.join(led, 'ledger.rank0.jsonl'))
+    want = [d for e in digests['bart']['ledger_by_epoch'][:BART_EPOCHS]
+            for d in e]
+    if records.get('collate') != want or records.get('device') != want:
+      raise AssertionError('13f: the collate and device records are not '
+                           'digests.json\'s ledger digests')
+    rc, out = run_cli(audit_main, ['diff', led, led])
+    if rc != 0 or 'ledgers consistent' not in out:
+      raise AssertionError(f'13f: the audit self-check exited {rc}:\n{out}')
+    kwargs = bart_kwargs(digests)
+    p = subprocess.run(
+        [sys.executable, '-m', 'lddl_tpu_torch.replay.cli', 'batch', led,
+         '--key', 'epoch={},index={}'.format(*BART_REPLAY_KEY), '--factory',
+         BART_FACTORY, '--kwargs-json', json.dumps(kwargs)], cwd=HERE,
+        capture_output=True, text=True, timeout=RANK_TIMEOUT)
+    if p.returncode != 0 or 'bit-identical' not in p.stdout:
+      raise AssertionError(f'13f: the replay CLI exited {p.returncode}:\n'
+                           f'{p.stdout}\n{p.stderr[-3000:]}')
+  log(f'  13f: the ledger over {len(want)} batches: collate and device '
+      f'records (epoch, index) = digests.json\'s blake2b-8 digests; audit '
+      f'diff run run exit 0; replay.cli batch --factory at '
+      f'{BART_REPLAY_KEY}: exit 0, bit-identical')
+  log(f'  13g: prefetch_to_device placed {placed} batches on the card, each '
+      f'read back equal to its host batch; {1e3 * sum(fed) / placed:.2f} ms '
+      f'a batch from the loader (its collate included) through the feed to '
+      f'the read-back [{card}]')
+  return {'placed': placed, 'loader_to_readback_ms_per_batch':
+          1e3 * sum(fed) / placed}
+
+
+def bart_on_card(digests, card):
+  """Phase 13: 13a-13g."""
+  out = {'build': bart_build(card), 'tokenize': bart_tokenize(digests, card)}
+  out['serial'], _ = bart_serial(digests, card)
+  out['workers'] = bart_workers(digests, card)
+  out['served'] = bart_served(digests, card)
+  out['ledger_and_feed'] = bart_ledger_and_feed(digests, card)
+  check_no_segments('phase 13')
+  return out
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -4574,6 +4869,10 @@ def main():
   finally:
     shutil.rmtree(replay_root, ignore_errors=True)
 
+  log(f'== the BART text-infilling loader and its native WordPiece encoder '
+      f'[{card}]')
+  bart = bart_on_card(digests, card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -4633,7 +4932,7 @@ def main():
                   'data_service': {k: v for k, v in served.items()
                                    if k != 'losses'},
                   'record_and_replay': replayed,
-                  'scan_window': scanned,
+                  'scan_window': scanned, 'bart': bart,
                   'card': card}, default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))

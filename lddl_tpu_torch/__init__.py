@@ -11,13 +11,18 @@ that :mod:`lddl_tpu` wrote, segment-free and packed long-context with
 block-diagonal attention. The corpus loader: ``pipeline.parquet_io`` (a
 Parquet reader in numpy, no pyarrow) with ``pipeline.codecs`` (LZ4 and
 Snappy in host C++, ``csrc/codecs.cpp``), ``pipeline.shard_format``,
-``balance`` (the sample-count cache), ``tokenization.wordpiece`` (a vocab
-map, no transformers), ``core.utils``, ``core.random``, ``core.log``,
+``balance`` (the sample-count cache), ``tokenization.wordpiece``
+(the vocab map and ``BertWordPiece``, no transformers) over ``native``
+(the C++ WordPiece encoder, ``native/src/wordpiece.cpp``, built with the
+host's ``c++`` at the first encode), ``core.utils``, ``core.random``, ``core.log``,
 ``loader.dataset``, ``loader.columnar``, ``loader.shuffle_buffer``,
-``loader.binned``, ``loader.bert``, ``loader.packed`` and
-``loader.codebert``, with worker-process collate (``loader.workers``
+``loader.binned``, ``loader.bert``, ``loader.packed``,
+``loader.codebert`` and ``loader.bart`` (BART text infilling, tokenizing
+raw text at load time), with worker-process collate (``loader.workers``
 over the ``loader.shm`` batch ring) and the determinism ledger's
-``collate`` and ``device`` records (``telemetry.ledger``, audited by
+``collate`` and ``device`` records (the latter keyed by the batch's
+``(epoch, index)`` where the train loop and the step replay feed;
+``telemetry.ledger``, audited by
 ``python -m lddl_tpu_torch.telemetry.audit``). The step:
 ``models.bert``, ``models.convert``, ``models.flops``,
 ``ops.flash_attention``, ``parallel.train``, ``loader.device``,

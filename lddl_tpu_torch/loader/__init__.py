@@ -1,7 +1,8 @@
 """Training-time data loaders: balanced-shard streaming with deterministic
 shuffling, zero-communication binned iteration, dynamic or static MLM
-masking, the packed long-context and CodeBERT collates, worker-process
-collate over a shared-memory batch ring, and the host-to-device feed.
+masking, the packed long-context, CodeBERT and BART text-infilling
+collates, worker-process collate over a shared-memory batch ring, and the
+host-to-device feed.
 
 The device feed (:func:`prefetch_to_device`, :class:`SeqlenAwarePrefetcher`)
 imports torch, so it loads lazily on first access, as the JAX package
@@ -10,6 +11,7 @@ package and never pay for torch. The data service (:class:`DataServer`,
 :class:`NetworkBatchSource`, :func:`discover_data_servers`) loads lazily
 too, as in the JAX package: only network-transport users pay for it.
 """
+from .bart import BartCollate, get_bart_pretrain_data_loader
 from .bert import (IGNORE_INDEX, dynamic_mask_tokens,
                    get_bert_pretrain_data_loader)
 from .binned import BinnedIterator
@@ -19,11 +21,11 @@ from .packed import PackedCollate, get_packed_pretrain_data_loader
 from .shuffle_buffer import ShuffleBuffer
 from .workers import MultiprocessLoader
 
-__all__ = ['IGNORE_INDEX', 'BinnedIterator', 'CodebertCollate', 'DataServer',
-           'MultiprocessLoader', 'NetworkBatchSource', 'PackedCollate',
-           'ParquetShardDataset', 'discover_data_servers',
+__all__ = ['IGNORE_INDEX', 'BartCollate', 'BinnedIterator', 'CodebertCollate',
+           'DataServer', 'MultiprocessLoader', 'NetworkBatchSource',
+           'PackedCollate', 'ParquetShardDataset', 'discover_data_servers',
            'SeqlenAwarePrefetcher', 'ShuffleBuffer', 'dynamic_mask_tokens',
-           'get_bert_pretrain_data_loader',
+           'get_bart_pretrain_data_loader', 'get_bert_pretrain_data_loader',
            'get_codebert_pretrain_data_loader',
            'get_packed_pretrain_data_loader', 'prefetch_to_device']
 

@@ -13,8 +13,14 @@ With ``device='cpu'`` batches are plain ``torch.from_numpy`` copies (the
 tests' path).
 
 With ``LDDL_LEDGER`` on, the producer records each host batch's ``device``
-fingerprint (key: its index in this feed) before the pinned copy, as the
-JAX package's feed does before its transfer. A batch may be a zero-copy
+fingerprint before the pinned copy, as the JAX package's feed does before
+its transfer. Its key is the batch's ledger coordinate ``(epoch, index)``
+when the caller passes ``coordinate`` (the train loop and the step replay
+pass the loader's ``coordinate_of_batch``), so the record aligns with the
+``collate`` record of the same batch and a run of many epochs, or one
+resumed mid-epoch, keys each batch once; without it the key is the
+batch's index in this feed alone, as in the JAX package (whose second
+epoch then records ``index=0..`` again). A batch may be a zero-copy
 view into a worker's shared-memory slot
 (:class:`~lddl_tpu_torch.loader.workers.MultiprocessLoader` with
 ``zero_copy=True``), valid until the producer pulls the next batch: the
@@ -66,10 +72,28 @@ def _host_copy(batch):
           for k, v in batch.items()}
 
 
-def prefetch_to_device(iterator, device, size=2):
+def coordinate_from(loader):
+  """The ``coordinate`` argument of :func:`prefetch_to_device` for a feed
+  of ``loader``'s batches from where it stands now (its ``tell()``, taken
+  before the iteration starts): the feed's k-th batch is the loader's
+  ``coordinate_of_batch`` k batches on, across an epoch's end too. None
+  for a loader without that positioning contract."""
+  tell = getattr(loader, 'tell', None)
+  of_batch = getattr(loader, 'coordinate_of_batch', None)
+  if tell is None or of_batch is None:
+    return None
+  epoch, index = tell()
+  ordinal0 = epoch * loader.batches_per_epoch + index
+  return lambda ordinal: of_batch(ordinal0 + ordinal)
+
+
+def prefetch_to_device(iterator, device, size=2, coordinate=None):
   """Yield batches of ``iterator`` (numpy dicts, or lists of micro-batch
   dicts) as tensor dicts (or lists of them) on ``device``, keeping up to
   ``size`` in flight.
+
+  ``coordinate`` maps a batch's ordinal in this feed to its ledger
+  coordinate ``(epoch, index)``, the key of its ``device`` record.
 
   A producer error is raised in the consumer at the batch where it
   happened. Closing the generator (or dropping it) stops the producer and
@@ -121,7 +145,12 @@ def prefetch_to_device(iterator, device, size=2):
         if ledger.enabled:
           # The device boundary: the last stop where the batch is still
           # host bytes, hashed before the pinned copy.
-          ledger.record('device', fingerprint_batch(batch), index=index)
+          if coordinate is None:
+            key = {'index': index}
+          else:
+            epoch, at = coordinate(index)
+            key = {'epoch': epoch, 'index': at}
+          ledger.record('device', fingerprint_batch(batch), **key)
         with CUDA_FEED_LOCK, tracer.span('train.h2d'), h2d_hist.time():
           item = _to_device(batch)
         if not _put(item):

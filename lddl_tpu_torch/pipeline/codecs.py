@@ -4,8 +4,8 @@ The page codecs the shard reader meets (:mod:`.parquet_io`) are LZ4 and
 Snappy; their decoders are byte-serial loops, so they live in C++
 (``csrc/codecs.cpp``), compiled with ``c++ -O3 -shared -fPIC`` into
 ``build/lddl_tpu_torch/`` beside the package and loaded with
-:mod:`ctypes`, the way :mod:`lddl_tpu_torch.ops._build` builds the CUDA
-kernels. The library is named by a hash of its source, the flags, the
+:mod:`ctypes` by the host-library helpers of
+:mod:`lddl_tpu_torch.native.build`. The library is named by a hash of its source, the flags, the
 compiler (its path and ``--version``) and the machine's architecture, so
 an edited source, another toolchain or another host builds its own.
 Nothing is compiled at import, and a failed build raises: there is no
@@ -17,16 +17,12 @@ older writers left it), 7 LZ4_RAW. Any other codec raises and names it.
 """
 
 import ctypes
-import functools
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 
+from ..native.build import (compile_host_library, compiler,
+                            host_library_path, toolchain)
 from ..ops._build import BUILD_DIR, CSRC
 
 SOURCE = CSRC / 'codecs.cpp'
@@ -43,41 +39,20 @@ _lib = None
 
 
 def _compiler():
-  cxx = shutil.which('c++') or shutil.which('g++')
-  if cxx is None:
-    raise RuntimeError('no C++ compiler (c++ or g++ on PATH): the Parquet '
-                       'codec library of lddl_tpu_torch is built at first use')
-  return cxx
+  return compiler('the Parquet codec library')
 
 
-@functools.lru_cache(maxsize=None)
 def _toolchain():
-  """The compiler's path and ``--version``, and the machine: what else
-  besides the source and flags decides the library's bytes."""
-  cxx = _compiler()
-  version = subprocess.run([cxx, '--version'], capture_output=True,
-                           text=True, check=False).stdout
-  return cxx, version, platform.machine()
+  return toolchain(_compiler())
 
 
 def library_path():
-  h = hashlib.sha256(SOURCE.read_bytes())
-  for part in (' '.join(CXX_FLAGS), *_toolchain()):
-    h.update(b'\0' + part.encode())
-  return BUILD_DIR / f'codecs-{h.hexdigest()[:16]}.so'
+  return host_library_path(BUILD_DIR, 'codecs', SOURCE, CXX_FLAGS,
+                           _toolchain())
 
 
 def _build(out):
-  cxx = _compiler()
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-  proc = subprocess.run([cxx, *CXX_FLAGS, '-o', str(tmp), str(SOURCE)],
-                        capture_output=True, text=True, check=False)
-  if proc.returncode != 0:
-    tmp.unlink(missing_ok=True)
-    raise RuntimeError(f'{cxx} failed (exit {proc.returncode}) building '
-                       f'{SOURCE}:\n{proc.stderr}{proc.stdout}')
-  os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+  compile_host_library(_compiler(), SOURCE, CXX_FLAGS, out)
 
 
 def library():

@@ -121,7 +121,7 @@ REPLAYABLE_BOUNDARIES = ('collate', 'serve.tx', 'serve.rx')
 def _batch_position(key):
   """Map a lineage key tuple to the ``(epoch, batch_index)`` target, or
   None for boundaries with no batch position (shard paths, device
-  frames, train steps)."""
+  records keyed by the feed's index alone, train steps)."""
   d = dict(key)
   if 'epoch' in d and 'index' in d:
     return d['epoch'], d['index']

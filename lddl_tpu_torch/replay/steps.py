@@ -49,7 +49,7 @@ ledger and feeds the loader ``restore`` re-seeked mid-epoch.)
 import torch
 
 from ..core import faults
-from ..loader.device import prefetch_to_device
+from ..loader.device import coordinate_from, prefetch_to_device
 from ..parallel.train import pretrain_loss
 from ..telemetry import ledger
 from ..telemetry.audit import load_run
@@ -218,10 +218,15 @@ def replay_steps(loop, target_step, batches=None, prefetch=2,
         'bundled batches')
   with deterministic_algorithms(loop.device):
     step_fn = _step_fn(loop)
+    # Bundled or from the corpus, the batches are those the restored
+    # loader stands before, so their device records carry the live run's
+    # keys.
+    coordinate = coordinate_from(loop.loader)
     source = (iter(batches) if batches is not None
               else recorded_stream(loop.loader, recorded,
                                    range(loop.step, target_step)))
-    stream = prefetch_to_device(source, loop.device, size=prefetch)
+    stream = prefetch_to_device(source, loop.device, size=prefetch,
+                                coordinate=coordinate)
     loop.model.train()
     losses = []
     try:

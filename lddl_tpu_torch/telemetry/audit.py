@@ -21,8 +21,9 @@ contracts into a checkable verdict:
   - ``show DIR`` — per-boundary stream summary of one run.
 
 Alignment is key-based (:func:`~.ledger.record_key`: ``(epoch,
-index)`` for collates, ``index`` for the device feed, ``gi`` for
-service frames, ``step`` for train records, shard ``path``), so
+index)`` for collates, ``(epoch, index)`` or ``index`` for the device
+feed, ``gi`` for service frames, ``step`` for train records, shard
+``path``), so
 restarts that re-record a coordinate are handled — and a coordinate
 recorded twice *within one run* with two different digests (a replayed
 batch that came back different) is itself a divergence. Mixed-algorithm

@@ -18,8 +18,9 @@ Instrumented boundaries in the port and their coordinate keys:
   ``collate``    loader batch, consumption
                  order (parent side)           key: ``(epoch, index)``
   ``device``     host batch entering the
-                 device feed, before the
-                 pinned copy                   key: ``index``
+                 device feed, before the       key: ``(epoch, index)``
+                 pinned copy                   (the train loop, the step
+                                               replay), else ``index``
   ``serve.tx`` / data-service frames, sent
   ``serve.rx``   and received                  key: ``(epoch, gi)``
   ``step``       full train state at every

@@ -90,7 +90,7 @@ from ..comm import NullBackend, get_backend
 from ..core import faults
 from ..core.topology import discover_topology
 from ..loader.bert import get_bert_pretrain_data_loader
-from ..loader.device import prefetch_to_device
+from ..loader.device import coordinate_from, prefetch_to_device
 from ..loader.packed import get_packed_pretrain_data_loader
 from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
@@ -759,11 +759,13 @@ class TrainLoop:
       while self.step < max_steps and self.stop_reason is None:
         # The recorder tees the *host* batches (the device copies cannot
         # be packed); ordinal0 is the global step the next batch feeds, so
-        # each ring entry carries its ledger collate coordinate.
+        # each ring entry carries its ledger collate coordinate. Each
+        # device record carries it too, from the loader's own position.
+        coordinate = coordinate_from(self.loader)
         stream = prefetch_to_device(
             flight.wrap_host_stream(iter(self.loader), self.loader,
                                     ordinal0=self.step),
-            self.device, size=prefetch)
+            self.device, size=prefetch, coordinate=coordinate)
         t0 = time.perf_counter()
         steps_this_epoch = 0
         try:

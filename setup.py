@@ -10,7 +10,7 @@ setup(
     packages=find_packages(include=['lddl_tpu', 'lddl_tpu.*',
                                     'lddl_tpu_torch', 'lddl_tpu_torch.*']),
     package_data={'lddl_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
-                                    'csrc/*.cpp']},
+                                    'csrc/*.cpp', 'native/src/*.cpp']},
     python_requires='>=3.10',
     install_requires=[
         'numpy',

@@ -19,6 +19,15 @@ Writes, under ``tests/assets/torch_shards/``:
     for every fourth; its other sentences are the code lines) through
     lddl_tpu's CodeBERT preprocess with the same vocab (binned:
     ``bin_size=128``, ``target_seq_length=512``), balanced;
+  - ``bart/``: raw ``sentences`` chunks of the same text through
+    lddl_tpu's BART preprocess (``target_seq_length=128``, its default),
+    balanced; its digests hold, besides each batch's of epochs 0 and 1
+    (lddl_tpu's BART loader at its defaults, tokenizing with
+    ``load_bert_tokenizer(vocab_file=VOCAB, backend='hf')``), the sha256
+    of every chunk's ids under that tokenizer (``token_sha256``: the
+    flat int32 ids, then the int64 offsets), which the port's native
+    encoder must give too (lddl_tpu's own native encoder does not: it
+    folds some Cyrillic letters of the text wrongly);
   - ``digests.json``: the loader settings of chip_smoke.py's phases 7 and
     8 and, for every batch of epoch 0 that lddl_tpu's loaders give over
     these shards with them, its ``batch_sha256`` (chip_smoke.py) and its
@@ -28,7 +37,8 @@ Writes, under ``tests/assets/torch_shards/``:
 
 ``--digests-only`` keeps the committed shards and rewrites digests.json
 from them (after a change to the settings below, lddl_tpu's loaders or
-``batch_sha256``).
+``batch_sha256``). ``--only NAME`` makes the set NAME anew and keeps the
+others' shards.
 
 Each set is drawn from a corpus seed; the script takes the first seed
 whose shards meet the phase's needs: every bin of ``pairs/`` holds at
@@ -64,7 +74,13 @@ PACKED = dict(batch_size_per_rank=2, max_seq_length=8192,
               block_diagonal=True, base_seed=2024, shuffle_buffer_size=4)
 CODEBERT = dict(batch_size_per_rank=16, bin_size=128, max_seq_length=512,
                 base_seed=2024, shuffle_buffer_size=16)
-PAIRS_SHARDS, PACKED_SHARDS, CODEBERT_SHARDS = 2, 2, 2
+# chip_smoke.py's phase 13: lddl_tpu's BART loader at its defaults.
+BART = dict(batch_size_per_rank=64, max_seq_length=128, noise_density=0.3,
+            poisson_lambda=3.0)
+BART_EPOCHS = 2
+PAIRS_SHARDS, PACKED_SHARDS, CODEBERT_SHARDS, BART_SHARDS = 2, 2, 2, 2
+BART_BYTES = 480 << 10           # source text of the BART corpus
+BART_BATCHES = 8                 # per epoch, at least
 CODEBERT_BYTES = 320 << 10       # source text of the CodeBERT corpus
 CODEBERT_BATCHES = 8             # per epoch, at least
 PAIRS_BYTES = 320 << 10          # source text of the pairs corpus
@@ -171,6 +187,81 @@ def make_codebert(tmp, seed):
   return bal
 
 
+def make_bart(tmp, seed):
+  """lddl_tpu's BART preprocess and balancer over synth text; returns the
+  balanced directory."""
+  from lddl_tpu.balance import balance_directory
+  from lddl_tpu.pipeline import Executor
+  from lddl_tpu.preprocess import bart
+  from lddl_tpu.preprocess.readers import read_corpus
+  src = os.path.join(tmp, f'bart_src_{seed}')
+  _write_source(src, _synth_docs(30_000 + seed, BART_BYTES))
+  cfg = bart.BartPretrainConfig(target_seq_length=BART['max_seq_length'],
+                                sentence_backend='rules', seed=seed)
+  sink = os.path.join(tmp, f'bart_sink_{seed}')
+  bal = os.path.join(tmp, f'bart_{seed}')
+  bart.run(read_corpus([src], num_blocks=2, sample_ratio=1.0), sink, cfg,
+           executor=Executor(num_local_workers=1))
+  balance_directory(sink, bal, BART_SHARDS)
+  return bal
+
+
+def bart_ok(path):
+  from lddl_tpu.loader import get_bart_pretrain_data_loader
+  from lddl_tpu.tokenization.wordpiece import load_bert_tokenizer
+  n = sum(1 for _ in get_bart_pretrain_data_loader(
+      path, tokenizer=load_bert_tokenizer(vocab_file=VOCAB, backend='hf'),
+      **BART))
+  print(f'  bart: {n} batches')
+  return n >= BART_BATCHES
+
+
+def bart_chunks(path):
+  """Every ``sentences`` chunk of the shards under ``path``, file by file
+  in the loaders' order, rows in file order."""
+  import pyarrow.parquet as pq
+  from lddl_tpu.core.utils import get_all_parquets_under
+  return [t for p in get_all_parquets_under(path)
+          for t in pq.read_table(p, columns=['sentences']).column(0)
+          .to_pylist()]
+
+
+def bart_digests(path):
+  """The token digest of every chunk and, for BART_EPOCHS epochs, every
+  batch's digest and ledger fingerprint from lddl_tpu's BART loader, all
+  through its HF tokenizer."""
+  from chip_smoke import batch_sha256, token_sha256
+  from lddl_tpu.loader import get_bart_pretrain_data_loader
+  from lddl_tpu.telemetry import ledger
+  from lddl_tpu.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.tokenization.wordpiece import (
+      load_bert_tokenizer as port_tokenizer)
+  hf = load_bert_tokenizer(vocab_file=VOCAB, backend='hf')
+  native = load_bert_tokenizer(vocab_file=VOCAB, backend='native')
+  chunks = bart_chunks(path)
+  ids, offsets = hf.encode_batch_ids(chunks)
+  pids, poffsets = port_tokenizer(VOCAB).encode_batch_ids(chunks)
+  assert np.array_equal(ids, pids) and np.array_equal(offsets, poffsets), (
+      "the port's native encoder and lddl_tpu's HF tokenizer disagree on "
+      'bart/')
+  # lddl_tpu's own native encoder folds some Cyrillic letters wrongly (a
+  # fault of the JAX package, not of these shards): count its departures.
+  nids, noffsets = native.encode_batch_ids(chunks)
+  off = sum(1 for i in range(len(chunks)) if not np.array_equal(
+      ids[offsets[i]:offsets[i + 1]], nids[noffsets[i]:noffsets[i + 1]]))
+  print(f"  bart: lddl_tpu's native encoder departs from HF in {off} of "
+        f'{len(chunks)} chunks')
+  loader = get_bart_pretrain_data_loader(path, tokenizer=hf, **BART)
+  epochs = [list(loader) for _ in range(BART_EPOCHS)]
+  print(f'  bart: {len(chunks)} chunks, {len(ids)} tokens, '
+        f'{[len(e) for e in epochs]} batches an epoch')
+  return {'settings': BART, 'chunks': len(chunks), 'tokens': len(ids),
+          'token_sha256': token_sha256(ids, offsets),
+          'batches_by_epoch': [[batch_sha256(b) for b in e] for e in epochs],
+          'ledger_by_epoch': [[ledger.fingerprint_batch(b) for b in e]
+                              for e in epochs]}
+
+
 def codebert_ok(path):
   from lddl_tpu.loader import get_codebert_pretrain_data_loader
   n = sum(1 for _ in get_codebert_pretrain_data_loader(
@@ -206,7 +297,8 @@ def packed_ok(path):
 
 def digests():
   """The settings, and the digest and ledger fingerprint of every epoch-0
-  batch of lddl_tpu's loaders over the committed shards."""
+  batch of lddl_tpu's loaders over the committed shards (epochs 0 and 1
+  for bart/, with its token digest)."""
   from chip_smoke import batch_sha256
   from lddl_tpu.loader import (get_bert_pretrain_data_loader,
                                get_codebert_pretrain_data_loader,
@@ -226,6 +318,7 @@ def digests():
                    'batches': [batch_sha256(b) for b in batches],
                    'ledger': [ledger.fingerprint_batch(b) for b in batches]}
       print(f'  {name}: {len(batches)} batches in epoch 0')
+    out['bart'] = bart_digests(os.path.join(OUT, 'bart'))
   finally:
     ledger._xxhash = saved
   return out
@@ -244,17 +337,25 @@ def _first(make, ok, tmp, name):
                      'meet the phase')
 
 
+SETS = {'pairs': (make_pairs, pairs_ok), 'packed': (make_packed, packed_ok),
+        'codebert': (make_codebert, codebert_ok),
+        'bart': (make_bart, bart_ok)}
+
+
 def main():
   os.makedirs(OUT, exist_ok=True)
-  if '--digests-only' in sys.argv[1:]:
+  argv = sys.argv[1:]
+  seeds = {}
+  if '--digests-only' in argv or '--only' in argv:
     with open(os.path.join(OUT, 'digests.json')) as f:
       seeds = {k: v['corpus_seed'] for k, v in json.load(f).items()}
-  else:
-    with tempfile.TemporaryDirectory(prefix='torch_shards_') as tmp:
-      seeds = {'pairs': _first(make_pairs, pairs_ok, tmp, 'pairs'),
-               'packed': _first(make_packed, packed_ok, tmp, 'packed'),
-               'codebert': _first(make_codebert, codebert_ok, tmp,
-                                  'codebert')}
+  remake = (set() if '--digests-only' in argv else
+            {argv[argv.index('--only') + 1]} if '--only' in argv else
+            set(SETS))
+  with tempfile.TemporaryDirectory(prefix='torch_shards_') as tmp:
+    for name in SETS:
+      if name in remake:
+        seeds[name] = _first(*SETS[name], tmp, name)
   out = digests()
   for name, seed in seeds.items():
     out[name]['corpus_seed'] = seed

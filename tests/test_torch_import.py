@@ -58,7 +58,9 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.loader.service', 'lddl_tpu_torch.testing',
            'lddl_tpu_torch.replay', 'lddl_tpu_torch.replay.rematerialize',
            'lddl_tpu_torch.replay.bundle', 'lddl_tpu_torch.replay.steps',
-           'lddl_tpu_torch.replay.cli', 'lddl_tpu_torch.training.flight')
+           'lddl_tpu_torch.replay.cli', 'lddl_tpu_torch.training.flight',
+           'lddl_tpu_torch.native', 'lddl_tpu_torch.native.build',
+           'lddl_tpu_torch.native.wordpiece', 'lddl_tpu_torch.loader.bart')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():
@@ -92,6 +94,22 @@ def test_batch_replay_and_bundles_import_no_torch():
   data host can verify a ledger's batches without one)."""
   code = ('import sys\n'
           'import lddl_tpu_torch.replay\n'
+          'print("torch" in sys.modules)\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, check=True, timeout=120)
+  assert out.stdout.strip() == 'False', out.stdout
+
+
+def test_the_bart_loader_and_the_native_encoder_import_no_torch():
+  """The BART loader tokenizes in the data server's process and in
+  loader workers, neither of which may load torch."""
+  vocab = ROOT / 'benchmarks' / 'assets' / 'bench_vocab_30522.txt'
+  code = ('import sys\n'
+          'import lddl_tpu_torch.loader.bart, lddl_tpu_torch.native\n'
+          'from lddl_tpu_torch.tokenization.wordpiece import '
+          'load_bert_tokenizer\n'
+          f'load_bert_tokenizer({str(vocab)!r}).encode_batch_ids(["a b"])\n'
           'print("torch" in sys.modules)\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -18,8 +18,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import lddl_tpu.core.faults as jfaults
+import lddl_tpu.loader.device as jdevice
 import lddl_tpu.telemetry.audit as jaudit
 import lddl_tpu.telemetry.ledger as jledger
 import lddl_tpu_torch.core.faults as tfaults
@@ -164,6 +166,11 @@ def _run(loader, ledger_dir, mod_device, mod_ledger, device_kw):
   returns the ledger's record lines, its meta line dropped."""
   mod_ledger.enable_ledger(directory=str(ledger_dir), rank=0)
   try:
+    if mod_device is not jdevice:
+      # As the port's train loop feeds: device records keyed (epoch,
+      # index) by the loader's coordinate_of_batch.
+      device_kw = dict(device_kw,
+                       coordinate=mod_device.coordinate_from(loader))
     stream = mod_device.prefetch_to_device(iter(loader), **device_kw)
     n = sum(1 for _ in stream)
   finally:
@@ -175,9 +182,11 @@ def _run(loader, ledger_dir, mod_device, mod_ledger, device_kw):
   return lines[1:]
 
 
-def _by_boundary(records):
+def _by_boundary(records, drop_device_epoch=False):
   out = {}
   for r in records:
+    if drop_device_epoch and r['boundary'] == 'device':
+      r = {k: v for k, v in r.items() if k != 'epoch'}
     out.setdefault(r['boundary'], []).append(r)
   return out
 
@@ -188,7 +197,6 @@ def test_epoch_records_equal_lddl_tpu(corpus, tmp_path, algo, kind):
   through its feed, the port's serially and with W = 2 through its feed
   (the collate record parent-side, over the shm slot): equal key for key
   and line for line; both auditors find the three runs consistent."""
-  import lddl_tpu.loader.device as jdevice
   import lddl_tpu_torch.loader.device as tdevice
   jmake, tmake, path, kw = {
       'pairs': (jax_bert_loader, get_bert_pretrain_data_loader, 'binned',
@@ -212,7 +220,13 @@ def test_epoch_records_equal_lddl_tpu(corpus, tmp_path, algo, kind):
   assert [(r['epoch'], r['index']) for r in want['collate']] == [
       (0, i) for i in range(len(want['collate']))]
   for name in ('serial', 'workers'):
-    got = _by_boundary(runs[name])
+    # The port's departure: its device records carry the batch's epoch
+    # beside its index (lddl_tpu's key the index in the feed alone, and
+    # re-record index=0.. in a second epoch). Within one epoch from its
+    # start the index is the same, so without the epoch the lines equal.
+    assert {r['epoch'] for r in runs[name]
+            if r['boundary'] == 'device'} == {0}, name
+    got = _by_boundary(runs[name], drop_device_epoch=True)
     assert got == want, name
   loaded = {name: jaudit.load_run(str(tmp_path / name)) for name in runs}
   for a, b in (('jax', 'serial'), ('jax', 'workers'), ('serial', 'workers')):
@@ -299,3 +313,123 @@ def test_corrupt_bytes_matches_lddl_tpu(monkeypatch, spec):
             for b in bufs]
     got[name] = (hits, [bytes(b) for b in bufs])
   assert got['torch'] == got['jax']
+
+
+# ---------------------------------------------------------------------------
+# device records keyed by the batch's ledger coordinate
+
+
+def _tiny_loop(corpus):
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+  cfg = BertConfig(dtype=torch.float32, vocab_size=64, hidden_size=32,
+                   num_layers=1, num_heads=2, intermediate_size=64,
+                   max_position_embeddings=64, dropout_rate=0.0)
+  return TrainLoop.build(
+      corpus['binned'], load_bert_tokenizer(corpus['vocab']), model_cfg=cfg,
+      device='cpu', learning_rate=1e-3, warmup_steps=2, total_steps=100,
+      seed=5, batch_size_per_rank=8, bin_size=16, max_seq_length=64,
+      loader_kwargs={'shuffle_buffer_size': 16})
+
+
+def _run_with_ledger(directory, fn):
+  tledger._active = None
+  tledger.enable_ledger(directory=str(directory), rank=0)
+  try:
+    return fn()
+  finally:
+    tledger.disable_ledger()
+    tledger._active = None
+
+
+def _records(directory):
+  with open(tledger.ledger_file_name(str(directory), 0)) as f:
+    return [json.loads(x) for x in f.read().splitlines()[1:]]
+
+
+def test_two_epochs_pass_the_audit_self_check(corpus, tmp_path):
+  """A two-epoch TrainLoop.run with the ledger on: each device record
+  carries the (epoch, index) of its batch's collate record and its digest,
+  so both auditors' self-check (``diff run run``) and the port's CLI exit
+  0. The same records keyed by the feed's index alone, as lddl_tpu's feed
+  keys them, are conflicts (exit 1): the fault this keying repairs."""
+  loop = _tiny_loop(corpus)
+  n = loop.loader.batches_per_epoch
+  led = tmp_path / 'led'
+  _run_with_ledger(led, lambda: loop.run(2 * n, log_every=0))
+  recs = _records(led)
+  device = [r for r in recs if r['boundary'] == 'device']
+  collate = {(r['epoch'], r['index']): r['digest'] for r in recs
+             if r['boundary'] == 'collate'}
+  assert [(r['epoch'], r['index']) for r in device] == [
+      (e, i) for e in (0, 1) for i in range(n)]
+  assert {(r['epoch'], r['index']): r['digest'] for r in device} == collate
+  assert taudit.main(['diff', str(led), str(led)]) == 0
+  assert jaudit.main(['diff', str(led), str(led)]) == 0
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run(
+      [sys.executable, '-m', 'lddl_tpu_torch.telemetry.audit', 'diff',
+       str(led), str(led)], cwd=ROOT, env=env, capture_output=True,
+      text=True, timeout=120)
+  assert out.returncode == 0 and 'ledgers consistent' in out.stdout
+  old = tmp_path / 'feed_index'
+  old.mkdir()
+  with open(tledger.ledger_file_name(str(led), 0)) as f:
+    lines = [json.loads(x) for x in f.read().splitlines()]
+  with open(tledger.ledger_file_name(str(old), 0), 'w') as f:
+    for r in lines:
+      if r.get('boundary') == 'device':
+        # Each epoch's feed starts at index 0, so the feed's index is the
+        # coordinate's: lddl_tpu's key is the line without its epoch.
+        r = {k: v for k, v in r.items() if k != 'epoch'}
+      f.write(json.dumps(r) + '\n')
+  assert taudit.main(['diff', str(old), str(old)]) == 1
+
+
+def test_a_mid_epoch_resume_verifies_against_its_parent(corpus, tmp_path):
+  """A run of two epochs with checkpoints, and a child restored from its
+  mid-epoch-0 checkpoint, re-seeked byte-exactly and run to the same end
+  across the epoch boundary: ``audit verify child parent`` exits 0 over
+  the collate, device and step records, every device record of the child
+  at a coordinate the parent recorded with the same digest."""
+  parent = _tiny_loop(corpus)
+  n = parent.loader.batches_per_epoch
+  # Checkpoints at every, 2 * every and the end: all three kept.
+  every = 2 * n // 3 + 1
+  assert every < n
+  _run_with_ledger(tmp_path / 'parent', lambda: parent.run(
+      2 * n, ckpt_dir=str(tmp_path / 'ckpt'), ckpt_every=every,
+      log_every=0))
+  child = _tiny_loop(corpus)
+  child.restore(str(tmp_path / 'ckpt'), step=every)
+  child.loader.seek(0, every, exact=True)
+  _run_with_ledger(tmp_path / 'child', lambda: child.run(
+      2 * n, ckpt_dir=str(tmp_path / 'ckpt_child'), ckpt_every=every,
+      log_every=0))
+  assert taudit.main(['verify', str(tmp_path / 'child'),
+                      str(tmp_path / 'parent')]) == 0
+  result = taudit.audit_verify(taudit.load_run(str(tmp_path / 'child')),
+                               taudit.load_run(str(tmp_path / 'parent')))
+  cover = result['coverage'][0]
+  assert cover['device'] == {'common': 2 * n - every, 'run_only': 0,
+                             'reference_only': every}
+  assert cover['step']['common'] == 2  # 2 * every and the end
+  assert child.state_digest() == parent.state_digest()
+
+
+def test_a_loader_swapped_into_a_running_loop_keys_by_its_own_position(
+    corpus, tmp_path):
+  """A fresh loader attached to a loop that has run an epoch (as a caller
+  that times one loop over several loaders does): its device records
+  carry the loader's own coordinates, (0, i), equal to its collate
+  records, not the loop's step count."""
+  loop = _tiny_loop(corpus)
+  n = loop.loader.batches_per_epoch
+  loop.run(n, log_every=0)
+  loop.loader = _tiny_loop(corpus).loader
+  _run_with_ledger(tmp_path / 'led', lambda: loop.run(2 * n, log_every=0))
+  recs = _records(tmp_path / 'led')
+  keys = {b: [(r['epoch'], r['index']) for r in recs if r['boundary'] == b]
+          for b in ('collate', 'device')}
+  assert keys['device'] == keys['collate'] == [(0, i) for i in range(n)]

@@ -2,7 +2,8 @@
 
 pyarrow exists on this machine, not on the card's, so it is the oracle:
 files pyarrow writes with the schemas of lddl_tpu's shards (pairs with
-dynamic and static masking, mask-delta pairs, packed rows) under each
+dynamic and static masking, mask-delta pairs, packed rows, BART's raw
+text chunks) under each
 codec, with and without dictionary pages, page versions 1 and 2, small
 pages and several row groups, read back value by value by the port's
 reader; and the C++ codec library against ``pyarrow.Codec``.
@@ -50,6 +51,12 @@ def _table(kind, n, seed=0):
   ``pipeline/parquet_io.py:218``), tagged as the writers tag them."""
   r = random.Random(seed)
   cols = {}
+  if kind == 'bart':
+    # preprocess/bart.py: one column of raw text chunks, untagged; here
+    # each value is longer than a data page, some many times over.
+    return pa.table({'sentences': pa.array(
+        [_tokens(r, 1, 600).capitalize() + '.' for _ in range(n)],
+        pa.string())})
   if kind == 'packed':
     cols['input_ids'] = pa.array([_npy(r, 10, 400) for _ in range(n)],
                                  pa.binary())
@@ -88,7 +95,8 @@ def _read_rows(path):
     return rows, pf.metadata
 
 
-@pytest.mark.parametrize('kind', ['dynamic', 'static', 'delta', 'packed'])
+@pytest.mark.parametrize('kind', ['dynamic', 'static', 'delta', 'packed',
+                                  'bart'])
 @pytest.mark.parametrize('version', ['1.0', '2.0'])
 @pytest.mark.parametrize('dictionary', [True, False],
                          ids=['dictionary', 'plain'])
@@ -112,7 +120,7 @@ def test_reader_matches_pyarrow(tmp_path, codec, dictionary, version, kind):
   assert tformat.shard_format_of(path) == jformat.shard_format_of(path)
 
 
-@pytest.mark.parametrize('kind', ['dynamic', 'packed'])
+@pytest.mark.parametrize('kind', ['dynamic', 'packed', 'bart'])
 def test_reader_reads_a_zero_row_file(tmp_path, kind):
   """The balancer writes zero-row shards (``balance.py:121-126``)."""
   path = str(tmp_path / 'empty.parquet')
