@@ -249,12 +249,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and device records (epoch, index) = digests.json's, the auditor's
      self-check exit 0, ``replay.cli batch --factory`` on one coordinate
      exit 0; (g) each epoch through prefetch_to_device onto the card, every
-     batch read back equal to its host batch.
+     batch read back equal to its host batch;
+  14. parameter placement over the mesh's fsdp and tensor axes, BERT-base
+     (flash, bf16, dropout off, the masked-only head) from one --seed
+     init, two ranks on the one card over gloo (``--rank-task 14``; eager
+     steps, deterministic algorithms on), PLACE_STEPS steps on batches of
+     pairs/ at s=PLACE_SEQ, PLACE_ROWS rows a data x fsdp rank, each
+     rank taking its rows by make_global_batch: (a) tensor=2, 6 heads a
+     rank: 12 launches a step of each of K1-K3 and none of K4 on each
+     rank (counts at 0 just before, read just after), the ranks' metrics
+     bit-equal every step, loss and grad_norm within PLACE_LOSS_RTOL /
+     PLACE_GRAD_NORM_RTOL of world 1's step on the same batches from the
+     same init (run by rank 0 after), then a checkpoint and one step
+     more; (b) fsdp=2 the same, and a rank keeps half of world 1's
+     parameter and optimizer bytes between steps; in both, a snapshot of
+     the whole state (what a save gathers) allocates less on the card
+     than the rank's flat buffer; (c) a world-1 NCCL process
+     (``--rank-task 14c``) resumes (a)'s checkpoint, its state equal to
+     the ranks' gathered state bit for bit, and takes (a)'s next step
+     through the step cache (a capture) within the same limits of (a)'s;
+     ms/step per rank and world 1's, the peak allocated per rank and the
+     phase's seconds. ``--place-faults`` runs (a) and (b) alone, sound
+     and under the planted faults of PLACE_FAULTS, and prints their gaps
+     to world 1: the readings the two limits sit between.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12; phase 13 runs no kernel), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``. Without a CUDA card the script
-exits non-zero before printing any result.
+phases 9-12 and 14; phase 13 runs no kernel), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
+script exits non-zero before printing any result.
 """
 
 import argparse
@@ -2387,15 +2409,15 @@ def run_ranks(label, task, world, out_dir, extra=(), env=None,
   return results, seconds
 
 
-def check_no_rank_processes():
-  """9c: every rank process phase 9 started has exited, and nothing of
-  its session is left."""
+def check_no_rank_processes(label='9c'):
+  """9c (and phase 14): every rank process the script started has
+  exited, and nothing of its session is left."""
   left = [p.pid for p in RANK_PROCS if p.poll() is None or
           group_alive(p.pid)]
   if left:
-    raise AssertionError(f'phase 9: rank processes left: {left}')
-  log(f'  9c: all {len(RANK_PROCS)} rank processes (and their sessions) '
-      'have exited')
+    raise AssertionError(f'{label}: rank processes left: {left}')
+  log(f'  {label}: all {len(RANK_PROCS)} rank processes (and their '
+      'sessions) have exited')
 
 
 # ---- the rank processes' side ----
@@ -4757,6 +4779,402 @@ def bart_on_card(digests, card):
   return out
 
 
+# ---- phase 14: parameter placement over the fsdp and tensor axes ----
+
+# Rows a data x fsdp rank takes a step, the bin the steps run in, the
+# steps each layout runs (and then one more, 14a's continuation), and the
+# layouts: two ranks on the one card over gloo (eager steps).
+PLACE_ROWS = 16
+PLACE_SEQ = 128
+PLACE_STEPS = 4
+# Phase 14's limits against world 1 (and 14c's against 14a's
+# continuation), relative: each about the geometric mean of the largest
+# gap of a sound run and the smallest that a broken split gave, both read
+# with --place-faults (NVIDIA H100 80GB HBM3, 700.00 W): sound 3.6e-4 /
+# 3.0e-3 (14a), one row-parallel layer without its sum 6.4e-3 / 5.8e-2.
+PLACE_LOSS_RTOL, PLACE_GRAD_NORM_RTOL = 1.5e-3, 1.3e-2
+# Faults --place-faults plants in the rank processes, and the layouts
+# each is read under: every row-parallel layer without its sum over
+# tensor (and at fsdp=2 the gradients not summed over fsdp); layer 0's
+# attention output alone without its sum; every row-parallel bias added
+# on each rank before the sum (the ranks stay bit-equal).
+PLACE_FAULTS = {'no-row-sum': ('14a', '14b'), 'one-row-sum': ('14a',),
+                'row-bias-twice': ('14a',)}
+PLACE_LAYOUTS = (('14a', {'tensor': 2}), ('14b', {'fsdp': 2}))
+# 14c's step cache: a capture, its all-reduce over NCCL.
+PLACE_RESUME = ('graph', 1, 'nccl')
+
+
+def placement_batches(digests, rows, n):
+  """``n`` global batches of ``rows`` rows in the s=PLACE_SEQ bin of
+  pairs/, from the world-1 serial loader at digests.json's settings,
+  epoch after epoch (the bin fills about one such batch an epoch)."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  settings = digests['pairs']['settings']
+  loader = get_bert_pretrain_data_loader(
+      shard_path('pairs'), dp_rank=0, dp_world_size=1,
+      batch_size_per_rank=rows, tokenizer=load_bert_tokenizer(VOCAB_FILE),
+      masking=settings['masking'], max_seq_length=settings['max_seq_length'],
+      bin_size=settings['bin_size'], base_seed=settings['base_seed'],
+      shuffle_buffer_size=settings['shuffle_buffer_size'])
+  out = []
+  for _ in range(8 * n):
+    out += [b for b in loader if b['input_ids'].shape[1] == PLACE_SEQ]
+    if len(out) >= n:
+      return out[:n]
+  raise AssertionError(f'phase 14: pairs/ gave {len(out)} batches of '
+                       f'{rows} at s={PLACE_SEQ}, want {n}')
+
+
+def placement_build(args):
+  """BERT-base, flash, bf16, dropout off (the layouts compare with world
+  1), the masked-only head, from --seed."""
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  cfg = BertConfig(vocab_size=((VOCAB_REAL + 63) // 64) * 64,
+                   attention_impl='flash', dropout_rate=0.0,
+                   **MODEL_SIZES[MODEL])
+  return dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+              warmup_steps=0, total_steps=100, seed=args.seed,
+              max_predictions=args.max_predictions)
+
+
+def state_bytes(loop):
+  """(parameter bytes, optimizer bytes) the rank keeps between steps:
+  the model's parameters, or with fsdp the master shard and whatever the
+  working buffer still holds, and AdamW's moments."""
+  exchange = loop.step_fn.exchange
+  opt = sum(t.numel() * t.element_size() for t in loop.opt.mu + loop.opt.nu)
+  if hasattr(exchange, 'shard'):
+    return (exchange.shard.numel() * exchange.shard.element_size() +
+            exchange.full.untyped_storage().nbytes()), opt
+  return sum(p.numel() * p.element_size()
+             for p in loop.model.parameters()), opt
+
+
+def snapshot_extra(loop):
+  """The state's digest (a snapshot of the whole state, what a save
+  gathers) and the device bytes the snapshot allocated at its peak
+  beyond what was allocated before it."""
+  torch.cuda.synchronize()
+  before = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  digest = loop.state_digest()
+  torch.cuda.synchronize()
+  return digest, torch.cuda.max_memory_allocated() - before
+
+
+def placement_steps(loop, batches, place):
+  """Steps of ``loop`` on ``place(batch)`` each: metrics and ms."""
+  out = []
+  for b in batches:
+    mine = place(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = loop.step_fn(mine, loop.dropout_seed)
+    torch.cuda.synchronize()
+    out.append({'metrics': {k: float(v) for k, v in m.items()},
+                'ms': 1e3 * (time.perf_counter() - t0)})
+  return out
+
+
+def rank_14(args, digests):
+  """One of two ranks on the one card, gloo for CUDA tensors: each layout
+  of PLACE_LAYOUTS trains PLACE_STEPS steps from one init on its rows of
+  the same global batches (make_global_batch), deterministic algorithms
+  on, the kernels' counts at 0 just before and read just after; 14a then
+  saves (rank 0 writes the whole state) and steps once more. Rank 0 then
+  runs world 1 on the whole batches from the same init."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel import batch_size, make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  torch.cuda.set_device(0)  # both ranks on the one card
+  torch.use_deterministic_algorithms(True)
+  comm = get_backend('torch')
+  batches = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)
+  build = placement_build(args)
+  out = {}
+  for label, axes in PLACE_LAYOUTS:
+    mesh = make_mesh(device_type=torch.device(DEVICE).type, **axes)
+    rows = PLACE_ROWS * batch_size(mesh)
+    glob = [{k: v[:rows] for k, v in b.items()} for b in batches]
+    loop = TrainLoop.build(mesh=mesh, comm=comm, **build)
+    loop.model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    steps = placement_steps(loop, glob[:PLACE_STEPS],
+                            lambda b: make_global_batch(b, mesh,
+                                                        device=DEVICE))
+    r = {'steps': steps, 'launches': tfa.device_launches(),
+         'host_launches': dict(tfa.launches),
+         'peak_bytes': torch.cuda.max_memory_allocated(),
+         'bytes': state_bytes(loop), 'dp': (loop.dp_rank, loop.dp_world),
+         'exchange': type(loop.step_fn.exchange).__name__,
+         'backend': loop.step_fn.exchange.backend,
+         'heads': loop.model.encoder.layers[0].attention.heads,
+         'rows': rows}
+    if label == '14a':
+      loop.step = PLACE_STEPS
+      loop.save(args.ckpt)
+    r['digest'], r['snapshot_extra_bytes'] = snapshot_extra(loop)
+    r['flat_bytes'] = 4 * loop.step_fn.exchange.flat.numel()  # float32
+    if label == '14a':
+      r['next'] = placement_steps(
+          loop, glob[PLACE_STEPS:],
+          lambda b: make_global_batch(b, mesh, device=DEVICE))[0]
+    out[label] = r
+    del loop
+    torch.cuda.empty_cache()
+    if comm.rank == 0:
+      ref = TrainLoop.build(**build)
+      ref.model.train()
+      torch.cuda.reset_peak_memory_stats()
+      out[label]['world1'] = {
+          'steps': placement_steps(ref, glob[:PLACE_STEPS], to_device),
+          'peak_bytes': torch.cuda.max_memory_allocated(),
+          'bytes': state_bytes(ref)}
+      del ref
+      torch.cuda.empty_cache()
+    comm.barrier()
+  rank_result(args, out)
+
+
+def rank_14c(args, digests):
+  """World 1 over NCCL (under torch.distributed.run) resumes 14a's
+  checkpoint with the step cache on and takes the step 14a took after
+  saving, deterministic algorithms on."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  from lddl_tpu_torch.training.pretrain import CompiledStepCache
+  torch.use_deterministic_algorithms(True)
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type=torch.device(DEVICE).type)
+  batch = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)[-1]
+  loop = TrainLoop.build(mesh=mesh, comm=comm, **placement_build(args))
+  loop.restore(args.ckpt)
+  digest = loop.state_digest()
+  loop.model.train()
+  cache = CompiledStepCache(loop.step_fn)
+  tfa.reset_launches()
+  m = cache(to_device({k: v[:PLACE_ROWS] for k, v in batch.items()}),
+            loop.dropout_seed)
+  rank_result(args, {
+      'metrics': {k: float(v) for k, v in m.items()}, 'digest': digest,
+      'meta': (loop.step, loop.samples_seen), 'mode': cache.mode,
+      'misses': cache.misses, 'backend': loop.step_fn.exchange.backend,
+      'launches': tfa.device_launches()})
+
+
+RANK_TASKS.update({'14': rank_14, '14c': rank_14c})
+
+
+def plant_fault(name):
+  """Break this rank process's placement as PLACE_FAULTS names it (by
+  patching the model's classes) and keep only the layouts it is read
+  under."""
+  global PLACE_LAYOUTS
+  import torch.nn.functional as F
+
+  from lddl_tpu_torch.models import bert
+  from lddl_tpu_torch.parallel import train
+  init0, forward0 = bert.BertForPretraining.__init__, bert.Dense.forward
+
+  def init(self, cfg, mesh=None):
+    init0(self, cfg, mesh)
+    if self.tp is None:
+      return
+    if name == 'one-row-sum':
+      self.encoder.layers[0].attention.out.fault = name
+      return
+    for layer in self.encoder.layers:
+      layer.attention.out.fault = layer.output.fault = name
+
+  def forward(self, x):
+    fault = getattr(self, 'fault', None)
+    if fault is None:
+      return forward0(self, x)
+    x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias
+    if fault == 'row-bias-twice':
+      return bert.reduce_from_tensor(F.linear(x, w, b.to(self.dtype)),
+                                     self.tp)
+    return F.linear(x, w) + b.to(self.dtype)
+
+  def grads(self, grads):
+    torch._foreach_copy_(self.views, grads)
+    self.grad_shard.copy_(self.flat[self.lo:self.hi])
+    return [self.grad_shard]
+
+  bert.BertForPretraining.__init__ = init
+  bert.Dense.forward = forward
+  if name == 'no-row-sum':
+    train.ShardedDataParallel.grads = grads
+  PLACE_LAYOUTS = tuple(layout for layout in PLACE_LAYOUTS
+                        if layout[0] in PLACE_FAULTS[name])
+
+
+def place_faults(args, card):
+  """--place-faults: phase 14's two-rank world once under each fault of
+  PLACE_FAULTS; per fault and layout, rank 0's relative gap to world 1's
+  loss and grad_norm at each step and whether the ranks stayed
+  bit-equal, beside the same for a sound run. Checks nothing: the
+  readings PLACE_LOSS_RTOL and PLACE_GRAD_NORM_RTOL are set between."""
+  out = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_faults_') as out_dir:
+    for name in (None, *PLACE_FAULTS):
+      extra = ['--ckpt', os.path.join(out_dir, f'ckpt_{name}'), '--seed',
+               str(args.seed)] + ([] if name is None else ['--fault', name])
+      res, seconds = run_ranks(f'--place-faults {name}', '14', 2, out_dir,
+                               extra=extra,
+                               env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+      for label, _ in PLACE_LAYOUTS:
+        if name is not None and label not in PLACE_FAULTS[name]:
+          continue
+        per = [r[label] for r in res]
+        row = {'ranks_equal': all(
+            a['metrics'] == b['metrics']
+            for a, b in zip(per[0]['steps'], per[1]['steps'])),
+               'seconds': seconds}
+        for metric in ('loss', 'grad_norm'):
+          row[metric] = [
+              abs(s['metrics'][metric] - w['metrics'][metric]) /
+              abs(w['metrics'][metric])
+              for s, w in zip(per[0]['steps'], per[0]['world1']['steps'])]
+        out[f'{name or "sound"} {label}'] = row
+        log(f'  {name or "sound"} {label}: ranks bit-equal '
+            f'{row["ranks_equal"]}; relative gap to world 1 per step, loss '
+            f'{[f"{x:.3g}" for x in row["loss"]]}, grad_norm '
+            f'{[f"{x:.3g}" for x in row["grad_norm"]]} [{card}]')
+  check_no_rank_processes('--place-faults')
+  print(json.dumps({'place_faults': out, 'limits': {
+      'loss': PLACE_LOSS_RTOL, 'grad_norm': PLACE_GRAD_NORM_RTOL},
+                    'card': card}))
+
+
+def check_placement_layout(label, res, world1):
+  """A layout's checks: the ranks' metrics bit-equal, 12 launches a step
+  of each of K1-K3 on each rank (device = wrappers) and none of K4, loss
+  and grad_norm within the DP limits of world 1's step by step."""
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  layers = MODEL_SIZES[MODEL]['num_layers']
+  want = {k: (layers * PLACE_STEPS if k in ('fwd', 'dq', 'dkv') else 0)
+          for k in ('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg')}
+  for rank, r in enumerate(res):
+    if r['launches'] != want or r['host_launches'] != r['launches']:
+      raise AssertionError(f'{label} rank {rank}: launches {r["launches"]} '
+                           f'on the device, {r["host_launches"]} by the '
+                           f'wrappers; want {want}')
+  for i in range(PLACE_STEPS):
+    got = [r['steps'][i]['metrics'] for r in res]
+    if any(g != got[0] for g in got):
+      raise AssertionError(f'{label} step {i}: the ranks differ: {got}')
+    for name, rtol in (('loss', PLACE_LOSS_RTOL),
+                       ('grad_norm', PLACE_GRAD_NORM_RTOL)):
+      w = world1[i]['metrics'][name]
+      if not abs(got[0][name] - w) <= rtol * abs(w):
+        raise AssertionError(f'{label} step {i}: {name} {got[0][name]} vs '
+                             f'world 1\'s {w} (rtol {rtol})')
+
+
+def placement(args, digests, card):
+  """Phase 14: 14a, 14b, 14c."""
+  t0 = time.perf_counter()
+  out = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_place_') as out_dir:
+    ckpt = os.path.join(out_dir, 'ckpt_14a')
+    res, seconds = run_ranks(
+        '14', '14', 2, out_dir, extra=['--ckpt', ckpt, '--seed',
+                                       str(args.seed)],
+        env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+    for label, axes in PLACE_LAYOUTS:
+      per = [r[label] for r in res]
+      world1 = per[0]['world1']
+      check_placement_layout(label, per, world1['steps'])
+      ms = [float(np.median([s['ms'] for s in r['steps'][1:]]))
+            for r in per]
+      w1_ms = float(np.median([s['ms'] for s in world1['steps'][1:]]))
+      params, opt = per[0]['bytes']
+      w_params, w_opt = world1['bytes']
+      ratio = (params + opt) / (w_params + w_opt)
+      if label == '14b' and not abs(ratio - 0.5) < 1e-4:
+        raise AssertionError(f'14b: a rank keeps {params} parameter and '
+                             f'{opt} optimizer bytes, world 1 {w_params} and '
+                             f'{w_opt}: want half')
+      extra = [r['snapshot_extra_bytes'] for r in per]
+      flat = per[0]['flat_bytes']
+      if not max(extra) < flat:
+        raise AssertionError(f'{label}: a snapshot of the state allocated '
+                             f'{extra} B on the device beyond what the rank '
+                             f'held, want less than its flat buffer, {flat} B')
+      out[label] = {
+          'axes': axes, 'ms_per_step_per_rank': ms, 'world1_ms': w1_ms,
+          'peak_bytes_per_rank': [r['peak_bytes'] for r in per],
+          'world1_peak_bytes': world1['peak_bytes'],
+          'param_bytes': params, 'opt_bytes': opt,
+          'world1_param_bytes': w_params, 'world1_opt_bytes': w_opt,
+          'launches_per_rank': [r['launches'] for r in per],
+          'snapshot_extra_bytes_per_rank': extra, 'flat_bytes': flat,
+          'loss': [s['metrics']['loss'] for s in per[0]['steps']],
+          'world1_loss': [s['metrics']['loss'] for s in world1['steps']],
+          'grad_norm': [s['metrics']['grad_norm'] for s in per[0]['steps']],
+          'world1_grad_norm': [s['metrics']['grad_norm']
+                               for s in world1['steps']],
+          'exchange': per[0]['exchange'], 'backend': per[0]['backend'],
+          'local_heads': per[0]['heads'], 'global_rows': per[0]['rows']}
+      log(f'  {label}: {axes} over {per[0]["backend"]} '
+          f'({per[0]["exchange"]}, {per[0]["heads"]} heads a rank, '
+          f'{per[0]["rows"]} rows a step): losses {out[label]["loss"]} vs '
+          f'world 1 {out[label]["world1_loss"]}, grad_norm '
+          f'{out[label]["grad_norm"]} vs {out[label]["world1_grad_norm"]}; '
+          'the ranks bit-equal every step; 12 launches a step of each of '
+          'K1-K3 on each rank')
+      log(f'  {label}: ms/step per rank (eager, median after the first) '
+          f'{[round(x, 2) for x in ms]} vs world 1 {w1_ms:.2f}; peak '
+          f'allocated per rank {[r["peak_bytes"] for r in per]} B vs world '
+          f'1 {world1["peak_bytes"]} B; kept between steps: {params} B of '
+          f'parameters + {opt} B of optimizer state a rank vs world 1\'s '
+          f'{w_params} + {w_opt} ({ratio:.4f}); a snapshot of the state '
+          f'(what a save gathers) allocated {extra} B at its peak beyond '
+          f'that, under the flat buffer\'s {flat} B [{card}]')
+    want = (res[0]['14a']['digest'], res[0]['14a']['next'])
+    (resumed,), resume_seconds = run_ranks(
+        '14c', '14c', 1, out_dir, extra=['--ckpt', ckpt, '--seed',
+                                         str(args.seed)], torchrun=True)
+  if resumed['digest'] != want[0] or resumed['meta'] != [PLACE_STEPS, 0]:
+    raise AssertionError(f'14c: the restored state {resumed["digest"]} '
+                         f'{resumed["meta"]} vs 14a\'s {want[0]}')
+  if (resumed['mode'], resumed['misses'], resumed['backend']) != (
+      PLACE_RESUME):
+    raise AssertionError(f'14c: mode {resumed["mode"]}, misses '
+                         f'{resumed["misses"]}, backend {resumed["backend"]}')
+  for name, rtol in (('loss', PLACE_LOSS_RTOL),
+                     ('grad_norm', PLACE_GRAD_NORM_RTOL)):
+    got, w = resumed['metrics'][name], want[1]['metrics'][name]
+    if not abs(got - w) <= rtol * abs(w):
+      raise AssertionError(f'14c: {name} {got} at world 1 vs 14a\'s '
+                           f'continuation {w} (rtol {rtol})')
+  out['14c'] = {'metrics': resumed['metrics'], 'continuation': want[1],
+                'launches': resumed['launches'], 'seconds': resume_seconds}
+  log(f'  14c: 14a\'s checkpoint resumed at world 1 over NCCL: the state '
+      f'equals the tensor=2 ranks\' gathered state bit for bit; its next '
+      f'step through the step cache (a capture, mode graph) loss '
+      f'{resumed["metrics"]["loss"]} grad_norm '
+      f'{resumed["metrics"]["grad_norm"]} vs 14a\'s continuation '
+      f'{want[1]["metrics"]["loss"]} / {want[1]["metrics"]["grad_norm"]} '
+      f'({resume_seconds:.1f} s) [{card}]')
+  check_no_rank_processes('phase 14')
+  out['seconds'] = {'ranks': seconds, 'resume': resume_seconds,
+                    'phase': time.perf_counter() - t0}
+  log(f'  phase 14: {out["seconds"]["phase"]:.1f} s (the two-rank world '
+      f'{seconds:.1f} s, the resume {resume_seconds:.1f} s) [{card}]')
+  return out
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -4772,15 +5190,23 @@ def main():
   parser.add_argument('--packed-warmup', type=int, default=2,
                       help='untimed packed steps before the timed ones')
   parser.add_argument('--rank-task', choices=sorted(RANK_TASKS),
-                      help="phase 9's rank processes (the script starts "
-                      'them itself)')
+                      help="the rank processes of phases 9, 11 and 14 (the "
+                      'script starts them itself)')
   parser.add_argument('--out', help='--rank-task: where it writes')
   parser.add_argument('--ckpt', help='--rank-task: the checkpoint dir')
+  parser.add_argument('--fault', choices=sorted(PLACE_FAULTS),
+                      help='--rank-task 14: the fault to plant')
+  parser.add_argument('--place-faults', action='store_true',
+                      help="read phase 14's gaps to world 1 under planted "
+                      'faults (the limits\' calibration); runs nothing '
+                      'else')
   args = parser.parse_args()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; nothing to check', file=sys.stderr)
     return 2
   if args.rank_task:
+    if args.fault:
+      plant_fault(args.fault)
     RANK_TASKS[args.rank_task](args, load_digests())
     return 0
   from lddl_tpu_torch.ops import _build
@@ -4798,6 +5224,9 @@ def main():
   _build.library()
   log(f'  kernels loaded in {time.perf_counter() - t0:.1f}s from '
       f'{_build.library_path()}')
+  if args.place_faults:
+    place_faults(args, card)
+    return 0
   ptxas = {}
   if _build.build_info['log'] is not None:
     log(f'  nvcc took {_build.build_info["seconds"]:.1f}s; ptxas:')
@@ -4873,6 +5302,10 @@ def main():
       f'[{card}]')
   bart = bart_on_card(digests, card)
 
+  log(f'== parameter placement over the fsdp and tensor axes: two ranks on '
+      f'the card [{card}]')
+  placed = placement(args, digests, card)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -4913,6 +5346,10 @@ def main():
                                        replayed['replay_launches']]}
     entry['phase12_launches_per_window'] = {
         label: c['window_launches'][name] for label, c in scanned.items()}
+    entry['phase14_launches_per_rank'] = {
+        label: [x[name] for x in placed[label]['launches_per_rank']]
+        for label, _ in PLACE_LAYOUTS}
+    entry['phase14_launches_resumed'] = placed['14c']['launches'][name]
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],
@@ -4933,7 +5370,7 @@ def main():
                                    if k != 'losses'},
                   'record_and_replay': replayed,
                   'scan_window': scanned, 'bart': bart,
-                  'card': card}, default=str))
+                  'placement': placed, 'card': card}, default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))
   log(card)

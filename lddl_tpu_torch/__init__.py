@@ -55,5 +55,11 @@ scan window (``parallel.train.make_scan_train_step`` and
 ``stack_batch_window``: K steps in one CUDA graph), the bench-history
 perf gate (``python -m lddl_tpu_torch.telemetry.perf``), the trace CLI
 (``python -m lddl_tpu_torch.telemetry.trace``) and the sentinel's
-``ledger_divergence``.
+``ledger_divergence``. Parameter placement over the mesh's ``fsdp`` and
+``tensor`` axes: ``models.bert`` (``_RULES``, tensor-parallel Dense and
+Embed forms), ``models.convert.shard_state_dict``, ``parallel.mesh``
+(the batch layout, the axes' groups, ``match_partition_rules``,
+``reshard_state``), ``parallel.train`` (``ShardedDataParallel``, the
+vocab-parallel cross entropy), ``ops.flash_attention.
+make_flash_attention`` and ``loader.device.make_global_batch``.
 """

@@ -4,7 +4,8 @@ masking, the packed long-context, CodeBERT and BART text-infilling
 collates, worker-process collate over a shared-memory batch ring, and the
 host-to-device feed.
 
-The device feed (:func:`prefetch_to_device`, :class:`SeqlenAwarePrefetcher`)
+The device feed (:func:`prefetch_to_device`, :func:`make_global_batch`,
+:class:`SeqlenAwarePrefetcher`)
 imports torch, so it loads lazily on first access, as the JAX package
 keeps its device exports lazy: the loader's worker processes import this
 package and never pay for torch. The data service (:class:`DataServer`,
@@ -27,9 +28,11 @@ __all__ = ['IGNORE_INDEX', 'BartCollate', 'BinnedIterator', 'CodebertCollate',
            'SeqlenAwarePrefetcher', 'ShuffleBuffer', 'dynamic_mask_tokens',
            'get_bart_pretrain_data_loader', 'get_bert_pretrain_data_loader',
            'get_codebert_pretrain_data_loader',
-           'get_packed_pretrain_data_loader', 'prefetch_to_device']
+           'get_packed_pretrain_data_loader', 'make_global_batch',
+           'prefetch_to_device']
 
-_DEVICE_EXPORTS = ('prefetch_to_device', 'SeqlenAwarePrefetcher')
+_DEVICE_EXPORTS = ('make_global_batch', 'prefetch_to_device',
+                   'SeqlenAwarePrefetcher')
 _SERVICE_EXPORTS = ('DataServer', 'NetworkBatchSource',
                     'discover_data_servers')
 

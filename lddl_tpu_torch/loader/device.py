@@ -87,13 +87,37 @@ def coordinate_from(loader):
   return lambda ordinal: of_batch(ordinal0 + ordinal)
 
 
-def prefetch_to_device(iterator, device, size=2, coordinate=None):
+def make_global_batch(batch, mesh, device=None):
+  """This rank's part of a global host batch, on ``device`` (default the
+  CUDA card): the port's :func:`lddl_tpu.loader.device.make_global_batch`.
+
+  The JAX function assembles one array over the mesh from the process's
+  data; here each rank is a process and holds its own tensors, so every
+  rank passes the same global batch (as the JAX package's one process
+  does) and keeps its rows (:func:`~lddl_tpu_torch.parallel.mesh.
+  local_batch`): ``P(('data','fsdp'), 'seq')`` restricted to the mesh,
+  replicated over ``tensor``.
+  """
+  from ..parallel.mesh import local_batch
+  device = torch.device('cuda' if device is None else device)
+  return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+          for k, v in local_batch(batch, mesh).items()}
+
+
+def prefetch_to_device(iterator, device, size=2, coordinate=None,
+                       mesh=None):
   """Yield batches of ``iterator`` (numpy dicts, or lists of micro-batch
   dicts) as tensor dicts (or lists of them) on ``device``, keeping up to
   ``size`` in flight.
 
   ``coordinate`` maps a batch's ordinal in this feed to its ledger
   coordinate ``(epoch, index)``, the key of its ``device`` record.
+
+  ``mesh``: the iterator yields global batches, the same on every rank,
+  and each rank places its rows of them (:func:`make_global_batch`), as
+  the JAX feed lays a batch over its mesh. A loader built with
+  ``dp_rank=batch_rank(mesh)`` yields the rank's rows already and is fed
+  without one.
 
   A producer error is raised in the consumer at the batch where it
   happened. Closing the generator (or dropping it) stops the producer and
@@ -125,6 +149,9 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None):
     # as the JAX feed places lists.
     micro = isinstance(batch, (list, tuple))
     dicts = list(batch) if micro else [batch]
+    if mesh is not None:
+      from ..parallel.mesh import local_batch
+      dicts = [local_batch(d, mesh) for d in dicts]
     if side is None:
       placed, ready = [_host_copy(d) for d in dicts], None
     else:

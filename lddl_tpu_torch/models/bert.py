@@ -70,12 +70,92 @@ class BertConfig:
     return self.hidden_size // self.num_heads
 
 
+class TensorParallel:
+  """A rank's place in its ``tensor`` group: the group, its size and the
+  rank's index in it. The model holds one when the mesh's ``tensor`` axis
+  is above 1, and None otherwise (every module then runs its world-1
+  form, bit for bit)."""
+
+  def __init__(self, mesh):
+    from ..parallel.mesh import axis_rank, axis_size, tensor_group
+    self.group = tensor_group(mesh)
+    self.size = axis_size(mesh, 'tensor')
+    self.rank = axis_rank(mesh, 'tensor')
+
+  def split(self, n, what):
+    if n % self.size:
+      raise ValueError(f'{what} {n} does not divide by tensor={self.size}')
+    return n // self.size
+
+
+def _sum_over(x, group):
+  """``x`` summed over ``group``'s ranks, reduced in float32 (a bf16
+  activation is widened for the sum and rounded once after)."""
+  import torch.distributed as dist
+  y = x.float().clone()
+  dist.all_reduce(y, group=group)
+  return y.to(x.dtype)
+
+
+class _CopyToTensor(torch.autograd.Function):
+  """Megatron's ``f``: identity forward; the backward sums the
+  cotangent over the tensor group. It enters a tensor-parallel region
+  whose input every rank holds whole (each rank's branch adds its part
+  of the input's gradient)."""
+
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _sum_over(g, ctx.group), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+  """Megatron's ``g``: the forward sums the ranks' partial results over
+  the tensor group; identity backward (the sum is whole on every rank,
+  and so is its cotangent)."""
+
+  @staticmethod
+  def forward(ctx, x, group):
+    return _sum_over(x, group)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g, None
+
+
+def copy_to_tensor(x, tp):
+  return x if tp is None else _CopyToTensor.apply(x, tp.group)
+
+
+def reduce_from_tensor(x, tp):
+  return x if tp is None else _ReduceFromTensor.apply(x, tp.group)
+
+
 class Dense(nn.Module):
   """flax ``nn.Dense``: float32 params, compute in ``dtype``. ``weight``
-  is ``[out, in]`` (torch layout; flax kernels are ``[in, out]``)."""
+  is ``[out, in]`` (torch layout; flax kernels are ``[in, out]``).
 
-  def __init__(self, in_features, out_features, dtype):
+  Tensor-parallel forms (``tp``, a :class:`TensorParallel`):
+  ``'column'`` keeps the rank's ``out / tensor`` outputs (weight rows and
+  bias), on an input every rank holds whole (the caller enters the region
+  with :func:`copy_to_tensor`); ``'row'`` takes the rank's ``in / tensor``
+  inputs, sums the partial products over the group and adds the whole
+  bias once, after the sum.
+  """
+
+  def __init__(self, in_features, out_features, dtype, tp=None,
+               parallel=None):
     super().__init__()
+    self.tp = tp if parallel else None
+    self.parallel = parallel
+    if self.tp is not None and parallel == 'column':
+      out_features = self.tp.split(out_features, 'out features')
+    elif self.tp is not None:
+      in_features = self.tp.split(in_features, 'in features')
     self.weight = nn.Parameter(torch.empty(out_features, in_features))
     self.bias = nn.Parameter(torch.zeros(out_features))
     self.dtype = dtype
@@ -85,15 +165,30 @@ class Dense(nn.Module):
     nn.init.zeros_(self.bias)
 
   def forward(self, x):
+    if self.tp is not None and self.parallel == 'row':
+      y = reduce_from_tensor(
+          F.linear(x.to(self.dtype), self.weight.to(self.dtype)), self.tp)
+      return y + self.bias.to(self.dtype)
     return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                     self.bias.to(self.dtype))
 
 
 class Embed(nn.Module):
-  """flax ``nn.Embed``: float32 table, lookups in ``dtype``."""
+  """flax ``nn.Embed``: float32 table, lookups in ``dtype``.
 
-  def __init__(self, num_embeddings, features, dtype, std):
+  Vocab-parallel with ``tp``: the rank holds rows ``[rank * V / tensor,
+  (rank + 1) * V / tensor)``, looks up the ids that fall there (zeros
+  elsewhere) and sums the lookups over the group, which adds one real row
+  to zeros and equals the whole table's lookup bit for bit; ``attend``
+  then gives the rank's slice of the logits."""
+
+  def __init__(self, num_embeddings, features, dtype, std, tp=None):
     super().__init__()
+    self.tp = tp
+    self.offset = 0
+    if tp is not None:
+      num_embeddings = tp.split(num_embeddings, 'vocab_size')
+      self.offset = tp.rank * num_embeddings
     self.weight = nn.Parameter(torch.empty(num_embeddings, features))
     self.dtype = dtype
     self.std = std
@@ -102,11 +197,20 @@ class Embed(nn.Module):
     nn.init.normal_(self.weight, std=self.std, generator=generator)
 
   def forward(self, ids):
-    # Gather-then-cast equals flax's cast-then-gather, element for element.
-    return F.embedding(ids, self.weight).to(self.dtype)
+    if self.tp is None:
+      # Gather-then-cast equals flax's cast-then-gather, element for
+      # element.
+      return F.embedding(ids, self.weight).to(self.dtype)
+    local = ids.long() - self.offset
+    mine = (local >= 0) & (local < self.weight.shape[0])
+    rows = F.embedding(torch.where(mine, local, 0), self.weight)
+    rows = torch.where(mine[..., None], rows, 0.0)
+    return reduce_from_tensor(rows, self.tp).to(self.dtype)
 
   def attend(self, h):
-    """Logits against the table (the tied MLM decoder)."""
+    """Logits against the table (the tied MLM decoder); with ``tp`` the
+    rank's ``V / tensor`` columns of them."""
+    h = copy_to_tensor(h, self.tp)
     return F.linear(h.to(self.dtype), self.weight.to(self.dtype))
 
 
@@ -154,27 +258,36 @@ def _dropout(x, rate, generator):
 
 
 class SelfAttention(nn.Module):
+  """With ``tp`` the q/k/v projections are column-parallel and ``out`` is
+  row-parallel, so the rank attends over its ``num_heads / tensor``
+  heads; a fused ``qkv`` rank holds its heads of q, of k and of v, in
+  that order (``param_blocks``)."""
 
-  def __init__(self, cfg):
+  def __init__(self, cfg, tp=None):
     super().__init__()
     self.cfg = cfg
+    self.tp = tp
     d = cfg.hidden_size
+    self.heads = cfg.num_heads if tp is None else tp.split(cfg.num_heads,
+                                                           'num_heads')
     if cfg.fused_qkv:
-      self.qkv = Dense(d, 3 * d, cfg.dtype)
+      self.qkv = Dense(d, 3 * d, cfg.dtype, tp, 'column')
     else:
-      self.query = Dense(d, d, cfg.dtype)
-      self.key = Dense(d, d, cfg.dtype)
-      self.value = Dense(d, d, cfg.dtype)
-    self.out = Dense(d, d, cfg.dtype)
+      self.query = Dense(d, d, cfg.dtype, tp, 'column')
+      self.key = Dense(d, d, cfg.dtype, tp, 'column')
+      self.value = Dense(d, d, cfg.dtype, tp, 'column')
+    self.out = Dense(d, d, cfg.dtype, tp, 'row')
 
   def forward(self, x, attention_mask, generator=None, segment_ids=None):
     cfg = self.cfg
-    b, s, d = x.shape
-    heads, hd = cfg.num_heads, cfg.head_dim
+    b, s, _ = x.shape
+    heads, hd = self.heads, cfg.head_dim
+    width = heads * hd
+    x_in = copy_to_tensor(x, self.tp)
     if cfg.fused_qkv:
-      q, k, v = self.qkv(x).split(d, dim=-1)
+      q, k, v = self.qkv(x_in).split(width, dim=-1)
     else:
-      q, k, v = self.query(x), self.key(x), self.value(x)
+      q, k, v = self.query(x_in), self.key(x_in), self.value(x_in)
     q, k, v = (t.reshape(b, s, heads, hd).transpose(1, 2) for t in (q, k, v))
     if cfg.attention_impl in ('flash', 'ring_flash'):
       ctx = flash_attention(q, k, v, attention_mask, segment_ids,
@@ -191,21 +304,23 @@ class SelfAttention(nn.Module):
         bias = bias + torch.where(same_doc, zero, NEG_INF)
       probs = torch.softmax(scores + bias, dim=-1)
       ctx = torch.matmul(probs.to(cfg.dtype), v)
-    ctx = ctx.transpose(1, 2).reshape(b, s, d)
+    ctx = ctx.transpose(1, 2).reshape(b, s, width)
     return _dropout(self.out(ctx), cfg.dropout_rate, generator)
 
 
 class Layer(nn.Module):
   """Post-LN transformer block (original BERT residual layout)."""
 
-  def __init__(self, cfg):
+  def __init__(self, cfg, tp=None):
     super().__init__()
     self.cfg = cfg
-    self.attention = SelfAttention(cfg)
+    self.tp = tp
+    self.attention = SelfAttention(cfg, tp)
     self.attention_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
     self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size,
-                              cfg.dtype)
-    self.output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
+                              cfg.dtype, tp, 'column')
+    self.output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype,
+                        tp, 'row')
     self.output_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
 
   def forward(self, x, attention_mask, generator=None, segment_ids=None):
@@ -213,17 +328,19 @@ class Layer(nn.Module):
     output's; None is deterministic mode."""
     x = self.attention_norm(
         x + self.attention(x, attention_mask, generator, segment_ids))
-    h = F.gelu(self.intermediate(x), approximate='tanh')
+    h = F.gelu(self.intermediate(copy_to_tensor(x, self.tp)),
+               approximate='tanh')
     h = _dropout(self.output(h), self.cfg.dropout_rate, generator)
     return self.output_norm(x + h)
 
 
 class Encoder(nn.Module):
 
-  def __init__(self, cfg):
+  def __init__(self, cfg, tp=None):
     super().__init__()
     self.cfg = cfg
-    self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_layers))
+    self.layers = nn.ModuleList(Layer(cfg, tp)
+                                for _ in range(cfg.num_layers))
 
   def forward(self, x, attention_mask, generators, twins, segment_ids=None):
     """``generators``: one per layer (None in deterministic mode);
@@ -250,50 +367,164 @@ def _site_seeds(dropout_key, n):
       1, np.uint64)[0]) for i in range(n)]
 
 
+# --- Tensor/FSDP parameter placement (Megatron pattern) ---
+
+# lddl_tpu.models.bert._RULES under this model's state_dict names. A Dense
+# weight is the flax kernel transposed ([out, in]), so its spec is the
+# kernel's reversed: ('fsdp', 'tensor') on query/kernel, the output dim
+# over tensor, is ('tensor', 'fsdp') here (a column-parallel weight);
+# ('tensor', 'fsdp') on out/kernel and output/kernel is ('fsdp', 'tensor')
+# (row-parallel). Embedding tables and biases keep their layout. A name no
+# rule matches is replicated: the LayerNorms, the position and type
+# tables, the pooler, the NSP head, mlm_transform and the row-parallel
+# biases.
+_RULES = (
+    ('word_embeddings.weight', ('tensor', 'fsdp')),
+    ('position_embeddings.weight', (None, None)),
+    ('token_type_embeddings.weight', (None, None)),
+    ('qkv.weight', ('tensor', 'fsdp')),
+    ('qkv.bias', ('tensor',)),
+    ('query.weight', ('tensor', 'fsdp')),
+    ('key.weight', ('tensor', 'fsdp')),
+    ('value.weight', ('tensor', 'fsdp')),
+    ('query.bias', ('tensor',)),
+    ('key.bias', ('tensor',)),
+    ('value.bias', ('tensor',)),
+    ('attention.out.weight', ('fsdp', 'tensor')),
+    ('intermediate.weight', ('tensor', 'fsdp')),
+    ('intermediate.bias', ('tensor',)),
+    ('output.weight', ('fsdp', 'tensor')),
+    ('mlm_bias', ('tensor',)),
+)
+
+
+def spec_for_param(name, shape):
+  """The spec of one parameter by its ``state_dict`` name, as
+  :func:`lddl_tpu.models.spec_for_param` by its flax path: the first rule
+  that ends the parameter's name (or follows a dot inside it) wins,
+  left-padded with None to the parameter's rank; replicated when none
+  does."""
+  for suffix, spec in _RULES:
+    if name.endswith(suffix) or f'.{suffix}' in name:
+      pad = (None,) * (len(shape) - len(spec))
+      return pad + tuple(spec)
+  return (None,) * len(shape)
+
+
+def param_blocks(name):
+  """How many blocks a parameter's ``tensor`` dim cuts separately: 3 for
+  the fused q/k/v projection (each rank keeps its heads of q, k and v, as
+  ``jnp.split`` of the sharded kernel computes under GSPMD), else 1."""
+  return 3 if name.endswith(('qkv.weight', 'qkv.bias')) else 1
+
+
 class BertForPretraining(nn.Module):
   """``forward`` returns (mlm_logits float32, nsp_logits [b, 2] float32).
 
   ``mesh`` is the JAX model's multi-chip argument: None, or a mesh
-  (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`) whose only axis above
-  1 is ``data``, where every rank holds the whole model and the train
-  step reduces the gradients (:class:`~lddl_tpu_torch.parallel.train.
-  DataParallel`). Parameter placement over ``fsdp``/``tensor`` and ring
-  attention over ``seq`` raise :class:`NotImplementedError` (later
-  slices).
+  (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`). With ``tensor``
+  above 1 the rank holds its shards by :data:`_RULES`
+  (:meth:`placement`): column-parallel q/k/v (or fused qkv) and
+  ``intermediate``, row-parallel ``out`` and ``output``, a vocab-parallel
+  word table whose tied decoder gives the rank's ``V / tensor`` columns of
+  the MLM logits (``mlm_bias`` is cut with them), and attention over the
+  rank's ``num_heads / tensor`` heads; everything else is replicated. The
+  ``data`` and ``fsdp`` axes are the train step's
+  (:class:`~lddl_tpu_torch.parallel.train.DataParallel`,
+  :class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel`). ``seq``
+  above 1 (ring attention) raises :class:`NotImplementedError`;
+  ``num_heads``, ``intermediate_size`` or ``vocab_size`` that ``tensor``
+  does not divide raise ``ValueError``.
   """
 
   def __init__(self, cfg, mesh=None):
     super().__init__()
-    from ..parallel.mesh import check_mesh
+    from ..parallel.mesh import axis_size, check_mesh
     check_mesh(mesh)
     if cfg.attention_impl not in ('dense', 'flash', 'ring', 'ring_flash'):
       raise ValueError(f'unknown attention_impl {cfg.attention_impl!r}')
     if cfg.ablate:
       raise NotImplementedError(f'ablate={cfg.ablate!r} is not ported')
     self.cfg = cfg
+    self.mesh = mesh
+    tp = TensorParallel(mesh) if axis_size(mesh, 'tensor') > 1 else None
+    if tp is not None:
+      for n, what in ((cfg.num_heads, 'num_heads'),
+                      (cfg.intermediate_size, 'intermediate_size'),
+                      (cfg.vocab_size, 'vocab_size')):
+        tp.split(n, what)
+    self.tp = tp
     d = cfg.hidden_size
-    self.word_embeddings = Embed(cfg.vocab_size, d, cfg.dtype, std=0.02)
+    self.word_embeddings = Embed(cfg.vocab_size, d, cfg.dtype, std=0.02,
+                                 tp=tp)
     # flax's default embedding init: variance scaling 1.0, fan_in = d.
     self.position_embeddings = Embed(cfg.max_position_embeddings, d,
                                      cfg.dtype, std=1.0 / math.sqrt(d))
     self.token_type_embeddings = Embed(cfg.type_vocab_size, d, cfg.dtype,
                                        std=1.0 / math.sqrt(d))
     self.embed_norm = LayerNorm(d, cfg.dtype)
-    self.encoder = Encoder(cfg)
+    self.encoder = Encoder(cfg, tp)
     self.pooler = Dense(d, d, cfg.dtype)
     self.nsp_classifier = Dense(d, 2, cfg.dtype)
     self.mlm_transform = Dense(d, d, cfg.dtype)
     self.mlm_norm = LayerNorm(d, cfg.dtype)
-    self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+    self.mlm_bias = nn.Parameter(torch.zeros(
+        cfg.vocab_size if tp is None else tp.split(cfg.vocab_size,
+                                                   'vocab_size')))
     self._dropout_gens = None
     self.reset_parameters()
+
+  def placement(self):
+    """``{state_dict name: spec}`` of every parameter
+    (:func:`spec_for_param`)."""
+    return {name: spec_for_param(name, p.shape)
+            for name, p in self.named_parameters()}
+
+  param_blocks = staticmethod(param_blocks)
+
+  def tensor_sharded(self):
+    """Per parameter, in ``parameters()`` order: whether the rank holds a
+    ``tensor`` shard of it (always False without tensor parallelism)."""
+    from ..parallel.mesh import _axes
+    specs = self.placement()
+    return [self.tp is not None and any('tensor' in _axes(e)
+                                        for e in specs[name])
+            for name, _ in self.named_parameters()]
+
+  def load_whole_state_dict(self, state):
+    """Copy a whole (world 1's) ``state_dict`` into this rank's shards of
+    it (:func:`~lddl_tpu_torch.parallel.mesh.reshard_state`)."""
+    from ..parallel.mesh import reshard_state
+    if self.tp is not None:
+      state = reshard_state(state, self.mesh, like=self)
+    self.load_state_dict(state)
+
+  def whole(self, name, t):
+    """The whole tensor of this rank's shard ``t`` of parameter ``name``
+    (or of a tensor shaped like it, e.g. AdamW's moment), gathered over
+    the tensor group: every rank of the group must call it. Without a
+    tensor cut, ``t`` itself."""
+    from ..parallel.mesh import _axes, stack_over, unshard
+    spec = spec_for_param(name, t.shape)
+    if self.tp is None or not any('tensor' in _axes(e) for e in spec):
+      return t
+    return unshard(stack_over(t.detach(), self.tp.group), spec,
+                   param_blocks(name))
 
   def reset_parameters(self, generator=None):
     """flax's init distributions: normal(0.02) for Dense kernels and the
     word table, fan-in variance scaling for the position/type tables,
     zeros for biases, ones/zeros for LayerNorm. Draws in module order from
     ``generator`` (a CPU generator: the draw is the same on any device if
-    the model is built on the CPU and moved after)."""
+    the model is built on the CPU and moved after). With tensor
+    parallelism the whole model is drawn on the CPU and the rank keeps
+    its shards, so every layout starts from world 1's parameters."""
+    if self.tp is not None:
+      whole = BertForPretraining(self.cfg)
+      whole.reset_parameters(generator)
+      with torch.no_grad():
+        self.load_whole_state_dict(whole.state_dict())
+      return
     for module in self.modules():
       if isinstance(module, (Dense, Embed, LayerNorm)):
         module.reset_parameters(generator)

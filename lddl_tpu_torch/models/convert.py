@@ -12,9 +12,11 @@ the device, e.g. with ``jax.device_get``; nothing here imports jax):
   - everything else (``bias``, ``mlm_bias``) keeps its name.
 
 Covers the fused (``qkv``) and unfused (``query``/``key``/``value``) trees
-alike, since it maps names generically.
+alike, since it maps names generically. :func:`shard_state_dict` then
+keeps one rank's shards of the result on a mesh.
 """
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -49,3 +51,17 @@ def flax_to_state_dict(params):
 
   walk(params, ())
   return out
+
+
+def shard_state_dict(state, mesh):
+  """This rank's tensors of a whole ``state_dict`` (e.g.
+  :func:`flax_to_state_dict` of a JAX param tree) on ``mesh``: each
+  parameter cut by the model's rules
+  (:data:`~lddl_tpu_torch.models.bert._RULES`, the fused q/k/v
+  projection per block), ready for ``load_state_dict`` of a
+  ``BertForPretraining(cfg, mesh)``."""
+  from ..parallel.mesh import reshard_state
+  from .bert import _RULES, param_blocks
+  rules = [(re.escape(suffix) + '$', spec) for suffix, spec in _RULES]
+  rules.append(('.', ()))
+  return reshard_state(state, mesh, rules=rules, blocks=param_blocks)

@@ -424,3 +424,41 @@ def flash_attention(q, k, v, attention_mask=None, q_segment_ids=None,
   """
   return flash_attention_with_lse(q, k, v, attention_mask, q_segment_ids,
                                   kv_segment_ids)[0]
+
+
+def make_flash_attention(mesh, with_segment_ids=False):
+  """:func:`flash_attention` over a mesh, as
+  :func:`lddl_tpu.ops.flash_attention.make_flash_attention`: batch over
+  (data, fsdp), heads over tensor. The JAX function wraps its kernel in
+  ``shard_map``; here a rank already holds only its shards (its rows of
+  the batch and, with tensor parallelism, its ``num_heads / tensor``
+  heads), so the returned function checks that the arrays agree with each
+  other and runs the kernels on them, one launch of each per call as
+  without a mesh. The sequence axis is not sharded: a mesh with ``seq``
+  above 1 raises ``ValueError``, as in the JAX package.
+
+  The function takes ``(q, k, v, mask)``, or with ``with_segment_ids``
+  also ``segment_ids`` ``[batch, seq]`` (self-attention: the same ids for
+  q and kv).
+  """
+  from ..parallel.mesh import axis_size
+  if axis_size(mesh, 'seq') > 1:
+    raise ValueError(
+        "flash attention does not shard the sequence axis; use "
+        "attention_impl='ring_flash' on meshes with seq > 1")
+
+  def sharded(q, k, v, mask, *segment_ids):
+    if len(segment_ids) != int(with_segment_ids):
+      raise TypeError(f'with_segment_ids={with_segment_ids}: takes '
+                      f'{4 + int(with_segment_ids)} arrays, got '
+                      f'{4 + len(segment_ids)}')
+    b, s = q.shape[0], q.shape[2]
+    for name, t in (('mask', mask), *(('segment_ids', x) for x in
+                                      segment_ids)):
+      if tuple(t.shape) != (b, s):
+        raise ValueError(f'{name} {tuple(t.shape)} does not match this '
+                         f"rank's q {tuple(q.shape)} (rows [{b}, {s}])")
+    seg = segment_ids[0] if segment_ids else None
+    return flash_attention(q, k, v, mask, seg, seg)
+
+  return sharded

@@ -1,5 +1,6 @@
-"""Mesh construction and the data layout of a global batch: the port of
-:mod:`lddl_tpu.parallel.mesh`, over ``torch.distributed``.
+"""Mesh construction, the data layout of a global batch and parameter
+placement: the port of :mod:`lddl_tpu.parallel.mesh`, over
+``torch.distributed``.
 
 Axes, in the JAX package's order (any can be size 1)::
 
@@ -8,27 +9,41 @@ Axes, in the JAX package's order (any can be size 1)::
   tensor  tensor (Megatron-style) parallelism inside attention/MLP blocks
   seq     sequence parallelism (ring attention)
 
-This slice ports ``data`` only: ``fsdp``, ``tensor`` or ``seq`` above 1
-raise :class:`NotImplementedError`. A process group makes the mesh a
-``torch.distributed.device_mesh.DeviceMesh``; a single process without
-one has the mesh ``None`` (one rank holds the whole batch), and every
-function here takes that.
+``seq`` above 1 raises :class:`NotImplementedError`: ring attention is
+not ported yet. A process group makes the mesh a
+``torch.distributed.device_mesh.DeviceMesh`` laid out as the JAX
+package's ``devices.reshape(data, fsdp, tensor, seq)``: rank
+``((d * fsdp + f) * tensor + t) * seq + s``. A single process without a
+group has the mesh ``None`` (every axis 1), and every function here takes
+that.
+
+The reference's dp_rank-feeding contract holds as in the JAX package: a
+batch is laid out ``P(('data', 'fsdp'), 'seq')``, so the ranks of one
+``tensor`` group hold the same rows (:func:`batch_rank`,
+:func:`batch_size`, :func:`local_batch`).
+
+Placement. A spec is a tuple with one entry per dim of a tensor: None, an
+axis name or a tuple of them, as a JAX ``PartitionSpec``. In this port
+only the ``tensor`` entries split a parameter (:func:`shard`); the
+``fsdp`` axis shards the step's flat parameter buffer instead
+(:class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel`), so an
+``fsdp`` entry names where the buffer's shard comes from, not a dim that
+is cut. A checkpoint holds the whole state (world 1's layout), and
+:func:`reshard_state` gives a rank its shards of it on any mesh.
 """
+
+import re
 
 MESH_AXES = ('data', 'fsdp', 'tensor', 'seq')
 
 
 def check_axes(fsdp=1, tensor=1, seq=1):
-  """Raise for a model-parallel axis above 1 (later slices)."""
+  """Raise for a ``seq`` axis above 1 (ring attention is not ported)."""
+  del fsdp, tensor
   if seq > 1:
     raise NotImplementedError(
         f'seq={seq}: ring attention over the seq axis is not ported yet '
-        '(a later slice)')
-  if fsdp > 1 or tensor > 1:
-    raise NotImplementedError(
-        f'fsdp={fsdp} tensor={tensor}: parameter placement (the fsdp and '
-        'tensor axes, _RULES) is not ported yet (the next slice); this '
-        'slice runs the data axis only')
+        '(ROADMAP Queue 1 item 5)')
 
 
 def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
@@ -40,6 +55,7 @@ def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
   (as :func:`lddl_tpu.parallel.mesh.make_mesh`). ``device_type`` defaults
   to ``cuda`` when the build has it; set the process's CUDA device first
   (``torch.cuda.set_device``), or DeviceMesh picks ``cuda:<LOCAL_RANK>``.
+  Every rank must call it (it makes the axes' process groups).
   """
   import torch
   import torch.distributed as dist
@@ -57,24 +73,32 @@ def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
   from torch.distributed.device_mesh import init_device_mesh
   if device_type is None:
     device_type = 'cuda' if torch.cuda.is_available() else 'cpu'
-  return init_device_mesh(device_type, (data, fsdp, tensor, seq),
+  mesh = init_device_mesh(device_type, (data, fsdp, tensor, seq),
                           mesh_dim_names=MESH_AXES)
+  if data > 1 and fsdp > 1:
+    # The flattened (data, fsdp) group of this rank's (tensor, seq)
+    # coordinate; new_group is collective, so every rank makes them all.
+    rank = dist.get_rank()
+    for t in range(tensor * seq):
+      ranks = [b * tensor * seq + t for b in range(data * fsdp)]
+      group = dist.new_group(ranks)
+      if rank in ranks:
+        mesh._lddl_batch_group = group
+  return mesh
 
 
 def check_mesh(mesh):
   """Raise :class:`NotImplementedError` unless ``mesh`` is None or a
-  DeviceMesh with a ``data`` axis and no other axis above 1."""
+  DeviceMesh with the four axes and ``seq`` at 1."""
   if mesh is None:
     return
   from torch.distributed.device_mesh import DeviceMesh
-  if not isinstance(mesh, DeviceMesh) or 'data' not in (
-      mesh.mesh_dim_names or ()):
+  if not isinstance(mesh, DeviceMesh) or tuple(
+      mesh.mesh_dim_names or ()) != MESH_AXES:
     raise NotImplementedError(
-        f'mesh {mesh!r}: only a torch DeviceMesh with a data axis '
-        '(make_mesh()) is ported')
-  sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-  check_axes(sizes.get('fsdp', 1), sizes.get('tensor', 1),
-             sizes.get('seq', 1))
+        f'mesh {mesh!r}: only a torch DeviceMesh with the axes '
+        f'{MESH_AXES} (make_mesh()) is ported')
+  check_axes(seq=axis_size(mesh, 'seq'))
 
 
 def mesh_summary(mesh):
@@ -84,31 +108,106 @@ def mesh_summary(mesh):
                                                 mesh.shape))
 
 
+def axis_size(mesh, axis):
+  """The size of ``axis`` (1 without a mesh)."""
+  return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis):
+  """This rank's index on ``axis`` (0 without a mesh)."""
+  return 0 if mesh is None else mesh.get_local_rank(axis)
+
+
 def data_rank(mesh):
-  """This rank's index on the ``data`` axis (0 without a mesh)."""
-  return 0 if mesh is None else mesh.get_local_rank('data')
+  return axis_rank(mesh, 'data')
 
 
 def data_size(mesh):
-  """The ``data`` axis' size (1 without a mesh)."""
-  return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index('data'))
+  return axis_size(mesh, 'data')
 
 
 def data_group(mesh):
-  """The process group the gradients reduce over, or None."""
+  """The ``data`` axis' process group, or None without a mesh."""
   return None if mesh is None else mesh.get_group('data')
 
 
+def fsdp_group(mesh):
+  return None if mesh is None else mesh.get_group('fsdp')
+
+
+def tensor_group(mesh):
+  return None if mesh is None else mesh.get_group('tensor')
+
+
+def batch_rank(mesh):
+  """This rank's flattened ``(data, fsdp)`` coordinate: which rows of a
+  global batch it holds, and the loader's ``dp_rank``."""
+  return data_rank(mesh) * axis_size(mesh, 'fsdp') + axis_rank(mesh, 'fsdp')
+
+
+def batch_size(mesh):
+  """The ``data x fsdp`` product: the loader's ``dp_world``."""
+  return data_size(mesh) * axis_size(mesh, 'fsdp')
+
+
+def batch_group(mesh):
+  """The flattened ``data x fsdp`` group (group rank = :func:`batch_rank`)
+  the gradients and the batch normalizers reduce over, or None."""
+  if mesh is None:
+    return None
+  if axis_size(mesh, 'fsdp') == 1:
+    return data_group(mesh)
+  if data_size(mesh) == 1:
+    return fsdp_group(mesh)
+  group = getattr(mesh, '_lddl_batch_group', None)
+  if group is None:
+    raise ValueError('a mesh with data and fsdp above 1 needs its batch '
+                     'group: build it with make_mesh()')
+  return group
+
+
+def batch_pspec(ndim=2, seq_dim=1):
+  """The spec of a ``[batch, seq, ...]`` array: batch over (data, fsdp),
+  sequence over seq, trailing dims replicated."""
+  spec = [None] * ndim
+  spec[0] = ('data', 'fsdp')
+  if seq_dim is not None and ndim > seq_dim:
+    spec[seq_dim] = 'seq'
+  return tuple(spec)
+
+
+def canonical_batch_spec(mesh, shape):
+  """:func:`batch_pspec` restricted to what ``shape`` allows, as
+  :func:`lddl_tpu.parallel.mesh.canonical_batch_spec` gives it on a mesh
+  with the four axes: dim 0 over ``('data', 'fsdp')``, dim 1 over
+  ``seq`` when divisible by that axis' size, trailing dims replicated. A
+  mesh of None has every axis, at size 1."""
+  spec = [None] * len(shape)
+  spec[0] = ('data', 'fsdp')
+  if len(shape) > 1 and shape[1] % axis_size(mesh, 'seq') == 0:
+    spec[1] = 'seq'
+  return tuple(spec)
+
+
+def _axes(entry):
+  """The axis names of one spec entry."""
+  if entry is None:
+    return ()
+  return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def batch_rows(mesh, global_rows):
-  """The rows of a ``global_rows`` batch this rank holds: the
-  counterpart of ``batch_pspec``/``canonical_batch_spec``'s
-  ``P(('data', 'fsdp'), 'seq')``, dim 0 split in ``data``-rank order into
-  equal contiguous blocks (``seq`` is 1, so no rank splits a row)."""
-  n = data_size(mesh)
+  """The rows of a ``global_rows`` batch this rank holds under
+  ``canonical_batch_spec``'s ``P(('data', 'fsdp'), 'seq')``: dim 0 split
+  in :func:`batch_rank` order into equal contiguous blocks, the same
+  block for every rank of a ``tensor`` group (``seq`` is 1, so no rank
+  splits a row)."""
+  n = batch_size(mesh)
   if global_rows % n:
-    raise ValueError(f'{global_rows} rows do not split over data={n}')
+    raise ValueError(f'{global_rows} rows do not split over data x fsdp = '
+                     f'{n}')
   per = global_rows // n
-  r = data_rank(mesh)
+  r = batch_rank(mesh)
   return slice(r * per, (r + 1) * per)
 
 
@@ -117,3 +216,141 @@ def local_batch(batch, mesh):
   or tensors with the batch on dim 0)."""
   rows = batch_rows(mesh, len(next(iter(batch.values()))))
   return {k: v[rows] for k, v in batch.items()}
+
+
+# ---- collectives that every backend runs ----
+
+
+def backend_for(group, device):
+  """The name of ``group``'s backend for tensors on ``device``."""
+  import torch.distributed as dist
+  config = str(dist.get_backend_config(group))
+  for part in config.split(','):
+    dev, _, name = part.rpartition(':')
+    if not dev or dev == device.type:
+      return name
+  return config
+
+
+def stack_over(t, group):
+  """Every rank's ``t`` (same shape and dtype on each), stacked in group
+  rank order: ``[world, *t.shape]``, bit for bit on every rank.
+
+  NCCL runs ``all_gather_into_tensor``. Any other backend (gloo, which
+  stages CUDA tensors through host memory) runs the one collective this
+  port has shown it takes for CUDA tensors, an int64 sum: each rank
+  writes its bytes into its own slot of a zeroed buffer, so every sum
+  adds one rank's bits to zeros and is exact."""
+  import torch
+  import torch.distributed as dist
+  world = dist.get_world_size(group)
+  if world == 1:
+    return t[None].clone()
+  t = t.contiguous()
+  if backend_for(group, t.device) == 'nccl':
+    out = torch.empty((world, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
+  raw = t.reshape(-1).view(torch.uint8)
+  words = -(-raw.numel() // 8)
+  slots = torch.zeros((world, words * 8), dtype=torch.uint8,
+                      device=t.device)
+  slots[dist.get_rank(group), :raw.numel()] = raw
+  bits = slots.view(torch.int64)
+  dist.all_reduce(bits, group=group)
+  return slots[:, :raw.numel()].contiguous().view(t.dtype).view(
+      world, *t.shape)
+
+
+# ---- parameter placement ----
+
+
+def match_partition_rules(rules, named):
+  """Map every entry of ``named`` (a ``{name: tensor}`` mapping such as a
+  ``state_dict``) to a spec by regex rules, as
+  :func:`lddl_tpu.parallel.mesh.match_partition_rules` does over tree
+  paths: ``rules`` is an ordered ``[(pattern, spec), ...]``, each name is
+  searched against the patterns in order and the first match wins. A
+  scalar (0-d) entry is replicated without consulting the rules; a
+  non-scalar entry no rule matches raises ``ValueError`` (replicating a
+  large tensor silently is the quiet OOM this exists to prevent)."""
+  specs = {}
+  for name, value in named.items():
+    if getattr(value, 'ndim', 0) == 0:
+      specs[name] = ()
+      continue
+    for pattern, spec in rules:
+      if re.search(pattern, name):
+        specs[name] = tuple(spec)
+        break
+    else:
+      raise ValueError(f'no partition rule matches {name!r}')
+  return specs
+
+
+def shard(t, spec, mesh, blocks=1):
+  """This rank's shard of the whole tensor ``t`` under ``spec``: each dim
+  whose entry names ``tensor`` is cut into ``tensor`` equal parts and the
+  rank keeps its own. ``blocks`` > 1 cuts every one of that many equal
+  blocks of the dim so (a fused q/k/v projection: each rank keeps its
+  heads of q, of k and of v)."""
+  import torch
+  size = axis_size(mesh, 'tensor')
+  if size == 1:
+    return t
+  rank = axis_rank(mesh, 'tensor')
+  for dim, entry in enumerate(spec):
+    if 'tensor' not in _axes(entry):
+      continue
+    n = t.shape[dim]
+    if n % (blocks * size):
+      raise ValueError(f'dim {dim} of {tuple(t.shape)} does not split into '
+                       f'{blocks} block(s) x tensor={size}')
+    part = n // (blocks * size)
+    pieces = [t.narrow(dim, b * n // blocks + rank * part, part)
+              for b in range(blocks)]
+    t = pieces[0] if blocks == 1 else torch.cat(pieces, dim)
+  return t
+
+
+def unshard(stacked, spec, blocks=1):
+  """The whole tensor from its ``tensor`` shards ``stacked``
+  (``[tensor, *shard shape]``, :func:`stack_over`): :func:`shard`'s
+  inverse. A spec with no ``tensor`` entry returns shard 0."""
+  import torch
+  dims = [d for d, e in enumerate(spec) if 'tensor' in _axes(e)]
+  if not dims or stacked.shape[0] == 1:
+    return stacked[0]
+  (dim,) = dims
+  shards = list(stacked.unbind(0))
+  if blocks == 1:
+    return torch.cat(shards, dim)
+  return torch.cat([torch.cat([s.chunk(blocks, dim)[b] for s in shards], dim)
+                    for b in range(blocks)], dim)
+
+
+def reshard_state(state, mesh, like=None, rules=None, blocks=None):
+  """This rank's shards of a **whole** state (``{name: tensor}``, world
+  1's layout, as a checkpoint holds it) on ``mesh``: the counterpart of
+  :func:`lddl_tpu.parallel.mesh.reshard_pytree`. Placement comes from
+  exactly one of:
+
+  - ``like``: a model built over ``mesh`` (its ``placement()`` gives
+    each name's spec and ``param_blocks`` its blocks), the restore path;
+  - ``rules``: ``[(regex, spec), ...]`` resolved by
+    :func:`match_partition_rules`, with ``blocks(name)`` (default 1).
+
+  A tensor is sliced, not copied."""
+  if (like is None) == (rules is None):
+    raise ValueError('pass exactly one of like= / rules=')
+  if like is not None:
+    specs = like.placement()
+    blocks = like.param_blocks
+    missing = sorted(set(state) - set(specs))
+    if missing:
+      raise ValueError(f'no placement for {missing}')
+  else:
+    specs = match_partition_rules(rules, state)
+  blocks = blocks or (lambda name: 1)
+  return {name: shard(t, specs[name], mesh, blocks(name))
+          for name, t in state.items()}

@@ -1,8 +1,9 @@
 """BERT-pretraining loss, AdamW and the train step, on one device or
-data-parallel over a process group.
+over a mesh of processes.
 
-Counterpart of :mod:`lddl_tpu.parallel.train` (the ``data`` axis of its
-mesh; parameter placement is a later slice). Loss = masked-LM cross
+Counterpart of :mod:`lddl_tpu.parallel.train` over its mesh's ``data``,
+``fsdp`` and ``tensor`` axes (:func:`make_exchange`; the model holds its
+tensor shards, :mod:`lddl_tpu_torch.models.bert`). Loss = masked-LM cross
 entropy (ignore label -100, mean over masked positions) + next-sentence-
 prediction cross entropy, over exactly the dict the loader yields. A
 batch with a ``segment_ids`` key (the packed loader with
@@ -34,6 +35,7 @@ over a :func:`stack_batch_window` window, the JAX package's scan).
 """
 
 import collections
+import contextlib
 import math
 import os
 import time
@@ -47,6 +49,7 @@ from ..loader.bert import IGNORE_INDEX
 from ..loader.device import CUDA_FEED_LOCK
 from ..models.bert import SEEDED
 from ..ops import flash_attention as tfa
+from .mesh import backend_for
 
 
 def masked_positions(labels, max_predictions):
@@ -106,6 +109,40 @@ def local_counts(masked, seg, num_docs_cap):
   return torch.stack([masked.sum(), docs, rows])
 
 
+def vocab_parallel_cross_entropy(logits, labels, tp):
+  """Per-position cross entropy and argmax over the vocabulary, where
+  ``logits`` holds this rank's ``V / tensor`` columns (the tensor-parallel
+  tied decoder) and ``labels`` are global ids: the whole-vocabulary
+  :func:`F.cross_entropy` and ``argmax``, without gathering the logits.
+
+  The ranks' row maxima and their first argmax are stacked over the tensor
+  group (:func:`~lddl_tpu_torch.parallel.mesh.stack_over`); the max is
+  the largest, the prediction the lowest global index that reaches it, as
+  ``jnp.argmax`` breaks ties. The sum of ``exp(logit - max)`` and the
+  target's shifted logit are summed over the group with an identity
+  backward, so each rank's logits get ``softmax - onehot`` of their own
+  columns. Returns float32 ``ce`` and int64 ``predicted``, both whole on
+  every rank of the group."""
+  from ..models.bert import reduce_from_tensor
+  from .mesh import stack_over
+  v = logits.shape[-1]
+  lo = tp.rank * v
+  with torch.no_grad():
+    local_max, local_arg = logits.max(dim=-1)
+    maxes = stack_over(local_max, tp.group)
+    args = stack_over(local_arg + lo, tp.group)
+    top = maxes.amax(dim=0)
+    predicted = torch.where(maxes == top, args,
+                            torch.iinfo(torch.int64).max).amin(dim=0)
+  shifted = logits.float() - top[..., None]
+  total = reduce_from_tensor(shifted.exp().sum(dim=-1), tp)
+  local = labels.long() - lo
+  mine = (local >= 0) & (local < v)
+  picked = torch.gather(shifted, -1, torch.where(mine, local, 0)[..., None])
+  target = reduce_from_tensor(torch.where(mine, picked[..., 0], 0.0), tp)
+  return torch.log(total) - target, predicted
+
+
 def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
                   reduce=None):
   """Scalar loss + metrics dict for one batch.
@@ -123,7 +160,10 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
   ranks (in place, returning the tensor) before the forward, and the
   loss and metrics are then this rank's shares of the global batch's:
   summed over the ranks they are the global values. With one rank they
-  equal ``reduce=None``'s bit for bit.
+  equal ``reduce=None``'s bit for bit. Under tensor parallelism (the
+  model's ``tp``) the MLM logits are the rank's vocabulary columns and
+  the cross entropy and accuracy run :func:`vocab_parallel_cross_entropy`;
+  ``reduce`` then sums over the ``data x fsdp`` ranks only.
   """
   segment_ids = batch.get('segment_ids')
   labels = batch['labels'].long()
@@ -144,8 +184,14 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
       dropout_key=dropout_key, mlm_positions=mlm_positions,
       segment_ids=segment_ids)
   safe_labels = torch.where(masked, labels, 0)
-  mlm_ce = F.cross_entropy(mlm_logits.flatten(0, 1), safe_labels.flatten(),
-                           reduction='none').view_as(labels)
+  tp = getattr(model, 'tp', None)
+  if tp is None:
+    mlm_ce = F.cross_entropy(mlm_logits.flatten(0, 1), safe_labels.flatten(),
+                             reduction='none').view_as(labels)
+    predicted = mlm_logits.argmax(dim=-1)
+  else:
+    mlm_ce, predicted = vocab_parallel_cross_entropy(mlm_logits, safe_labels,
+                                                     tp)
   denom = (masked.sum() if totals is None else totals[0]).clamp_min(1)
   if segment_ids is not None:
     mlm_loss = per_doc_mlm_loss(
@@ -158,7 +204,7 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
   if totals is not None:
     # This rank's rows' share of the global mean (exactly 1 on one rank).
     nsp_loss = nsp_loss * (labels.shape[0] / totals[2])
-  hits = masked & (mlm_logits.argmax(dim=-1) == labels)
+  hits = masked & (predicted == labels)
   mlm_acc = hits.sum() / denom
   return mlm_loss + nsp_loss, {
       'mlm_loss': mlm_loss,
@@ -259,7 +305,8 @@ def global_norm(tensors):
 
 class DataParallel:
   """The data-parallel exchange of one step over a process group (the
-  mesh's ``data`` group): the normalizers' all-reduce before the forward
+  mesh's ``data x fsdp`` group, :func:`~lddl_tpu_torch.parallel.mesh.
+  batch_group`): the normalizers' all-reduce before the forward
   (:func:`pretrain_loss`'s ``reduce``), the gradients' and the metrics'
   after the backward, all sums.
 
@@ -269,12 +316,19 @@ class DataParallel:
   bit-equal. With one rank each reduction is a copy and the step equals
   the single-process step bit for bit.
 
+  Under tensor parallelism (``tensor``: the tensor group, ``sharded``:
+  per parameter whether the rank holds a tensor shard of it) the
+  parameters are the rank's shards, their gradients need no exchange
+  over the tensor group (the model's collectives made them whole), and
+  :meth:`grad_norm` sums the sharded parameters' squares over it while
+  the replicated ones count once.
+
   :attr:`capturable`: whether the group's backend for the parameters'
   device can run inside a CUDA graph (NCCL can; gloo, which stages CUDA
   tensors through host memory, cannot).
   """
 
-  def __init__(self, group, params):
+  def __init__(self, group, params, tensor=None, sharded=None):
     import torch.distributed as dist
     self._dist = dist
     self.group = group
@@ -289,6 +343,11 @@ class DataParallel:
       at += p.numel()
     self.backend = backend_for(group, device)
     self.capturable = device.type == 'cuda' and self.backend == 'nccl'
+    self.tensor = tensor
+    self._sharded = None
+    if tensor is not None:
+      self._sharded = torch.tensor(list(sharded), dtype=torch.float32,
+                                   device=device)
 
   def sum_(self, t):
     """All-reduce ``t`` in place (a sum over the ranks); returns it."""
@@ -308,16 +367,255 @@ class DataParallel:
     total = self.sum_(torch.stack([metrics[k].float() for k in names]))
     return dict(zip(names, total.unbind()))
 
+  def grad_norm(self, grads):
+    """The global norm of the model's gradient (:func:`global_norm`
+    without tensor parallelism)."""
+    if self.tensor is None:
+      return global_norm(grads)
+    sq = torch.stack(torch._foreach_norm(grads)) ** 2
+    sharded = (sq * self._sharded).sum()
+    self._dist.all_reduce(sharded, group=self.tensor)
+    return torch.sqrt(sharded + (sq * (1 - self._sharded)).sum())
 
-def backend_for(group, device):
-  """The name of ``group``'s backend for tensors on ``device``."""
-  import torch.distributed as dist
-  config = str(dist.get_backend_config(group))
-  for part in config.split(','):
-    dev, _, name = part.rpartition(':')
-    if not dev or dev == device.type:
-      return name
-  return config
+  # The parameters are the model's own: nothing to gather, release or
+  # take back from them.
+
+  def gather_params(self):
+    pass
+
+  def release_params(self):
+    pass
+
+  def load_params(self):
+    pass
+
+  @contextlib.contextmanager
+  def gathered(self):
+    yield
+
+  def opt_params(self, params):
+    return list(params)
+
+  def local_states(self, params, opt):
+    """The parameters ``params``, then AdamW's ``mu``, then its ``nu``,
+    each yielded as a list aligned with the model's parameters, in this
+    rank's shapes."""
+    yield [p.detach() for p in params]
+    yield opt.mu
+    yield opt.nu
+
+  def load_local(self, opt, mu, nu):
+    """Copy per-parameter moments (this rank's shapes) into ``opt``."""
+    with torch.no_grad():
+      torch._foreach_copy_(opt.mu + opt.nu, list(mu) + list(nu))
+
+
+class ShardedDataParallel(DataParallel):
+  """Data parallelism with sharded parameters and optimizer state over
+  the mesh's ``fsdp`` axis (ZeRO-3 over :class:`DataParallel`'s flat
+  buffer), the port's counterpart of GSPMD's ``fsdp`` placement.
+
+  The model's parameters (this rank's tensor shards) are views of one
+  flat float32 working buffer, padded to a multiple of ``fsdp``. Each
+  ``fsdp`` rank owns one contiguous ``1 / fsdp`` of it (:attr:`shard`,
+  the master copy), and AdamW runs on that shard alone (:meth:`opt_params`;
+  its rule is per element, so ``mu`` and ``nu`` are ``1 / fsdp`` too).
+  A step (:class:`TrainStep`) gathers the working buffer from the shards
+  before the forward (:meth:`gather_params`); after the backward the
+  gradients' flat buffer is reduce-scattered over ``fsdp`` and its shard
+  all-reduced over ``data`` (:meth:`grads`), and the update runs on the
+  shard. Eager steps then free the working buffer (:meth:`release_params`),
+  so between steps a rank keeps ``1 / fsdp`` of the parameters and the
+  moments; read them through :meth:`gathered`. A CUDA-graph step keeps
+  the buffer (its addresses are the graph's), gathering it again at each
+  replay's start.
+
+  Collectives by the group's backend: NCCL runs ``all_gather_into_tensor``
+  and ``reduce_scatter_tensor``; any other backend (gloo for CUDA tensors,
+  which stages through host memory) gathers as an exact int64 sum of the
+  ranks' zero-padded slots (:meth:`_gather`) and reduce-scatters as an
+  all-reduce of the whole buffer and a slice: that choice is logged once
+  when the exchange is made.
+
+  A save (:meth:`local_states`) gathers the parameters, ``mu`` and ``nu``
+  one at a time into the gradients' flat buffer, which is idle between
+  steps, so it needs no flat buffer beyond what a step holds.
+  """
+
+  def __init__(self, mesh, model):
+    import logging
+
+    import torch.distributed as dist
+
+    from .mesh import (axis_rank, axis_size, batch_group, data_group,
+                       data_size, fsdp_group, tensor_group)
+    self._dist = dist
+    self.group = batch_group(mesh)
+    self.world = dist.get_world_size(self.group)
+    self.fsdp = fsdp_group(mesh)
+    self.data = data_group(mesh) if data_size(mesh) > 1 else None
+    size, rank = axis_size(mesh, 'fsdp'), axis_rank(mesh, 'fsdp')
+    params = list(model.parameters())
+    device = params[0].device
+    n = sum(p.numel() for p in params)
+    # Each shard an even length: the gloo gather sums 8-byte words.
+    per = -(-n // (2 * size)) * 2
+    self.lo, self.hi = rank * per, (rank + 1) * per
+    self.full = torch.zeros(per * size, dtype=torch.float32, device=device)
+    self.flat = torch.zeros_like(self.full)
+    self.views, at = [], 0
+    sharded = torch.zeros_like(self.full)
+    with torch.no_grad():
+      for p, cut in zip(params, model.tensor_sharded()):
+        view = self.full[at:at + p.numel()].view_as(p)
+        view.copy_(p)
+        p.data = view
+        self.views.append(self.flat[at:at + p.numel()].view_as(p))
+        sharded[at:at + p.numel()] = float(cut)
+        at += p.numel()
+    self.shard = self.full[self.lo:self.hi].clone()
+    self.grad_shard = torch.zeros_like(self.shard)
+    self.backend = backend_for(self.fsdp, device)
+    self.capturable = device.type == 'cuda' and self.backend == 'nccl'
+    self.tensor = tensor_group(mesh) if model.tp is not None else None
+    self._sharded = sharded[self.lo:self.hi].clone() if self.tensor else None
+    self._nbytes = self.full.numel() * self.full.element_size()
+    self._release = not self.capturable
+    self._released = False
+    if self.backend != 'nccl':
+      logging.getLogger('lddl_tpu_torch').info(
+          'fsdp over %s for %s tensors: the parameters gather as a sum of '
+          'zero-padded slots and the gradients reduce-scatter as an '
+          'all-reduce and a slice', self.backend, device.type)
+    self.release_params()
+
+  def opt_params(self, params):
+    del params
+    return [self.shard]
+
+  def _gather(self, out, shard):
+    """Fill the flat buffer ``out`` with every fsdp rank's ``shard``, in
+    place. Over gloo, whose one collective shown to take CUDA tensors is
+    a sum: each rank writes its shard into its own slot of ``out``
+    zeroed, and the int64 sum adds one rank's bits to zeros, exactly."""
+    if self.backend == 'nccl':
+      self._dist.all_gather_into_tensor(out, shard, group=self.fsdp)
+      return
+    out.zero_()
+    out[self.lo:self.hi].copy_(shard)
+    self._dist.all_reduce(out.view(torch.int64), group=self.fsdp)
+
+  def gather_params(self):
+    """Fill the working buffer (the model's parameters) from the shards."""
+    if self._released:
+      self.full.untyped_storage().resize_(self._nbytes)
+      self._released = False
+    self._gather(self.full, self.shard)
+
+  def release_params(self):
+    """Free the working buffer after an eager step. A CPU buffer that
+    ``Tensor.numpy()`` has exported can no longer be resized: it then
+    stays allocated (a warning says so), which changes no value."""
+    if not self._release or self._released:
+      return
+    storage = self.full.untyped_storage()
+    if not storage.resizable():
+      warnings.warn('the fsdp working buffer was exported (Tensor.numpy()) '
+                    'and cannot be freed between steps; it stays allocated')
+      self._release = False
+      return
+    storage.resize_(0)
+    self._released = True
+
+  @contextlib.contextmanager
+  def gathered(self):
+    """The model's parameters gathered inside (collective over fsdp)."""
+    self.gather_params()
+    try:
+      yield
+    finally:
+      self.release_params()
+
+  def grads(self, grads):
+    """This rank's shard of the global gradient: ``[grad_shard]``."""
+    torch._foreach_copy_(self.views, grads)
+    if self.backend == 'nccl':
+      self._dist.reduce_scatter_tensor(self.grad_shard, self.flat,
+                                       group=self.fsdp)
+    else:
+      self._dist.all_reduce(self.flat, group=self.fsdp)
+      self.grad_shard.copy_(self.flat[self.lo:self.hi])
+    if self.data is not None:
+      self._dist.all_reduce(self.grad_shard, group=self.data)
+    return [self.grad_shard]
+
+  def grad_norm(self, grads):
+    """The global norm from the gradient shards: each shard's sum of
+    squares summed over fsdp; the tensor-sharded parameters' part summed
+    over the tensor group too, the replicated ones counted once."""
+    (g,) = grads
+    sq = g * g
+    if self.tensor is None:
+      parts = sq.sum()[None]
+    else:
+      parts = torch.stack([(sq * self._sharded).sum(),
+                           (sq * (1 - self._sharded)).sum()])
+    self._dist.all_reduce(parts, group=self.fsdp)
+    if self.tensor is None:
+      return torch.sqrt(parts[0])
+    sharded = parts[0].clone()
+    self._dist.all_reduce(sharded, group=self.tensor)
+    return torch.sqrt(sharded + parts[1])
+
+  def local_states(self, params, opt):
+    """The parameters, then ``mu``, then ``nu``, each gathered whole
+    (collective over fsdp) into the gradients' flat buffer and yielded as
+    its views aligned with the parameters: a list is valid until the next
+    is yielded. The buffer is zeroed after, as a step expects it."""
+    del params
+    try:
+      for shard in (self.shard, opt.mu[0], opt.nu[0]):
+        self._gather(self.flat, shard)
+        yield self.views
+    finally:
+      self.flat.zero_()
+
+  def load_local(self, opt, mu, nu):
+    """Copy this rank's range of per-parameter moments (whole over
+    fsdp, the rank's tensor shapes) into its shards of ``mu`` and ``nu``,
+    parameter by parameter."""
+    with torch.no_grad():
+      for dst, parts in ((opt.mu[0], mu), (opt.nu[0], nu)):
+        for v, t in zip(self.views, parts):
+          lo = max(v.storage_offset(), self.lo)
+          hi = min(v.storage_offset() + v.numel(), self.hi)
+          if lo < hi:
+            dst[lo - self.lo:hi - self.lo].copy_(
+                t.reshape(-1)[lo - v.storage_offset():hi - v.storage_offset()])
+
+  def load_params(self):
+    """Take the master shard from the working buffer after the model's
+    parameters were written (inside :meth:`gathered`)."""
+    with torch.no_grad():
+      self.shard.copy_(self.full[self.lo:self.hi])
+
+
+def make_exchange(mesh, model):
+  """The train step's exchange over ``mesh``: None without one,
+  :class:`ShardedDataParallel` with ``fsdp`` above 1, else
+  :class:`DataParallel` over the ``data x fsdp`` group (with the tensor
+  group when ``tensor`` is above 1). Build it after the model is on its
+  device and before the optimizer, which takes
+  ``exchange.opt_params(model.parameters())``."""
+  from .mesh import axis_size, batch_group, tensor_group
+  if mesh is None:
+    return None
+  if axis_size(mesh, 'fsdp') > 1:
+    return ShardedDataParallel(mesh, model)
+  tp = model.tp is not None
+  return DataParallel(batch_group(mesh), model.parameters(),
+                      tensor_group(mesh) if tp else None,
+                      model.tensor_sharded() if tp else None)
 
 
 class TrainStep:
@@ -326,12 +624,15 @@ class TrainStep:
   :meth:`prepare` is host work: it reseeds the model's dropout
   generators from the dropout key ``(dropout_seed, opt.count)``, the JAX
   step's ``fold_in(rng, count)``, so a step is a pure function of
-  (state, batch); a data rank above 0 folds its rank in
+  (state, batch); a batch rank above 0 (``dp_rank``, the mesh's
+  :func:`~lddl_tpu_torch.parallel.mesh.batch_rank`) folds its rank in
   (``(dropout_seed, opt.count, dp_rank)``), so ranks draw different
   masks for their different rows and rank 0 draws what one process
-  draws. :meth:`body` is device work only (forward, backward, grad norm,
-  :meth:`AdamW.apply`, and with ``exchange`` (a :class:`DataParallel`)
-  its all-reduces) and can be captured and replayed; :meth:`finish`
+  draws. The ranks of a tensor group share a batch rank and so draw the
+  same masks: every dropout site acts on activations they all hold
+  whole. :meth:`body` is device work only (forward, backward, grad norm,
+  :meth:`AdamW.apply`, and with ``exchange`` (:func:`make_exchange`) its
+  collectives) and can be captured and replayed; :meth:`finish`
   advances the host count. Calling the step runs the three in turn.
   """
 
@@ -342,6 +643,7 @@ class TrainStep:
     self.max_predictions = max_predictions
     self.exchange = exchange
     self.dp_rank = dp_rank
+    self.params = list(model.parameters())
 
   @property
   def capturable(self):
@@ -369,22 +671,28 @@ class TrainStep:
     before the optimizer."""
     opt = self.opt
     exchange = self.exchange
-    for p in opt.params:
+    for p in self.params:
       p.grad = None
+    if exchange is not None:
+      exchange.gather_params()
     loss, metrics = pretrain_loss(
         self.model, batch, dropout_key=SEEDED,
         max_predictions=self.max_predictions,
         reduce=None if exchange is None else exchange.sum_)
     loss.backward()
-    grads = [p.grad for p in opt.params]
+    grads = [p.grad for p in self.params]
     metrics['loss'] = loss
-    if exchange is not None:
+    if exchange is None:
+      metrics['grad_norm'] = global_norm(grads)
+    else:
       grads = exchange.grads(grads)
       metrics = exchange.metrics({k: v.detach() for k, v in metrics.items()})
-    metrics['grad_norm'] = global_norm(grads)
+      metrics['grad_norm'] = exchange.grad_norm(grads)
     opt.apply(grads)
-    for p in opt.params:
+    for p in self.params:
       p.grad = None
+    if exchange is not None:
+      exchange.release_params()
     # Detached, so no metric keeps the step's autograd graph alive (a
     # captured graph's outputs live as long as the graph).
     return {k: v.detach() for k, v in metrics.items()}

@@ -157,6 +157,13 @@ def build_loop(args):
     raise NotImplementedError(
         f'--attention {args.attention}: ring attention is not ported yet')
   check_axes(args.fsdp, args.tp, args.sp)
+  if args.fsdp != 1 or args.tp != 1:
+    # A step of a sharded run sums its products in another order than one
+    # process does, so it re-executes bit for bit only on its own layout.
+    raise NotImplementedError(
+        f'--fsdp {args.fsdp} --tp {args.tp}: a single replay process cannot '
+        're-execute a sharded step bit for bit; replay of a sharded run, '
+        'launched as ranks, is not ported (ROADMAP Queue 1)')
   if args.dp != 1:
     raise ValueError(f'--dp {args.dp}: step replay runs one process; a '
                      'data-parallel step needs every rank\'s batch')

@@ -59,12 +59,19 @@ on, ``run`` tees the host batches into the flight recorder's ring
 (:mod:`~lddl_tpu_torch.training.flight`) and freezes an incident
 directory when a sentinel fires.
 
-Data parallelism: ``build(..., mesh=make_mesh(), comm=...)`` over a
-``torch.distributed`` group gives each rank its share of the shards and
-a step that reduces over the mesh's ``data`` group
-(:class:`~lddl_tpu_torch.parallel.train.DataParallel`); the global batch
-is ``batch_size_per_rank * dp_world``. The replicated state is written
-by rank 0 behind a barrier, so a checkpoint restores at any world size.
+Multi-process training: ``build(..., mesh=make_mesh(data, fsdp, tensor),
+comm=...)`` over a ``torch.distributed`` group gives each ``data x
+fsdp`` rank its share of the shards (the ranks of a tensor group read the
+same rows) and a step that reduces over those ranks
+(:class:`~lddl_tpu_torch.parallel.train.DataParallel`, or
+:class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel` with
+``fsdp`` above 1, which shards the flat parameters and AdamW's moments);
+with ``tensor`` above 1 the model holds its tensor shards (``_RULES``).
+The global batch is ``batch_size_per_rank * dp_world``, ``dp_world``
+the ``data x fsdp`` product. Every rank gathers the whole state at a
+checkpoint and rank 0 writes it behind a barrier, so a checkpoint
+restores at any world size and layout. ``fsdp`` or ``tensor`` above 1
+with the ledger on: every rank fingerprints the gathered state.
 Under ``--comm file`` the ranks are independent single-process worlds
 that share membership and telemetry only, as in the JAX package.
 Launch the CLI multi-process with ``python -m torch.distributed.run
@@ -95,10 +102,10 @@ from ..loader.packed import get_packed_pretrain_data_loader
 from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
 from ..ops import flash_attention as tfa
-from ..parallel.mesh import (check_axes, data_group, data_rank, data_size,
-                             make_mesh, mesh_summary)
-from ..parallel.train import (AdamW, CapturedGraph, DataParallel, TrainStep,
-                              capture_step, check_max_predictions,
+from ..parallel.mesh import (axis_size, batch_rank, batch_size, check_axes,
+                             make_mesh, mesh_summary, reshard_state)
+from ..parallel.train import (AdamW, CapturedGraph, TrainStep, capture_step,
+                              check_max_predictions, make_exchange,
                               signature)
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
@@ -386,13 +393,18 @@ class TrainLoop:
   """Owns the model, the optimizer, the loader, the step and its cache,
   and the step counters.
 
-  ``mesh``: None (one process holds the whole batch) or a data-parallel
-  mesh (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`), whose ``data``
-  group the step reduces over and the checkpoint barrier waits on.
+  ``mesh``: None (one process holds the whole batch) or a mesh
+  (:func:`~lddl_tpu_torch.parallel.mesh.make_mesh`): the model holds its
+  ``tensor`` shards, the step's ``exchange``
+  (:func:`~lddl_tpu_torch.parallel.train.make_exchange`) reduces over the
+  ``data x fsdp`` ranks and with ``fsdp`` above 1 shards the parameters
+  and AdamW's moments (``opt`` is then built on ``exchange.opt_params``),
+  and a checkpoint holds the whole state, gathered.
   """
 
   def __init__(self, model, opt, device, dropout_seed, loader=None,
-               max_predictions=None, dp_rank=0, dp_world=1, mesh=None):
+               max_predictions=None, dp_rank=0, dp_world=1, mesh=None,
+               exchange=None):
     self.model = model
     self.opt = opt
     self.device = device
@@ -402,9 +414,8 @@ class TrainLoop:
     self.dp_rank = dp_rank
     self.dp_world = dp_world
     self.mesh = mesh
-    exchange = None
-    if mesh is not None:
-      exchange = DataParallel(data_group(mesh), opt.params)
+    if exchange is None and mesh is not None:
+      exchange = make_exchange(mesh, model)
     self.step_fn = TrainStep(model, opt, max_predictions, exchange,
                              dp_rank=dp_rank)
     # Made by the first run() with LDDL_STEP_CACHE on and kept, so repeated
@@ -436,9 +447,12 @@ class TrainLoop:
 
     ``dp_rank``/``dp_world`` default to ``comm``'s rank and world size
     (the JAX ``build`` takes ``jax.process_index()``/``process_count()``);
-    with a ``mesh`` they must be its ``data`` coordinates, since the
-    loader's shard and the gradient group must agree. Every rank draws
-    the same initial parameters from ``seed``.
+    with a ``mesh`` they are its ``(data, fsdp)`` coordinates
+    (:func:`~lddl_tpu_torch.parallel.mesh.batch_rank`, ``batch_size``),
+    since the loader's shard and the gradient group must agree: the ranks
+    of a tensor group read the same rows. Every rank draws the same
+    initial parameters from ``seed`` (the whole model, on the CPU) and
+    keeps its shards of them, so every layout starts where world 1 does.
 
     ``tokenizer``: the special ids, ``vocab_size`` and
     ``convert_tokens_to_ids``
@@ -457,13 +471,16 @@ class TrainLoop:
       raise ValueError("block_diagonal requires data_format='packed' "
                        '(pair shards carry no doc_offsets)')
     comm = comm or NullBackend()
+    if mesh is not None:
+      dp_rank = batch_rank(mesh) if dp_rank is None else dp_rank
+      dp_world = batch_size(mesh) if dp_world is None else dp_world
+      if (dp_rank, dp_world) != (batch_rank(mesh), batch_size(mesh)):
+        raise ValueError(f'dp_rank={dp_rank} dp_world={dp_world} disagree '
+                         f'with the mesh ({mesh_summary(mesh)}, data x '
+                         f'fsdp rank {batch_rank(mesh)} of '
+                         f'{batch_size(mesh)})')
     dp_rank = comm.rank if dp_rank is None else dp_rank
     dp_world = comm.world_size if dp_world is None else dp_world
-    if mesh is not None and (dp_rank, dp_world) != (data_rank(mesh),
-                                                    data_size(mesh)):
-      raise ValueError(f'dp_rank={dp_rank} dp_world={dp_world} disagree '
-                       f'with the mesh ({mesh_summary(mesh)}, data rank '
-                       f'{data_rank(mesh)})')
     device = resolve_device(device)
     if device.type == 'cuda' and get_ledger().enabled:
       # run() records under deterministic algorithms, whose cuBLAS
@@ -505,41 +522,112 @@ class TrainLoop:
     model = BertForPretraining(model_cfg, mesh=mesh)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(device)
+    exchange = make_exchange(mesh, model)
     schedule = functools.partial(lr_schedule, peak=learning_rate,
                                  warmup_steps=warmup_steps,
                                  total_steps=total_steps)
-    opt = AdamW(model.parameters(), schedule, weight_decay=weight_decay)
+    opt = AdamW(model.parameters() if exchange is None else
+                exchange.opt_params(model.parameters()), schedule,
+                weight_decay=weight_decay)
     if max_predictions is not None:
       check_max_predictions(
           max_predictions, max_seq_length, masking,
           mlm_probability=(loader_kwargs or {}).get('mlm_probability', 0.15))
     loop = cls(model, opt, device, dropout_seed=seed + 1, loader=loader,
                max_predictions=max_predictions, dp_rank=dp_rank,
-               dp_world=dp_world, mesh=mesh)
+               dp_world=dp_world, mesh=mesh, exchange=exchange)
     loop.samples_seen = samples_seen
     loop.step = samples_seen // (batch_size_per_rank * dp_world)
     return loop
 
   def flops_per_step(self, batch, seq_len):
-    """Analytic FLOPs of one step at ``[batch, seq_len]`` (MFU numerator)."""
-    return bert_pretrain_flops_per_step(self.model.cfg, batch, seq_len,
-                                        max_predictions=self.max_predictions)
+    """Analytic FLOPs of this rank's step at ``[batch, seq_len]`` (MFU
+    numerator): the model's on the rank's rows, divided by ``tensor``,
+    whose ranks split the work of those rows."""
+    flops = bert_pretrain_flops_per_step(
+        self.model.cfg, batch, seq_len, max_predictions=self.max_predictions)
+    tensor = axis_size(self.mesh, 'tensor')
+    return flops if tensor == 1 else flops / tensor
 
   # ---- checkpointing ----
 
+  def _sharded(self):
+    """Whether this rank holds shards of the state (``fsdp`` or
+    ``tensor`` above 1)."""
+    return self.mesh is not None and (axis_size(self.mesh, 'fsdp') > 1 or
+                                      self.model.tp is not None)
+
   def _state(self):
+    """The whole train state in world 1's layout: the live tensors on an
+    unsharded loop, else :meth:`_snapshot`'s gathered CPU copy."""
+    if self._sharded():
+      return self._snapshot()
     return {'model': self.model.state_dict(),
             'opt': self.opt.state_dict(),
             'dropout_seed': self.dropout_seed}
 
+  def _snapshot(self):
+    """A CPU copy of the whole train state, world 1's layout whatever the
+    mesh: the model's ``state_dict`` and AdamW's moments aligned with
+    ``parameters()``. On a sharded loop every rank gathers it (the
+    tensor shards over the tensor group, the fsdp shards of the
+    parameters and moments over fsdp): a collective every rank calls.
+    The parameters, ``mu`` and ``nu`` are gathered one after the other
+    and copied to the CPU a tensor at a time, so the device holds no
+    flat state beyond what a step holds."""
+    if not self._sharded():
+      return _cpu_copy(self._state())
+    names = [n for n, _ in self.model.named_parameters()]
+    parts = []
+    for local in self.step_fn.exchange.local_states(
+        self.model.parameters(), self.opt):
+      # One whole tensor at a time on the device, then on the CPU.
+      parts.append({n: _cpu_copy(self.model.whole(n, t))
+                    for n, t in zip(names, local)})
+    model, mu, nu = parts
+    return {'model': {k: model[k] for k in self.model.state_dict()},
+            'opt': {'count': self.opt.count, 'mu': [mu[n] for n in names],
+                    'nu': [nu[n] for n in names]},
+            'dropout_seed': self.dropout_seed}
+
+  def load_whole_state(self, model_state, opt_state=None):
+    """Copy a whole (world 1's layout) model ``state_dict`` and, if given,
+    AdamW's state into this rank's shards (:func:`~lddl_tpu_torch.
+    parallel.mesh.reshard_state`): the restore path, also for a state
+    made elsewhere (a converted JAX init). Collective on an fsdp loop."""
+    if not self._sharded():
+      self.model.load_state_dict(model_state)
+      if opt_state is not None:
+        self.opt.load_state_dict(opt_state)
+      return
+    exchange = self.step_fn.exchange
+    with exchange.gathered(), torch.no_grad():
+      self.model.load_whole_state_dict(model_state)
+      exchange.load_params()
+    if opt_state is None:
+      return
+    names = [n for n, _ in self.model.named_parameters()]
+    moments = [reshard_state(dict(zip(names, opt_state[k])), self.mesh,
+                             like=self.model) for k in ('mu', 'nu')]
+    exchange.load_local(self.opt, *([m[n] for n in names]
+                                    for m in moments))
+    self.opt.count = int(opt_state['count'])
+    self.opt.count_t.fill_(self.opt.count)
+
   def _shared(self):
-    """Whether several ranks hold this one replicated state (a
-    data-parallel mesh above one rank): rank 0 alone writes it."""
-    return self.mesh is not None and data_size(self.mesh) > 1
+    """Whether several ranks hold this one train state: rank 0 alone
+    writes it."""
+    import torch.distributed as dist
+    return self.mesh is not None and dist.get_world_size() > 1
+
+  def _rank(self):
+    """This process's rank in the whole world (0 without a mesh)."""
+    import torch.distributed as dist
+    return 0 if self.mesh is None else dist.get_rank()
 
   def _barrier(self):
     import torch.distributed as dist
-    dist.barrier(group=data_group(self.mesh))
+    dist.barrier()
 
   def save(self, ckpt_dir, keep=3, writer=None):
     """Write the state at the current step; keep the newest ``keep``.
@@ -551,11 +639,12 @@ class TrainLoop:
     thread; a failed write surfaces on the next ``submit`` /
     ``raise_pending`` / ``flush`` (first-error-wins).
 
-    On a data-parallel mesh the state is the same on every rank, so rank
-    0 writes it whole and the other ranks wait at a barrier until the
-    write is done (with ``writer``: at the barrier after :meth:`run`'s
-    flush), which makes the checkpoint independent of the world size:
-    :meth:`restore` reads it at any.
+    On a mesh every rank holds the whole state gathered
+    (:meth:`_snapshot`, a collective), rank 0 writes it and the other
+    ranks wait at a barrier over the whole world until the write is done
+    (with ``writer``: at the barrier after :meth:`run`'s flush). So the
+    file is world 1's, whatever the world size and layout, and
+    :meth:`restore` reads it on any mesh.
 
     With the ledger on, every rank records the ``step`` line of the
     state, fingerprinted here from the CPU copy the writer serializes
@@ -563,19 +652,22 @@ class TrainLoop:
     """
     shared = self._shared()
     ledger = get_ledger()
-    if not shared or data_rank(self.mesh) == 0:
+    writes = not shared or self._rank() == 0
+    state = None
+    if self._sharded():
+      state = self._snapshot()
+    elif writes or ledger.enabled:
       state = _cpu_copy(self._state())
+    if ledger.enabled:
+      self._record_step_fingerprint(ledger, state)
+    if writes:
       meta = {'step': self.step, 'samples_seen': self.samples_seen}
-      if ledger.enabled:
-        self._record_step_fingerprint(ledger, state)
       if writer is not None:
         writer.submit(self._write_ckpt, ckpt_dir, keep, self.step, state,
                       meta)
         get_telemetry().gauge('train.ckpt_backlog').set(writer.backlog)
       else:
         self._write_ckpt(ckpt_dir, keep, self.step, state, meta)
-    elif ledger.enabled:
-      self._record_step_fingerprint(ledger, _cpu_copy(self._state()))
     if shared and writer is None:
       self._barrier()
     self._last_saved = self.step
@@ -644,10 +736,11 @@ class TrainLoop:
     ``samples_seen`` (:func:`~lddl_tpu_torch.training.elastic.
     reseek_loader`; a loader without ``seek`` is left to the caller).
 
-    The checkpoint holds the whole replicated state and the global
-    ``samples_seen``, so a run of any world size restores it: each rank
-    loads the same state and re-seeks its own loader with the loop's
-    ``dp_world`` (the counterpart of the JAX ``restore`` with
+    The checkpoint holds the whole state and the global
+    ``samples_seen``, so a run of any world size and layout restores it:
+    each rank reads the whole state, keeps its shards
+    (:meth:`load_whole_state`) and re-seeks its own loader with the
+    loop's ``dp_world`` (the counterpart of the JAX ``restore`` with
     ``reshard_pytree``)."""
     if step is None:
       meta = self.latest_meta(ckpt_dir)
@@ -659,9 +752,9 @@ class TrainLoop:
       raise FileNotFoundError(f'no checkpoint for step {step} under '
                               f'{ckpt_dir}')
     state = torch.load(os.path.join(path, _STATE_FILE),
-                       map_location=self.device, weights_only=True)
-    self.model.load_state_dict(state['model'])
-    self.opt.load_state_dict(state['opt'])
+                       map_location='cpu' if self._sharded() else
+                       self.device, weights_only=True)
+    self.load_whole_state(state['model'], state['opt'])
     self.dropout_seed = int(state['dropout_seed'])
     self.step, self.samples_seen = _read_meta(path)
     self._last_saved = self.step
@@ -674,7 +767,7 @@ class TrainLoop:
     its generators from it) — equal to the ledger's ``step`` record when
     the loop sits at that step (hashed in ``algo``, default the
     ledger's)."""
-    return state_fingerprint(_cpu_copy(self._state()), algo)
+    return state_fingerprint(self._snapshot(), algo)
 
   # ---- the loop ----
 
@@ -710,7 +803,8 @@ class TrainLoop:
     # counters, never making a CUDA call beside a graph capture.
     if get_monitor().enabled:
       hbm_limits()
-    maybe_start_monitor(rank=max(self.dp_rank, 0))
+    maybe_start_monitor(rank=self._rank() if self.mesh is not None else
+                        max(self.dp_rank, 0))
     # Armed through the API (get_step_profiler().arm(n)) or the monitor's
     # /profile; unarmed, on_step() is two attribute reads.
     profiler = get_step_profiler()
@@ -918,9 +1012,10 @@ class TrainLoop:
 def attach_args(parser):
   """The JAX CLI's arguments (``lddl_tpu/training/pretrain.py:785-853``),
   plus ``--device``. ``--comm`` takes ``torch`` where the JAX CLI takes
-  ``jax``; ``--fsdp``, ``--tp`` and ``--sp`` are accepted and raise above
-  1 (later slices). Left out: ring attention, ``--tokenizer`` (a
-  hub tokenizer needs the network) and ``--prng`` (a JAX setting)."""
+  ``jax``; ``--dp``, ``--fsdp`` and ``--tp`` above 1 need it, and ``--sp``
+  above 1 raises (ring attention is not ported). Left out: ring
+  attention, ``--tokenizer`` (a hub tokenizer needs the network) and
+  ``--prng`` (a JAX setting)."""
   parser.add_argument('--path', required=True, help='balanced shard dir')
   parser.add_argument('--vocab-file', required=True)
   parser.add_argument('--model', choices=sorted(MODEL_SIZES),
@@ -931,9 +1026,17 @@ def attach_args(parser):
   parser.add_argument('--remat', action='store_true')
   parser.add_argument('--dp', type=int, default=None,
                       help='data-parallel ranks; default: the world size')
-  parser.add_argument('--fsdp', type=int, default=1)
-  parser.add_argument('--tp', type=int, default=1)
-  parser.add_argument('--sp', type=int, default=1)
+  parser.add_argument('--fsdp', type=int, default=1,
+                      help='ranks over which the parameters and the '
+                      'optimizer state are sharded (a flat buffer cut in '
+                      'fsdp parts); the batch splits over dp x fsdp')
+  parser.add_argument('--tp', type=int, default=1,
+                      help='tensor-parallel ranks: each holds num_heads/tp '
+                      'heads, an FFN slice and a vocabulary slice, and '
+                      'reads the same rows as the others')
+  parser.add_argument('--sp', type=int, default=1,
+                      help='sequence-parallel ranks: not ported (raises '
+                      'above 1)')
   parser.add_argument('--batch-size', type=int, default=64,
                       help='per-process samples per step')
   parser.add_argument('--bin-size', type=int, default=None)
@@ -1019,8 +1122,10 @@ def main(args=None):
     # No process group: the process holds its whole batch (under file the
     # ranks are independent single-process worlds, as in the JAX CLI).
     check_axes(args.fsdp, args.tp, args.sp)
-    if (args.dp or 1) != 1:
-      raise ValueError(f'--dp {args.dp} needs --comm torch')
+    for flag, n in (('--dp', args.dp or 1), ('--fsdp', args.fsdp),
+                    ('--tp', args.tp)):
+      if n != 1:
+        raise ValueError(f'{flag} {n} needs --comm torch')
     mesh = None
   print(f'device: {device}; mesh: {mesh_summary(mesh)}; rank {comm.rank} '
         f'of {comm.world_size}; model={args.model} '
@@ -1051,7 +1156,8 @@ def main(args=None):
   if exchange is not None:
     graphs = (device.type == 'cuda' and _step_cache_enabled() and
               exchange.capturable)
-    print(f'data-parallel step over {exchange.world} rank(s), '
+    print(f'{type(exchange).__name__} step over {exchange.world} data x '
+          f'fsdp rank(s) ({mesh_summary(mesh)}), '
           f'{exchange.backend} for {device.type} tensors: ' +
           ('the all-reduces run inside the CUDA graphs' if graphs else
            'eager steps'))

@@ -334,18 +334,23 @@ def test_cli_trains_from_shards_and_resumes(shards, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flag', [['--dp', '2'], ['--tp', '2'],
+                                  ['--fsdp', '2'], ['--sp', '2'],
                                   ['--comm', 'jax'],
                                   ['--attention', 'ring']])
 def test_cli_refuses_what_is_not_ported(shards, flag, capsys):
-  """Parameter placement and ring attention wait for later slices: the
-  CLI raises for ``--tp`` above 1, and for ``--dp`` above 1 without a
-  process group (``--comm torch``); it offers no ``jax`` backend and no
-  ring attention, so argparse refuses those."""
+  """Ring attention waits for a later slice: the CLI raises for ``--sp``
+  above 1, naming it. ``--dp``, ``--tp`` and ``--fsdp`` above 1 need a
+  process group (``--comm torch``; ``tests/test_torch_tp.py`` trains with
+  ``--tp 2`` over two ranks); it offers no ``jax`` backend and no ring
+  attention, so argparse refuses those."""
   from lddl_tpu_torch.training.pretrain import main
   argv = ['--path', shards['pairs'], '--vocab-file', shards['vocab'],
           '--device', 'cpu'] + flag
   raised = {'--dp': (ValueError, '--dp 2 needs --comm torch'),
-            '--tp': (NotImplementedError, 'tensor=2')}.get(flag[0])
+            '--tp': (ValueError, '--tp 2 needs --comm torch'),
+            '--fsdp': (ValueError, '--fsdp 2 needs --comm torch'),
+            '--sp': (NotImplementedError, 'seq=2: ring attention')}.get(
+                flag[0])
   if raised is not None:
     with pytest.raises(raised[0], match=raised[1]):
       main(argv)

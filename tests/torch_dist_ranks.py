@@ -305,3 +305,250 @@ def ledger_divergence_ranks(rank, world, directory, diverge):
     return verdicts, fired
   finally:
     ledger.disable_ledger()
+
+
+# ---- parameter placement over fsdp and tensor ----
+
+
+def replicated_digest(loop):
+  """A digest of the parameters no rule cuts over ``tensor`` (the
+  replicated ones), this rank's own copies: equal across a tensor group
+  when they stay bit-equal. Collective on an fsdp loop."""
+  import hashlib
+  h = hashlib.sha256()
+  with loop.step_fn.exchange.gathered():
+    for (name, p), cut in zip(loop.model.named_parameters(),
+                              loop.model.tensor_sharded()):
+      if not cut:
+        h.update(name.encode())
+        # A copy: exporting the fsdp working buffer itself to numpy
+        # would pin it.
+        h.update(p.detach().clone().numpy().tobytes())
+  return h.hexdigest()
+
+
+def transient_peak_bytes(fn):
+  """``fn()`` and the peak bytes of the storages it allocated and did not
+  return, live at one time: what it needs beyond what it keeps. A storage
+  is new where an op's output aliases none of the op's inputs, and lives
+  while a tensor seen on it does (every view made through an op is seen)."""
+  import weakref
+
+  import torch
+  from torch.utils._python_dispatch import TorchDispatchMode
+  from torch.utils._pytree import tree_leaves
+
+  live = {}  # storage data_ptr -> [uid, bytes, tensors alive]
+  events = []  # (uid, +bytes when made / -bytes when freed), in order
+  seen = set()
+
+  def tensors(tree):
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+  def drop(key, ident):
+    seen.discard(ident)
+    entry = live[key]
+    entry[2] -= 1
+    if entry[2] == 0:
+      del live[key]
+      events.append((entry[0], -entry[1]))
+
+  class Track(TorchDispatchMode):
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      out = func(*args, **(kwargs or {}))
+      inputs = {t.untyped_storage().data_ptr()
+                for t in tensors((args, kwargs))}
+      for t in tensors(out):
+        key = t.untyped_storage().data_ptr()
+        nbytes = t.untyped_storage().nbytes()
+        if id(t) in seen or (key not in live and (key in inputs or
+                                                  not nbytes)):
+          continue
+        if key in live:
+          live[key][2] += 1
+        else:
+          live[key] = [len(events), nbytes, 1]
+          events.append((len(events), nbytes))
+        seen.add(id(t))
+        weakref.finalize(t, drop, key, id(t))
+      return out
+
+  with Track():
+    result = fn()
+  end = len(events)
+  kept = {live[k][0] for k in {t.untyped_storage().data_ptr()
+                                for t in tensors(result)} if k in live}
+  now = peak = 0
+  for uid, nbytes in events[:end]:
+    if uid not in kept:
+      now += nbytes
+      peak = max(peak, now)
+  return result, peak
+
+
+def mesh_loop(mesh, comm, cfg_kw, opt_kw, state=None, seed=5):
+  """A tiny float32 TrainLoop on ``mesh`` with no loader; ``state``
+  (a whole numpy state_dict) replaces its init."""
+  import torch
+
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.training import TrainLoop
+  cfg = BertConfig(dtype=torch.float32, **cfg_kw)
+  loop = TrainLoop.build(model_cfg=cfg, device='cpu', mesh=mesh, comm=comm,
+                         seed=seed, **opt_kw)
+  if state is not None:
+    loop.load_whole_state({k: torch.from_numpy(v) for k, v in state.items()})
+  loop.model.train()
+  return loop
+
+
+def mesh_case(rank, mesh, comm, case, opt_kw):
+  """One case's steps on this rank's part of each global batch
+  (``make_global_batch``): per step the metrics and the replicated
+  digest; then the sizes the rank holds, its batch group's rank and size,
+  the bytes a snapshot of the state needs beyond what it returns
+  (:func:`transient_peak_bytes`) beside the exchange's flat buffer and, on
+  rank 0, the gathered parameters; and the rows ``prefetch_to_device(..., mesh=mesh)`` gives
+  the rank of the first batch."""
+  import torch.distributed as dist
+
+  from lddl_tpu_torch.loader.device import (make_global_batch,
+                                            prefetch_to_device)
+  from lddl_tpu_torch.parallel import batch_group
+  loop = mesh_loop(mesh, comm, case['cfg'], opt_kw, case.get('state'))
+  fed = list(prefetch_to_device(iter(case['batches'][:1]), 'cpu',
+                                mesh=mesh))[0]['input_ids'].numpy()
+  steps = []
+  for batch in case['batches']:
+    m = loop.step_fn(make_global_batch(batch, mesh, device='cpu'),
+                     loop.dropout_seed)
+    steps.append({'metrics': {k: float(v) for k, v in m.items()},
+                  'replicated': replicated_digest(loop)})
+  exchange = loop.step_fn.exchange
+  snap, transient = transient_peak_bytes(loop._snapshot)
+  group = batch_group(mesh)
+  out = {'steps': steps, 'dp': (loop.dp_rank, loop.dp_world), 'fed': fed,
+         'exchange': type(exchange).__name__, 'backend': exchange.backend,
+         'batch_group': (dist.get_rank(group), dist.get_world_size(group)),
+         'save_bytes': {'transient': transient, 'flat': exchange.flat.numel()
+                        * exchange.flat.element_size()},
+         'digest': loop.state_digest(),
+         'sizes': {'whole': sum(v.numel() for v in snap['model'].values()),
+                   'local': sum(p.numel() for p in loop.model.parameters()),
+                   'opt': sum(p.numel() for p in loop.opt.params),
+                   'mu': sum(t.numel() for t in loop.opt.mu),
+                   'nu': sum(t.numel() for t in loop.opt.nu)}}
+  full = getattr(exchange, 'full', None)
+  if full is not None:
+    out['sizes']['working_bytes_at_rest'] = full.untyped_storage().nbytes()
+  if rank == 0:
+    out['state'] = {k: v.numpy() for k, v in snap['model'].items()}
+  return out, loop
+
+
+def mesh_steps(rank, world, axes, cases, opt_kw, ckpt=None):
+  """Every case of ``cases`` (``{'cfg', 'batches', 'state'}``) on a mesh
+  of ``axes`` (gloo, CPU, torch at two threads a rank: the test process
+  runs JAX beside them). With ``ckpt`` (``{'dir', 'case', 'next'}``) the
+  loop of case ``case`` also saves into ``dir`` and then steps on the
+  ``next`` global batch."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.parallel import make_mesh
+  torch.set_num_threads(2)
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu', **axes)
+  out = []
+  for i, case in enumerate(cases):
+    res, loop = mesh_case(rank, mesh, comm, case, opt_kw)
+    if ckpt is not None and ckpt['case'] == i:
+      loop.step = len(case['batches'])
+      loop.save(ckpt['dir'])
+      m = loop.step_fn(make_global_batch(ckpt['next'], mesh, device='cpu'),
+                       loop.dropout_seed)
+      res['next'] = {k: float(v) for k, v in m.items()}
+    out.append(res)
+  return out
+
+
+def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
+  """A tensor mesh of ``axes``: the cases (:func:`mesh_steps`); the model's refusals; a
+  world-1 checkpoint restored (``restore``: ``{'dir', 'cfg', 'next'}``),
+  its digest and the next step; ``TrainLoop.run``'s counters
+  (:func:`counted_run` over ``counted``'s batches); then the pretrain
+  CLI with ``--tp 2`` (``cli``: its argv)."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.models import BertConfig, BertForPretraining
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.training import pretrain
+  out = {'cases': mesh_steps(rank, world, axes, cases, opt_kw)}
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu', **axes)
+  out['refused'] = {}
+  for what, kw in (('num_heads', {'num_heads': 1, 'hidden_size': 32}),
+                   ('intermediate_size', {'intermediate_size': 33}),
+                   ('vocab_size', {'vocab_size': 129})):
+    try:
+      BertForPretraining(BertConfig(**dict(restore['cfg'], **kw)), mesh)
+    except ValueError as e:
+      out['refused'][what] = str(e)
+  try:
+    make_mesh(tensor=1, seq=2, device_type='cpu')
+  except NotImplementedError as e:
+    out['refused']['seq'] = str(e)
+  out['rows'] = make_global_batch(restore['next'], mesh,
+                                  device='cpu')['input_ids'].numpy()
+  out['counted'] = counted_run(mesh, comm, dict(restore['cfg']), opt_kw,
+                               counted)
+  loop = mesh_loop(mesh, comm, restore['cfg'], opt_kw).restore(
+      restore['dir'])
+  out['restored'] = {'digest': loop.state_digest(),
+                     'replicated': replicated_digest(loop),
+                     'meta': (loop.step, loop.samples_seen)}
+  m = loop.step_fn(make_global_batch(restore['next'], mesh, device='cpu'),
+                   loop.dropout_seed)
+  out['restored']['next'] = {k: float(v) for k, v in m.items()}
+  cli_loop = pretrain.main(cli)
+  out['cli'] = {'step': cli_loop.step, 'samples': cli_loop.samples_seen,
+                'dp': (cli_loop.dp_rank, cli_loop.dp_world),
+                'local': sum(p.numel() for p in cli_loop.model.parameters()),
+                'heads': cli_loop.model.encoder.layers[0].attention.heads,
+                'digest': cli_loop.state_digest()}
+  return out
+
+
+class ListLoader:
+  """Batches in order, one epoch, as a loader with a ``batch_size``."""
+
+  def __init__(self, batches, batch_size):
+    self.batches = batches
+    self.batch_size = batch_size
+
+  def __iter__(self):
+    return iter(self.batches)
+
+
+def counted_run(mesh, comm, cfg_kw, opt_kw, batches):
+  """``TrainLoop.run`` over this rank's rows of ``batches`` with the
+  telemetry on: the loop's sample counters and its flop count."""
+  from lddl_tpu_torch.models.flops import bert_pretrain_flops_per_step
+  from lddl_tpu_torch.parallel import local_batch
+  from lddl_tpu_torch.telemetry import metrics
+  tele = metrics.enable()
+  try:
+    loop = mesh_loop(mesh, comm, cfg_kw, opt_kw)
+    mine = [local_batch(b, mesh) for b in batches]
+    loop.loader = ListLoader(mine, len(mine[0]['input_ids']))
+    loop.run(len(mine), log_every=0)
+    b, s = mine[0]['input_ids'].shape
+    return {'samples': tele.counter('train.samples').total,
+            'samples_seen': loop.samples_seen,
+            'flops': loop.flops_per_step(b, s),
+            'model_flops': bert_pretrain_flops_per_step(loop.model.cfg, b, s),
+            'mfu_count': tele.gauge('train.mfu').count}
+  finally:
+    metrics.disable()
