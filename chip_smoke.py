@@ -90,7 +90,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and none of the others, one cache miss, the whole window and real
      tokens/s over it, and the data wait; (d) python -m
      lddl_tpu_torch.training.pretrain on pairs/ for 4 steps with a
-     checkpoint every 2, then --resume to step 6: rc 0 and finite losses;
+     checkpoint at step 4, then --resume to step 6: rc 0 and finite
+     losses;
   8. the loaders through WORKERS worker processes (forkserver children
      that import no torch; batches handed over in shared-memory slot
      rings or pickled): (a) one epoch of pairs/, packed/ and codebert/
@@ -123,7 +124,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase from 7 on;
   9. data-parallel training across processes, each rank a process of this
      script (``--rank-task``) in a session of its own, the world killed
-     and the phase failed past RANK_TIMEOUT: (a) under
+     and the phase failed past RANK_TIMEOUT; (b) runs first, and (a)'s
+     process also resumes (b)'s checkpoint: (a) under
      ``torch.distributed.run`` at world 1 over NCCL, the CLI as 7d runs
      it, 4 steps with a checkpoint then --resume for 2, with --comm null
      and with --comm torch in one process, deterministic algorithms on:
@@ -142,8 +144,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      step on the whole batches run by rank 0 (per step, and a held-out
      batch's loss after them), where averaging per-rank means must miss
      the global grad_norm; then the CLI from pairs/ with --comm torch, 4
-     steps with a checkpoint (launches, misses per rank); a world-1 NCCL
-     process resumes it: the state equal to the ranks' bit for bit, the
+     steps with a checkpoint (launches, misses per rank); (a)'s world-1
+     NCCL process resumes it: the state equal to the ranks' bit for bit, the
      same samples_seen, the next 3 batches equal to a world-1 loader
      re-seeked to it, 2 more finite steps; ms/step per rank; (c) no
      ``lddltorch_`` segment and no rank process left;
@@ -187,9 +189,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      = the ledger, ``bundle`` of each batch from the incident's
      checkpoint to its suspect, and with corrupt:replay.read the bundled
      step refused with exit 1; (b) in a fresh process (``--rank-task
-     11b``) the replay CLI's ``step`` at REPLAYS from the corpus (from a
-     mid-epoch checkpoint, and across the epoch's end) and from the
-     bundles with no corpus: each matches its step line bit for bit, 12
+     11b``) the replay CLI's ``step`` at REPLAYS from the corpus (across
+     the epoch's end) and from the bundles with no corpus (from the
+     mid-epoch checkpoint): each matches its step line bit for bit, 12
      launches a replayed step of each of K1-K3 counted in that process;
      (d) beside it, ``python -m lddl_tpu_torch.training.flight replay
      <incident> -- <step args>`` exits 0 with a match; the manifest's
@@ -271,10 +273,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ms/step per rank and world 1's, the peak allocated per rank and the
      phase's seconds. ``--place-faults`` runs (a) and (b) alone, sound
      and under the planted faults of PLACE_FAULTS, and prints their gaps
-     to world 1: the readings the two limits sit between.
+     to world 1: the readings the two limits sit between;
+  15. ring attention over the mesh's seq axis: (a) in this process, the
+     kernels on the inputs a ring at seq=2 gives them, bf16, against
+     their plain versions (RING_TOL = 3e-2 for out on real rows,
+     absolute for lse; each element of dq, dk and dv within 3e-2 of the
+     sum of the absolute values of its products, each tensor's relative
+     norm error within 1e-2), bitwise repeatable, every output finite:
+     K1-K3 on a q shard of s=512 rows against the other shard's K/V and
+     key mask
+     (RING_KERNEL_PAIRS), K4 on shard 0's q ids against shard 1's kv ids
+     of a packed s=8192 row (RING_KERNEL_PACKED), with real rows that
+     have no same-document key there (their lse below -1e8: weight 0 in
+     the merge) and q tiles disjoint whole; a random g_out and a random
+     non-zero g_lse; (b) in phase 14's two rank processes after 14a/14b,
+     BERT-base ring_flash over make_mesh(seq=RING_SEQ) (eager,
+     deterministic, dropout off) on RING_CELLS (packed s=8192 x 2
+     block-diagonal, 4 steps; pairs s=512 x 16, 2 steps; numpy batches,
+     each rank's half of every row by make_global_batch): each kernel's
+     launches on each rank = 12 x RING_SEQ blocks a step (every rotated
+     shard runs its block; counts at 0 just before, read just after), the
+     ranks' metrics and parameters bit-equal, loss, grad_norm and the
+     parameters' gap within the cell's RING_LIMITS of world 1 (flash, one
+     process, run by rank 0 from the same init), ms/step and peak a rank;
+     (c) in 14c's process, the ring at n=1 (world 1 over NCCL with a
+     mesh) on a packed s=8192 batch: the step captured by the step cache
+     and replayed, bit-equal to the same step eager, 12 launches of each
+     K4 kernel a replay, loss and grad_norm within DENSE_*_RTOL of
+     flash's. ``--ring-faults`` runs (b) alone, sound and under each
+     fault of RING_FAULTS, and prints the gaps RING_LIMITS sit between.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12 and 14; phase 13 runs no kernel), the card's name and power
+phases 9-12, 14 and 15; phase 13 runs no kernel), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits non-zero before printing any result.
 """
@@ -305,8 +335,8 @@ VOCAB_FILE = os.path.join(HERE, 'benchmarks', 'assets', 'bench_vocab_30522.txt')
 # over them (tests/make_torch_shards.py).
 SHARDS = os.path.join(HERE, 'tests', 'assets', 'torch_shards')
 # Epochs of pairs/ in phase 7b: its smallest bins hold 3 batches an epoch,
-# so 5 epochs give each bin at least 14 cache hits.
-SHARD_EPOCHS = 5
+# so 2 epochs give each bin at least 5 cache hits.
+SHARD_EPOCHS = 2
 # The thread switch interval of 7b's third pass over the shards (Python's
 # default is 5 ms).
 GIL_SWITCH_S = 0.0005
@@ -1891,7 +1921,7 @@ def cli_from_shards(digests, card):
   out = {}
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_cli_') as ckpt:
     for label, extra in (('run', ['--steps', '4', '--checkpoint-every',
-                                  '2']),
+                                  '4']),
                          ('resume', ['--resume', '--steps', '6'])):
       t0 = time.perf_counter()
       proc = subprocess.run(base + extra + ['--checkpoint-dir', ckpt],
@@ -2500,7 +2530,9 @@ def rank_9a(args, digests):
   it, one process (--comm null) and the world of one (--comm torch), 4
   steps with a checkpoint then --resume for 2, deterministic algorithms
   on; then the steps to the end of the epoch timed through the same
-  graphs, deterministic algorithms off (as phase 7)."""
+  graphs, deterministic algorithms off (as phase 7); then, in the same
+  process, 9b's world-2 checkpoint (``--ckpt``) resumed
+  (:func:`resume_9b`)."""
   runs, seen = record_runs()
   batch = digests['pairs']['settings']['batch_size_per_rank']
   out = {}
@@ -2508,7 +2540,7 @@ def rank_9a(args, digests):
     torch.use_deterministic_algorithms(True)
     with tempfile.TemporaryDirectory(prefix='lddl_smoke_9a_') as ckpt:
       per = []
-      for extra in (['--steps', '4', '--checkpoint-every', '2'],
+      for extra in (['--steps', '4', '--checkpoint-every', '4'],
                     ['--resume', '--steps', '6']):
         loop, r = cli_run(cli_argv(digests, batch) + extra +
                           ['--comm', comm, '--checkpoint-dir', ckpt],
@@ -2522,6 +2554,7 @@ def rank_9a(args, digests):
                  'timed_hits': len(timer.hit_ms)}
     del loop, timer
     torch.cuda.empty_cache()
+  out['9b_resume'] = resume_9b(args, digests, runs, seen)
   rank_result(args, out)
 
 
@@ -2604,7 +2637,7 @@ def rank_9b(args, digests):
       cli_argv(digests, digests['pairs']['settings']['batch_size_per_rank']
                // world) +
       ['--comm', 'torch', '--device', f'{DEVICE}:0', '--steps', '4',
-       '--checkpoint-every', '2', '--checkpoint-dir', args.ckpt], runs, seen)
+       '--checkpoint-every', '4', '--checkpoint-dir', args.ckpt], runs, seen)
   out['cli']['digest'] = loop.state_digest()
   rank_result(args, out)
 
@@ -2644,15 +2677,15 @@ def world_one_reference(build, batches, steps, theta0, dp_model, ttrain):
           'held_out_loss': held_loss, 'update_cosine': cosine}
 
 
-def rank_9b_resume(args, digests):
-  """World 1 over NCCL resumes 9b's world-2 checkpoint (the same global
-  batch): the state, samples_seen, and the next bins against a world-1
-  loader re-seeked to the same samples_seen; then 2 more steps."""
+def resume_9b(args, digests, runs, seen):
+  """World 1 over NCCL (9a's process) resumes 9b's world-2 checkpoint
+  (the same global batch): the state, samples_seen, and the next bins
+  against a world-1 loader re-seeked to the same samples_seen; then 2
+  more steps. ``runs``, ``seen``: the process's :func:`record_runs`."""
   import itertools
 
   from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
   from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
-  runs, seen = record_runs()
   settings = digests['pairs']['settings']
   batch = settings['batch_size_per_rank']
   argv = cli_argv(digests, batch) + ['--comm', 'torch', '--resume',
@@ -2669,10 +2702,10 @@ def rank_9b_resume(args, digests):
       iter(x), 3)] for x in (loop.loader, fresh)]
   losses = loop.run(loop.step + 2, log_every=0)
   out['more_losses'] = losses
-  rank_result(args, out)
+  return out
 
 
-RANK_TASKS = {'9a': rank_9a, '9b': rank_9b, '9b_resume': rank_9b_resume}
+RANK_TASKS = {'9a': rank_9a, '9b': rank_9b}
 
 
 # ---- phase 9: the parent's checks ----
@@ -2703,9 +2736,11 @@ def check_cli_run(r, label, mode, backend):
         f'one miss per bin, mode {mode}, backend {backend}')
 
 
-def dp_world_one(digests, cli7d, shards7, card, out_dir):
-  """9a; returns its numbers."""
-  (res,), seconds = run_ranks('9a', '9a', 1, out_dir, torchrun=True)
+def dp_world_one(digests, cli7d, shards7, card, out_dir, ckpt):
+  """9a, and 9b's resume in 9a's process; returns 9a's numbers and the
+  resume's result."""
+  (res,), seconds = run_ranks('9a', '9a', 1, out_dir, extra=['--ckpt', ckpt],
+                              torchrun=True)
   for comm, mode, backend in (('null', 'graph', None),
                               ('torch', 'graph', 'nccl')):
     for r, label in zip(res[comm]['runs'], ('run', 'resume')):
@@ -2741,12 +2776,12 @@ def dp_world_one(digests, cli7d, shards7, card, out_dir):
           'phase7_step_ms': p7,
           'launches': res['torch']['runs'][0]['launches'],
           'losses': res['torch']['runs'][0]['losses'] +
-                    res['torch']['runs'][1]['losses']}
+                    res['torch']['runs'][1]['losses']}, res['9b_resume']
 
 
-def dp_world_two(args, digests, card, out_dir):
-  """9b; returns its numbers."""
-  ckpt = os.path.join(out_dir, 'ckpt_9b')
+def dp_world_two(args, digests, card, out_dir, ckpt):
+  """9b (its checkpoint into ``ckpt``); returns its numbers and the
+  ranks' CLI results, which :func:`check_9b_resume` reads."""
   res, seconds = run_ranks(
       '9b', '9b', 2, out_dir, extra=['--ckpt', ckpt, '--seed',
                                      str(args.seed)],
@@ -2801,10 +2836,18 @@ def dp_world_two(args, digests, card, out_dir):
       f'{[round(x, 2) for x in cli_ms]}; launches per rank '
       f'{[r["cli"]["launches"]["fwd"] for r in res]} of each kernel over '
       f'the CLI\'s {len(res[0]["cli"]["losses"])} steps [{card}]')
-  (resumed,), resume_seconds = run_ranks(
-      '9b resume', '9b_resume', 1, out_dir, extra=['--ckpt', ckpt],
-      torchrun=True)
-  want = (res[0]['cli']['digest'], res[0]['cli']['samples_seen'])
+  return {'seconds': seconds, 'numpy_ms_per_rank': numpy_ms,
+          'cli_ms_per_rank': cli_ms, 'masked_halves': masked,
+          'reference': ref, 'launches_per_rank': [r['cli']['launches']
+                                                  for r in res],
+          'steps': [s['metrics'] for s in res[0]['steps']]}, res[0]['cli']
+
+
+def check_9b_resume(cli, resumed, card):
+  """9b's checkpoint resumed at world 1 over NCCL (in 9a's process): the
+  state and samples_seen those of rank 0's CLI (``cli``), the next bins
+  a re-seeked world-1 loader's, 2 more finite losses."""
+  want = (cli['digest'], cli['samples_seen'])
   got = (resumed['digest'], resumed['restored']['samples_seen'])
   bins = resumed['next_bins']
   more = resumed['more_losses']
@@ -2812,23 +2855,23 @@ def dp_world_two(args, digests, card, out_dir):
       or len(more) != 2 or not all(np.isfinite(more))):
     raise AssertionError(f'9b resume at world 1: state/samples_seen {got} '
                          f'vs saved {want}; next bins {bins}; losses {more}')
-  log(f'  9b: resumed at world 1 over NCCL: the state equals the world-2 '
-      f'ranks\' bit for bit, samples_seen {got[1]}, the next 3 batches '
-      f'equal a re-seeked world-1 loader\'s, 2 more steps {more} '
-      f'({resume_seconds:.1f} s) [{card}]')
-  return {'seconds': seconds, 'numpy_ms_per_rank': numpy_ms,
-          'cli_ms_per_rank': cli_ms, 'masked_halves': masked,
-          'reference': ref, 'launches_per_rank': [r['cli']['launches']
-                                                  for r in res],
-          'steps': [s['metrics'] for s in res[0]['steps']],
-          'resume_losses': more}
+  log(f'  9b: resumed at world 1 over NCCL (in 9a\'s process): the state '
+      f'equals the world-2 ranks\' bit for bit, samples_seen {got[1]}, the '
+      f'next 3 batches equal a re-seeked world-1 loader\'s, 2 more steps '
+      f'{more} [{card}]')
+  return more
 
 
 def data_parallel(args, digests, cli7d, shards7, card):
-  """Phase 9: 9a, 9b, 9c."""
+  """Phase 9: 9b, then 9a (whose process also resumes 9b's checkpoint),
+  9c."""
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_dp_') as out_dir:
-    dp = {'world1': dp_world_one(digests, cli7d, shards7, card, out_dir)}
-    dp['world2'] = dp_world_two(args, digests, card, out_dir)
+    ckpt = os.path.join(out_dir, 'ckpt_9b')
+    world2, cli = dp_world_two(args, digests, card, out_dir, ckpt)
+    world1, resumed = dp_world_one(digests, cli7d, shards7, card, out_dir,
+                                   ckpt)
+    world2['resume_losses'] = check_9b_resume(cli, resumed, card)
+    dp = {'world1': world1, 'world2': world2}
   check_no_segments('phase 9')
   check_no_rank_processes()
   return dp
@@ -3520,14 +3563,15 @@ RECORD_INCIDENT_STEP = 15
 # The ring holds the batches of steps 9..16 (ordinals 8..15) at the capture,
 # with the feed's prefetch beyond them.
 RECORD_RING = 12
-# (the step replayed, the checkpoint it restores): mid-epoch 0, and across
-# the epoch's end at 22.
-REPLAYS = ((16, 8), (24, 16))
+# (the step replayed, the checkpoint it restores): across the epoch's end at
+# 22 (the bundled replay and the resumed run's restore the mid-epoch
+# checkpoint 8).
+REPLAYS = ((24, 16),)
 # Within what 11a's ledger holds: its 24 steps and the feed's prefetch
 # reach batch (1, 4).
 BATCH_KEYS = ((0, 3), (0, 21), (1, 2))
 FLIGHT_PROFILE_STEPS = 2
-FINGERPRINT_REPS = 2
+FINGERPRINT_REPS = 1
 # 11f: the recording run resumed at its mid-epoch checkpoint RESUME_AT and
 # run to RESUME_TO (a checkpoint there, every RECORD_CKPT_EVERY).
 RESUME_AT, RESUME_TO = 8, 16
@@ -4207,7 +4251,7 @@ SCAN_CELLS = (('s128_b64_k8', 128, 64, 8, False),
               ('packed_s8192_b2_k4', PACKED[0], PACKED[1], 4, True))
 # Windows in each timed window run (W); a per-step run (S) takes as many
 # steps.
-SCAN_TIMED_WINDOWS = 3
+SCAN_TIMED_WINDOWS = 2
 
 
 def card_memory():
@@ -4786,7 +4830,7 @@ def bart_on_card(digests, card):
 # layouts: two ranks on the one card over gloo (eager steps).
 PLACE_ROWS = 16
 PLACE_SEQ = 128
-PLACE_STEPS = 4
+PLACE_STEPS = 2
 # Phase 14's limits against world 1 (and 14c's against 14a's
 # continuation), relative: each about the geometric mean of the largest
 # gap of a sound run and the smallest that a broken split gave, both read
@@ -4885,7 +4929,8 @@ def rank_14(args, digests):
   the same global batches (make_global_batch), deterministic algorithms
   on, the kernels' counts at 0 just before and read just after; 14a then
   saves (rank 0 writes the whole state) and steps once more. Rank 0 then
-  runs world 1 on the whole batches from the same init."""
+  runs world 1 on the whole batches from the same init. Then 15b
+  (:func:`ring_rank`) in the same processes."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.loader.device import make_global_batch
   from lddl_tpu_torch.ops import flash_attention as tfa
@@ -4940,13 +4985,14 @@ def rank_14(args, digests):
       del ref
       torch.cuda.empty_cache()
     comm.barrier()
+  out['15b'] = ring_rank(args, comm)
   rank_result(args, out)
 
 
 def rank_14c(args, digests):
   """World 1 over NCCL (under torch.distributed.run) resumes 14a's
   checkpoint with the step cache on and takes the step 14a took after
-  saving, deterministic algorithms on."""
+  saving, deterministic algorithms on; then 15c (:func:`ring_capture`)."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.parallel import make_mesh
@@ -4964,11 +5010,15 @@ def rank_14c(args, digests):
   tfa.reset_launches()
   m = cache(to_device({k: v[:PLACE_ROWS] for k, v in batch.items()}),
             loop.dropout_seed)
-  rank_result(args, {
+  out = {
       'metrics': {k: float(v) for k, v in m.items()}, 'digest': digest,
       'meta': (loop.step, loop.samples_seen), 'mode': cache.mode,
       'misses': cache.misses, 'backend': loop.step_fn.exchange.backend,
-      'launches': tfa.device_launches()})
+      'launches': tfa.device_launches()}
+  del cache, loop
+  torch.cuda.empty_cache()
+  out['15c'] = ring_capture(args)
+  rank_result(args, out)
 
 
 RANK_TASKS.update({'14': rank_14, '14c': rank_14c})
@@ -4980,13 +5030,16 @@ def plant_fault(name):
   under."""
   global PLACE_LAYOUTS
   import torch.nn.functional as F
+  if name in RING_FAULTS:
+    plant_ring_fault(name)
+    return
 
   from lddl_tpu_torch.models import bert
   from lddl_tpu_torch.parallel import train
   init0, forward0 = bert.BertForPretraining.__init__, bert.Dense.forward
 
-  def init(self, cfg, mesh=None):
-    init0(self, cfg, mesh)
+  def init(self, cfg, mesh=None, **kw):
+    init0(self, cfg, mesh, **kw)
     if self.tp is None:
       return
     if name == 'one-row-sum':
@@ -5028,7 +5081,8 @@ def place_faults(args, card):
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_faults_') as out_dir:
     for name in (None, *PLACE_FAULTS):
       extra = ['--ckpt', os.path.join(out_dir, f'ckpt_{name}'), '--seed',
-               str(args.seed)] + ([] if name is None else ['--fault', name])
+               str(args.seed), '--only', '14'] + (
+                   [] if name is None else ['--fault', name])
       res, seconds = run_ranks(f'--place-faults {name}', '14', 2, out_dir,
                                extra=extra,
                                env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
@@ -5082,7 +5136,8 @@ def check_placement_layout(label, res, world1):
 
 
 def placement(args, digests, card):
-  """Phase 14: 14a, 14b, 14c."""
+  """Phase 14: 14a, 14b, 14c; and phase 15's 15b and 15c, which run in
+  the same rank processes."""
   t0 = time.perf_counter()
   out = {}
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_place_') as out_dir:
@@ -5141,6 +5196,7 @@ def placement(args, digests, card):
           f'{w_params} + {w_opt} ({ratio:.4f}); a snapshot of the state '
           f'(what a save gathers) allocated {extra} B at its peak beyond '
           f'that, under the flat buffer\'s {flat} B [{card}]')
+    out['15b'] = ring_world(res, card)
     want = (res[0]['14a']['digest'], res[0]['14a']['next'])
     (resumed,), resume_seconds = run_ranks(
         '14c', '14c', 1, out_dir, extra=['--ckpt', ckpt, '--seed',
@@ -5160,6 +5216,7 @@ def placement(args, digests, card):
                            f'continuation {w} (rtol {rtol})')
   out['14c'] = {'metrics': resumed['metrics'], 'continuation': want[1],
                 'launches': resumed['launches'], 'seconds': resume_seconds}
+  out['15c'] = ring_capture_check(resumed['15c'], card)
   log(f'  14c: 14a\'s checkpoint resumed at world 1 over NCCL: the state '
       f'equals the tensor=2 ranks\' gathered state bit for bit; its next '
       f'step through the step cache (a capture, mode graph) loss '
@@ -5175,7 +5232,552 @@ def placement(args, digests, card):
   return out
 
 
+# ---- phase 15: ring attention over the seq axis ----
+
+# 15a: the kernels on the inputs a ring at seq=2 gives them, bf16: a q
+# shard of s=512 pairs rows against the other shard's K/V (K1-K3), and of
+# packed s=8192 rows, q ids from shard 0 against kv ids from shard 1 (K4).
+RING_KERNEL_PAIRS = (16, 12, 256, 64)
+RING_KERNEL_PACKED = (2, 12, 4096, 64)
+# 15a's limits, bf16. out on real rows: RING_TOL of plain, absolute plus
+# relative (the two bf16 roundings of a value differ by up to an ulp,
+# 2^-8 of it); lse on real rows: RING_TOL absolute. dq, dk and dv, every
+# element: RING_GRAD_FLOOR plus RING_TOL of the sum of the absolute values
+# of the products it adds (|dS| |k|, |dS|^T |q|, P^T |dO|: the bodies
+# round P and dS to bf16, 2^-9 of each product, and the output to bf16,
+# so an element is off by at most about 2^-8 of that sum); and each
+# tensor's ||kernel - plain|| / ||plain|| within RING_REL_NORM, which
+# holds the bulk of the tensor as well.
+RING_TOL = 3e-2
+RING_GRAD_FLOOR = 1e-4
+RING_REL_NORM = 1e-2
+# 15b: two ranks on the one card over gloo at seq=2, ring_flash; each
+# cell's (label, seq_len, rows, steps): packed block-diagonal rows, then
+# pairs rows.
+RING_SEQ = 2
+RING_CELLS = (('packed', 8192, 2, 4), ('pairs', 512, 16, 2))
+# 15b's limits against world 1 (flash, one process, same init and
+# batches), per cell, relative: loss and grad_norm at every step, and the
+# parameters after the cell's steps, |theta - theta_1| / |theta_1 -
+# theta_0|. Each is about the geometric mean of the sound run's largest gap
+# and the smallest gap of a planted fault (RING_FAULTS) that the metric
+# separates, both read with --ring-faults (NVIDIA H100 80GB HBM3,
+# 700.00 W): packed, sound 1.6e-5 / 3.2e-4 / 0.0129 against the lse left
+# out (loss 5.9e-3), the gather without its sum (grad_norm 0.30) and the
+# own shard alone (parameters 0.048); pairs, sound 2.7e-4 / 8.5e-4 /
+# 0.072 against the lse left out (5.1e-4, 1.4e-2) and the gather without
+# its sum (parameters 0.119).
+RING_LIMITS = {'packed': {'loss': 3.1e-4, 'grad_norm': 9.8e-3,
+                          'params': 2.5e-2},
+               'pairs': {'loss': 3.7e-4, 'grad_norm': 3.4e-3,
+                         'params': 9.3e-2}}
+# Faults --ring-faults plants in 15b's rank processes: the ring attends to
+# its own shard alone (no rotation); the flash block's lse left out of the
+# merge (each block weighs 1); the gather's backward without its sum over
+# seq (each rank's columns get its own heads' cotangent only).
+RING_FAULTS = ('own-shard', 'no-lse', 'gather-no-sum')
+# 15c: world 1 over NCCL, the ring at n=1 through the step cache.
+RING_CAPTURE = ('graph', 1, 1, 'nccl')  # mode, misses, hits, backend
+
+
+def grad_magnitudes(tfa, q, k, v, bias, g, lse, delta, h, ids):
+  """Per element of dq, dk and dv, the sum of the absolute values of the
+  products it adds: scale |dS| |k|, scale |dS|^T |q| and P^T |dO|, with P
+  and dS as the plain versions form them (float32)."""
+  scale = 1.0 / q.shape[-1] ** 0.5
+  s = tfa._scores(q, k, bias, h, *ids) - lse[..., None]
+  p = torch.exp(torch.clamp_max(s, 30.0))
+  del s
+  dp = torch.matmul(g.float(), v.float().transpose(1, 2))
+  ds = (p * (dp - delta[..., None])).abs()
+  del dp
+  m_dq = torch.matmul(ds, k.float().abs()) * scale
+  m_dk = torch.matmul(ds.transpose(1, 2), q.float().abs()) * scale
+  m_dv = torch.matmul(p.transpose(1, 2), g.float().abs())
+  return m_dq, m_dk, m_dv
+
+
+def compare_bounded(label, kernel, plain, allowed, rows=None,
+                    rel_norm=None):
+  """Launch ``kernel`` twice and ``plain`` once on the same inputs: the two
+  launches must be bitwise equal, and each output's every element (of
+  ``rows``, where given) within its ``allowed`` error (one per output, a
+  number or a tensor of the output's shape), and with ``rel_norm``
+  ``||kernel - plain|| / ||plain||`` within it. Returns (the largest
+  absolute difference, the largest difference over its allowed error,
+  the largest relative norm)."""
+  got, again, ref = kernel(), kernel(), plain()
+  torch.cuda.synchronize()
+  got, again, ref = ((t,) if torch.is_tensor(t) else t
+                     for t in (got, again, ref))
+  if not all(torch.equal(a, c) for a, c in zip(got, again)):
+    raise AssertionError(f'{label}: two launches on the same inputs differ')
+  err = use = norm = 0.0
+  for i, (a, r, bound) in enumerate(zip(got, ref, allowed)):
+    diff = (a.float() - r.float()).abs()
+    bound = torch.as_tensor(bound, dtype=torch.float32, device=diff.device)
+    if rows is not None:
+      diff, r = diff[rows], r[rows]
+      bound = bound[rows] if bound.dim() else bound
+    bound = bound.expand_as(diff)
+    over = diff > bound
+    if bool(over.any()):
+      at = int(over.view(-1).nonzero()[0])
+      raise AssertionError(
+          f'{label} output {i}: {int(over.sum())} of {diff.numel()} '
+          f'elements past their bound; the first off by '
+          f'{float(diff.view(-1)[at]):.4g} against '
+          f'{float(bound.reshape(-1)[at]):.4g} (plain '
+          f'{float(r.reshape(-1)[at]):.4g})')
+    err = max(err, float(diff.max()))
+    use = max(use, float((diff / bound).max()))
+    if rel_norm is not None:
+      ratio = float(diff.norm() / r.float().norm().clamp_min(1e-30))
+      if not ratio <= rel_norm:
+        raise AssertionError(f'{label} output {i}: ||kernel - plain|| / '
+                             f'||plain|| = {ratio:.4g}, limit {rel_norm}')
+      norm = max(norm, ratio)
+  return err, use, norm
+
+
+def ring_kernel_case(tfa, label, q, k, v, do, g_lse, mask, qseg, kvseg,
+                     rows, h, card):
+  """One 15a case: K1-K3 (ids None) or K4 on a q shard against another
+  shard's K/V, with a random cotangent of out and a random non-zero one of
+  lse, zero on ``rows``' complement as the merge gives them. out and lse
+  are compared on ``rows``, dq, dk and dv everywhere, each to the limits
+  RING_* set out; every output must be finite. Returns the report's row
+  per kernel."""
+  b = mask.shape[0]
+  d = q.shape[-1]
+  bias = tfa.key_bias(mask, b, k.shape[1], q.device)
+  real = rows.repeat_interleave(h, dim=0)  # [bh, s_q]
+  do = torch.where(real[..., None], do, torch.zeros((), dtype=do.dtype,
+                                                    device=DEVICE))
+  g_lse = torch.where(real, g_lse, 0.0)
+  segs = None if qseg is None else tfa.Segments(qseg, kvseg)
+  ids = () if qseg is None else (qseg, kvseg)
+  out, lse = tfa._fwd(q, k, v, bias, h, segs)
+  g, delta = tfa._backward_rows(do, g_lse, out, q)
+  dq = tfa._dq(q, k, v, bias, g, lse, delta, h, segs)
+  dk, dv = tfa._dkv(q, k, v, bias, g, lse, delta, h, segs)
+  for name, t in (('out', out), ('lse', lse), ('dq', dq), ('dk', dk),
+                  ('dv', dv)):
+    if not bool(torch.isfinite(t).all()):
+      raise AssertionError(f'15a {label}: non-finite {name}')
+  m_dq, m_dk, m_dv = grad_magnitudes(tfa, q, k, v, bias, g, lse, delta, h,
+                                     ids)
+  out_plain = tfa._fwd_plain(q, k, v, bias, h, *ids)[0]
+  allowed = {
+      'fwd': (RING_TOL + RING_TOL * out_plain.float().abs(), RING_TOL),
+      'dq': (RING_GRAD_FLOOR + RING_TOL * m_dq,),
+      'dkv': (RING_GRAD_FLOOR + RING_TOL * m_dk,
+              RING_GRAD_FLOOR + RING_TOL * m_dv)}
+  del out_plain
+  suffix = '' if qseg is None else '_seg'
+  calls = {
+      'fwd': ((lambda: tfa._fwd(q, k, v, bias, h, segs)),
+              (lambda: tfa._fwd_plain(q, k, v, bias, h, *ids))),
+      'dq': ((lambda: tfa._dq(q, k, v, bias, g, lse, delta, h, segs)),
+             (lambda: tfa._dq_plain(q, k, v, bias, g, lse, delta, h, *ids))),
+      'dkv': ((lambda: tfa._dkv(q, k, v, bias, g, lse, delta, h, segs)),
+              (lambda: tfa._dkv_plain(q, k, v, bias, g, lse, delta, h,
+                                      *ids))),
+  }
+  report = []
+  for name, (kernel, plain) in calls.items():
+    fwd = name == 'fwd'
+    err, use, norm = compare_bounded(
+        f'15a {label} {name}{suffix}', kernel, plain, allowed[name],
+        rows=real if fwd else None, rel_norm=None if fwd else RING_REL_NORM)
+    report.append({'name': name + suffix, 'shape': [b, h, q.shape[1], d],
+                   'max_abs_err': err, 'tol': RING_TOL,
+                   'bound_use': use, 'rel_norm_err': None if fwd else norm,
+                   'ms': cuda_ms(kernel),
+                   'plain_ms': cuda_ms(plain, reps=5, warmup=1)})
+    r = report[-1]
+    held = ('out rtol and atol, lse atol' if fwd else
+            f'each element {RING_GRAD_FLOOR:g} + tol x its sum of |products|;'
+            f' rel norm {norm:.3g} (limit {RING_REL_NORM:g})')
+    log(f'  15a {label} {name}{suffix}: err={err:.3g} (tol {RING_TOL:g}: '
+        f'{held}; at most {use:.3g} of an element\'s bound) '
+        f'bitwise-repeat=ok kernel={r["ms"]:.3f}ms '
+        f'plain={r["plain_ms"]:.3f}ms [{card}]')
+  del m_dq, m_dk, m_dv, allowed
+  return report, lse
+
+
+def ring_kernels(tfa, seed, card):
+  """15a: K1-K4 on ring inputs against their plain versions, bf16."""
+  dtype = torch.bfloat16
+  rows = []
+  # K1-K3: the q shard of s=512 rows against the other shard, whose key
+  # mask pads a random tail (every row keeps a real key).
+  b, h, s, d = RING_KERNEL_PAIRS
+  q, k, v, do, g_lse, _ = attention_inputs(b, h, s, d, dtype, seed)
+  gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+  lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEVICE)
+  mask = torch.arange(s, device=DEVICE)[None, :] < lens[:, None]
+  if not bool((g_lse != 0).all()):
+    raise AssertionError('15a: the lse cotangent must be non-zero')
+  report, _ = ring_kernel_case(
+      tfa, f'pairs q shard vs kv shard {[b, h, s, d]}', q, k, v, do, g_lse,
+      mask, None, None, torch.ones((b, s), dtype=torch.bool, device=DEVICE),
+      h, card)
+  rows += report
+  # K4: shard 0's q ids against shard 1's kv ids of packed s=8192 rows.
+  b, h, s, d = RING_KERNEL_PACKED
+  rng = np.random.default_rng([seed, 15])
+  seg_np = segment_layout(b, 2 * s, int(rng.integers(PACKED_DOCS[0],
+                                                     PACKED_DOCS[1] + 1)),
+                          True, False, rng)
+  q_np, kv_np = seg_np[:, :s], seg_np[:, s:]
+  real_np = q_np >= 0
+  has_key = real_np & np.stack([np.isin(q_np[r], kv_np[r][kv_np[r] >= 0])
+                                for r in range(b)])
+  no_key = real_np & ~has_key
+  qlo, qhi = tfa.segment_block_intervals(q_np, tfa.TILE_ROWS)
+  klo, khi = tfa.segment_block_intervals(kv_np, tfa.stream_rows(d))
+  live = ((qlo[:, :, None] <= khi[:, None, :]) &
+          (klo[:, None, :] <= qhi[:, :, None]))
+  dead_tiles = int((~live.any(axis=2)).sum())
+  if not (no_key.sum() and dead_tiles and has_key.sum()):
+    raise AssertionError(f'15a: the packed shards give {int(no_key.sum())} '
+                         f'real rows with no key, {dead_tiles} disjoint q '
+                         f'tiles and {int(has_key.sum())} rows with a key: '
+                         'want each above 0')
+  q, k, v, do, g_lse, _ = attention_inputs(b, h, s, d, dtype, seed + 2)
+  qseg = torch.from_numpy(q_np).to(DEVICE)
+  kvseg = torch.from_numpy(kv_np).to(DEVICE)
+  report, lse = ring_kernel_case(
+      tfa, f'packed q ids of shard 0 vs kv ids of shard 1 {[b, h, s, d]}',
+      q, k, v, do, g_lse, kvseg >= 0, qseg, kvseg,
+      torch.from_numpy(has_key).to(DEVICE), h, card)
+  rows += report
+  # A real row with no same-document key: lse near -1e9, so the merge
+  # gives the block weight exp(lse - M) = 0.
+  gone = torch.from_numpy(no_key).to(DEVICE).repeat_interleave(h, dim=0)
+  top = float(lse[gone].max())
+  if not top < -1e8:
+    raise AssertionError(f'15a: a real row with no key in the block has lse '
+                         f'{top}, want below -1e8 (zero weight in the merge)')
+  log(f'  15a: {int(no_key.sum())} real rows of shard 0 have no key in shard '
+      f'1 (lse at most {top:.4g}, finite), {dead_tiles} of '
+      f'{live.shape[0] * live.shape[1]} q tiles are disjoint whole; g_lse '
+      'random and non-zero')
+  return rows
+
+
+def ring_cell_batches(label, s, b, steps, seed):
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  if label == 'packed':
+    return PackedLoader(s, b, steps, seed).batches
+  return BinLoader(s, b, steps, seed, dynamic_mask_tokens).batches
+
+
+def ring_build(args, s, impl):
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  cfg = BertConfig(vocab_size=((VOCAB_REAL + 63) // 64) * 64,
+                   attention_impl=impl, dropout_rate=0.0,
+                   max_position_embeddings=max(s, 512),
+                   **MODEL_SIZES[MODEL])
+  return dict(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+              warmup_steps=0, total_steps=100, seed=args.seed,
+              max_predictions=(PACKED[2] if s == PACKED[0] else
+                               args.max_predictions))
+
+
+def params_digest(model):
+  h = hashlib.sha256()
+  for p in model.parameters():
+    h.update(p.detach().cpu().numpy().tobytes())
+  return h.hexdigest()
+
+
+def ring_rank(args, comm):
+  """15b on one of the two ranks: each cell of RING_CELLS from one init,
+  ring_flash over make_mesh(seq=RING_SEQ), every rank's columns by
+  make_global_batch, the kernels' counts at 0 just before the steps and
+  read just after; rank 0 then runs world 1 (flash, one process) on the
+  whole batches from the same init."""
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  mesh = make_mesh(seq=RING_SEQ, device_type=torch.device(DEVICE).type)
+  out = {}
+  for label, s, b, steps in RING_CELLS:
+    batches = ring_cell_batches(label, s, b, steps, args.seed)
+    loop = TrainLoop.build(mesh=mesh, comm=comm,
+                           **ring_build(args, s, 'ring_flash'))
+    loop.model.train()
+    theta0 = flat_params(loop.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    r = {'steps': placement_steps(
+        loop, batches, lambda x: make_global_batch(x, mesh, device=DEVICE)),
+         'launches': tfa.device_launches(),
+         'host_launches': dict(tfa.launches),
+         'peak_bytes': torch.cuda.max_memory_allocated(),
+         'seq_rank': loop.model.sp.rank,
+         'backend': loop.step_fn.exchange.backend,
+         'exchange': type(loop.step_fn.exchange).__name__,
+         'digest': params_digest(loop.model)}
+    theta = flat_params(loop.model)
+    del loop
+    torch.cuda.empty_cache()
+    if comm.rank == 0:
+      ref = TrainLoop.build(**ring_build(args, s, 'flash'))
+      ref.model.train()
+      torch.cuda.reset_peak_memory_stats()
+      r['world1'] = {
+          'steps': placement_steps(ref, batches, to_device),
+          'peak_bytes': torch.cuda.max_memory_allocated()}
+      theta1 = flat_params(ref.model)
+      r['param_gap'] = float((theta - theta1).norm() /
+                             (theta1 - theta0).norm())
+      del ref, theta1
+    del theta, theta0
+    torch.cuda.empty_cache()
+    out[label] = r
+    comm.barrier()
+  return out
+
+
+def ring_capture(args):
+  """15c in the world-1 NCCL process: the ring at n=1 (ring_flash over
+  its mesh) on a packed s=8192 batch, one step eager from a snapshot of
+  the state, then from the same state through the step cache (a miss:
+  warm-up and capture) and again (a hit: the graph's replay; the state
+  is copied into the live tensors, so the graph stays valid),
+  deterministic algorithms on; then flash without a mesh from the same
+  state."""
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  from lddl_tpu_torch.training.pretrain import CompiledStepCache
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type=torch.device(DEVICE).type)
+  s, b = PACKED[:2]
+  batch = to_device(ring_cell_batches('packed', s, b, 1, args.seed)[0])
+  loop = TrainLoop.build(mesh=mesh, comm=comm,
+                         **ring_build(args, s, 'ring_flash'))
+  loop.model.train()
+  snap = loop._snapshot()
+  out = {}
+  eager = {k: float(v) for k, v in loop.step_fn(batch,
+                                                loop.dropout_seed).items()}
+  out['eager'] = {'metrics': eager, 'digest': loop.state_digest()}
+  cache = CompiledStepCache(loop.step_fn)
+  loop.load_whole_state(snap['model'], snap['opt'])
+  cache(batch, loop.dropout_seed)  # the miss: warm-up, then capture
+  loop.load_whole_state(snap['model'], snap['opt'])
+  tfa.reset_launches()
+  m = cache(batch, loop.dropout_seed)  # the hit: a replay
+  out['graph'] = {'metrics': {k: float(v) for k, v in m.items()},
+                  'digest': loop.state_digest(),
+                  'launches': tfa.device_launches(),
+                  'host_launches': dict(tfa.launches)}
+  out['cache'] = (cache.mode, cache.misses, cache.hits,
+                  loop.step_fn.exchange.backend)
+  del cache, loop
+  torch.cuda.empty_cache()
+  flash = TrainLoop.build(**ring_build(args, s, 'flash'))
+  flash.load_whole_state(snap['model'], snap['opt'])
+  flash.model.train()
+  out['flash'] = {k: float(v) for k, v in flash.step_fn(
+      batch, flash.dropout_seed).items()}
+  return out
+
+
+def plant_ring_fault(name):
+  """Break this rank process's ring as RING_FAULTS names it."""
+  from lddl_tpu_torch.models import bert
+  from lddl_tpu_torch.parallel import ring
+  if name == 'own-shard':
+    make0 = ring.make_ring_attention
+
+    def make(mesh, block_impl='dense', with_segment_ids=False):
+      attend = make0(mesh, block_impl, with_segment_ids)
+
+      def own(q, k, v, mask, *seg):
+        s = seg[0] if seg else None
+        return ring.ring_attention(q, k, v, mask, group=None,
+                                   block_impl=block_impl, q_segment_ids=s,
+                                   kv_segment_ids=s)
+      del attend
+      return own
+    ring.make_ring_attention = make
+  elif name == 'no-lse':
+    flash0 = ring.flash_attention_with_lse
+
+    def flash(*a, **k):
+      out, lse = flash0(*a, **k)
+      return out, torch.zeros_like(lse)
+    ring.flash_attention_with_lse = flash
+  elif name == 'gather-no-sum':
+    def backward(ctx, g):
+      sp = ctx.sp
+      per = g.shape[1] // sp.size
+      return g[:, sp.rank * per:(sp.rank + 1) * per].contiguous(), None
+    bert._GatherSeq.backward = staticmethod(backward)
+
+
+def check_ring_cell(label, res, world1):
+  """A 15b cell's checks: each rank's launches = 12 x RING_SEQ blocks a
+  step (every rotated shard runs its block), of K1-K3 on pairs rows and
+  of K4 on packed ones (device = the wrappers'); the ranks' metrics and
+  parameters bit-equal; loss,
+  grad_norm and the parameters within the cell's RING_LIMITS of world
+  1's."""
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  layers = MODEL_SIZES[MODEL]['num_layers']
+  seg = label == 'packed'
+  for rank, r in enumerate(res):
+    blocks = RING_SEQ * len(r['steps'])
+    want = {k: (layers * blocks if k.endswith('_seg') == seg else 0)
+            for k in ('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg')}
+    if r['launches'] != want or r['host_launches'] != r['launches']:
+      raise AssertionError(f'15b {label} rank {rank}: launches '
+                           f'{r["launches"]} on the device, '
+                           f'{r["host_launches"]} by the wrappers; want '
+                           f'{want} ({RING_SEQ} blocks a step)')
+  if len({r['digest'] for r in res}) != 1:
+    raise AssertionError(f'15b {label}: the ranks\' parameters differ')
+  limits = RING_LIMITS[label]
+  for i, w in enumerate(world1['steps']):
+    got = [r['steps'][i]['metrics'] for r in res]
+    if any(g != got[0] for g in got):
+      raise AssertionError(f'15b {label} step {i}: the ranks differ: {got}')
+    for name in ('loss', 'grad_norm'):
+      want = w['metrics'][name]
+      if not abs(got[0][name] - want) <= limits[name] * abs(want):
+        raise AssertionError(f'15b {label} step {i}: {name} {got[0][name]} '
+                             f'vs world 1\'s {want} (rtol {limits[name]})')
+  if not res[0]['param_gap'] <= limits['params']:
+    raise AssertionError(f'15b {label}: the parameters are '
+                         f'{res[0]["param_gap"]:.3g} of world 1\'s update '
+                         f'away from world 1\'s (limit {limits["params"]})')
+
+
+def ring_gaps(r):
+  """Rank 0's relative gaps to world 1 in a 15b cell (``r``, its
+  result): per step loss and grad_norm, and the parameters'."""
+  w = r['world1']['steps']
+  return {m: [abs(s['metrics'][m] - x['metrics'][m]) / abs(x['metrics'][m])
+              for s, x in zip(r['steps'], w)] for m in ('loss', 'grad_norm')
+          } | {'params': r['param_gap']}
+
+
+def ring_world(res, card):
+  """15b's checks and report from the phase-14 world's results."""
+  out = {}
+  for label, s, b, steps in RING_CELLS:
+    per = [r['15b'][label] for r in res]
+    world1 = per[0]['world1']
+    check_ring_cell(label, per, world1)
+    ms = [float(np.median([x['ms'] for x in r['steps'][1:]])) for r in per]
+    w1_ms = float(np.median([x['ms'] for x in world1['steps'][1:]]))
+    gaps = ring_gaps(per[0])
+    out[label] = {
+        'shape': [b, s], 'steps': steps, 'seq': RING_SEQ,
+        'ms_per_step_per_rank': ms, 'world1_ms': w1_ms,
+        'peak_bytes_per_rank': [r['peak_bytes'] for r in per],
+        'world1_peak_bytes': world1['peak_bytes'],
+        'launches_per_rank': [r['launches'] for r in per],
+        'loss': [x['metrics']['loss'] for x in per[0]['steps']],
+        'world1_loss': [x['metrics']['loss'] for x in world1['steps']],
+        'grad_norm': [x['metrics']['grad_norm'] for x in per[0]['steps']],
+        'world1_grad_norm': [x['metrics']['grad_norm']
+                             for x in world1['steps']],
+        'gaps': gaps, 'backend': per[0]['backend']}
+    log(f'  15b {label} [{b}, {s}] at seq={RING_SEQ} over {per[0]["backend"]} '
+        f'({per[0]["exchange"]}, ring_flash, {s // RING_SEQ} columns a rank):'
+        f' losses {out[label]["loss"]} vs world 1 (flash) '
+        f'{out[label]["world1_loss"]}; relative gaps loss '
+        f'{[f"{x:.3g}" for x in gaps["loss"]]}, grad_norm '
+        f'{[f"{x:.3g}" for x in gaps["grad_norm"]]}, parameters '
+        f'{gaps["params"]:.3g} (limits {RING_LIMITS[label]}); the ranks '
+        f'bit-equal; '
+        f'launches = layers x {RING_SEQ} blocks a step')
+    log(f'  15b {label}: ms/step per rank (eager, median after the first) '
+        f'{[round(x, 2) for x in ms]} vs world 1 {w1_ms:.2f}; peak allocated '
+        f'per rank {out[label]["peak_bytes_per_rank"]} B vs world 1 '
+        f'{world1["peak_bytes"]} B [{card}]')
+  return out
+
+
+def ring_capture_check(res, card):
+  """15c's checks: a capture then a replay, bit-equal to the eager step;
+  one replay's launches = 12 of each K4 kernel; within DENSE_*_RTOL of
+  flash."""
+  if tuple(res['cache']) != RING_CAPTURE:
+    raise AssertionError(f'15c: cache {res["cache"]}, want {RING_CAPTURE}')
+  if (res['graph']['metrics'] != res['eager']['metrics'] or
+      res['graph']['digest'] != res['eager']['digest']):
+    raise AssertionError(f'15c: the replay {res["graph"]["metrics"]} differs '
+                         f'from the eager step {res["eager"]["metrics"]}')
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  layers = MODEL_SIZES[MODEL]['num_layers']
+  want = {k: (layers if k.endswith('_seg') else 0)
+          for k in ('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg')}
+  g = res['graph']
+  if g['launches'] != want or g['host_launches'] != want:
+    raise AssertionError(f'15c: a replay launched {g["launches"]} on the '
+                         f'device, {g["host_launches"]} counted by the cache; '
+                         f'want {want}')
+  for name, rtol in (('loss', DENSE_LOSS_RTOL),
+                     ('grad_norm', DENSE_GRAD_NORM_RTOL)):
+    got, w = g['metrics'][name], res['flash'][name]
+    if not abs(got - w) <= rtol * abs(w):
+      raise AssertionError(f'15c: {name} {got} vs flash {w} (rtol {rtol})')
+  log(f'  15c: the ring at n=1 over NCCL, packed s={PACKED[0]}: one replay of '
+      f'the captured step = the eager step bit for bit (loss '
+      f'{g["metrics"]["loss"]}, grad_norm {g["metrics"]["grad_norm"]}, state '
+      f'digest), {layers} launches of each K4 kernel a replay; flash alone: '
+      f'loss '
+      f'{res["flash"]["loss"]}, grad_norm {res["flash"]["grad_norm"]} [{card}]')
+  return {'metrics': g['metrics'], 'flash': res['flash'],
+          'launches': g['launches']}
+
+
+def ring_faults(args, card):
+  """--ring-faults: 15b's world once sound and once under each fault of
+  RING_FAULTS (phase 14's layouts left out); per fault and cell, rank 0's
+  relative gaps to world 1. Checks nothing: the readings RING_LIMITS are
+  set between."""
+  out = {}
+  with tempfile.TemporaryDirectory(prefix='lddl_smoke_ring_faults_') as d:
+    for name in (None, *RING_FAULTS):
+      extra = ['--ckpt', os.path.join(d, f'ckpt_{name}'), '--seed',
+               str(args.seed), '--only', '15b'] + (
+                   [] if name is None else ['--fault', name])
+      res, seconds = run_ranks(f'--ring-faults {name}', '14', 2, d,
+                               extra=extra,
+                               env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+      for label, *_ in RING_CELLS:
+        per = [r['15b'][label] for r in res]
+        row = ring_gaps(per[0])
+        row['ranks_equal'] = all(
+            a['metrics'] == b['metrics']
+            for a, b in zip(per[0]['steps'], per[1]['steps']))
+        row['seconds'] = seconds
+        out[f'{name or "sound"} {label}'] = row
+        log(f'  {name or "sound"} {label}: ranks bit-equal '
+            f'{row["ranks_equal"]}; relative gap to world 1 per step, loss '
+            f'{[f"{x:.3g}" for x in row["loss"]]}, grad_norm '
+            f'{[f"{x:.3g}" for x in row["grad_norm"]]}, parameters '
+            f'{row["params"]:.3g} [{card}]')
+  check_no_rank_processes('--ring-faults')
+  print(json.dumps({'ring_faults': out, 'limits': RING_LIMITS,
+                    'card': card}))
+
+
 def main():
+  global PLACE_LAYOUTS, RING_CELLS
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--steps', type=int, default=10,
@@ -5194,8 +5796,16 @@ def main():
                       'script starts them itself)')
   parser.add_argument('--out', help='--rank-task: where it writes')
   parser.add_argument('--ckpt', help='--rank-task: the checkpoint dir')
-  parser.add_argument('--fault', choices=sorted(PLACE_FAULTS),
+  parser.add_argument('--fault', choices=sorted(PLACE_FAULTS) +
+                      list(RING_FAULTS),
                       help='--rank-task 14: the fault to plant')
+  parser.add_argument('--only', choices=('14', '15b'),
+                      help='--rank-task 14: run phase 14 (14a, 14b) or 15b '
+                      'alone')
+  parser.add_argument('--ring-faults', action='store_true',
+                      help="read 15b's gaps to world 1 under planted "
+                      'faults (the limits\' calibration); runs nothing '
+                      'else')
   parser.add_argument('--place-faults', action='store_true',
                       help="read phase 14's gaps to world 1 under planted "
                       'faults (the limits\' calibration); runs nothing '
@@ -5205,6 +5815,10 @@ def main():
     print('chip_smoke: no CUDA device; nothing to check', file=sys.stderr)
     return 2
   if args.rank_task:
+    if args.only == '15b':
+      PLACE_LAYOUTS = ()
+    elif args.only == '14':
+      RING_CELLS = ()
     if args.fault:
       plant_fault(args.fault)
     RANK_TASKS[args.rank_task](args, load_digests())
@@ -5226,6 +5840,9 @@ def main():
       f'{_build.library_path()}')
   if args.place_faults:
     place_faults(args, card)
+    return 0
+  if args.ring_faults:
+    ring_faults(args, card)
     return 0
   ptxas = {}
   if _build.build_info['log'] is not None:
@@ -5302,7 +5919,12 @@ def main():
       f'[{card}]')
   bart = bart_on_card(digests, card)
 
-  log(f'== parameter placement over the fsdp and tensor axes: two ranks on '
+  log(f'== ring attention: the kernels on a ring\'s inputs (15a) [{card}]')
+  ring_rows = ring_kernels(tfa, args.seed, card)
+  torch.cuda.empty_cache()
+
+  log(f'== parameter placement over the fsdp and tensor axes (14) and ring '
+      f'attention over the seq axis (15b, 15c): two ranks on '
       f'the card [{card}]')
   placed = placement(args, digests, card)
 
@@ -5350,6 +5972,14 @@ def main():
         label: [x[name] for x in placed[label]['launches_per_rank']]
         for label, _ in PLACE_LAYOUTS}
     entry['phase14_launches_resumed'] = placed['14c']['launches'][name]
+    entry['phase15_launches_per_rank'] = {
+        label: [x[name] for x in placed['15b'][label]['launches_per_rank']]
+        for label, *_ in RING_CELLS}
+    entry['phase15_launches_captured'] = placed['15c']['launches'][name]
+    ring = next(x for x in ring_rows if x['name'] == name)
+    entry['phase15a'] = {k: ring[k] for k in (
+        'shape', 'max_abs_err', 'tol', 'bound_use', 'rel_norm_err', 'ms',
+        'plain_ms')}
     if seg:
       entry.update(skip_fraction=r['skip_fraction'],
                    segment_free_ms=r['segment_free_ms'],

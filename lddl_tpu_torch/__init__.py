@@ -61,5 +61,13 @@ Embed forms), ``models.convert.shard_state_dict``, ``parallel.mesh``
 (the batch layout, the axes' groups, ``match_partition_rules``,
 ``reshard_state``), ``parallel.train`` (``ShardedDataParallel``, the
 vocab-parallel cross entropy), ``ops.flash_attention.
-make_flash_attention`` and ``loader.device.make_global_batch``.
+make_flash_attention`` and ``loader.device.make_global_batch``. Ring
+attention over the mesh's ``seq`` axis: ``parallel.ring``
+(``ring_attention``, ``make_ring_attention``: K/V rotated by
+``batch_isend_irecv``, dense or flash blocks),
+``parallel.mesh`` (the seq group, ``seq_shard``, the flattened
+``data x fsdp x seq`` group), ``models.bert`` (``attention_impl`` 'ring'
+and 'ring_flash' on a mesh, global positions, the encoder's output
+gathered over seq for the heads), ``parallel.train`` (normalizers and
+gradients over ``data x fsdp x seq``) and the CLI's ``--sp``.
 """

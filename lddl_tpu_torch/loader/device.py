@@ -94,9 +94,10 @@ def make_global_batch(batch, mesh, device=None):
   The JAX function assembles one array over the mesh from the process's
   data; here each rank is a process and holds its own tensors, so every
   rank passes the same global batch (as the JAX package's one process
-  does) and keeps its rows (:func:`~lddl_tpu_torch.parallel.mesh.
-  local_batch`): ``P(('data','fsdp'), 'seq')`` restricted to the mesh,
-  replicated over ``tensor``.
+  does) and keeps its part (:func:`~lddl_tpu_torch.parallel.mesh.
+  local_batch`): ``P(('data','fsdp'), 'seq')``, its rows and its
+  ``1 / seq`` of each of them, replicated over ``tensor``. A sequence
+  length that ``seq`` does not divide raises ``ValueError``.
   """
   from ..parallel.mesh import local_batch
   device = torch.device('cuda' if device is None else device)
@@ -113,11 +114,12 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None,
   ``coordinate`` maps a batch's ordinal in this feed to its ledger
   coordinate ``(epoch, index)``, the key of its ``device`` record.
 
-  ``mesh``: the iterator yields global batches, the same on every rank,
-  and each rank places its rows of them (:func:`make_global_batch`), as
-  the JAX feed lays a batch over its mesh. A loader built with
-  ``dp_rank=batch_rank(mesh)`` yields the rank's rows already and is fed
-  without one.
+  ``mesh``: the iterator yields this rank's rows (a loader built with
+  ``dp_rank=batch_rank(mesh)``), and each rank places its ``seq``
+  columns of them (:func:`~lddl_tpu_torch.parallel.mesh.seq_shard`); the
+  ledger's ``device`` record hashes the batch the iterator gave, before
+  it is cut. A global batch, the same on every rank, is cut by
+  :func:`make_global_batch`.
 
   A producer error is raised in the consumer at the batch where it
   happened. Closing the generator (or dropping it) stops the producer and
@@ -150,8 +152,8 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None,
     micro = isinstance(batch, (list, tuple))
     dicts = list(batch) if micro else [batch]
     if mesh is not None:
-      from ..parallel.mesh import local_batch
-      dicts = [local_batch(d, mesh) for d in dicts]
+      from ..parallel.mesh import seq_shard
+      dicts = [seq_shard(d, mesh) for d in dicts]
     if side is None:
       placed, ready = [_host_copy(d) for d in dicts], None
     else:

@@ -88,6 +88,51 @@ class TensorParallel:
     return n // self.size
 
 
+class SequenceParallel:
+  """A rank's place in its ``seq`` group: the group, its size and the
+  rank's index in it (which ``1 / seq`` of every row it holds). The model
+  holds one when the mesh's ``seq`` axis is above 1, and None
+  otherwise."""
+
+  def __init__(self, mesh):
+    from ..parallel.mesh import seq_group, seq_rank, seq_size
+    self.group = seq_group(mesh)
+    self.size = seq_size(mesh)
+    self.rank = seq_rank(mesh)
+
+
+def gather_columns(t, sp):
+  """The whole rows of ``t`` (``[b, s / seq, ...]``, this rank's columns)
+  from every rank of the seq group, in rank order: ``[b, s, ...]``. No
+  gradient."""
+  from ..parallel.mesh import stack_over
+  parts = stack_over(t.detach(), sp.group)
+  return torch.cat(parts.unbind(0), dim=1)
+
+
+class _GatherSeq(torch.autograd.Function):
+  """The encoder's output gathered over the seq group (:func:`
+  gather_columns`); the backward sums the whole rows' cotangents over the
+  group in float32 and keeps this rank's columns (a reduce-scatter), so
+  each rank's columns get the sum of every rank's heads' cotangent."""
+
+  @staticmethod
+  def forward(ctx, x, sp):
+    ctx.sp = sp
+    return gather_columns(x, sp)
+
+  @staticmethod
+  def backward(ctx, g):
+    sp = ctx.sp
+    per = g.shape[1] // sp.size
+    whole = _sum_over(g, sp.group)
+    return whole[:, sp.rank * per:(sp.rank + 1) * per].contiguous(), None
+
+
+def gather_seq(x, sp):
+  return x if sp is None else _GatherSeq.apply(x, sp)
+
+
 def _sum_over(x, group):
   """``x`` summed over ``group``'s ranks, reduced in float32 (a bf16
   activation is widened for the sum and rounded once after)."""
@@ -261,12 +306,20 @@ class SelfAttention(nn.Module):
   """With ``tp`` the q/k/v projections are column-parallel and ``out`` is
   row-parallel, so the rank attends over its ``num_heads / tensor``
   heads; a fused ``qkv`` rank holds its heads of q, of k and of v, in
-  that order (``param_blocks``)."""
+  that order (``param_blocks``).
 
-  def __init__(self, cfg, tp=None):
+  ``attention_impl`` 'ring' or 'ring_flash' with a ``mesh`` runs ring
+  attention over the mesh's ``seq`` group on the rank's heads and its
+  ``1 / seq`` of the rows (:func:`~lddl_tpu_torch.parallel.ring.
+  make_ring_attention`; dense or flash blocks), at ``seq`` 1 too (one
+  block, then the merge), as the JAX model does. Without a mesh
+  'ring_flash' is 'flash' and 'ring' is 'dense'."""
+
+  def __init__(self, cfg, tp=None, mesh=None):
     super().__init__()
     self.cfg = cfg
     self.tp = tp
+    self.mesh = mesh
     d = cfg.hidden_size
     self.heads = cfg.num_heads if tp is None else tp.split(cfg.num_heads,
                                                            'num_heads')
@@ -289,7 +342,14 @@ class SelfAttention(nn.Module):
     else:
       q, k, v = self.query(x_in), self.key(x_in), self.value(x_in)
     q, k, v = (t.reshape(b, s, heads, hd).transpose(1, 2) for t in (q, k, v))
-    if cfg.attention_impl in ('flash', 'ring_flash'):
+    if cfg.attention_impl in ('ring', 'ring_flash') and self.mesh is not None:
+      from ..parallel.ring import make_ring_attention
+      attend = make_ring_attention(
+          self.mesh, 'flash' if cfg.attention_impl == 'ring_flash' else
+          'dense', with_segment_ids=segment_ids is not None)
+      ctx = attend(q, k, v, attention_mask,
+                   *(() if segment_ids is None else (segment_ids,)))
+    elif cfg.attention_impl in ('flash', 'ring_flash'):
       ctx = flash_attention(q, k, v, attention_mask, segment_ids,
                             segment_ids)
     else:
@@ -311,11 +371,11 @@ class SelfAttention(nn.Module):
 class Layer(nn.Module):
   """Post-LN transformer block (original BERT residual layout)."""
 
-  def __init__(self, cfg, tp=None):
+  def __init__(self, cfg, tp=None, mesh=None):
     super().__init__()
     self.cfg = cfg
     self.tp = tp
-    self.attention = SelfAttention(cfg, tp)
+    self.attention = SelfAttention(cfg, tp, mesh)
     self.attention_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
     self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size,
                               cfg.dtype, tp, 'column')
@@ -336,10 +396,10 @@ class Layer(nn.Module):
 
 class Encoder(nn.Module):
 
-  def __init__(self, cfg, tp=None):
+  def __init__(self, cfg, tp=None, mesh=None):
     super().__init__()
     self.cfg = cfg
-    self.layers = nn.ModuleList(Layer(cfg, tp)
+    self.layers = nn.ModuleList(Layer(cfg, tp, mesh)
                                 for _ in range(cfg.num_layers))
 
   def forward(self, x, attention_mask, generators, twins, segment_ids=None):
@@ -431,13 +491,23 @@ class BertForPretraining(nn.Module):
   rank's ``num_heads / tensor`` heads; everything else is replicated. The
   ``data`` and ``fsdp`` axes are the train step's
   (:class:`~lddl_tpu_torch.parallel.train.DataParallel`,
-  :class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel`). ``seq``
-  above 1 (ring attention) raises :class:`NotImplementedError`;
-  ``num_heads``, ``intermediate_size`` or ``vocab_size`` that ``tensor``
-  does not divide raise ``ValueError``.
+  :class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel`). With
+  ``seq`` above 1 (``attention_impl`` 'ring' or 'ring_flash'; any other
+  raises ``ValueError``) the rank holds ``1 / seq`` of each of its rows
+  (:class:`SequenceParallel`): the embeddings take the row's global
+  positions, the layers run on the rank's columns with ring attention
+  over the seq group, and the encoder's output is gathered over the
+  group (:func:`gather_seq`), so the heads read whole rows on every seq
+  rank: the masked-only head gathers global ``mlm_positions``, the pooler
+  row ``[CLS]`` at position 0, and every seq rank returns the same
+  logits. ``num_heads``, ``intermediate_size`` or ``vocab_size`` that
+  ``tensor`` does not divide raise ``ValueError``.
+
+  ``generator``: the CPU generator the initial parameters are drawn from
+  (:meth:`reset_parameters`); None draws from torch's global one.
   """
 
-  def __init__(self, cfg, mesh=None):
+  def __init__(self, cfg, mesh=None, generator=None):
     super().__init__()
     from ..parallel.mesh import axis_size, check_mesh
     check_mesh(mesh)
@@ -445,8 +515,15 @@ class BertForPretraining(nn.Module):
       raise ValueError(f'unknown attention_impl {cfg.attention_impl!r}')
     if cfg.ablate:
       raise NotImplementedError(f'ablate={cfg.ablate!r} is not ported')
+    if axis_size(mesh, 'seq') > 1 and cfg.attention_impl not in (
+        'ring', 'ring_flash'):
+      raise ValueError(
+          f"attention_impl={cfg.attention_impl!r} on a mesh with seq="
+          f"{axis_size(mesh, 'seq')}: the seq axis runs ring attention "
+          "('ring' or 'ring_flash')")
     self.cfg = cfg
     self.mesh = mesh
+    self.sp = SequenceParallel(mesh) if axis_size(mesh, 'seq') > 1 else None
     tp = TensorParallel(mesh) if axis_size(mesh, 'tensor') > 1 else None
     if tp is not None:
       for n, what in ((cfg.num_heads, 'num_heads'),
@@ -463,7 +540,7 @@ class BertForPretraining(nn.Module):
     self.token_type_embeddings = Embed(cfg.type_vocab_size, d, cfg.dtype,
                                        std=1.0 / math.sqrt(d))
     self.embed_norm = LayerNorm(d, cfg.dtype)
-    self.encoder = Encoder(cfg, tp)
+    self.encoder = Encoder(cfg, tp, mesh)
     self.pooler = Dense(d, d, cfg.dtype)
     self.nsp_classifier = Dense(d, 2, cfg.dtype)
     self.mlm_transform = Dense(d, d, cfg.dtype)
@@ -472,7 +549,7 @@ class BertForPretraining(nn.Module):
         cfg.vocab_size if tp is None else tp.split(cfg.vocab_size,
                                                    'vocab_size')))
     self._dropout_gens = None
-    self.reset_parameters()
+    self.reset_parameters(generator)
 
   def placement(self):
     """``{state_dict name: spec}`` of every parameter
@@ -520,8 +597,7 @@ class BertForPretraining(nn.Module):
     parallelism the whole model is drawn on the CPU and the rank keeps
     its shards, so every layout starts from world 1's parameters."""
     if self.tp is not None:
-      whole = BertForPretraining(self.cfg)
-      whole.reset_parameters(generator)
+      whole = BertForPretraining(self.cfg, generator=generator)
       with torch.no_grad():
         self.load_whole_state_dict(whole.state_dict())
       return
@@ -592,9 +668,14 @@ class BertForPretraining(nn.Module):
     packed loader's ``block_diagonal`` key) restricts attention to
     same-document pairs: the segmented flash kernels, or an additive bias
     in dense attention.
+
+    With ``seq`` above 1 the row inputs are the rank's columns ``[b, s /
+    seq]`` while ``mlm_positions`` index the whole row, and the logits
+    are the whole rows'.
     """
     cfg = self.cfg
     s = input_ids.shape[1]
+    first = 0 if self.sp is None else self.sp.rank * s
     gens = [None] * (2 * cfg.num_layers + 1)
     if dropout_key is SEEDED:
       if self._dropout_gens is None and cfg.dropout_rate > 0.0:
@@ -602,7 +683,7 @@ class BertForPretraining(nn.Module):
       gens = self.dropout_generators() or gens
     elif dropout_key is not None:
       gens = self.seed_dropout(dropout_key) or gens
-    pos = torch.arange(s, device=input_ids.device)[None, :]
+    pos = torch.arange(first, first + s, device=input_ids.device)[None, :]
     x = (self.word_embeddings(input_ids) + self.position_embeddings(pos) +
          self.token_type_embeddings(token_type_ids))
     x = self.embed_norm(x)
@@ -610,6 +691,7 @@ class BertForPretraining(nn.Module):
     layers = gens[1:cfg.num_layers + 1]
     twins = gens[cfg.num_layers + 1:] or [None] * cfg.num_layers
     x = self.encoder(x, attention_mask.bool(), layers, twins, segment_ids)
+    x = gather_seq(x, self.sp)
 
     x_mlm = x
     if mlm_positions is not None:

@@ -7,10 +7,10 @@ Axes, in the JAX package's order (any can be size 1)::
   data    pure data parallelism (gradients all-reduced over the group)
   fsdp    data parallelism with sharded parameters and optimizer state
   tensor  tensor (Megatron-style) parallelism inside attention/MLP blocks
-  seq     sequence parallelism (ring attention)
+  seq     sequence parallelism (ring attention,
+          :mod:`lddl_tpu_torch.parallel.ring`)
 
-``seq`` above 1 raises :class:`NotImplementedError`: ring attention is
-not ported yet. A process group makes the mesh a
+A process group makes the mesh a
 ``torch.distributed.device_mesh.DeviceMesh`` laid out as the JAX
 package's ``devices.reshape(data, fsdp, tensor, seq)``: rank
 ``((d * fsdp + f) * tensor + t) * seq + s``. A single process without a
@@ -19,8 +19,9 @@ that.
 
 The reference's dp_rank-feeding contract holds as in the JAX package: a
 batch is laid out ``P(('data', 'fsdp'), 'seq')``, so the ranks of one
-``tensor`` group hold the same rows (:func:`batch_rank`,
-:func:`batch_size`, :func:`local_batch`).
+``tensor`` or ``seq`` group hold the same rows (:func:`batch_rank`,
+:func:`batch_size`, :func:`local_batch`), and a ``seq`` rank keeps its
+contiguous ``1 / seq`` of every row (:func:`seq_columns`).
 
 Placement. A spec is a tuple with one entry per dim of a tensor: None, an
 axis name or a tuple of them, as a JAX ``PartitionSpec``. In this port
@@ -28,22 +29,18 @@ only the ``tensor`` entries split a parameter (:func:`shard`); the
 ``fsdp`` axis shards the step's flat parameter buffer instead
 (:class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel`), so an
 ``fsdp`` entry names where the buffer's shard comes from, not a dim that
-is cut. A checkpoint holds the whole state (world 1's layout), and
-:func:`reshard_state` gives a rank its shards of it on any mesh.
+is cut. Every ``seq`` rank holds the whole parameters of its
+``(data, fsdp, tensor)`` coordinate. A checkpoint holds the whole state
+(world 1's layout), and :func:`reshard_state` gives a rank its shards of
+it on any mesh.
 """
 
 import re
 
 MESH_AXES = ('data', 'fsdp', 'tensor', 'seq')
-
-
-def check_axes(fsdp=1, tensor=1, seq=1):
-  """Raise for a ``seq`` axis above 1 (ring attention is not ported)."""
-  del fsdp, tensor
-  if seq > 1:
-    raise NotImplementedError(
-        f'seq={seq}: ring attention over the seq axis is not ported yet '
-        '(ROADMAP Queue 1 item 5)')
+# The axes whose ranks a step reduces over, flattened: the batch group, the
+# gradients' group and an fsdp shard's replicas (:func:`_group_over`).
+_FLAT_AXES = (('data', 'fsdp'), ('data', 'fsdp', 'seq'), ('data', 'seq'))
 
 
 def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
@@ -59,7 +56,6 @@ def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
   """
   import torch
   import torch.distributed as dist
-  check_axes(fsdp, tensor, seq)
   up = dist.is_available() and dist.is_initialized()
   n = dist.get_world_size() if up else 1
   model = fsdp * tensor * seq
@@ -75,21 +71,47 @@ def make_mesh(data=1, fsdp=1, tensor=1, seq=1, device_type=None):
     device_type = 'cuda' if torch.cuda.is_available() else 'cpu'
   mesh = init_device_mesh(device_type, (data, fsdp, tensor, seq),
                           mesh_dim_names=MESH_AXES)
-  if data > 1 and fsdp > 1:
-    # The flattened (data, fsdp) group of this rank's (tensor, seq)
-    # coordinate; new_group is collective, so every rank makes them all.
-    rank = dist.get_rank()
-    for t in range(tensor * seq):
-      ranks = [b * tensor * seq + t for b in range(data * fsdp)]
-      group = dist.new_group(ranks)
-      if rank in ranks:
-        mesh._lddl_batch_group = group
+  # The flattened groups over more than one axis above 1, keyed by those
+  # axes (new_group is collective, so every rank makes them all): data x
+  # fsdp (the batch group), data x fsdp x seq (the gradients') and data x
+  # seq (an fsdp shard's replicas).
+  shape = dict(zip(MESH_AXES, (data, fsdp, tensor, seq)))
+  mesh._lddl_groups = {}
+  for axes in _FLAT_AXES:
+    big = tuple(a for a in axes if shape[a] > 1)
+    if len(big) > 1 and big not in mesh._lddl_groups:
+      mesh._lddl_groups[big] = _flat_group(shape, big)
   return mesh
+
+
+def _flat_group(shape, axes):
+  """This rank's group over ``axes`` flattened in mesh order (the other
+  axes fixed at this rank's coordinates): every rank makes every such
+  group, in the same order, as make_mesh() must."""
+  import itertools
+
+  import torch.distributed as dist
+  rank = dist.get_rank()
+  fixed = [a for a in MESH_AXES if a not in axes]
+  mine = None
+  for coord in itertools.product(*(range(shape[a]) for a in fixed)):
+    at = dict(zip(fixed, coord))
+    ranks = []
+    for free in itertools.product(*(range(shape[a]) for a in axes)):
+      at.update(zip(axes, free))
+      r = 0
+      for a in MESH_AXES:
+        r = r * shape[a] + at[a]
+      ranks.append(r)
+    group = dist.new_group(ranks)
+    if rank in ranks:
+      mine = group
+  return mine
 
 
 def check_mesh(mesh):
   """Raise :class:`NotImplementedError` unless ``mesh`` is None or a
-  DeviceMesh with the four axes and ``seq`` at 1."""
+  DeviceMesh with the four axes."""
   if mesh is None:
     return
   from torch.distributed.device_mesh import DeviceMesh
@@ -98,7 +120,6 @@ def check_mesh(mesh):
     raise NotImplementedError(
         f'mesh {mesh!r}: only a torch DeviceMesh with the axes '
         f'{MESH_AXES} (make_mesh()) is ported')
-  check_axes(seq=axis_size(mesh, 'seq'))
 
 
 def mesh_summary(mesh):
@@ -139,6 +160,22 @@ def tensor_group(mesh):
   return None if mesh is None else mesh.get_group('tensor')
 
 
+def seq_group(mesh):
+  """The ``seq`` axis' process group (the ring), or None without a
+  mesh."""
+  return None if mesh is None else mesh.get_group('seq')
+
+
+def seq_rank(mesh):
+  """This rank's index on ``seq``: which ``1 / seq`` of each row it
+  holds."""
+  return axis_rank(mesh, 'seq')
+
+
+def seq_size(mesh):
+  return axis_size(mesh, 'seq')
+
+
 def batch_rank(mesh):
   """This rank's flattened ``(data, fsdp)`` coordinate: which rows of a
   global batch it holds, and the loader's ``dp_rank``."""
@@ -150,20 +187,44 @@ def batch_size(mesh):
   return data_size(mesh) * axis_size(mesh, 'fsdp')
 
 
+def _group_over(mesh, axes):
+  """The group over ``axes`` (of :data:`_FLAT_AXES`) flattened in mesh
+  order: the mesh's own group of the one axis above 1 (of ``axes[0]``
+  when none is), else the group make_mesh() built."""
+  big = tuple(a for a in axes if axis_size(mesh, a) > 1)
+  if len(big) <= 1:
+    return mesh.get_group(big[0] if big else axes[0])
+  group = getattr(mesh, '_lddl_groups', {}).get(big)
+  if group is None:
+    raise ValueError(f'a mesh with {" and ".join(big)} above 1 needs their '
+                     'flattened group: build it with make_mesh()')
+  return group
+
+
 def batch_group(mesh):
   """The flattened ``data x fsdp`` group (group rank = :func:`batch_rank`)
-  the gradients and the batch normalizers reduce over, or None."""
+  the batch normalizers reduce over with ``seq`` at 1, or None."""
+  return None if mesh is None else _group_over(mesh, ('data', 'fsdp'))
+
+
+def reduce_group(mesh):
+  """The flattened ``data x fsdp x seq`` group, or None without a mesh:
+  the ranks whose gradients and batch normalizers sum to the step's (the
+  batch group's ranks each hold their rows, and a seq group's ranks their
+  part of each row). It is :func:`batch_group` when ``seq`` is 1."""
   if mesh is None:
     return None
-  if axis_size(mesh, 'fsdp') == 1:
-    return data_group(mesh)
-  if data_size(mesh) == 1:
-    return fsdp_group(mesh)
-  group = getattr(mesh, '_lddl_batch_group', None)
-  if group is None:
-    raise ValueError('a mesh with data and fsdp above 1 needs its batch '
-                     'group: build it with make_mesh()')
-  return group
+  return _group_over(mesh, ('data', 'fsdp', 'seq'))
+
+
+def replica_group(mesh):
+  """The flattened ``data x seq`` group: the ranks that hold the same
+  ``fsdp`` shard, over which that shard's gradient is summed after the
+  reduce-scatter over ``fsdp``. None without a mesh or when both axes are
+  1."""
+  if mesh is None or data_size(mesh) * seq_size(mesh) == 1:
+    return None
+  return _group_over(mesh, ('data', 'seq'))
 
 
 def batch_pspec(ndim=2, seq_dim=1):
@@ -200,8 +261,7 @@ def batch_rows(mesh, global_rows):
   """The rows of a ``global_rows`` batch this rank holds under
   ``canonical_batch_spec``'s ``P(('data', 'fsdp'), 'seq')``: dim 0 split
   in :func:`batch_rank` order into equal contiguous blocks, the same
-  block for every rank of a ``tensor`` group (``seq`` is 1, so no rank
-  splits a row)."""
+  block for every rank of a ``tensor`` or ``seq`` group."""
   n = batch_size(mesh)
   if global_rows % n:
     raise ValueError(f'{global_rows} rows do not split over data x fsdp = '
@@ -211,11 +271,44 @@ def batch_rows(mesh, global_rows):
   return slice(r * per, (r + 1) * per)
 
 
+def seq_columns(mesh, length):
+  """The columns of a row of ``length`` this rank holds: its contiguous
+  ``1 / seq`` in :func:`seq_rank` order. A length that ``seq`` does not
+  divide raises ``ValueError`` (the JAX package's ``shard_map`` of the
+  ring cannot take it either)."""
+  n = seq_size(mesh)
+  if length % n:
+    raise ValueError(f'sequence length {length} does not split over '
+                     f'seq={n}')
+  per = length // n
+  r = seq_rank(mesh)
+  return slice(r * per, (r + 1) * per)
+
+
+def seq_shard(batch, mesh):
+  """This rank's ``seq`` part of a loader-format batch whose rows are
+  already its own: dim 1 of every array of two or more dims cut by
+  :func:`seq_columns` (``[b]`` arrays, ``next_sentence_labels``, stay
+  whole). The batch itself when ``seq`` is 1."""
+  if seq_size(mesh) == 1:
+    return batch
+  out = {}
+  for k, v in batch.items():
+    if v.ndim > 1:
+      try:
+        v = v[:, seq_columns(mesh, v.shape[1])]
+      except ValueError as e:
+        raise ValueError(f'{k}: {e}') from None
+    out[k] = v
+  return out
+
+
 def local_batch(batch, mesh):
-  """This rank's rows of a global loader-format batch (a dict of arrays
-  or tensors with the batch on dim 0)."""
+  """This rank's part of a global loader-format batch (a dict of arrays
+  or tensors with the batch on dim 0): its rows (:func:`batch_rows`),
+  then its ``seq`` columns of them (:func:`seq_shard`)."""
   rows = batch_rows(mesh, len(next(iter(batch.values()))))
-  return {k: v[rows] for k, v in batch.items()}
+  return seq_shard({k: v[rows] for k, v in batch.items()}, mesh)
 
 
 # ---- collectives that every backend runs ----

@@ -2,8 +2,9 @@
 over a mesh of processes.
 
 Counterpart of :mod:`lddl_tpu.parallel.train` over its mesh's ``data``,
-``fsdp`` and ``tensor`` axes (:func:`make_exchange`; the model holds its
-tensor shards, :mod:`lddl_tpu_torch.models.bert`). Loss = masked-LM cross
+``fsdp``, ``tensor`` and ``seq`` axes (:func:`make_exchange`; the model
+holds its tensor shards and its ``1 / seq`` of each row,
+:mod:`lddl_tpu_torch.models.bert`). Loss = masked-LM cross
 entropy (ignore label -100, mean over masked positions) + next-sentence-
 prediction cross entropy, over exactly the dict the loader yields. A
 batch with a ``segment_ids`` key (the packed loader with
@@ -163,22 +164,42 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
   equal ``reduce=None``'s bit for bit. Under tensor parallelism (the
   model's ``tp``) the MLM logits are the rank's vocabulary columns and
   the cross entropy and accuracy run :func:`vocab_parallel_cross_entropy`;
-  ``reduce`` then sums over the ``data x fsdp`` ranks only.
+  ``reduce`` then sums over the ``data x fsdp (x seq)`` ranks only.
+
+  Under sequence parallelism (the model's ``sp``) the batch holds the
+  rank's ``1 / seq`` of each row: the labels and segment ids are gathered
+  into whole rows (the model's heads read whole rows on every seq rank),
+  the normalizers are counted on seq rank 0 alone, and with ``reduce``
+  each seq rank's loss and metrics are ``1 / seq`` of its rows' share, so
+  the sum over ``data x fsdp x seq`` is the global batch's.
   """
+  from ..models.bert import gather_columns
+  sp = getattr(model, 'sp', None)
   segment_ids = batch.get('segment_ids')
   labels = batch['labels'].long()
+  seg = segment_ids
+  if sp is not None:
+    labels = gather_columns(labels, sp)
+    if segment_ids is not None:
+      seg = gather_columns(segment_ids, sp)
   mlm_positions = None
   if max_predictions is not None:
     mlm_positions = masked_positions(labels, max_predictions)
+  num_docs_cap = labels.shape[1]
+  if mlm_positions is not None:
     labels = torch.gather(labels, 1, mlm_positions)
+    if seg is not None:
+      seg = torch.gather(seg, 1, mlm_positions)
   masked = labels != IGNORE_INDEX
-  seg = segment_ids
-  if seg is not None and mlm_positions is not None:
-    seg = torch.gather(segment_ids, 1, mlm_positions)
-  num_docs_cap = batch['input_ids'].shape[1]
   totals = None
+  share = 1.0
   if reduce is not None:
-    totals = reduce(local_counts(masked, seg, num_docs_cap))
+    counts = local_counts(masked, seg, num_docs_cap)
+    if sp is not None:
+      # Every seq rank holds the same whole rows: one of them counts.
+      counts = counts * int(sp.rank == 0)
+      share = 1.0 / sp.size
+    totals = reduce(counts)
   mlm_logits, nsp_logits = model(
       batch['input_ids'], batch['token_type_ids'], batch['attention_mask'],
       dropout_key=dropout_key, mlm_positions=mlm_positions,
@@ -206,6 +227,9 @@ def pretrain_loss(model, batch, dropout_key=None, max_predictions=None,
     nsp_loss = nsp_loss * (labels.shape[0] / totals[2])
   hits = masked & (predicted == labels)
   mlm_acc = hits.sum() / denom
+  if share != 1.0:
+    mlm_loss, nsp_loss, mlm_acc = (t * share for t in (mlm_loss, nsp_loss,
+                                                       mlm_acc))
   return mlm_loss + nsp_loss, {
       'mlm_loss': mlm_loss,
       'nsp_loss': nsp_loss,
@@ -305,8 +329,8 @@ def global_norm(tensors):
 
 class DataParallel:
   """The data-parallel exchange of one step over a process group (the
-  mesh's ``data x fsdp`` group, :func:`~lddl_tpu_torch.parallel.mesh.
-  batch_group`): the normalizers' all-reduce before the forward
+  mesh's ``data x fsdp x seq`` group, :func:`~lddl_tpu_torch.parallel.
+  mesh.reduce_group`): the normalizers' all-reduce before the forward
   (:func:`pretrain_loss`'s ``reduce``), the gradients' and the metrics'
   after the backward, all sums.
 
@@ -314,7 +338,10 @@ class DataParallel:
   reduced in one call; the optimizer then reads views of it, so every
   rank applies the same update to the same parameters and the ranks stay
   bit-equal. With one rank each reduction is a copy and the step equals
-  the single-process step bit for bit.
+  the single-process step bit for bit. The ranks of a ``seq`` group hold
+  the same parameters and each its gradient's part from its columns: the
+  sum over the group is the step's gradient, whole on every rank, so
+  :meth:`grad_norm` counts each parameter once.
 
   Under tensor parallelism (``tensor``: the tensor group, ``sharded``:
   per parameter whether the rank holds a tensor shard of it) the
@@ -423,8 +450,8 @@ class ShardedDataParallel(DataParallel):
   A step (:class:`TrainStep`) gathers the working buffer from the shards
   before the forward (:meth:`gather_params`); after the backward the
   gradients' flat buffer is reduce-scattered over ``fsdp`` and its shard
-  all-reduced over ``data`` (:meth:`grads`), and the update runs on the
-  shard. Eager steps then free the working buffer (:meth:`release_params`),
+  all-reduced over ``data x seq`` (:meth:`grads`, the ranks that hold the
+  same shard), and the update runs on the shard. Eager steps then free the working buffer (:meth:`release_params`),
   so between steps a rank keeps ``1 / fsdp`` of the parameters and the
   moments; read them through :meth:`gathered`. A CUDA-graph step keeps
   the buffer (its addresses are the graph's), gathering it again at each
@@ -447,13 +474,13 @@ class ShardedDataParallel(DataParallel):
 
     import torch.distributed as dist
 
-    from .mesh import (axis_rank, axis_size, batch_group, data_group,
-                       data_size, fsdp_group, tensor_group)
+    from .mesh import (axis_rank, axis_size, fsdp_group, reduce_group,
+                       replica_group, tensor_group)
     self._dist = dist
-    self.group = batch_group(mesh)
+    self.group = reduce_group(mesh)
     self.world = dist.get_world_size(self.group)
     self.fsdp = fsdp_group(mesh)
-    self.data = data_group(mesh) if data_size(mesh) > 1 else None
+    self.data = replica_group(mesh)
     size, rank = axis_size(mesh, 'fsdp'), axis_rank(mesh, 'fsdp')
     params = list(model.parameters())
     device = params[0].device
@@ -546,6 +573,7 @@ class ShardedDataParallel(DataParallel):
       self._dist.all_reduce(self.flat, group=self.fsdp)
       self.grad_shard.copy_(self.flat[self.lo:self.hi])
     if self.data is not None:
+      # Over data x seq: every rank that holds this shard.
       self._dist.all_reduce(self.grad_shard, group=self.data)
     return [self.grad_shard]
 
@@ -603,17 +631,17 @@ class ShardedDataParallel(DataParallel):
 def make_exchange(mesh, model):
   """The train step's exchange over ``mesh``: None without one,
   :class:`ShardedDataParallel` with ``fsdp`` above 1, else
-  :class:`DataParallel` over the ``data x fsdp`` group (with the tensor
-  group when ``tensor`` is above 1). Build it after the model is on its
-  device and before the optimizer, which takes
+  :class:`DataParallel` over the ``data x fsdp x seq`` group (with the
+  tensor group when ``tensor`` is above 1). Build it after the model is
+  on its device and before the optimizer, which takes
   ``exchange.opt_params(model.parameters())``."""
-  from .mesh import axis_size, batch_group, tensor_group
+  from .mesh import axis_size, reduce_group, tensor_group
   if mesh is None:
     return None
   if axis_size(mesh, 'fsdp') > 1:
     return ShardedDataParallel(mesh, model)
   tp = model.tp is not None
-  return DataParallel(batch_group(mesh), model.parameters(),
+  return DataParallel(reduce_group(mesh), model.parameters(),
                       tensor_group(mesh) if tp else None,
                       model.tensor_sharded() if tp else None)
 
@@ -630,7 +658,10 @@ class TrainStep:
   masks for their different rows and rank 0 draws what one process
   draws. The ranks of a tensor group share a batch rank and so draw the
   same masks: every dropout site acts on activations they all hold
-  whole. :meth:`body` is device work only (forward, backward, grad norm,
+  whole. A seq rank above 0 (the model's ``sp``) folds in its batch and
+  seq ranks (``(dropout_seed, opt.count, dp_rank, seq_rank)``): each seq
+  rank draws its own columns' masks, where the JAX step draws one mask
+  over the whole row. :meth:`body` is device work only (forward, backward, grad norm,
   :meth:`AdamW.apply`, and with ``exchange`` (:func:`make_exchange`) its
   collectives) and can be captured and replayed; :meth:`finish`
   advances the host count. Calling the step runs the three in turn.
@@ -643,6 +674,8 @@ class TrainStep:
     self.max_predictions = max_predictions
     self.exchange = exchange
     self.dp_rank = dp_rank
+    sp = getattr(model, 'sp', None)
+    self.seq_rank = 0 if sp is None else sp.rank
     self.params = list(model.parameters())
 
   @property
@@ -653,7 +686,9 @@ class TrainStep:
   def dropout_key(self, dropout_seed, ahead=0):
     """The dropout key of the step ``ahead`` steps after the next one."""
     key = (dropout_seed, self.opt.count + ahead)
-    if self.dp_rank:
+    if self.seq_rank:
+      key += (self.dp_rank, self.seq_rank)
+    elif self.dp_rank:
       key += (self.dp_rank,)
     return key
 

@@ -32,9 +32,11 @@ The loader spec is the JAX CLI's: ``--path`` (BERT shards) /
 stream). The model arguments are the JAX CLI's, less ``--tokenizer`` (a
 hub tokenizer needs the network; ``--vocab-file`` goes through the
 port's vocab map), plus ``--device`` (default the CUDA card; ``cpu``
-runs there). Ring attention and ``--fsdp/--tp/--sp`` above 1 raise, as
-the pretrain CLI's do, and ``--dp`` above 1 (a step of a data-parallel
-run needs its ranks' batches). Step digests are the port's own: a ledger
+runs there). ``--fsdp/--tp/--sp`` above 1 raise (a sharded step
+re-executes bit for bit only on its own layout, launched as ranks), so
+does ring attention (it runs over a mesh, which one replay process has
+not), and ``--dp`` above 1 (a step of a data-parallel run needs its
+ranks' batches). Step digests are the port's own: a ledger
 the JAX package wrote replays here for its batches, not its steps.
 """
 
@@ -150,20 +152,22 @@ def build_loop(args):
   must match the original run, or the replayed arithmetic (correctly)
   diverges."""
   from ..models import BertConfig
-  from ..parallel.mesh import check_axes
   from ..tokenization.wordpiece import load_bert_tokenizer
   from ..training.pretrain import MODEL_SIZES, TrainLoop
-  if args.attention in ('ring', 'ring_flash'):
-    raise NotImplementedError(
-        f'--attention {args.attention}: ring attention is not ported yet')
-  check_axes(args.fsdp, args.tp, args.sp)
-  if args.fsdp != 1 or args.tp != 1:
+  if args.fsdp != 1 or args.tp != 1 or args.sp != 1:
     # A step of a sharded run sums its products in another order than one
     # process does, so it re-executes bit for bit only on its own layout.
     raise NotImplementedError(
-        f'--fsdp {args.fsdp} --tp {args.tp}: a single replay process cannot '
-        're-execute a sharded step bit for bit; replay of a sharded run, '
-        'launched as ranks, is not ported (ROADMAP Queue 1)')
+        f'--fsdp {args.fsdp} --tp {args.tp} --sp {args.sp}: a single replay '
+        'process cannot re-execute a sharded step bit for bit; replay of a '
+        'sharded run, launched as ranks, is not ported (ROADMAP Queue 1)')
+  if args.attention in ('ring', 'ring_flash'):
+    # The ring runs over a mesh's seq group (at seq 1 too: one block, then
+    # the merge); without one the model would run dense or flash.
+    raise NotImplementedError(
+        f'--attention {args.attention}: ring attention runs over a mesh; '
+        'replay of a sharded run, launched as ranks, is not ported '
+        '(ROADMAP Queue 1)')
   if args.dp != 1:
     raise ValueError(f'--dp {args.dp}: step replay runs one process; a '
                      'data-parallel step needs every rank\'s batch')

@@ -59,14 +59,18 @@ on, ``run`` tees the host batches into the flight recorder's ring
 (:mod:`~lddl_tpu_torch.training.flight`) and freezes an incident
 directory when a sentinel fires.
 
-Multi-process training: ``build(..., mesh=make_mesh(data, fsdp, tensor),
-comm=...)`` over a ``torch.distributed`` group gives each ``data x
-fsdp`` rank its share of the shards (the ranks of a tensor group read the
-same rows) and a step that reduces over those ranks
-(:class:`~lddl_tpu_torch.parallel.train.DataParallel`, or
+Multi-process training: ``build(..., mesh=make_mesh(data, fsdp, tensor,
+seq), comm=...)`` over a ``torch.distributed`` group gives each ``data x
+fsdp`` rank its share of the shards (the ranks of a tensor or seq group
+read the same rows) and a step that reduces over those ranks and the seq
+ranks (:class:`~lddl_tpu_torch.parallel.train.DataParallel`, or
 :class:`~lddl_tpu_torch.parallel.train.ShardedDataParallel` with
 ``fsdp`` above 1, which shards the flat parameters and AdamW's moments);
-with ``tensor`` above 1 the model holds its tensor shards (``_RULES``).
+with ``tensor`` above 1 the model holds its tensor shards (``_RULES``);
+with ``seq`` above 1 (``attention_impl`` 'ring' or 'ring_flash') the
+feed keeps each rank's ``1 / seq`` of every row
+(:func:`~lddl_tpu_torch.parallel.mesh.seq_shard`) and ring attention
+runs over the seq group.
 The global batch is ``batch_size_per_rank * dp_world``, ``dp_world``
 the ``data x fsdp`` product. Every rank gathers the whole state at a
 checkpoint and rank 0 writes it behind a barrier, so a checkpoint
@@ -102,8 +106,8 @@ from ..loader.packed import get_packed_pretrain_data_loader
 from ..models.bert import BertConfig, BertForPretraining
 from ..models.flops import bert_pretrain_flops_per_step, peak_flops_per_device
 from ..ops import flash_attention as tfa
-from ..parallel.mesh import (axis_size, batch_rank, batch_size, check_axes,
-                             make_mesh, mesh_summary, reshard_state)
+from ..parallel.mesh import (axis_size, batch_rank, batch_size, make_mesh,
+                             mesh_summary, reshard_state)
 from ..parallel.train import (AdamW, CapturedGraph, TrainStep, capture_step,
                               check_max_predictions, make_exchange,
                               signature)
@@ -519,8 +523,8 @@ class TrainLoop:
           base_seed=seed,
           samples_seen=samples_seen,
           **(loader_kwargs or {}))
-    model = BertForPretraining(model_cfg, mesh=mesh)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = BertForPretraining(
+        model_cfg, mesh=mesh, generator=torch.Generator().manual_seed(seed))
     model.to(device)
     exchange = make_exchange(mesh, model)
     schedule = functools.partial(lr_schedule, peak=learning_rate,
@@ -542,12 +546,13 @@ class TrainLoop:
 
   def flops_per_step(self, batch, seq_len):
     """Analytic FLOPs of this rank's step at ``[batch, seq_len]`` (MFU
-    numerator): the model's on the rank's rows, divided by ``tensor``,
-    whose ranks split the work of those rows."""
+    numerator; ``seq_len`` the whole row's): the model's on the rank's
+    rows, divided by ``tensor x seq``, whose ranks split the work of those
+    rows."""
     flops = bert_pretrain_flops_per_step(
         self.model.cfg, batch, seq_len, max_predictions=self.max_predictions)
-    tensor = axis_size(self.mesh, 'tensor')
-    return flops if tensor == 1 else flops / tensor
+    split = axis_size(self.mesh, 'tensor') * axis_size(self.mesh, 'seq')
+    return flops if split == 1 else flops / split
 
   # ---- checkpointing ----
 
@@ -817,6 +822,8 @@ class TrainLoop:
     nonfinite_stop = (os.environ.get('LDDL_NONFINITE', '')
                       .strip().lower() != 'ignore')
     global_batch = self.loader.batch_size * max(self.dp_world, 1)
+    # A seq rank is fed its 1 / seq of each of its rows.
+    seq = axis_size(self.mesh, 'seq')
     tele = get_telemetry()
     tracer = get_tracer()
     data_wait_h = tele.histogram('train.data_wait_seconds')
@@ -859,7 +866,8 @@ class TrainLoop:
         stream = prefetch_to_device(
             flight.wrap_host_stream(iter(self.loader), self.loader,
                                     ordinal0=self.step),
-            self.device, size=prefetch, coordinate=coordinate)
+            self.device, size=prefetch, coordinate=coordinate,
+            mesh=self.mesh)
         t0 = time.perf_counter()
         steps_this_epoch = 0
         try:
@@ -932,11 +940,13 @@ class TrainLoop:
               if peak_total:
                 b, s = batch['input_ids'].shape
                 tele.gauge('train.mfu').set(
-                    self.flops_per_step(b, s) /
+                    self.flops_per_step(b, s * seq) /
                     (max(now - t_wait, 1e-9) * peak_total))
               if 'segment_ids' in batch:
                 # The kernels' tile-skip rule on the host: how much
-                # attention work block-diagonal packing removed this step.
+                # attention work block-diagonal packing removed this step
+                # (with seq above 1, over the rank's own columns: the
+                # self-attention of its shard, not the whole row's).
                 total, skipped = tfa.count_skippable_tiles(
                     batch['segment_ids'].cpu().numpy(),
                     head_dim=self.model.cfg.head_dim)
@@ -1012,17 +1022,19 @@ class TrainLoop:
 def attach_args(parser):
   """The JAX CLI's arguments (``lddl_tpu/training/pretrain.py:785-853``),
   plus ``--device``. ``--comm`` takes ``torch`` where the JAX CLI takes
-  ``jax``; ``--dp``, ``--fsdp`` and ``--tp`` above 1 need it, and ``--sp``
-  above 1 raises (ring attention is not ported). Left out: ring
-  attention, ``--tokenizer`` (a hub tokenizer needs the network) and
+  ``jax``; ``--dp``, ``--fsdp``, ``--tp`` and ``--sp`` above 1 need it.
+  Left out: ``--tokenizer`` (a hub tokenizer needs the network) and
   ``--prng`` (a JAX setting)."""
   parser.add_argument('--path', required=True, help='balanced shard dir')
   parser.add_argument('--vocab-file', required=True)
   parser.add_argument('--model', choices=sorted(MODEL_SIZES),
                       default='base')
   parser.add_argument('--attention',
-                      choices=['dense', 'flash'],
-                      default='dense')
+                      choices=['dense', 'flash', 'ring', 'ring_flash'],
+                      default='dense',
+                      help="'ring'/'ring_flash': ring attention over the "
+                      "mesh's seq ranks (--sp) with dense/flash blocks; "
+                      "without a mesh they are 'dense'/'flash'")
   parser.add_argument('--remat', action='store_true')
   parser.add_argument('--dp', type=int, default=None,
                       help='data-parallel ranks; default: the world size')
@@ -1035,8 +1047,10 @@ def attach_args(parser):
                       'heads, an FFN slice and a vocabulary slice, and '
                       'reads the same rows as the others')
   parser.add_argument('--sp', type=int, default=1,
-                      help='sequence-parallel ranks: not ported (raises '
-                      'above 1)')
+                      help='sequence-parallel ranks: each holds 1/sp of '
+                      'every row of its data x fsdp rank and attends over '
+                      'the others by ring attention (--attention ring or '
+                      'ring_flash); the length must divide by sp')
   parser.add_argument('--batch-size', type=int, default=64,
                       help='per-process samples per step')
   parser.add_argument('--bin-size', type=int, default=None)
@@ -1121,9 +1135,8 @@ def main(args=None):
   else:
     # No process group: the process holds its whole batch (under file the
     # ranks are independent single-process worlds, as in the JAX CLI).
-    check_axes(args.fsdp, args.tp, args.sp)
     for flag, n in (('--dp', args.dp or 1), ('--fsdp', args.fsdp),
-                    ('--tp', args.tp)):
+                    ('--tp', args.tp), ('--sp', args.sp)):
       if n != 1:
         raise ValueError(f'{flag} {n} needs --comm torch')
     mesh = None
@@ -1157,7 +1170,7 @@ def main(args=None):
     graphs = (device.type == 'cuda' and _step_cache_enabled() and
               exchange.capturable)
     print(f'{type(exchange).__name__} step over {exchange.world} data x '
-          f'fsdp rank(s) ({mesh_summary(mesh)}), '
+          f'fsdp x seq rank(s) ({mesh_summary(mesh)}), '
           f'{exchange.backend} for {device.type} tensors: ' +
           ('the all-reduces run inside the CUDA graphs' if graphs else
            'eager steps'))

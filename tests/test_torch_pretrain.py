@@ -336,20 +336,20 @@ def test_cli_trains_from_shards_and_resumes(shards, tmp_path, capsys):
 @pytest.mark.parametrize('flag', [['--dp', '2'], ['--tp', '2'],
                                   ['--fsdp', '2'], ['--sp', '2'],
                                   ['--comm', 'jax'],
-                                  ['--attention', 'ring']])
+                                  ['--attention', 'sparse']])
 def test_cli_refuses_what_is_not_ported(shards, flag, capsys):
-  """Ring attention waits for a later slice: the CLI raises for ``--sp``
-  above 1, naming it. ``--dp``, ``--tp`` and ``--fsdp`` above 1 need a
-  process group (``--comm torch``; ``tests/test_torch_tp.py`` trains with
-  ``--tp 2`` over two ranks); it offers no ``jax`` backend and no ring
-  attention, so argparse refuses those."""
+  """``--dp``, ``--tp``, ``--fsdp`` and ``--sp`` above 1 need a process
+  group (``--comm torch``; ``tests/test_torch_tp.py`` trains with ``--tp
+  2`` over two ranks, ``tests/test_torch_ring_step.py`` with ``--sp 2``);
+  the CLI offers no ``jax`` backend and no attention beyond dense, flash,
+  ring and ring_flash, so argparse refuses those."""
   from lddl_tpu_torch.training.pretrain import main
   argv = ['--path', shards['pairs'], '--vocab-file', shards['vocab'],
           '--device', 'cpu'] + flag
   raised = {'--dp': (ValueError, '--dp 2 needs --comm torch'),
             '--tp': (ValueError, '--tp 2 needs --comm torch'),
             '--fsdp': (ValueError, '--fsdp 2 needs --comm torch'),
-            '--sp': (NotImplementedError, 'seq=2: ring attention')}.get(
+            '--sp': (ValueError, '--sp 2 needs --comm torch')}.get(
                 flag[0])
   if raised is not None:
     with pytest.raises(raised[0], match=raised[1]):

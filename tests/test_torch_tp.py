@@ -47,9 +47,9 @@ from lddl_tpu_torch.models import (BertConfig, BertForPretraining,
                                    flax_to_state_dict)
 from lddl_tpu_torch.models.bert import param_blocks, spec_for_param
 from lddl_tpu_torch.parallel.mesh import (MESH_AXES, batch_pspec,
-                                          canonical_batch_spec, check_axes,
-                                          match_partition_rules, shard,
-                                          unshard)
+                                          canonical_batch_spec,
+                                          match_partition_rules, seq_columns,
+                                          shard, unshard)
 from lddl_tpu_torch.training import TrainLoop
 from test_torch_dp import NAMES, OPT, TINY, _packed, _pairs, _uneven
 
@@ -148,8 +148,8 @@ def mesh_world(axes, names, fn, world, extra=(), more=()):
 def check_case(name, ref, port, world):
   """Every rank's metrics equal, within rtol 2e-4 of JAX's per step; the
   gathered parameters within PARAM_ATOL of JAX's; the first batch's rows
-  the feed gave each rank (``prefetch_to_device`` with the mesh) its
-  ``(data, fsdp)`` block of them."""
+  the feed gave each rank (its ``batch_rows`` through ``prefetch_to_device``
+  with the mesh) its ``(data, fsdp)`` block of them."""
   for r in range(world):
     rank, size = port[r]['dp']
     per = len(ref['first']) // size
@@ -261,8 +261,15 @@ def test_batch_specs_are_the_jax_packages():
   for shape in ((8, 64), (8,), (8, 64, 3)):
     assert canonical_batch_spec(None, shape) == tuple(
         jax_canonical(jmesh, shape)), shape
-  with pytest.raises(NotImplementedError, match='ring attention'):
-    check_axes(seq=2)
+  # The seq axis is ported: a seq mesh shards dim 1 as JAX's does, and a
+  # length seq does not divide is refused by the batch layout.
+  smesh = make_mesh(seq=2, devices=jax.devices()[:2])
+  for shape in ((8, 64), (8, 63)):
+    assert canonical_batch_spec(_Mesh(1, 0, seq=2), shape) == tuple(
+        jax_canonical(smesh, shape)), shape
+  with pytest.raises(ValueError, match='length 63 does not split over '
+                     'seq=2'):
+    seq_columns(_Mesh(1, 0, seq=2), 63)
 
 
 def test_make_flash_attention_runs_a_ranks_heads_and_refuses_seq():
@@ -406,7 +413,11 @@ def test_model_refusals_and_rows_of_a_tensor_group(tp_run):
     assert set(port['refused']) == {'num_heads', 'intermediate_size',
                                     'vocab_size', 'seq'}
     assert 'tensor=2' in port['refused']['vocab_size']
-    assert 'ring attention' in port['refused']['seq']
+    # make_mesh(seq=2) builds; the model refuses flash attention there
+    # (the seq axis runs ring attention).
+    assert port['seq_mesh'] == 'data=1, fsdp=1, tensor=1, seq=2'
+    assert "attention_impl='flash' on a mesh with seq=2" in (
+        port['refused']['seq'])
     np.testing.assert_array_equal(port['rows'],
                                   tp_run['next_batch']['input_ids'])
 

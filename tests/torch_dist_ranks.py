@@ -409,15 +409,19 @@ def mesh_case(rank, mesh, comm, case, opt_kw):
   digest; then the sizes the rank holds, its batch group's rank and size,
   the bytes a snapshot of the state needs beyond what it returns
   (:func:`transient_peak_bytes`) beside the exchange's flat buffer and, on
-  rank 0, the gathered parameters; and the rows ``prefetch_to_device(..., mesh=mesh)`` gives
-  the rank of the first batch."""
+  rank 0, the gathered parameters; and the rows ``prefetch_to_device(...,
+  mesh=mesh)`` places of the first batch's ``batch_rows`` block (what a
+  loader built with ``dp_rank=batch_rank(mesh)`` yields)."""
   import torch.distributed as dist
 
   from lddl_tpu_torch.loader.device import (make_global_batch,
                                             prefetch_to_device)
-  from lddl_tpu_torch.parallel import batch_group
+  from lddl_tpu_torch.parallel import batch_group, batch_rows
   loop = mesh_loop(mesh, comm, case['cfg'], opt_kw, case.get('state'))
-  fed = list(prefetch_to_device(iter(case['batches'][:1]), 'cpu',
+  first = case['batches'][0]
+  mine = batch_rows(mesh, len(first['input_ids']))
+  rows = {k: v[mine] for k, v in first.items()}
+  fed = list(prefetch_to_device(iter([rows]), 'cpu',
                                 mesh=mesh))[0]['input_ids'].numpy()
   steps = []
   for batch in case['batches']:
@@ -475,7 +479,8 @@ def mesh_steps(rank, world, axes, cases, opt_kw, ckpt=None):
 
 
 def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
-  """A tensor mesh of ``axes``: the cases (:func:`mesh_steps`); the model's refusals; a
+  """A tensor mesh of ``axes``: the cases (:func:`mesh_steps`); the model's
+  refusals (on a seq=2 mesh, flash attention); a
   world-1 checkpoint restored (``restore``: ``{'dir', 'cfg', 'next'}``),
   its digest and the next step; ``TrainLoop.run``'s counters
   (:func:`counted_run` over ``counted``'s batches); then the pretrain
@@ -483,7 +488,7 @@ def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.loader.device import make_global_batch
   from lddl_tpu_torch.models import BertConfig, BertForPretraining
-  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.parallel import make_mesh, mesh_summary
   from lddl_tpu_torch.training import pretrain
   out = {'cases': mesh_steps(rank, world, axes, cases, opt_kw)}
   comm = get_backend('torch')
@@ -496,9 +501,12 @@ def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
       BertForPretraining(BertConfig(**dict(restore['cfg'], **kw)), mesh)
     except ValueError as e:
       out['refused'][what] = str(e)
+  seq_mesh = make_mesh(tensor=1, seq=2, device_type='cpu')
+  out['seq_mesh'] = mesh_summary(seq_mesh)
   try:
-    make_mesh(tensor=1, seq=2, device_type='cpu')
-  except NotImplementedError as e:
+    BertForPretraining(BertConfig(**dict(restore['cfg'],
+                                         attention_impl='flash')), seq_mesh)
+  except ValueError as e:
     out['refused']['seq'] = str(e)
   out['rows'] = make_global_batch(restore['next'], mesh,
                                   device='cpu')['input_ids'].numpy()
@@ -552,3 +560,116 @@ def counted_run(mesh, comm, cfg_kw, opt_kw, batches):
             'mfu_count': tele.gauge('train.mfu').count}
   finally:
     metrics.disable()
+
+
+# ---- sequence parallelism: ring attention over the seq axis ----
+
+
+def ring_shards(rank, world, cases):
+  """Each case of ``cases`` (``{'n', 'impl', 'q', 'k', 'v', 'mask',
+  'seg', 'g'}``, whole numpy arrays) through the port's ``ring_attention``
+  on a ring of ``n`` ranks (groups of consecutive ranks; n=1 without a
+  group): this rank's shard of the output and of dq, dk, dv for the
+  cotangent ``g``, keyed by case index, from the ranks of the first ring
+  (the others run the same case on theirs)."""
+  import torch
+  import torch.distributed as dist
+
+  from lddl_tpu_torch.parallel.ring import ring_attention
+  dist.init_process_group('gloo')
+  torch.set_num_threads(1)
+  groups = {}
+  for n in sorted({c['n'] for c in cases}):
+    # new_group is collective: every rank makes every ring of every size.
+    for first in range(0, world, n):
+      g = dist.new_group(list(range(first, first + n)))
+      if first <= rank < first + n:
+        groups[n] = g
+  out = {}
+  for i, c in enumerate(cases):
+    n = c['n']
+    group = groups[n] if n > 1 else None
+    r = rank % n
+    per = c['q'].shape[2] // n
+    cols = slice(r * per, (r + 1) * per)
+    q, k, v = (torch.from_numpy(c[x][:, :, cols]).requires_grad_()
+               for x in ('q', 'k', 'v'))
+    mask = torch.from_numpy(c['mask'][:, cols])
+    seg = None if c['seg'] is None else torch.from_numpy(c['seg'][:, cols])
+    o = ring_attention(q, k, v, mask, group=group, block_impl=c['impl'],
+                       q_segment_ids=seg, kv_segment_ids=seg)
+    o.backward(torch.from_numpy(c['g'][:, :, cols]))
+    if rank < n:
+      out[i] = {'out': o.detach().numpy(), 'dq': q.grad.numpy(),
+                'dk': k.grad.numpy(), 'dv': v.grad.numpy()}
+  return out
+
+
+def seq_case(rank, mesh, comm, case, opt_kw):
+  """One case on a seq mesh: the deterministic forward's logits on the
+  first batch, the first step's gradients on it summed over the ranks
+  (rank 0), then the steps' metrics and replicated digests and the final
+  whole state (:func:`mesh_case`'s), with ``case['max_predictions']``."""
+  import torch
+  import torch.distributed as dist
+
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.parallel.mesh import reduce_group
+  from lddl_tpu_torch.parallel.train import pretrain_loss
+  kw = dict(opt_kw, max_predictions=case.get('max_predictions'))
+  loop = mesh_loop(mesh, comm, case['cfg'], kw, case.get('state'))
+  first = make_global_batch(case['batches'][0], mesh, device='cpu')
+  model = loop.model
+  exchange = loop.step_fn.exchange
+  out = {'seq_rank': model.sp.rank if model.sp is not None else 0,
+         'fed_cols': first['input_ids'].numpy(), 'grads': {}}
+  with exchange.gathered():
+    model.eval()
+    with torch.no_grad():
+      mlm, nsp = model(first['input_ids'], first['token_type_ids'],
+                       first['attention_mask'],
+                       segment_ids=first.get('segment_ids'))
+    out['logits'] = (mlm.numpy(), nsp.numpy())
+    model.train()
+    loss, _ = pretrain_loss(model, first,
+                            max_predictions=kw['max_predictions'],
+                            reduce=exchange.sum_)
+    loss.backward()
+    for name, p in model.named_parameters():
+      g = p.grad.detach().clone()
+      dist.all_reduce(g, group=reduce_group(mesh))
+      if rank == 0:
+        out['grads'][name] = g.numpy()
+      p.grad = None
+  res, _ = mesh_case(rank, mesh, comm, case, kw)
+  out.update(res)
+  return out
+
+
+def seq_world(rank, world, axes, cases, opt_kw, cli=None):
+  """A mesh of ``axes`` with seq above 1 (gloo, CPU, two torch threads a
+  rank): every case (:func:`seq_case`); the model's refusal of flash on
+  the seq mesh; with ``cli``, the pretrain CLI's argv run after."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.models import BertConfig, BertForPretraining
+  from lddl_tpu_torch.parallel import make_mesh, mesh_summary
+  from lddl_tpu_torch.training import pretrain
+  torch.set_num_threads(2)
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu', **axes)
+  out = {'mesh': mesh_summary(mesh),
+         'cases': [seq_case(rank, mesh, comm, c, opt_kw) for c in cases]}
+  try:
+    BertForPretraining(BertConfig(**dict(cases[0]['cfg'],
+                                         attention_impl='flash')), mesh)
+  except ValueError as e:
+    out['refused'] = str(e)
+  if cli is not None:
+    loop = pretrain.main(cli)
+    out['cli'] = {'step': loop.step, 'samples': loop.samples_seen,
+                  'dp': (loop.dp_rank, loop.dp_world),
+                  'mesh': mesh_summary(loop.mesh),
+                  'digest': loop.state_digest()}
+  return out
