@@ -124,8 +124,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase from 7 on;
   9. data-parallel training across processes, each rank a process of this
      script (``--rank-task``) in a session of its own, the world killed
-     and the phase failed past RANK_TIMEOUT; (b) runs first, and (a)'s
-     process also resumes (b)'s checkpoint: (a) under
+     and the phase failed past RANK_TIMEOUT; the processes are those of
+     phases 14 and 15 (b in ``--rank-task 14``'s two ranks before 14a,
+     a in ``--rank-task 14c``'s before 14c), started here, so phases 14,
+     15b-c and 16's recorded runs run now and are checked in their own
+     phases; (b) runs first, and (a)'s process also resumes (b)'s
+     checkpoint: (a) under
      ``torch.distributed.run`` at world 1 over NCCL, the CLI as 7d runs
      it, 4 steps with a checkpoint then --resume for 2, with --comm null
      and with --comm torch in one process, deterministic algorithms on:
@@ -301,10 +305,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and replayed, bit-equal to the same step eager, 12 launches of each
      K4 kernel a replay, loss and grad_norm within DENSE_*_RTOL of
      flash's. ``--ring-faults`` runs (b) alone, sound and under each
-     fault of RING_FAULTS, and prints the gaps RING_LIMITS sit between.
+     fault of RING_FAULTS, and prints the gaps RING_LIMITS sit between;
+  16. step replay of a sharded run, launched as its ranks: in phase 14's
+     two rank processes after 15b, BERT-base runs from the committed
+     shards as the replay CLI builds them (bf16, dropout on), the ledger
+     on (each rank its file, deterministic algorithms), REPLAY_STEPS
+     steps with a checkpoint every step, on each mesh of REPLAY_LAYOUTS:
+     (a) tensor=2 flash on pairs/, (b) seq=2 ring_flash on packed/ at
+     s=8192 (the packed K4 through the ring; also a checkpoint at 0),
+     (c) data=2 flash on pairs/; rank 0 also writes (a)'s checkpoint at
+     step 1 with one bit flipped. Then one launch of two ranks on the
+     card over gloo (``--rank-task 16``) runs ``python -m
+     lddl_tpu_torch.replay.cli``'s ``main`` as those ranks (``--comm
+     torch``), job after job: ``step 2`` of each run from its step-1
+     checkpoint over the corpus, exit 0 on both ranks with the step
+     line's digest reconstructed (rank 0 alone printing the verdict),
+     (a) from the flipped checkpoint exit 1 on both, and (b)'s ``bisect
+     --per-sample`` over (0, 2]: spike step 2, the losses = the loss
+     lines and the recorded losses bit for bit; each job's launches on
+     each rank counted by the kernels on the device, 12 a replayed step
+     of each kernel of the path (x 2 blocks under the ring, and one
+     forward a row scored), and the seconds a rank.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12, 14 and 15; phase 13 runs no kernel), the card's name and power
+phases 9-12 and 14-16; phase 13 runs no kernel), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits non-zero before printing any result.
 """
@@ -2525,14 +2549,14 @@ def rank_result(args, result):
     json.dump(result, f, default=str)
 
 
-def rank_9a(args, digests):
-  """World 1 over NCCL (under torch.distributed.run): the CLI as 7d runs
-  it, one process (--comm null) and the world of one (--comm torch), 4
-  steps with a checkpoint then --resume for 2, deterministic algorithms
-  on; then the steps to the end of the epoch timed through the same
-  graphs, deterministic algorithms off (as phase 7); then, in the same
-  process, 9b's world-2 checkpoint (``--ckpt``) resumed
-  (:func:`resume_9b`)."""
+def world_9a(args, digests):
+  """World 1 over NCCL (under torch.distributed.run; the first work of
+  ``--rank-task 14c``'s process): the CLI as 7d runs it, one process
+  (--comm null) and the world of one (--comm torch), 4 steps with a
+  checkpoint then --resume for 2, deterministic algorithms on; then the
+  steps to the end of the epoch timed through the same graphs,
+  deterministic algorithms off (as phase 7); then, in the same process,
+  9b's world-2 checkpoint resumed (:func:`resume_9b`)."""
   runs, seen = record_runs()
   batch = digests['pairs']['settings']['batch_size_per_rank']
   out = {}
@@ -2555,7 +2579,7 @@ def rank_9a(args, digests):
     del loop, timer
     torch.cuda.empty_cache()
   out['9b_resume'] = resume_9b(args, digests, runs, seen)
-  rank_result(args, out)
+  return out
 
 
 def dp_batches(seed):
@@ -2586,11 +2610,12 @@ def flat_params(model):
                     for p in model.parameters()])
 
 
-def rank_9b(args, digests):
-  """One of two ranks on the one card, gloo for CUDA tensors: the numpy
-  global batches through the data-parallel step (rank 0 also runs the
-  world-1 step on the whole batches), then the CLI from shards, 4 steps
-  with a checkpoint."""
+def world_9b(args, digests):
+  """One of two ranks on the one card, gloo for CUDA tensors (the first
+  work of ``--rank-task 14``'s processes): the numpy global batches
+  through the data-parallel step (rank 0 also runs the world-1 step on
+  the whole batches), then the CLI from shards, 4 steps with a
+  checkpoint (into ``ckpt_9b`` under ``--ckpt``)."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.models import BertConfig
   from lddl_tpu_torch.parallel import local_batch, make_mesh
@@ -2637,9 +2662,12 @@ def rank_9b(args, digests):
       cli_argv(digests, digests['pairs']['settings']['batch_size_per_rank']
                // world) +
       ['--comm', 'torch', '--device', f'{DEVICE}:0', '--steps', '4',
-       '--checkpoint-every', '4', '--checkpoint-dir', args.ckpt], runs, seen)
+       '--checkpoint-every', '4', '--checkpoint-dir',
+       os.path.join(args.ckpt, 'ckpt_9b')], runs, seen)
   out['cli']['digest'] = loop.state_digest()
-  rank_result(args, out)
+  del loop
+  torch.cuda.empty_cache()
+  return out
 
 
 def world_one_reference(build, batches, steps, theta0, dp_model, ttrain):
@@ -2689,7 +2717,8 @@ def resume_9b(args, digests, runs, seen):
   settings = digests['pairs']['settings']
   batch = settings['batch_size_per_rank']
   argv = cli_argv(digests, batch) + ['--comm', 'torch', '--resume',
-                                     '--checkpoint-dir', args.ckpt]
+                                     '--checkpoint-dir',
+                                     os.path.join(args.ckpt, 'ckpt_9b')]
   loop, restored = cli_run(argv + ['--steps', '4'], runs, seen)
   out = {'restored': restored, 'digest': loop.state_digest()}
   fresh = get_bert_pretrain_data_loader(
@@ -2702,10 +2731,12 @@ def resume_9b(args, digests, runs, seen):
       iter(x), 3)] for x in (loop.loader, fresh)]
   losses = loop.run(loop.step + 2, log_every=0)
   out['more_losses'] = losses
+  del loop
+  torch.cuda.empty_cache()
   return out
 
 
-RANK_TASKS = {'9a': rank_9a, '9b': rank_9b}
+RANK_TASKS = {}
 
 
 # ---- phase 9: the parent's checks ----
@@ -2736,11 +2767,10 @@ def check_cli_run(r, label, mode, backend):
         f'one miss per bin, mode {mode}, backend {backend}')
 
 
-def dp_world_one(digests, cli7d, shards7, card, out_dir, ckpt):
-  """9a, and 9b's resume in 9a's process; returns 9a's numbers and the
-  resume's result."""
-  (res,), seconds = run_ranks('9a', '9a', 1, out_dir, extra=['--ckpt', ckpt],
-                              torchrun=True)
+def dp_world_one(digests, cli7d, shards7, card, res, seconds):
+  """9a's checks (``res``: its result from 14c's process), and 9b's
+  resume in that process; returns 9a's numbers and the resume's
+  result."""
   for comm, mode, backend in (('null', 'graph', None),
                               ('torch', 'graph', 'nccl')):
     for r, label in zip(res[comm]['runs'], ('run', 'resume')):
@@ -2770,8 +2800,8 @@ def dp_world_one(digests, cli7d, shards7, card, out_dir, ckpt):
   log(f'  9a: step alone, median of {res["torch"]["timed_hits"]} graph '
       f'replays: world 1 over NCCL {torch_ms:.2f} ms/step, one process '
       f'{null_ms:.2f} ms/step (the group and its all-reduces: '
-      f'{torch_ms - null_ms:+.2f} ms); phase 7b {p7:.2f} ms/step; '
-      f'{seconds:.1f} s in all [{card}]')
+      f'{torch_ms - null_ms:+.2f} ms); phase 7b {p7:.2f} ms/step; the '
+      f'process {seconds:.1f} s with 14c and 15c [{card}]')
   return {'seconds': seconds, 'step_ms': torch_ms, 'one_process_ms': null_ms,
           'phase7_step_ms': p7,
           'launches': res['torch']['runs'][0]['launches'],
@@ -2779,13 +2809,10 @@ def dp_world_one(digests, cli7d, shards7, card, out_dir, ckpt):
                     res['torch']['runs'][1]['losses']}, res['9b_resume']
 
 
-def dp_world_two(args, digests, card, out_dir, ckpt):
-  """9b (its checkpoint into ``ckpt``); returns its numbers and the
-  ranks' CLI results, which :func:`check_9b_resume` reads."""
-  res, seconds = run_ranks(
-      '9b', '9b', 2, out_dir, extra=['--ckpt', ckpt, '--seed',
-                                     str(args.seed)],
-      env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+def dp_world_two(args, digests, card, res, seconds):
+  """9b's checks (``res``: each rank's result from phase 14's world);
+  returns its numbers and the ranks' CLI results, which
+  :func:`check_9b_resume` reads."""
   masked = [r['masked'][0] for r in res]
   if not masked[0] > 5 * masked[1]:
     raise AssertionError(f'9b: the uneven batch\'s halves hold {masked} '
@@ -2862,19 +2889,35 @@ def check_9b_resume(cli, resumed, card):
   return more
 
 
-def data_parallel(args, digests, cli7d, shards7, card):
-  """Phase 9: 9b, then 9a (whose process also resumes 9b's checkpoint),
-  9c."""
-  with tempfile.TemporaryDirectory(prefix='lddl_smoke_dp_') as out_dir:
-    ckpt = os.path.join(out_dir, 'ckpt_9b')
-    world2, cli = dp_world_two(args, digests, card, out_dir, ckpt)
-    world1, resumed = dp_world_one(digests, cli7d, shards7, card, out_dir,
-                                   ckpt)
-    world2['resume_losses'] = check_9b_resume(cli, resumed, card)
-    dp = {'world1': world1, 'world2': world2}
+def rank_worlds(args, root):
+  """The rank launches phases 9, 14, 15 and 16 share: two ranks on the
+  card over gloo (``--rank-task 14``: 9b, 14a, 14b, 15b, then 16's
+  recorded runs), then one world-1 NCCL process under
+  torch.distributed.run (``--rank-task 14c``: 9a with 9b's resume, 14c,
+  15c). Two process starts where phase 9 and phase 14 each made two.
+  Files under ``root`` (the checkpoints, 16's runs) stay for phase 16."""
+  seed = ['--seed', str(args.seed)]
+  two, two_s = run_ranks('9b, 14, 15b, 16 (record)', '14', 2, root,
+                         extra=['--ckpt', root] + seed,
+                         env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+  (one,), one_s = run_ranks('9a, 14c, 15c', '14c', 1, root,
+                            extra=['--ckpt', root] + seed, torchrun=True)
+  return {'two': two, 'one': one, 'seconds': {'two': two_s, 'one': one_s}}
+
+
+def data_parallel(args, digests, cli7d, shards7, card, worlds):
+  """Phase 9's checks: 9b, then 9a (whose process also resumed 9b's
+  checkpoint), 9c; from :func:`rank_worlds`' processes."""
+  world2, cli = dp_world_two(args, digests, card,
+                             [r['9b'] for r in worlds['two']],
+                             worlds['seconds']['two'])
+  world1, resumed = dp_world_one(digests, cli7d, shards7, card,
+                                 worlds['one']['9a'],
+                                 worlds['seconds']['one'])
+  world2['resume_losses'] = check_9b_resume(cli, resumed, card)
   check_no_segments('phase 9')
   check_no_rank_processes()
-  return dp
+  return {'world1': world1, 'world2': world2}
 
 
 # ---- phase 10: the network data service and the live monitor ----
@@ -4924,24 +4967,28 @@ def placement_steps(loop, batches, place):
 
 
 def rank_14(args, digests):
-  """One of two ranks on the one card, gloo for CUDA tensors: each layout
-  of PLACE_LAYOUTS trains PLACE_STEPS steps from one init on its rows of
+  """One of two ranks on the one card, gloo for CUDA tensors: 9b first
+  (:func:`world_9b`; not with ``--only``); then each layout of
+  PLACE_LAYOUTS trains PLACE_STEPS steps from one init on its rows of
   the same global batches (make_global_batch), deterministic algorithms
   on, the kernels' counts at 0 just before and read just after; 14a then
   saves (rank 0 writes the whole state) and steps once more. Rank 0 then
   runs world 1 on the whole batches from the same init. Then 15b
-  (:func:`ring_rank`) in the same processes."""
+  (:func:`ring_rank`) and 16's recorded runs (:func:`record_sharded`;
+  not with ``--only``) in the same processes."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.loader.device import make_global_batch
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.parallel import batch_size, make_mesh
   from lddl_tpu_torch.training import TrainLoop
   torch.cuda.set_device(0)  # both ranks on the one card
+  out = {}
+  if args.only is None:
+    out['9b'] = world_9b(args, digests)
   torch.use_deterministic_algorithms(True)
   comm = get_backend('torch')
   batches = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)
   build = placement_build(args)
-  out = {}
   for label, axes in PLACE_LAYOUTS:
     mesh = make_mesh(device_type=torch.device(DEVICE).type, **axes)
     rows = PLACE_ROWS * batch_size(mesh)
@@ -4964,7 +5011,7 @@ def rank_14(args, digests):
          'rows': rows}
     if label == '14a':
       loop.step = PLACE_STEPS
-      loop.save(args.ckpt)
+      loop.save(os.path.join(args.ckpt, 'ckpt_14a'))
     r['digest'], r['snapshot_extra_bytes'] = snapshot_extra(loop)
     r['flat_bytes'] = 4 * loop.step_fn.exchange.flat.numel()  # float32
     if label == '14a':
@@ -4986,24 +5033,28 @@ def rank_14(args, digests):
       torch.cuda.empty_cache()
     comm.barrier()
   out['15b'] = ring_rank(args, comm)
+  if args.only is None:
+    out['16'] = record_sharded(args, comm)
   rank_result(args, out)
 
 
 def rank_14c(args, digests):
-  """World 1 over NCCL (under torch.distributed.run) resumes 14a's
-  checkpoint with the step cache on and takes the step 14a took after
-  saving, deterministic algorithms on; then 15c (:func:`ring_capture`)."""
+  """World 1 over NCCL (under torch.distributed.run): 9a first
+  (:func:`world_9a`, with 9b's resume); then it resumes 14a's checkpoint
+  with the step cache on and takes the step 14a took after saving,
+  deterministic algorithms on; then 15c (:func:`ring_capture`)."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.parallel import make_mesh
   from lddl_tpu_torch.training import TrainLoop
   from lddl_tpu_torch.training.pretrain import CompiledStepCache
+  nine = world_9a(args, digests)
   torch.use_deterministic_algorithms(True)
   comm = get_backend('torch')
   mesh = make_mesh(device_type=torch.device(DEVICE).type)
   batch = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)[-1]
   loop = TrainLoop.build(mesh=mesh, comm=comm, **placement_build(args))
-  loop.restore(args.ckpt)
+  loop.restore(os.path.join(args.ckpt, 'ckpt_14a'))
   digest = loop.state_digest()
   loop.model.train()
   cache = CompiledStepCache(loop.step_fn)
@@ -5018,6 +5069,7 @@ def rank_14c(args, digests):
   del cache, loop
   torch.cuda.empty_cache()
   out['15c'] = ring_capture(args)
+  out['9a'] = nine
   rank_result(args, out)
 
 
@@ -5135,72 +5187,65 @@ def check_placement_layout(label, res, world1):
                              f'world 1\'s {w} (rtol {rtol})')
 
 
-def placement(args, digests, card):
-  """Phase 14: 14a, 14b, 14c; and phase 15's 15b and 15c, which run in
-  the same rank processes."""
+def placement(args, digests, card, worlds):
+  """Phase 14's checks: 14a, 14b, 14c; and phase 15's 15b and 15c,
+  which ran in the same rank processes (:func:`rank_worlds`)."""
   t0 = time.perf_counter()
   out = {}
-  with tempfile.TemporaryDirectory(prefix='lddl_smoke_place_') as out_dir:
-    ckpt = os.path.join(out_dir, 'ckpt_14a')
-    res, seconds = run_ranks(
-        '14', '14', 2, out_dir, extra=['--ckpt', ckpt, '--seed',
-                                       str(args.seed)],
-        env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
-    for label, axes in PLACE_LAYOUTS:
-      per = [r[label] for r in res]
-      world1 = per[0]['world1']
-      check_placement_layout(label, per, world1['steps'])
-      ms = [float(np.median([s['ms'] for s in r['steps'][1:]]))
-            for r in per]
-      w1_ms = float(np.median([s['ms'] for s in world1['steps'][1:]]))
-      params, opt = per[0]['bytes']
-      w_params, w_opt = world1['bytes']
-      ratio = (params + opt) / (w_params + w_opt)
-      if label == '14b' and not abs(ratio - 0.5) < 1e-4:
-        raise AssertionError(f'14b: a rank keeps {params} parameter and '
-                             f'{opt} optimizer bytes, world 1 {w_params} and '
-                             f'{w_opt}: want half')
-      extra = [r['snapshot_extra_bytes'] for r in per]
-      flat = per[0]['flat_bytes']
-      if not max(extra) < flat:
-        raise AssertionError(f'{label}: a snapshot of the state allocated '
-                             f'{extra} B on the device beyond what the rank '
-                             f'held, want less than its flat buffer, {flat} B')
-      out[label] = {
-          'axes': axes, 'ms_per_step_per_rank': ms, 'world1_ms': w1_ms,
-          'peak_bytes_per_rank': [r['peak_bytes'] for r in per],
-          'world1_peak_bytes': world1['peak_bytes'],
-          'param_bytes': params, 'opt_bytes': opt,
-          'world1_param_bytes': w_params, 'world1_opt_bytes': w_opt,
-          'launches_per_rank': [r['launches'] for r in per],
-          'snapshot_extra_bytes_per_rank': extra, 'flat_bytes': flat,
-          'loss': [s['metrics']['loss'] for s in per[0]['steps']],
-          'world1_loss': [s['metrics']['loss'] for s in world1['steps']],
-          'grad_norm': [s['metrics']['grad_norm'] for s in per[0]['steps']],
-          'world1_grad_norm': [s['metrics']['grad_norm']
-                               for s in world1['steps']],
-          'exchange': per[0]['exchange'], 'backend': per[0]['backend'],
-          'local_heads': per[0]['heads'], 'global_rows': per[0]['rows']}
-      log(f'  {label}: {axes} over {per[0]["backend"]} '
-          f'({per[0]["exchange"]}, {per[0]["heads"]} heads a rank, '
-          f'{per[0]["rows"]} rows a step): losses {out[label]["loss"]} vs '
-          f'world 1 {out[label]["world1_loss"]}, grad_norm '
-          f'{out[label]["grad_norm"]} vs {out[label]["world1_grad_norm"]}; '
-          'the ranks bit-equal every step; 12 launches a step of each of '
-          'K1-K3 on each rank')
-      log(f'  {label}: ms/step per rank (eager, median after the first) '
-          f'{[round(x, 2) for x in ms]} vs world 1 {w1_ms:.2f}; peak '
-          f'allocated per rank {[r["peak_bytes"] for r in per]} B vs world '
-          f'1 {world1["peak_bytes"]} B; kept between steps: {params} B of '
-          f'parameters + {opt} B of optimizer state a rank vs world 1\'s '
-          f'{w_params} + {w_opt} ({ratio:.4f}); a snapshot of the state '
-          f'(what a save gathers) allocated {extra} B at its peak beyond '
-          f'that, under the flat buffer\'s {flat} B [{card}]')
-    out['15b'] = ring_world(res, card)
-    want = (res[0]['14a']['digest'], res[0]['14a']['next'])
-    (resumed,), resume_seconds = run_ranks(
-        '14c', '14c', 1, out_dir, extra=['--ckpt', ckpt, '--seed',
-                                         str(args.seed)], torchrun=True)
+  res, seconds = worlds['two'], worlds['seconds']['two']
+  for label, axes in PLACE_LAYOUTS:
+    per = [r[label] for r in res]
+    world1 = per[0]['world1']
+    check_placement_layout(label, per, world1['steps'])
+    ms = [float(np.median([s['ms'] for s in r['steps'][1:]]))
+          for r in per]
+    w1_ms = float(np.median([s['ms'] for s in world1['steps'][1:]]))
+    params, opt = per[0]['bytes']
+    w_params, w_opt = world1['bytes']
+    ratio = (params + opt) / (w_params + w_opt)
+    if label == '14b' and not abs(ratio - 0.5) < 1e-4:
+      raise AssertionError(f'14b: a rank keeps {params} parameter and '
+                           f'{opt} optimizer bytes, world 1 {w_params} and '
+                           f'{w_opt}: want half')
+    extra = [r['snapshot_extra_bytes'] for r in per]
+    flat = per[0]['flat_bytes']
+    if not max(extra) < flat:
+      raise AssertionError(f'{label}: a snapshot of the state allocated '
+                           f'{extra} B on the device beyond what the rank '
+                           f'held, want less than its flat buffer, {flat} B')
+    out[label] = {
+        'axes': axes, 'ms_per_step_per_rank': ms, 'world1_ms': w1_ms,
+        'peak_bytes_per_rank': [r['peak_bytes'] for r in per],
+        'world1_peak_bytes': world1['peak_bytes'],
+        'param_bytes': params, 'opt_bytes': opt,
+        'world1_param_bytes': w_params, 'world1_opt_bytes': w_opt,
+        'launches_per_rank': [r['launches'] for r in per],
+        'snapshot_extra_bytes_per_rank': extra, 'flat_bytes': flat,
+        'loss': [s['metrics']['loss'] for s in per[0]['steps']],
+        'world1_loss': [s['metrics']['loss'] for s in world1['steps']],
+        'grad_norm': [s['metrics']['grad_norm'] for s in per[0]['steps']],
+        'world1_grad_norm': [s['metrics']['grad_norm']
+                             for s in world1['steps']],
+        'exchange': per[0]['exchange'], 'backend': per[0]['backend'],
+        'local_heads': per[0]['heads'], 'global_rows': per[0]['rows']}
+    log(f'  {label}: {axes} over {per[0]["backend"]} '
+        f'({per[0]["exchange"]}, {per[0]["heads"]} heads a rank, '
+        f'{per[0]["rows"]} rows a step): losses {out[label]["loss"]} vs '
+        f'world 1 {out[label]["world1_loss"]}, grad_norm '
+        f'{out[label]["grad_norm"]} vs {out[label]["world1_grad_norm"]}; '
+        'the ranks bit-equal every step; 12 launches a step of each of '
+        'K1-K3 on each rank')
+    log(f'  {label}: ms/step per rank (eager, median after the first) '
+        f'{[round(x, 2) for x in ms]} vs world 1 {w1_ms:.2f}; peak '
+        f'allocated per rank {[r["peak_bytes"] for r in per]} B vs world '
+        f'1 {world1["peak_bytes"]} B; kept between steps: {params} B of '
+        f'parameters + {opt} B of optimizer state a rank vs world 1\'s '
+        f'{w_params} + {w_opt} ({ratio:.4f}); a snapshot of the state '
+        f'(what a save gathers) allocated {extra} B at its peak beyond '
+        f'that, under the flat buffer\'s {flat} B [{card}]')
+  out['15b'] = ring_world(res, card)
+  want = (res[0]['14a']['digest'], res[0]['14a']['next'])
+  resumed, resume_seconds = worlds['one'], worlds['seconds']['one']
   if resumed['digest'] != want[0] or resumed['meta'] != [PLACE_STEPS, 0]:
     raise AssertionError(f'14c: the restored state {resumed["digest"]} '
                          f'{resumed["meta"]} vs 14a\'s {want[0]}')
@@ -5226,9 +5271,10 @@ def placement(args, digests, card):
       f'({resume_seconds:.1f} s) [{card}]')
   check_no_rank_processes('phase 14')
   out['seconds'] = {'ranks': seconds, 'resume': resume_seconds,
-                    'phase': time.perf_counter() - t0}
-  log(f'  phase 14: {out["seconds"]["phase"]:.1f} s (the two-rank world '
-      f'{seconds:.1f} s, the resume {resume_seconds:.1f} s) [{card}]')
+                    'checks': time.perf_counter() - t0}
+  log(f'  phase 14: the two-rank world {seconds:.1f} s (with 9b, 15b and '
+      f'16\'s records), the world-1 process {resume_seconds:.1f} s (with '
+      f'9a and 15c), ran in phase 9 [{card}]')
   return out
 
 
@@ -5776,6 +5822,277 @@ def ring_faults(args, card):
                     'card': card}))
 
 
+# ---- phase 16: step replay of a sharded run, launched as its ranks ----
+
+# The runs phase 14's two ranks record with the ledger on (label, mesh
+# axes, shard set, attention): BERT-base from the committed shards, as
+# the replay CLI builds it (dropout on, bf16), REPLAY_STEPS steps with a
+# checkpoint every step (the step line at 2 is the target; 16b also saves
+# at 0, where its bisect over (0, 2] restores).
+REPLAY_LAYOUTS = (('16a', {'tensor': 2}, 'pairs', 'flash'),
+                  ('16b', {'seq': 2}, 'packed', 'ring_flash'),
+                  ('16c', {'data': 2}, 'pairs', 'flash'))
+REPLAY_STEPS = 2
+REPLAY_FLAG = {'data': '--dp', 'fsdp': '--fsdp', 'tensor': '--tp',
+               'seq': '--sp'}
+
+
+def replay_settings(args, data):
+  """The recorded run's loader and model settings: ``(TrainLoop.build
+  kwargs, BertConfig kwargs, the replay CLI's arguments for the same)``;
+  digests.json's loader settings, the masked-only head."""
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  settings = load_digests()[data]['settings']
+  s = settings['max_seq_length']
+  heads = PACKED[2] if data == 'packed' else args.max_predictions
+  build = dict(device=DEVICE, learning_rate=1e-4, warmup_steps=0,
+               total_steps=100, batch_size_per_rank=settings[
+                   'batch_size_per_rank'], max_seq_length=s,
+               masking='dynamic', seed=args.seed, max_predictions=heads,
+               loader_kwargs={'shuffle_buffer_size':
+                              settings['shuffle_buffer_size']})
+  argv = ['--path', shard_path(data), '--vocab-file', VOCAB_FILE,
+          '--batch-size', str(settings['batch_size_per_rank']),
+          '--max-seq-length', str(s), '--masking', 'dynamic',
+          '--shuffle-buffer-size', str(settings['shuffle_buffer_size']),
+          '--model', MODEL, '--seed', str(args.seed), '--learning-rate',
+          '1e-4', '--warmup-steps', '0', '--total-steps', '100',
+          '--max-predictions', str(heads), '--device', f'{DEVICE}:0']
+  if data == 'packed':
+    build.update(data_format='packed', block_diagonal=True)
+    argv += ['--data-format', 'packed', '--block-diagonal']
+  else:
+    build['bin_size'] = settings['bin_size']
+    argv += ['--bin-size', str(settings['bin_size'])]
+  cfg = dict(vocab_size=((VOCAB_REAL + 63) // 64) * 64,
+             max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
+  return build, cfg, argv
+
+
+def record_sharded(args, comm):
+  """16's recorded runs, on each rank of phase 14's world: each layout of
+  REPLAY_LAYOUTS through TrainLoop.run with the ledger on (this rank's
+  file, deterministic algorithms), from the committed shards; rank 0
+  then writes 16a's checkpoint at step 1 again with one bit flipped."""
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.telemetry import ledger
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+  root = os.path.join(args.ckpt, '16')
+  out = {}
+  for label, axes, data, impl in REPLAY_LAYOUTS:
+    build, cfg, _ = replay_settings(args, data)
+    d = os.path.join(root, label)
+    mesh = make_mesh(device_type=torch.device(DEVICE).type, **axes)
+    ledger._active = None
+    ledger.enable_ledger(directory=os.path.join(d, 'ledger'),
+                         rank=comm.rank)
+    try:
+      loop = TrainLoop.build(
+          shard_path(data), load_bert_tokenizer(VOCAB_FILE),
+          model_cfg=BertConfig(attention_impl=impl, **cfg), mesh=mesh,
+          comm=comm, **build)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      tfa.reset_launches()
+      if label == '16b':
+        loop.save(os.path.join(d, 'ckpt'))
+      losses = loop.run(REPLAY_STEPS, ckpt_dir=os.path.join(d, 'ckpt'),
+                        ckpt_every=1, log_every=0)
+      out[label] = {'losses': losses, 'launches': tfa.device_launches(),
+                    'seconds': time.perf_counter() - t0,
+                    'dp': (loop.dp_rank, loop.dp_world)}
+    finally:
+      ledger.disable_ledger()
+      ledger._active = None
+    del loop
+    torch.cuda.empty_cache()
+    if comm.rank == 0:  # the replays restore the steps below the target
+      shutil.rmtree(os.path.join(d, 'ckpt', f'step_{REPLAY_STEPS:010d}'))
+  if comm.rank == 0:
+    flip_a_bit(os.path.join(root, '16a', 'ckpt'), 1,
+               os.path.join(root, '16a', 'ckpt_flipped'))
+  comm.barrier()
+  return out
+
+
+def flip_a_bit(ckpt, step, out):
+  """Step ``step`` of checkpoint dir ``ckpt`` copied into ``out`` with one
+  bit flipped: the lowest of the high half of the first element of the
+  first float32 matrix (a weight every step reads)."""
+  name = f'step_{step:010d}'
+  shutil.copytree(os.path.join(ckpt, name), os.path.join(out, name))
+  path = os.path.join(out, name, 'state.pt')
+  state = torch.load(path, weights_only=True)
+  key = next(k for k, v in state['model'].items()
+             if v.dtype == torch.float32 and v.dim() == 2)
+  halves = state['model'][key].view(-1).view(torch.int16)
+  halves[1] ^= 1  # little-endian: the high half of element 0
+  torch.save(state, path)
+
+
+def rank_16(args, digests):
+  """16 on one of two ranks on the card (gloo): the replay CLI's ``main``
+  for each job of ``--ckpt``'s replay16_jobs.json, as ``python -m
+  lddl_tpu_torch.replay.cli`` runs it launched as the run's ranks (the
+  world from the launcher's environment, ``--comm torch``), each job's
+  exit code, rank 0's printed verdict, and the kernels' launches
+  counted on the device, at 0 just before and read just after."""
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.replay import cli
+  with open(os.path.join(args.ckpt, 'replay16_jobs.json')) as f:
+    jobs = json.load(f)
+  import io
+  out = []
+  for label, argv in jobs:
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    printed, errors = io.StringIO(), io.StringIO()
+    with (contextlib.redirect_stdout(printed),
+          contextlib.redirect_stderr(errors)):
+      rc = cli.main(argv)
+    torch.cuda.synchronize()
+    out.append({'label': label, 'rc': rc, 'printed': printed.getvalue(),
+                'errors': errors.getvalue()[-3000:],
+                'launches': tfa.device_launches(),
+                'host_launches': dict(tfa.launches),
+                'seconds': time.perf_counter() - t0})
+  rank_result(args, out)
+
+
+RANK_TASKS['16'] = rank_16
+
+
+def step_line(ledger_dir, rank, step):
+  """The ``step`` ledger line of ``step`` in ``rank``'s file."""
+  with open(os.path.join(ledger_dir, f'ledger.rank{rank}.jsonl')) as f:
+    for line in f:
+      rec = json.loads(line)
+      if rec.get('boundary') == 'step' and rec.get('step') == step:
+        return rec
+  raise AssertionError(f'16: no step line of step {step} in {ledger_dir} '
+                       f'rank {rank}')
+
+
+def replay_jobs(args, root):
+  """16's jobs, in order: each layout's ``step 2`` from the corpus
+  (expect exit 0), 16a's from the flipped checkpoint (exit 1) and 16b's
+  ``bisect --per-sample`` over (0, 2] (exit 0)."""
+  jobs, want = [], []
+  for label, axes, data, impl in REPLAY_LAYOUTS:
+    _, _, argv = replay_settings(args, data)
+    d = os.path.join(root, label)
+    mesh = ['--comm', 'torch', '--attention', impl] + [
+        a for axis, n in axes.items() for a in (REPLAY_FLAG[axis], str(n))]
+    base = argv + mesh + ['--ledger', os.path.join(d, 'ledger'), '--json']
+    step = ['step', '--step', str(REPLAY_STEPS), '--checkpoint-dir']
+    jobs.append((label, step + [os.path.join(d, 'ckpt')] + base))
+    want.append((label, axes, data, 'step', 0, REPLAY_STEPS - 1))
+    if label == '16a':
+      jobs.append((f'{label} flipped',
+                   step + [os.path.join(d, 'ckpt_flipped')] + base))
+      want.append((label, axes, data, 'flipped', 1, REPLAY_STEPS - 1))
+    if label == '16b':
+      jobs.append((f'{label} bisect',
+                   ['bisect', '--lo', '0', '--hi', str(REPLAY_STEPS),
+                    '--per-sample', '--checkpoint-dir',
+                    os.path.join(d, 'ckpt')] + base))
+      want.append((label, axes, data, 'bisect', 0, REPLAY_STEPS))
+  return jobs, want
+
+
+def replay_launches(axes, data, kind, steps, rows):
+  """The launches a 16 job makes on each rank: 12 a step of each kernel
+  of its path, x seq blocks under the ring (``steps`` replayed), and
+  for the bisect's per-sample scoring one forward of each of ``rows``
+  rows."""
+  from lddl_tpu_torch.training.pretrain import MODEL_SIZES
+  per = MODEL_SIZES[MODEL]['num_layers'] * axes.get('seq', 1)
+  fwd = per * (steps + (rows if kind == 'bisect' else 0))
+  seg = data == 'packed'
+  names = ('fwd', 'dq', 'dkv')
+  return {(k + ('_seg' if s else '')): (
+      (fwd if k == 'fwd' else per * steps) if s == seg else 0)
+      for k in names for s in (False, True)}
+
+
+def sharded_replay(args, card, worlds, root):
+  """Phase 16: the replay CLI launched as the recorded runs' two ranks on
+  the card (gloo), one launch of :func:`rank_16` for every job; each
+  replay's exit code on both ranks, its verdict against the recorded
+  ``step`` line, its launches against :func:`replay_launches`; the
+  bisect's spike step and losses against the recorded loss lines."""
+  t0 = time.perf_counter()
+  d16 = os.path.join(root, '16')
+  rec = [r['16'] for r in worlds['two']]
+  jobs, want = replay_jobs(args, d16)
+  with open(os.path.join(root, 'replay16_jobs.json'), 'w') as f:
+    json.dump(jobs, f)
+  res, seconds = run_ranks('16', '16', 2, root, extra=['--ckpt', root],
+                           env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+  out = {'seconds': seconds, 'jobs': {}}
+  for i, (label, axes, data, kind, rc, steps) in enumerate(want):
+    per = [r[i] for r in res]
+    name = jobs[i][0]
+    if [p['rc'] for p in per] != [rc, rc]:
+      raise AssertionError(f'16 {name}: exit codes {[p["rc"] for p in per]}'
+                           f', want {rc} on both ranks: '
+                           f'{[p["printed"][-2000:] + p["errors"] for p in per]}')
+    if per[1]['printed']:
+      raise AssertionError(f'16 {name}: rank 1 printed '
+                           f'{per[1]["printed"][-2000:]!r}')
+    printed = json.loads(per[0]['printed']) if kind != 'flipped' else None
+    line = step_line(os.path.join(d16, label, 'ledger'), 0, REPLAY_STEPS)
+    rows = 0
+    if kind == 'step':
+      if not (printed['match'] and printed['digest'] == line['digest'] and
+              printed['restored_step'] == 1):
+        raise AssertionError(f'16 {name}: {printed} vs the step line {line}')
+    elif kind == 'bisect':
+      recorded = [step_line(os.path.join(d16, label, 'ledger'), 0,
+                            s)['loss'] for s in (1, 2)]
+      losses = [x for _, x in printed['losses']]
+      if (losses != recorded or losses != rec[0][label]['losses'] or
+          printed['spike_step'] != REPLAY_STEPS):
+        raise AssertionError(f'16 {name}: losses {losses}, spike '
+                             f'{printed["spike_step"]}; recorded '
+                             f'{recorded} / {rec[0][label]["losses"]}')
+      rows = len(printed['per_sample'])
+    expect = replay_launches(axes, data, kind, steps, rows)
+    for rank, p in enumerate(per):
+      if p['launches'] != expect or p['host_launches'] != expect:
+        raise AssertionError(f'16 {name} rank {rank}: launches '
+                             f'{p["launches"]} on the device, '
+                             f'{p["host_launches"]} by the wrappers; want '
+                             f'{expect}')
+    out['jobs'][name] = {
+        'rc': rc, 'seconds': [p['seconds'] for p in per],
+        'launches_per_rank': [p['launches'] for p in per],
+        'result': {k: v for k, v in (printed or {}).items()
+                   if k != 'losses'} if printed else None}
+    log(f'  16 {name}: {" ".join(jobs[i][1][:1])} launched as two ranks '
+        f'({axes}, {data}): exit {rc} on both'
+        + (f', the step line\'s {line["digest"]} reconstructed'
+           if kind == 'step' else '')
+        + (f', spike at step {printed["spike_step"]}, losses = the loss '
+           f'lines, {rows} rows scored' if kind == 'bisect' else '')
+        + f'; launches a rank {per[0]["launches"]}; '
+        f'{[round(p["seconds"], 1) for p in per]} s a rank [{card}]')
+  for label, *_ in REPLAY_LAYOUTS:
+    r = rec[0][label]
+    log(f'  16 {label} recorded in phase 14\'s ranks: losses {r["losses"]}, '
+        f'{r["seconds"]:.1f} s a rank, batch rank {r["dp"]} [{card}]')
+  check_no_rank_processes('phase 16')
+  out['recorded'] = {label: rec[0][label] for label, *_ in REPLAY_LAYOUTS}
+  out['phase_seconds'] = time.perf_counter() - t0
+  log(f'  phase 16: {out["phase_seconds"]:.1f} s (the replay launch '
+      f'{seconds:.1f} s) [{card}]')
+  return out
+
+
 def main():
   global PLACE_LAYOUTS, RING_CELLS
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5792,8 +6109,8 @@ def main():
   parser.add_argument('--packed-warmup', type=int, default=2,
                       help='untimed packed steps before the timed ones')
   parser.add_argument('--rank-task', choices=sorted(RANK_TASKS),
-                      help="the rank processes of phases 9, 11 and 14 (the "
-                      'script starts them itself)')
+                      help="the rank processes of phases 9, 11, 14 and 16 "
+                      '(the script starts them itself)')
   parser.add_argument('--out', help='--rank-task: where it writes')
   parser.add_argument('--ckpt', help='--rank-task: the checkpoint dir')
   parser.add_argument('--fault', choices=sorted(PLACE_FAULTS) +
@@ -5892,8 +6209,14 @@ def main():
   workers['codebert'] = codebert_through_workers(args, digests, card)
   workers['kill'] = kill_a_worker(digests, card)
 
-  log(f'== data-parallel training across processes [{card}]')
-  dp = data_parallel(args, digests, shards['cli'], shards['pairs'], card)
+  ranks_root = tempfile.mkdtemp(prefix='lddl_smoke_ranks_')
+  log(f'== data-parallel training across processes, in the rank processes '
+      f'phases 14, 15 and 16 share [{card}]')
+  worlds = rank_worlds(args, ranks_root)
+  dp = data_parallel(args, digests, shards['cli'], shards['pairs'], card,
+                     worlds)
+  for done in ('ckpt_9b', 'ckpt_14a'):  # resumed in 14c's process
+    shutil.rmtree(os.path.join(ranks_root, done))
 
   log(f'== the network data service and the live monitor [{card}]')
   served = data_service(args, digests, card)
@@ -5926,7 +6249,14 @@ def main():
   log(f'== parameter placement over the fsdp and tensor axes (14) and ring '
       f'attention over the seq axis (15b, 15c): two ranks on '
       f'the card [{card}]')
-  placed = placement(args, digests, card)
+  placed = placement(args, digests, card, worlds)
+
+  log(f'== step replay of a sharded run, launched as its ranks (16) '
+      f'[{card}]')
+  try:
+    sharded = sharded_replay(args, card, worlds, ranks_root)
+  finally:
+    shutil.rmtree(ranks_root, ignore_errors=True)
 
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
@@ -5976,6 +6306,9 @@ def main():
         label: [x[name] for x in placed['15b'][label]['launches_per_rank']]
         for label, *_ in RING_CELLS}
     entry['phase15_launches_captured'] = placed['15c']['launches'][name]
+    entry['phase16_launches_per_rank'] = {
+        job: r['launches_per_rank'][0][name]
+        for job, r in sharded['jobs'].items()}
     ring = next(x for x in ring_rows if x['name'] == name)
     entry['phase15a'] = {k: ring[k] for k in (
         'shape', 'max_abs_err', 'tol', 'bound_use', 'rel_norm_err', 'ms',
@@ -6000,7 +6333,8 @@ def main():
                                    if k != 'losses'},
                   'record_and_replay': replayed,
                   'scan_window': scanned, 'bart': bart,
-                  'placement': placed, 'card': card}, default=str))
+                  'placement': placed, 'sharded_replay': sharded,
+                  'card': card}, default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))
   log(card)

@@ -69,5 +69,9 @@ attention over the mesh's ``seq`` axis: ``parallel.ring``
 ``data x fsdp x seq`` group), ``models.bert`` (``attention_impl`` 'ring'
 and 'ring_flash' on a mesh, global positions, the encoder's output
 gathered over seq for the heads), ``parallel.train`` (normalizers and
-gradients over ``data x fsdp x seq``) and the CLI's ``--sp``.
+gradients over ``data x fsdp x seq``) and the CLI's ``--sp``. Step
+replay, bisect and bundles of a sharded run launched as its ranks: the
+replay CLI's ``--comm torch`` over the run's mesh (``replay.cli``'s
+``World``: the world's verdict), each rank's own ledger file and batch
+rank, ``training.flight`` over each rank's incident.
 """

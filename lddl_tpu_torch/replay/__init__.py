@@ -17,7 +17,8 @@ package rematerializes any recorded coordinate on demand:
   ledger's ``step`` record; ``bisect`` attributes a loss spike to the
   batch (and the sample) that moved it;
 - :mod:`.cli` — ``python -m lddl_tpu_torch.replay.cli`` (the JAX
-  package's ``lddl-replay``).
+  package's ``lddl-replay``); a sharded run's steps are replayed by
+  launching it as the run's ranks (``--comm torch``).
 
 The exports are the JAX package's; :mod:`.steps` (which imports the train
 loop) loads on its own.

@@ -140,3 +140,20 @@ def read_bundle(bundle_dir, verify=True):
           f'recorded {manifest["digest"]}, got {actual} — the bundle '
           'is corrupt')
   return manifest, unpack_batch(spec, payload)
+
+
+def rank_bundle(path, batch_rank):
+  """The bundle the ranks of batch rank ``batch_rank`` feed from
+  ``path``: ``path`` itself when it is a bundle (one rank's batch, as a
+  rank's flight recorder writes it), else ``path/rank<batch_rank>``, the
+  form ``bundle`` writes when launched as a mesh's ranks (one directory
+  a step holding every batch rank's). ``batch_rank`` None (one process)
+  takes ``path`` as it is. A missing bundle is ``FileNotFoundError``."""
+  if batch_rank is None or os.path.isfile(os.path.join(path, _MANIFEST)):
+    return path
+  sub = os.path.join(path, f'rank{batch_rank}')
+  if not os.path.isfile(os.path.join(sub, _MANIFEST)):
+    raise FileNotFoundError(
+        f'no bundle of batch rank {batch_rank} under {path} (want '
+        f'{os.path.join(sub, _MANIFEST)})')
+  return sub

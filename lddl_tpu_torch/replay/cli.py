@@ -31,20 +31,42 @@ The loader spec is the JAX CLI's: ``--path`` (BERT shards) /
 ``--shuffle-buffer-size`` (the recorded run's, part of its batch
 stream). The model arguments are the JAX CLI's, less ``--tokenizer`` (a
 hub tokenizer needs the network; ``--vocab-file`` goes through the
-port's vocab map), plus ``--device`` (default the CUDA card; ``cpu``
-runs there). ``--fsdp/--tp/--sp`` above 1 raise (a sharded step
-re-executes bit for bit only on its own layout, launched as ranks), so
-does ring attention (it runs over a mesh, which one replay process has
-not), and ``--dp`` above 1 (a step of a data-parallel run needs its
-ranks' batches). Step digests are the port's own: a ledger
-the JAX package wrote replays here for its batches, not its steps.
+port's vocab map), plus ``--device`` (default the CUDA card
+``cuda:<local rank>``; ``cpu`` runs there). Step digests are the port's
+own: a ledger the JAX package wrote replays here for its batches, not
+its steps.
+
+A sharded run (``--dp/--fsdp/--tp/--sp``, ring attention) sums a step's
+products in another order than one process does, so its steps
+re-execute bit for bit only on its own layout: ``step``, ``bisect`` and
+``bundle`` are then launched as the recorded run's ranks with ``--comm
+torch`` (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, e.g.
+``torch.distributed.run --nproc-per-node N``; two ranks on one card add
+``LDDL_DIST_CUDA_BACKEND=gloo``), over ``make_mesh(data=--dp,
+fsdp=--fsdp, tensor=--tp, seq=--sp)``, as the pretrain CLI built it (at
+world 1 the mesh of one, so ring attention runs at ``seq=1``; under
+``--comm null`` no mesh, as there). A mesh whose size is not the world
+size exits 2 and names the launch it needs. Each rank restores its
+shards from the world-1 checkpoint, reads its own ledger file
+(``ledger.rank<RANK>.jsonl``), feeds its batch rank's rows and its seq
+columns of them, and the world compares the fingerprint of the gathered
+state. The verdict is the world's: every rank exits 0 when every rank
+matched, 1 on any mismatch, 2 when the replay could not reach a verdict
+(a usage error or missing input on any rank, a tensor or seq group whose
+ranks would feed different batches, a rank that failed); only rank 0
+prints it. Launched as ranks, ``bundle --out DIR`` writes each batch
+rank's bundle to ``DIR/rank<R>`` and ``step --bundle DIR`` feeds a rank
+its batch rank's.
 """
 
 import argparse
 import json
+import math
+import os
 import sys
 
 _PROG = 'python -m lddl_tpu_torch.replay.cli'
+_AXES = (('--dp', 'dp'), ('--fsdp', 'fsdp'), ('--tp', 'tp'), ('--sp', 'sp'))
 
 
 def _attach_loader_args(p):
@@ -111,10 +133,6 @@ def _attach_model_args(p):
                  choices=['dense', 'flash', 'ring', 'ring_flash'],
                  default='dense')
   p.add_argument('--remat', action='store_true')
-  p.add_argument('--dp', type=int, default=1)
-  p.add_argument('--fsdp', type=int, default=1)
-  p.add_argument('--tp', type=int, default=1)
-  p.add_argument('--sp', type=int, default=1)
   p.add_argument('--data-format', choices=['pairs', 'packed'],
                  default='pairs')
   p.add_argument('--block-diagonal', action='store_true')
@@ -128,21 +146,58 @@ def _attach_model_args(p):
   p.add_argument('--max-predictions', type=int, default=None)
   p.add_argument('--prefetch', type=int, default=2)
   p.add_argument('--device', default=None,
-                 help="torch device; default the CUDA card (raises "
-                      "without one). 'cpu' runs on the CPU")
+                 help="torch device; default the CUDA card "
+                      "cuda:<local rank> (raises without one). 'cpu' runs "
+                      'on the CPU')
+  _attach_world_args(p)
 
 
-def _device(args):
-  """The replay's device; on the card, the deterministic cuBLAS
-  workspace is set before anything initialises CUDA."""
-  from ..training.pretrain import require_deterministic_cublas, resolve_device
+def _attach_world_args(p):
+  for flag, _ in _AXES:
+    p.add_argument(flag, type=int, default=1,
+                   help='the recorded run\'s mesh axis (above 1: launch as '
+                        'its ranks with --comm torch)')
+  p.add_argument('--comm', choices=['null', 'torch'], default='null',
+                 help="'torch': run as the recorded run's ranks, a "
+                      "torch.distributed group from the launcher's "
+                      "environment (RANK, WORLD_SIZE, MASTER_ADDR, "
+                      'MASTER_PORT)')
+
+
+def check_world(args, world_size):
+  """``ValueError`` unless the mesh of ``--dp/--fsdp/--tp/--sp`` has
+  ``world_size`` ranks (a sharded step re-executes bit for bit only on
+  its own layout), naming the launch it needs."""
+  sizes = [getattr(args, name) for _, name in _AXES]
+  n = math.prod(sizes)
+  if n == world_size:
+    return
+  axes = ' '.join(f'{flag} {v}' for (flag, _), v in zip(_AXES, sizes))
+  raise ValueError(
+      f'{axes}: a mesh of {n} rank(s), and this replay runs as '
+      f'{world_size} process(es). A sharded step re-executes bit for bit '
+      'only on its own layout: launch the replay as the recorded run\'s '
+      f'ranks, WORLD_SIZE={n} with RANK, MASTER_ADDR and MASTER_PORT set '
+      f'(e.g. python -m torch.distributed.run --nproc-per-node {n} -m '
+      'lddl_tpu_torch.replay.cli ...), with --comm torch')
+
+
+def _device(args, comm):
+  """The rank's device (:func:`~lddl_tpu_torch.training.pretrain.
+  rank_device`); on the card, the deterministic cuBLAS workspace is set
+  before anything initialises CUDA."""
+  from ..training.pretrain import rank_device, require_deterministic_cublas
+  if args.device is None or not str(args.device).startswith('cpu'):
+    require_deterministic_cublas()
   try:
-    device = resolve_device(args.device)
+    return rank_device(args.device, comm)
   except RuntimeError as e:  # no card, and --device cpu not given
     raise ValueError(str(e)) from None
-  if device.type == 'cuda':
-    require_deterministic_cublas()
-  return device
+
+
+def _comm(args):
+  from ..comm import NullBackend, get_backend
+  return get_backend('torch') if args.comm == 'torch' else NullBackend()
 
 
 def build_loop(args):
@@ -150,28 +205,22 @@ def build_loop(args):
   :class:`~lddl_tpu_torch.training.pretrain.TrainLoop` from CLI args —
   every knob the LR schedule, model shapes, or data stream depend on
   must match the original run, or the replayed arithmetic (correctly)
-  diverges."""
+  diverges. With ``--comm torch`` the loop is this rank's over
+  ``make_mesh(data=--dp, fsdp=--fsdp, tensor=--tp, seq=--sp)`` (every
+  rank calls it: the mesh's groups are made collectively), as the
+  pretrain CLI builds it; a mesh that is not the world's size is
+  ``ValueError`` (:func:`check_world`)."""
   from ..models import BertConfig
+  from ..parallel import make_mesh
   from ..tokenization.wordpiece import load_bert_tokenizer
   from ..training.pretrain import MODEL_SIZES, TrainLoop
-  if args.fsdp != 1 or args.tp != 1 or args.sp != 1:
-    # A step of a sharded run sums its products in another order than one
-    # process does, so it re-executes bit for bit only on its own layout.
-    raise NotImplementedError(
-        f'--fsdp {args.fsdp} --tp {args.tp} --sp {args.sp}: a single replay '
-        'process cannot re-execute a sharded step bit for bit; replay of a '
-        'sharded run, launched as ranks, is not ported (ROADMAP Queue 1)')
-  if args.attention in ('ring', 'ring_flash'):
-    # The ring runs over a mesh's seq group (at seq 1 too: one block, then
-    # the merge); without one the model would run dense or flash.
-    raise NotImplementedError(
-        f'--attention {args.attention}: ring attention runs over a mesh; '
-        'replay of a sharded run, launched as ranks, is not ported '
-        '(ROADMAP Queue 1)')
-  if args.dp != 1:
-    raise ValueError(f'--dp {args.dp}: step replay runs one process; a '
-                     'data-parallel step needs every rank\'s batch')
-  device = _device(args)
+  comm = _comm(args)
+  check_world(args, comm.world_size)
+  device = _device(args, comm)
+  mesh = None
+  if args.comm == 'torch':
+    mesh = make_mesh(data=args.dp, fsdp=args.fsdp, tensor=args.tp,
+                     seq=args.sp, device_type=device.type)
   tokenizer = (load_bert_tokenizer(args.vocab_file) if args.vocab_file
                else None)
   vocab = args.vocab_size
@@ -193,7 +242,7 @@ def build_loop(args):
       max_seq_length=args.max_seq_length, masking=args.masking,
       seed=args.seed, max_predictions=args.max_predictions,
       data_format=args.data_format, block_diagonal=args.block_diagonal,
-      loader_kwargs=_shuffle_kwargs(args) or None)
+      loader_kwargs=_shuffle_kwargs(args) or None, mesh=mesh, comm=comm)
 
 
 def _parse_key(spec):
@@ -233,79 +282,245 @@ def _cmd_batch(args):
   return 0 if result['match'] else 1
 
 
+class _Stop(Exception):
+  """The world agreed on a non-zero exit code (some rank failed)."""
+
+  def __init__(self, code):
+    super().__init__(code)
+    self.code = code
+
+
+class World:
+  """The processes a replay command runs as: one (``--comm null``), or
+  the recorded run's ranks (``--comm torch``).
+
+  The ranks agree in rounds, each one object all-gather over the world
+  (gloo, CPU): before the first collective (:meth:`agree`), once every
+  rank has read what it reads alone (:meth:`ready`: also that the ranks
+  of a tensor or seq group will feed the same batches), and on the
+  verdict (:meth:`verdict`). A rank that fails before the replay's
+  collectives joins the next round with its exit code (:meth:`abort`),
+  so every rank exits with it; one that fails inside them exits, and the
+  others' collectives fail with it."""
+
+  def __init__(self, args):
+    self.comm = _comm(args)
+    self.rank = self.comm.rank
+    self.batch_rank = 0
+    self._collective = False
+
+  def _round(self, code, plan=None):
+    gathered = self.comm.allgather_object((code, self.batch_rank, plan))
+    worst = max(c for c, _, _ in gathered)
+    if worst:
+      return worst
+    plans = {}
+    for rank, (_, batch_rank, p) in enumerate(gathered):
+      if p is not None:
+        plans.setdefault(batch_rank, {})[rank] = p
+    for batch_rank, by_rank in sorted(plans.items()):
+      if len({tuple(p) for p in by_rank.values()}) > 1:
+        if self.rank == 0:
+          print(f'replay: the ranks {sorted(by_rank)} of batch rank '
+                f'{batch_rank} would feed different batches '
+                f'({by_rank}); a tensor or seq group feeds the same rows',
+                file=sys.stderr)
+        return 2
+    return 0
+
+  def agree(self, code=0, plan=None):
+    worst = self._round(code, plan)
+    if worst:
+      raise _Stop(worst)
+
+  def ready(self, plan, loop=None):
+    """:meth:`agree` with the batches this rank will feed (their
+    digests), before the replay's first collective."""
+    if loop is not None and loop.mesh is not None:
+      self.batch_rank = loop.dp_rank
+    self.agree(0, plan)
+    self._collective = True
+
+  def verdict(self, code):
+    self._collective = False
+    return self._round(code)
+
+  def abort(self, code):
+    """Join the next round with ``code`` (not inside the collectives,
+    where the others wait in another call)."""
+    if self._collective:
+      return code
+    try:
+      return max(code, self._round(code))
+    except Exception:  # a peer already gone
+      return code
+
+  def run(self, fn):
+    """``fn()``'s exit code, the world's: a failure on any rank is every
+    rank's exit code."""
+    try:
+      return fn()
+    except _Stop as e:
+      return e.code
+    except Exception as e:
+      from .rematerialize import ReplayMismatch
+      expected = (ReplayMismatch, FileNotFoundError, LookupError,
+                  ValueError, NotImplementedError)
+      if self.comm.world_size == 1 and not isinstance(e, expected):
+        raise
+      print(f'replay: {e}' if isinstance(e, expected) else
+            f'replay: rank {self.rank}: {type(e).__name__}: {e}',
+            file=sys.stderr)
+      # A named fingerprint mismatch is a *verdict* (CI-gateable), not a
+      # usage error.
+      return self.abort(1 if isinstance(e, ReplayMismatch) else 2)
+
+
 def _cmd_bundle(args):
-  from ..telemetry.audit import load_run
-  from .bundle import write_bundle
-  from .rematerialize import lookup_digest, replay_coordinate
-  key = _parse_key(args.key)
-  factory, kwargs = loader_spec(args)
-  result = replay_coordinate(args.ledger, key, factory, kwargs,
-                             boundary=args.boundary, rank=args.rank)
-  if not result['match']:
-    _print_result(result, args.as_json)
+  world = World(args)
+
+  def bundle():
+    from ..telemetry.audit import load_run
+    from .bundle import write_bundle
+    from .rematerialize import lookup_digest, replay_coordinate
+    check_world(args, world.comm.world_size)
+    key = _parse_key(args.key)
+    out_dir, writes, rank, mesh = args.out, True, args.rank, None
+    if args.comm == 'torch':
+      from ..parallel import batch_rank, batch_size, make_mesh
+      from ..parallel.mesh import axis_rank
+      world.agree()
+      mesh = make_mesh(data=args.dp, fsdp=args.fsdp, tensor=args.tp,
+                       seq=args.sp, device_type='cpu')
+      if mesh is not None:
+        # One rank's batch a bundle: the batch rank's loader and its
+        # ledger file; the first rank of its tensor x seq group writes it.
+        world.batch_rank = args.dp_rank = batch_rank(mesh)
+        args.dp_world = batch_size(mesh)
+        out_dir = os.path.join(args.out, f'rank{args.dp_rank}')
+        writes = axis_rank(mesh, 'tensor') == axis_rank(mesh, 'seq') == 0
+        rank = world.rank if rank is None else rank
+    factory, kwargs = loader_spec(args)
+    if mesh is not None and not args.synthetic:
+      kwargs = dict(kwargs, dp_rank=args.dp_rank, dp_world_size=args.dp_world)
+    result = replay_coordinate(args.ledger, key, factory, kwargs,
+                               boundary=args.boundary, rank=rank)
+    if not result['match'] and world.rank == 0:
+      _print_result(result, args.as_json)
+    world.agree(0 if result['match'] else 1, [result['reconstructed']])
+    if writes:
+      _, hits = lookup_digest(load_run(args.ledger, rank=rank),
+                              key, boundary=args.boundary)
+      coord = dict(key)
+      philox = {'base_seed': kwargs.get('base_seed', args.base_seed),
+                'dp_rank': kwargs.get('dp_rank', args.dp_rank),
+                'epoch': coord.get('epoch'),
+                'step': coord.get('index', coord.get('gi'))}
+      checkpoint = None
+      if args.checkpoint_dir:
+        checkpoint = {'dir': args.checkpoint_dir,
+                      'step': args.checkpoint_step}
+      write_bundle(
+          out_dir, result['batch'], coord, digest=result['recorded'],
+          philox=philox, checkpoint=checkpoint,
+          ledger_excerpt=[dict(rec, rank=r) for r, rec in hits],
+          algo=result['algo'])
+    code = world.verdict(0)
+    if world.rank == 0 and not code:
+      print(f'replay: bundle written to {out_dir}' if out_dir == args.out
+            else f'replay: bundles written to {args.out}/rank<R>, one a '
+                 'batch rank')
+    return code
+
+  code = world.run(bundle)
+  if code == 1 and world.rank == 0:
     print('replay: refusing to bundle a mismatching reconstruction',
           file=sys.stderr)
-    return 1
-  _, hits = lookup_digest(load_run(args.ledger, rank=args.rank),
-                          key, boundary=args.boundary)
-  coord = dict(key)
-  philox = {'base_seed': kwargs.get('base_seed', args.base_seed),
-            'dp_rank': kwargs.get('dp_rank', args.dp_rank),
-            'epoch': coord.get('epoch'),
-            'step': coord.get('index', coord.get('gi'))}
-  checkpoint = None
-  if args.checkpoint_dir:
-    checkpoint = {'dir': args.checkpoint_dir, 'step': args.checkpoint_step}
-  out = write_bundle(
-      args.out, result['batch'], coord, digest=result['recorded'],
-      philox=philox, checkpoint=checkpoint,
-      ledger_excerpt=[dict(rec, rank=r) for r, rec in hits],
-      algo=result['algo'])
-  print(f'replay: bundle written to {out}')
-  return 0
+  return code
+
+
+def _step_batches(args, loop):
+  """The bundled batches this rank feeds, one per step (None: the
+  corpus); on a mesh each ``--bundle`` names a step's directory of every
+  batch rank's bundles (or this rank's own bundle)."""
+  if not args.bundle:
+    return None
+  from .bundle import rank_bundle, read_bundle
+  batch_rank = loop.dp_rank if loop.mesh is not None else None
+  batches = []
+  for path in args.bundle:
+    manifest, batch = read_bundle(rank_bundle(path, batch_rank))
+    dp_rank = (manifest.get('philox') or {}).get('dp_rank')
+    if batch_rank is not None and dp_rank not in (None, batch_rank):
+      raise ValueError(f'bundle {path} holds batch rank {dp_rank}\'s batch; '
+                       f'this rank feeds batch rank {batch_rank}\'s')
+    batches.append(batch)
+  return batches
 
 
 def _cmd_step(args):
-  from .steps import replay_step_coordinate
-  batches = None
-  if args.bundle:
-    from .bundle import read_bundle
-    batches = [read_bundle(b)[1] for b in args.bundle]
-  loop = build_loop(args)
-  result = replay_step_coordinate(
-      loop, args.checkpoint_dir, args.step, ledger_path=args.ledger,
-      batches=batches, prefetch=args.prefetch, rank=args.rank)
-  result['coordinate'] = {'step': args.step}
-  _print_result(result, args.as_json)
-  if 'match' not in result:
-    return 0  # no ledger to verdict against; the replay itself succeeded
-  return 0 if result['match'] else 1
+  world = World(args)
+
+  def step():
+    from .steps import replay_step_coordinate
+    check_world(args, world.comm.world_size)
+    world.agree()
+    loop = build_loop(args)
+    result = replay_step_coordinate(
+        loop, args.checkpoint_dir, args.step, ledger_path=args.ledger,
+        batches=_step_batches(args, loop), prefetch=args.prefetch,
+        rank=args.rank, agree=lambda plan: world.ready(plan, loop))
+    result['coordinate'] = {'step': args.step}
+    code = world.verdict(0 if result.get('match', True) else 1)
+    if world.rank == 0:
+      if code and result.get('match', True):
+        print(f'replay: (step={args.step}) MISMATCH on another rank; this '
+              f'rank reconstructed {result["digest"]} ({result["algo"]})')
+      else:
+        _print_result(result, args.as_json)
+    return code
+
+  return world.run(step)
 
 
 def _cmd_bisect(args):
-  from .steps import bisect_window
-  loop = build_loop(args)
-  if args.ledger is None:
-    print('replay: bisect feeds the uninterrupted stream, not checked '
-          'against a recording (pass --ledger)', file=sys.stderr)
-  result = bisect_window(loop, args.checkpoint_dir, args.lo, args.hi,
-                         prefetch=args.prefetch,
-                         per_sample=args.per_sample,
-                         ledger_path=args.ledger)
+  world = World(args)
+
+  def bisect():
+    from .steps import bisect_window
+    check_world(args, world.comm.world_size)
+    world.agree()
+    loop = build_loop(args)
+    if args.ledger is None and world.rank == 0:
+      print('replay: bisect feeds the uninterrupted stream, not checked '
+            'against a recording (pass --ledger)', file=sys.stderr)
+    result = bisect_window(loop, args.checkpoint_dir, args.lo, args.hi,
+                           prefetch=args.prefetch,
+                           per_sample=args.per_sample,
+                           ledger_path=args.ledger,
+                           agree=lambda plan: world.ready(plan, loop))
+    code = world.verdict(0)
+    if world.rank == 0:
+      _print_bisect(args, result)
+    return code
+
+  return world.run(bisect)
+
+
+def _print_bisect(args, result):
   if args.as_json:
     print(json.dumps(result, indent=2, default=str))
-  else:
-    print(f'replay: spike at step {result["spike_step"]} '
-          f'(loss {result["spike_loss"]:.4f}, jump +{result["delta"]:.4f} '
-          f'over window ({args.lo}, {args.hi}])')
-    if 'batch_coordinate' in result:
-      c = result['batch_coordinate']
-      print(f'  fed by batch epoch={c["epoch"]}, index={c["index"]}')
-    if 'spike_sample' in result:
-      print(f'  dominant sample: row {result["spike_sample"]} '
-            f'(per-sample loss '
-            f'{result["per_sample"][result["spike_sample"]]:.4f})')
-  return 0
+    return
+  print(f'replay: spike at step {result["spike_step"]} '
+        f'(loss {result["spike_loss"]:.4f}, jump +{result["delta"]:.4f} '
+        f'over window ({args.lo}, {args.hi}])')
+  if 'batch_coordinate' in result:
+    c = result['batch_coordinate']
+    print(f'  fed by batch epoch={c["epoch"]}, index={c["index"]}')
+  if 'spike_sample' in result:
+    print(f'  dominant sample: row {result["spike_sample"]} '
+          f'(per-sample loss '
+          f'{result["per_sample"][result["spike_sample"]]:.4f})')
 
 
 def _cmd_smoke(args):
@@ -349,6 +564,7 @@ def attach_args(parser):
   p.add_argument('--checkpoint-step', type=int, default=None)
   p.add_argument('--json', action='store_true', dest='as_json')
   _attach_loader_args(p)
+  _attach_world_args(p)
 
   p = sub.add_parser('step', help='re-execute a recorded train step and '
                                   'diff its state fingerprint')
@@ -358,7 +574,9 @@ def attach_args(parser):
                  help='verdict against this run\'s step records')
   p.add_argument('--bundle', default=None, action='append',
                  help='feed the steps from repro bundles (no corpus): one '
-                      'per step from the restored checkpoint on, in order')
+                      'per step from the restored checkpoint on, in order; '
+                      'launched as ranks, a step\'s directory of rank<R>/ '
+                      'bundles (one a batch rank) or the rank\'s own bundle')
   p.add_argument('--rank', type=int, default=None)
   p.add_argument('--json', action='store_true', dest='as_json')
   _attach_loader_args(p)

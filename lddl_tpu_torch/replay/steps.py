@@ -46,10 +46,14 @@ uninterrupted stream, unchecked. (The JAX package's bisect takes no
 ledger and feeds the loader ``restore`` re-seeked mid-epoch.)
 """
 
+import contextlib
+
+import numpy as np
 import torch
 
 from ..core import faults
 from ..loader.device import coordinate_from, prefetch_to_device
+from ..parallel.mesh import seq_shard
 from ..parallel.train import pretrain_loss
 from ..telemetry import ledger
 from ..telemetry.audit import load_run
@@ -118,6 +122,12 @@ def _fed_collate(run, rank, target_step):
   return fed, ckpts
 
 
+def ledger_rank(loop):
+  """The ledger file a replay of ``loop`` reads: the process's rank in
+  the world on a mesh (every rank records its own), else its data rank."""
+  return loop._rank() if loop.mesh is not None else loop.dp_rank
+
+
 def _recorded(run, rank, target_step, algo):
   """``recorded_stream``'s ``recorded`` from a loaded ledger: the fed
   batches and checkpoints of ``rank``'s session that reached
@@ -126,6 +136,35 @@ def _recorded(run, rank, target_step, algo):
     raise LookupError(f'the ledger holds no rank {rank} (ranks '
                       f'{sorted(run)})')
   return (*_fed_collate(run, rank, target_step), algo)
+
+
+def fed_digests(loader, recorded, ordinals):
+  """The ``collate`` digests ``recorded`` (:func:`_recorded`) holds for
+  ``loader``'s batch ordinals ``ordinals``, in order; a coordinate it
+  lacks is ``ValueError``."""
+  fed = recorded[0]
+  want = []
+  for coord in map(loader.coordinate_of_batch, ordinals):
+    if coord not in fed:
+      raise ValueError(
+          f'the ledger records no collate line at (epoch={coord[0]}, '
+          f'index={coord[1]}) before the target step; cannot tell which '
+          'batches the run fed')
+    want.append(fed[coord])
+  return want
+
+
+def _feed_plan(loop, recorded, batches, ordinals, algo):
+  """The digests of the batches a replay will feed at ``ordinals``:
+  the bundled ``batches``' own, else the ledger's account of the corpus
+  stream (None without either). What a mesh's ranks compare before
+  their first collective: a tensor or seq group must feed the same
+  rows."""
+  if batches is not None:
+    return [fingerprint_batch(b, algo) for b in batches]
+  if recorded is None or getattr(loop.loader, 'tell', None) is None:
+    return None
+  return fed_digests(loop.loader, recorded, ordinals)
 
 
 def _feeds(loader, epoch, index, origin, want, algo):
@@ -164,15 +203,8 @@ def recorded_stream(loader, recorded=None, ordinals=()):
   epoch, index = loader.tell()
   origin = None
   if recorded is not None:
-    fed, checkpoints, algo = recorded
-    want = []
-    for coord in map(loader.coordinate_of_batch, ordinals):
-      if coord not in fed:
-        raise ValueError(
-            f'the ledger records no collate line at (epoch={coord[0]}, '
-            f'index={coord[1]}) before the target step; cannot tell which '
-            'batches the run fed')
-      want.append(fed[coord])
+    _, checkpoints, algo = recorded
+    want = fed_digests(loader, recorded, ordinals)
     resumes = sorted({i for e, i in map(loader.coordinate_of_batch,
                                         checkpoints)
                       if e == epoch and 0 < i <= index}, reverse=True)
@@ -226,7 +258,7 @@ def replay_steps(loop, target_step, batches=None, prefetch=2,
               else recorded_stream(loop.loader, recorded,
                                    range(loop.step, target_step)))
     stream = prefetch_to_device(source, loop.device, size=prefetch,
-                                coordinate=coordinate)
+                                coordinate=coordinate, mesh=loop.mesh)
     loop.model.train()
     losses = []
     try:
@@ -250,7 +282,7 @@ def replay_steps(loop, target_step, batches=None, prefetch=2,
 
 
 def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
-                           batches=None, prefetch=2, rank=None):
+                           batches=None, prefetch=2, rank=None, agree=None):
   """Rematerialize train state at ``step=target_step`` and (optionally)
   verify it against a ledger's recorded ``step`` fingerprint.
 
@@ -263,10 +295,19 @@ def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
   algorithm this process lacks, is refused before any step runs; from
   the corpus, it also decides which batches are fed
   (:func:`recorded_stream`).
+
+  On a mesh every rank of the recorded run calls this (restore, the
+  steps and the fingerprint of the gathered state are collectives):
+  ``rank`` is the ledger file it reads (default :func:`ledger_rank`),
+  and ``agree`` (the CLI's world) is called with the digests this rank
+  will feed (:func:`_feed_plan`) once everything it reads alone has been
+  read, before the first collective.
   """
   target_step = int(target_step)
   recorded = fed = None
   algo = ledger.ALGO
+  if rank is None and loop.mesh is not None:
+    rank = ledger_rank(loop)
   if ledger_path is not None:
     run = load_run(ledger_path, rank=rank)
     algo = _check_algo(run)
@@ -279,6 +320,12 @@ def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
     raise FileNotFoundError(
         f'no checkpoint at or below step {target_step - 1} under '
         f'{ckpt_dir}')
+  if batches is not None and len(batches) < target_step - meta[0]:
+    raise ValueError(
+        f'{len(batches)} bundled batch(es) cannot cover steps '
+        f'{meta[0] + 1}..{target_step}')
+  if agree is not None:
+    agree(_feed_plan(loop, fed, batches, range(meta[0], target_step), algo))
   loop.restore(ckpt_dir, step=meta[0])
   losses = replay_steps(loop, target_step, batches=batches,
                         prefetch=prefetch, recorded=fed)
@@ -292,7 +339,7 @@ def replay_step_coordinate(loop, ckpt_dir, target_step, ledger_path=None,
 
 
 def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False,
-                  ledger_path=None):
+                  ledger_path=None, agree=None):
   """Walk steps ``(lo, hi]`` and attribute the largest loss jump.
 
   Restores the newest checkpoint at or below ``lo``, replays through
@@ -304,26 +351,37 @@ def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False,
   predecessor and scores the spike batch row by row with the pre-spike
   params, naming the sample index that contributed most.
 
-  ``ledger_path``: the run's ledger (the loop's data rank's file). The
-  replay and the per-sample batch then come from the stream the ledger
-  says the run fed (:func:`recorded_stream`: the uninterrupted one, or
-  the run resumed at a recorded checkpoint), every fed batch checked
-  against the ``collate`` digests of the session that reached ``hi``;
-  none matching is ``ValueError``. Without it the uninterrupted stream
-  is fed, unchecked: wrong for a run that resumed mid-epoch inside the
-  window's epoch.
+  ``ledger_path``: the run's ledger (the file of :func:`ledger_rank`).
+  The replay and the per-sample batch then come from the stream the
+  ledger says the run fed (:func:`recorded_stream`: the uninterrupted
+  one, or the run resumed at a recorded checkpoint), every fed batch
+  checked against the ``collate`` digests of the session that reached
+  ``hi``; none matching is ``ValueError``. Without it the uninterrupted
+  stream is fed, unchecked: wrong for a run that resumed mid-epoch
+  inside the window's epoch.
+
+  On a mesh every rank calls it (``agree`` as for
+  :func:`replay_step_coordinate`): the losses are the step's global
+  loss, the same on every rank; ``batch_coordinate`` is the batch
+  rank's (``batch_rank``), and the per-sample losses are every batch
+  rank's rows in ``make_global_batch``'s order, so ``spike_sample`` is a
+  global row index (``spike_sample_batch_rank`` its batch rank).
   """
   lo, hi = int(lo), int(hi)
   if hi <= lo:
     raise ValueError(f'empty bisect window ({lo}, {hi}]')
   recorded = None
+  algo = ledger.ALGO
   if ledger_path is not None:
-    run = load_run(ledger_path, rank=loop.dp_rank)
-    recorded = _recorded(run, loop.dp_rank, hi, _check_algo(run))
+    run = load_run(ledger_path, rank=ledger_rank(loop))
+    algo = _check_algo(run)
+    recorded = _recorded(run, ledger_rank(loop), hi, algo)
   meta = type(loop).latest_meta(ckpt_dir, max_step=lo)
   if meta is None:
     raise FileNotFoundError(
         f'no checkpoint at or below step {lo} under {ckpt_dir}')
+  if agree is not None:
+    agree(_feed_plan(loop, recorded, None, range(meta[0], hi), algo))
   loop.restore(ckpt_dir, step=meta[0])
   losses = replay_steps(loop, hi, prefetch=prefetch, recorded=recorded)
   by_step = dict(losses)
@@ -338,27 +396,51 @@ def bisect_window(loop, ckpt_dir, lo, hi, prefetch=2, per_sample=False,
   out = {'window': [lo, hi], 'restored_step': meta[0],
          'losses': losses, 'spike_step': spike,
          'spike_loss': by_step[spike], 'delta': delta,
-         'stream_checked': recorded is not None}
+         'stream_checked': recorded is not None,
+         'batch_rank': loop.dp_rank}
   if loop.loader is not None:
     epoch, index = loop.loader.coordinate_of_batch(spike - 1)
     out['batch_coordinate'] = {'epoch': epoch, 'index': index}
     if per_sample:
-      out['per_sample'] = _per_sample_losses(loop, ckpt_dir, spike,
-                                             recorded)
-      out['spike_sample'] = max(
-          range(len(out['per_sample'])), key=out['per_sample'].__getitem__)
+      scores, per = _per_sample_losses(loop, ckpt_dir, spike, recorded)
+      out['per_sample'] = scores
+      out['spike_sample'] = max(range(len(scores)),
+                                key=scores.__getitem__)
+      out['spike_sample_batch_rank'] = out['spike_sample'] // per
   return out
+
+
+def _global_rows(loop, batch):
+  """Every batch rank's rows of this step, in ``make_global_batch``'s
+  order (batch rank 0's first), from each rank's own ``batch``: one
+  object all-gather over the world. The batch itself off a mesh, or
+  with one batch rank."""
+  if loop.mesh is None or loop.dp_world == 1:
+    return batch
+  import torch.distributed as dist
+  gathered = [None] * dist.get_world_size()
+  dist.all_gather_object(gathered, (loop.dp_rank, batch))
+  by_rank = dict(reversed(gathered))  # any rank of a group: they agree
+  return {k: np.concatenate([by_rank[r][k] for r in range(loop.dp_world)])
+          for k in batch}
 
 
 def _per_sample_losses(loop, ckpt_dir, spike_step, recorded=None):
   """Loss of each row of the batch feeding ``spike_step``, scored with
   the params the spike step started from (leaves ``loop`` positioned at
-  ``spike_step - 1``) and no dropout. The batch is the one
-  :func:`recorded_stream` feeds at that ordinal from the newest
-  checkpoint below the spike (``recorded``: the ledger's account, as
-  the bisect's replay used; None: the uninterrupted stream). The JAX
-  package re-seeks mid-epoch here, which gives a resumed batch. Single
-  process only."""
+  ``spike_step - 1``) and no dropout; and the rows a batch rank holds.
+  The batch is the one :func:`recorded_stream` feeds at that ordinal
+  from the newest checkpoint below the spike (``recorded``: the ledger's
+  account, as the bisect's replay used; None: the uninterrupted
+  stream). The JAX package re-seeks mid-epoch here, which gives a
+  resumed batch.
+
+  On a mesh the rows are every batch rank's (:func:`_global_rows`) and
+  every rank scores every row through the sharded model, each with its
+  seq columns of it and the parameters gathered: the same forward, so
+  the collectives of the tensor and seq groups (the ring's rotations
+  included) pair up; each row's loss is the whole row's on every
+  rank."""
   meta = type(loop).latest_meta(ckpt_dir, max_step=spike_step - 1)
   loop.restore(ckpt_dir, step=meta[0])
   stream = recorded_stream(loop.loader, recorded,
@@ -372,19 +454,25 @@ def _per_sample_losses(loop, ckpt_dir, spike_step, recorded=None):
   if not isinstance(batch, dict):
     raise ValueError('per-sample attribution supports dict batches only '
                      '(micro-batch loaders yield lists)')
+  per = batch['input_ids'].shape[0]
   loop.restore(ckpt_dir, step=meta[0])
   if loop.step < spike_step - 1:
     replay_steps(loop, spike_step - 1, recorded=recorded)
+  batch = _global_rows(loop, batch)
   rows = batch['input_ids'].shape[0]
+  exchange = loop.step_fn.exchange
   out = []
   loop.model.eval()
-  with torch.no_grad():
+  with torch.no_grad(), (exchange.gathered() if exchange is not None
+                         else contextlib.nullcontext()):
     for i in range(rows):
-      one = {k: torch.from_numpy(v[i:i + 1]).to(loop.device)
-             for k, v in batch.items()
+      one = {k: v[i:i + 1] for k, v in batch.items()
              if hasattr(v, 'shape') and v.shape and v.shape[0] == rows}
+      if loop.mesh is not None:
+        one = seq_shard(one, loop.mesh)
+      one = {k: torch.from_numpy(v).to(loop.device) for k, v in one.items()}
       loss, _ = pretrain_loss(loop.model, one,
                               max_predictions=loop.max_predictions)
       out.append(float(loss))
   loop.model.train()
-  return out
+  return out, per

@@ -331,7 +331,10 @@ class Ledger:
     if directory is None:
       directory = os.environ.get('LDDL_TELEMETRY_DIR') or '.'
     if rank is None:
-      rank = int(os.environ.get('LDDL_RANK', '0') or 0)
+      # A launcher's RANK where LDDL_RANK is unset: each rank of a
+      # torch.distributed world writes its own file (step replay reads it).
+      rank = int(os.environ.get('LDDL_RANK') or
+                 os.environ.get('RANK') or 0)
     if window is None:
       try:
         window = int(os.environ.get('LDDL_LEDGER_WINDOW', _DEFAULT_WINDOW))

@@ -60,7 +60,12 @@ step replay every ring bundle from the incident's checkpoint to its
 ``replay_step`` (the JAX CLI feeds the suspect's alone, which covers only
 a checkpoint at the suspect's step). ``bisect <incident> -- --ledger L
 ...`` hands the run's ledger to the bisect, which then feeds the batches
-the run fed (the manifest names no ledger).
+the run fed (the manifest names no ledger). An incident of a sharded run
+is replayed or bisected as the run's ranks, the mesh and ``--comm
+torch`` forwarded: each rank records into its own directory
+(``LDDL_FLIGHT_DIR=<dir>/rank{rank}``), and each rank of the replay
+reads its own (``{rank}`` in the incident path), so it feeds its own
+batch rank's bundles.
 """
 
 import argparse
@@ -129,7 +134,7 @@ class FlightRecorder:
     if not out_dir:
       base = os.environ.get('LDDL_TELEMETRY_DIR', '').strip() or '.'
       out_dir = os.path.join(base, 'incidents')
-    self.out_dir = out_dir
+    self.out_dir = rank_path(out_dir)
     raw = os.environ.get(_ENV_RING, '').strip()
     self.capacity = int(capacity if capacity is not None
                         else (raw or DEFAULT_RING))
@@ -422,6 +427,16 @@ def replay_command(incident_dir, manifest):
   return f'{_INCIDENT} replay {os.path.abspath(incident_dir)}'
 
 
+def rank_path(path):
+  """``path`` with ``{rank}`` replaced by this process's rank in its
+  world (``RANK``, 0 without a launcher): the ranks of a run keep their
+  incidents apart (``LDDL_FLIGHT_DIR=<dir>/rank{rank}``), and the
+  incident CLI launched as those ranks gives each its own
+  (``.../rank{rank}/incident-...``), whose bundles are its batch rank's
+  batches."""
+  return str(path).replace('{rank}', os.environ.get('RANK', '0') or '0')
+
+
 # -- the incident CLI
 
 def _load_manifest(incident_dir):
@@ -490,6 +505,7 @@ def _cmd_show(args):
 
 
 def _cmd_replay(args):
+  args.incident = rank_path(args.incident)
   try:
     man = _load_manifest(args.incident)
     bundles = replay_bundles(args.incident, man)
@@ -530,6 +546,7 @@ def _cmd_replay(args):
 
 
 def _cmd_bisect(args):
+  args.incident = rank_path(args.incident)
   try:
     man = _load_manifest(args.incident)
   except (OSError, ValueError) as exc:
@@ -554,6 +571,11 @@ def _cmd_bisect(args):
                       '--lo', str(lo), '--hi', str(replay_step)] + rest)
 
 
+_INCIDENT_HELP = ('incident directory; launched as a sharded run\'s ranks '
+                  '(the mesh and --comm torch among the forwarded args), '
+                  '{rank} in it is each rank\'s own')
+
+
 def attach_args(parser):
   sub = parser.add_subparsers(dest='cmd', required=True)
   p = sub.add_parser('list', help='inventory incidents under a root')
@@ -567,7 +589,7 @@ def attach_args(parser):
   p = sub.add_parser(
       'replay', help='verify the suspect bundle, or pass extra args '
                      'through to the step replay over the ring\'s bundles')
-  p.add_argument('incident', help='incident directory')
+  p.add_argument('incident', help=_INCIDENT_HELP)
   p.add_argument('rest', nargs=argparse.REMAINDER,
                  help='forwarded to the replay CLI\'s step')
   p.set_defaults(fn=_cmd_replay)
@@ -575,7 +597,7 @@ def attach_args(parser):
       'bisect', help='pass through to the replay CLI\'s bisect over the '
                      'steps the ring covers (loader/model args and '
                      '--ledger pass through)')
-  p.add_argument('incident', help='incident directory')
+  p.add_argument('incident', help=_INCIDENT_HELP)
   p.add_argument('rest', nargs=argparse.REMAINDER,
                  help='forwarded to the replay CLI\'s bisect')
   p.set_defaults(fn=_cmd_bisect)

@@ -147,6 +147,22 @@ def resolve_device(device=None):
   return torch.device(device)
 
 
+def rank_device(device, comm):
+  """This rank's device: ``device``, or with None the CUDA card
+  ``cuda:<local rank>`` (:func:`resolve_device`: it raises without one),
+  made the process's current CUDA device. Call it before the mesh:
+  DeviceMesh picks ``cuda:<LOCAL_RANK>`` for a process that has not
+  chosen, and ranks sharing one card have chosen ``cuda:0``."""
+  if device is None and torch.cuda.is_available():
+    device = f'cuda:{discover_topology(comm).local_rank}'
+  device = resolve_device(device)
+  if device.type == 'cuda':
+    if device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    torch.cuda.set_device(device)
+  return device
+
+
 def _step_dirs(ckpt_dir):
   """``[(step, path)]`` of the step directories, newest first."""
   found = []
@@ -1119,16 +1135,7 @@ def main(args=None):
       attention_impl=args.attention,
       remat=args.remat,
       **MODEL_SIZES[args.model])
-  device = args.device
-  if device is None and torch.cuda.is_available():
-    device = f'cuda:{discover_topology(comm).local_rank}'
-  device = resolve_device(device)
-  if device.type == 'cuda':
-    if device.index is None:
-      device = torch.device('cuda', torch.cuda.current_device())
-    # Before the mesh: DeviceMesh picks cuda:<LOCAL_RANK> for a process
-    # that has not chosen, and ranks sharing one card have chosen cuda:0.
-    torch.cuda.set_device(device)
+  device = rank_device(args.device, comm)
   if args.comm == 'torch':
     mesh = make_mesh(data=args.dp or 1, fsdp=args.fsdp, tensor=args.tp,
                      seq=args.sp, device_type=device.type)

@@ -14,6 +14,9 @@ Writes, under ``tests/assets/torch_shards/``:
     its balancer, with their default codec;
   - ``packed/``: documents of the same text through lddl_tpu's packed
     preprocess (``target_seq_length=8192``, unbinned), balanced;
+  - ``packed_small/``: the same through the packed preprocess at
+    ``target_seq_length=512`` (documents of 31-42 tokens, 12-16 a row),
+    for the CPU tests;
   - ``codebert/``: ``id<CODESPLIT>docstring<CODESPLIT>code`` records made
     of the same text (a document's first sentence is its docstring, none
     for every fourth; its other sentences are the code lines) through
@@ -88,6 +91,14 @@ PACKED_DOCS = (12, 16)           # documents per packed row
 PACKED_TOKENS = (6144, 8192)     # tokens per packed row
 PACKED_ROWS = 24                 # at least: warm-up + timed + resume steps
 DOC_TOKENS = (500, 680)          # one packed document's token count
+# packed_small/: the same documents at 1/16 the length, rows of 512 for
+# the CPU tests of a sharded run's replay (a step at 8192 takes a minute
+# there even at the tiny model).
+PACKED_SMALL = dict(batch_size_per_rank=2, max_seq_length=512,
+                    block_diagonal=True, base_seed=2024,
+                    shuffle_buffer_size=4)
+PACKED_SMALL_SHAPE = dict(docs=(12, 16), tokens=(384, 512), rows=24,
+                          doc_tokens=(31, 42))
 SEEDS = range(64)
 
 
@@ -125,31 +136,33 @@ def make_pairs(tmp, seed):
   return bal
 
 
-def make_packed(tmp, seed):
+def make_packed(tmp, seed, name='packed', settings=PACKED,
+                doc_tokens=DOC_TOKENS, rows=PACKED_ROWS, docs=PACKED_DOCS,
+                draw_bytes=1 << 20):
   """lddl_tpu's packed preprocess and balancer over synth documents of
-  DOC_TOKENS tokens; returns the balanced directory."""
+  ``doc_tokens`` tokens; returns the balanced directory."""
   from lddl_tpu.balance import balance_directory
   from lddl_tpu.pipeline import Executor
   from lddl_tpu.preprocess import packed
   from lddl_tpu.preprocess.readers import read_corpus
   from lddl_tpu.tokenization.wordpiece import load_bert_tokenizer
   tok = load_bert_tokenizer(vocab_file=VOCAB, backend='hf')
-  lo, hi = DOC_TOKENS
-  docs = []
+  lo, hi = doc_tokens
+  kept = []
   draw = seed
-  while len(docs) < PACKED_ROWS * sum(PACKED_DOCS) // 2 + 16:
-    batch = _synth_docs(10_000 + draw, 1 << 20)
+  while len(kept) < rows * sum(docs) // 2 + 16:
+    batch = _synth_docs(10_000 + draw, draw_bytes)
     draw += 1
     _, offsets = tok.encode_batch_ids(batch)
     n = np.diff(offsets)
-    docs += [d for d, k in zip(batch, n) if lo <= k <= hi]
-  src = os.path.join(tmp, f'packed_src_{seed}')
-  _write_source(src, docs)
+    kept += [d for d, k in zip(batch, n) if lo <= k <= hi]
+  src = os.path.join(tmp, f'{name}_src_{seed}')
+  _write_source(src, kept)
   cfg = packed.PackedPretrainConfig(
-      vocab_file=VOCAB, target_seq_length=PACKED['max_seq_length'],
+      vocab_file=VOCAB, target_seq_length=settings['max_seq_length'],
       seed=seed, sentence_backend='rules', tokenizer_backend='hf')
-  sink = os.path.join(tmp, f'packed_sink_{seed}')
-  bal = os.path.join(tmp, f'packed_{seed}')
+  sink = os.path.join(tmp, f'{name}_sink_{seed}')
+  bal = os.path.join(tmp, f'{name}_{seed}')
   packed.run(read_corpus([src], num_blocks=1, sample_ratio=1.0), sink, cfg,
              executor=Executor(num_local_workers=1),
              num_shuffle_partitions=1)
@@ -281,7 +294,8 @@ def pairs_ok(path):
   return len(per_bin) == 4 and min(per_bin.values()) >= 2
 
 
-def packed_ok(path):
+def packed_ok(path, rows_min=PACKED_ROWS, docs_range=PACKED_DOCS,
+              tokens_range=PACKED_TOKENS):
   from lddl_tpu.core.utils import deserialize_np_array
   from lddl_tpu.pipeline.parquet_io import read_samples
   from lddl_tpu.core.utils import get_all_parquets_under
@@ -290,9 +304,21 @@ def packed_ok(path):
   tokens = [int(r['num_tokens']) for r in rows]
   print(f'  packed: {len(rows)} rows, documents {min(docs)}-{max(docs)}, '
         f'tokens {min(tokens)}-{max(tokens)}')
-  return (len(rows) >= PACKED_ROWS and
-          PACKED_DOCS[0] <= min(docs) and max(docs) <= PACKED_DOCS[1] and
-          PACKED_TOKENS[0] <= min(tokens) and max(tokens) <= PACKED_TOKENS[1])
+  return (len(rows) >= rows_min and
+          docs_range[0] <= min(docs) and max(docs) <= docs_range[1] and
+          tokens_range[0] <= min(tokens) and max(tokens) <= tokens_range[1])
+
+
+def make_packed_small(tmp, seed):
+  shape = PACKED_SMALL_SHAPE
+  return make_packed(tmp, seed, 'packed_small', PACKED_SMALL,
+                     shape['doc_tokens'], shape['rows'], shape['docs'],
+                     draw_bytes=1 << 17)
+
+
+def packed_small_ok(path):
+  shape = PACKED_SMALL_SHAPE
+  return packed_ok(path, shape['rows'], shape['docs'], shape['tokens'])
 
 
 def digests():
@@ -311,6 +337,7 @@ def digests():
     for name, make, kw in (
         ('pairs', get_bert_pretrain_data_loader, PAIRS),
         ('packed', get_packed_pretrain_data_loader, PACKED),
+        ('packed_small', get_packed_pretrain_data_loader, PACKED_SMALL),
         ('codebert', get_codebert_pretrain_data_loader, CODEBERT)):
       loader = make(os.path.join(OUT, name), vocab_file=VOCAB, **kw)
       batches = list(loader)
@@ -338,6 +365,7 @@ def _first(make, ok, tmp, name):
 
 
 SETS = {'pairs': (make_pairs, pairs_ok), 'packed': (make_packed, packed_ok),
+        'packed_small': (make_packed_small, packed_small_ok),
         'codebert': (make_codebert, codebert_ok),
         'bart': (make_bart, bart_ok)}
 
@@ -348,7 +376,8 @@ def main():
   seeds = {}
   if '--digests-only' in argv or '--only' in argv:
     with open(os.path.join(OUT, 'digests.json')) as f:
-      seeds = {k: v['corpus_seed'] for k, v in json.load(f).items()}
+      seeds = {k: v['corpus_seed'] for k, v in json.load(f).items()
+             if 'corpus_seed' in v}
   remake = (set() if '--digests-only' in argv else
             {argv[argv.index('--only') + 1]} if '--only' in argv else
             set(SETS))

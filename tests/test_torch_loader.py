@@ -239,7 +239,8 @@ def test_vocab_map_matches_bert_tokenizer_fast():
   assert ours.convert_tokens_to_ids(['qqqzzz']) == [hf.unk_token_id]
 
 
-@pytest.mark.parametrize('name', ['pairs', 'packed', 'codebert'])
+@pytest.mark.parametrize('name', ['pairs', 'packed', 'packed_small',
+                                  'codebert'])
 def test_committed_shards_match_their_digests(batch_sha256, name,
                                               monkeypatch):
   """digests.json is what lddl_tpu's loaders give over the committed
@@ -252,6 +253,8 @@ def test_committed_shards_match_their_digests(batch_sha256, name,
     entry = json.load(f)[name]
   make = {'pairs': (jax_bert_loader, get_bert_pretrain_data_loader),
           'packed': (jax_packed_loader, get_packed_pretrain_data_loader),
+          'packed_small': (jax_packed_loader,
+                           get_packed_pretrain_data_loader),
           'codebert': (jax_codebert_loader,
                        get_codebert_pretrain_data_loader)}[name]
   for loader in make:

@@ -278,13 +278,14 @@ def test_seq_batch_layout_and_refusals():
 
 
 @pytest.mark.parametrize('flag', [['--sp', '2'],
-                                  ['--attention', 'ring_flash']])
+                                  ['--attention', 'ring_flash', '--sp', '2']])
 def test_replay_cli_refuses_seq_and_ring(tmp_path, flag, capsys):
-  """One replay process cannot re-execute a step of a seq mesh: the step
-  replay refuses --sp above 1 and ring attention (exit 2), naming the
-  queued replay of a sharded run launched as ranks."""
+  """One replay process cannot re-execute a step of a seq mesh: in a
+  world of one the step replay refuses --sp above 1, ring attention
+  included (exit 2), naming the launch it needs, the run's two ranks
+  under --comm torch (tests/test_torch_replay_ranks.py launches it so)."""
   from lddl_tpu_torch.replay.cli import main
   assert main(['step', '--checkpoint-dir', str(tmp_path), '--step', '1',
                '--vocab-size', '128', '--device', 'cpu'] + flag) == 2
   err = capsys.readouterr().err
-  assert 'replay of a sharded run, launched as ranks' in err
+  assert 'WORLD_SIZE=2' in err and '--comm torch' in err

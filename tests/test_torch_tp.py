@@ -447,11 +447,12 @@ def test_cli_trains_with_tp2(tp_run):
 
 @pytest.mark.parametrize('flag', [['--tp', '2'], ['--fsdp', '2']])
 def test_replay_cli_refuses_a_sharded_step(tmp_path, flag, capsys):
-  """One replay process cannot re-execute a sharded step bit for bit: the
-  step replay refuses --tp and --fsdp above 1 (exit 2), naming the queued
-  replay of a sharded run launched as ranks."""
+  """One replay process cannot re-execute a sharded step bit for bit: in
+  a world of one the step replay refuses --tp and --fsdp above 1 (exit
+  2), naming the launch it needs, the run's two ranks under --comm
+  torch (tests/test_torch_replay_ranks.py launches it so)."""
   from lddl_tpu_torch.replay.cli import main
   assert main(['step', '--checkpoint-dir', str(tmp_path), '--step', '1',
                '--vocab-size', '128', '--device', 'cpu'] + flag) == 2
   err = capsys.readouterr().err
-  assert 'replay of a sharded run, launched as ranks' in err
+  assert 'WORLD_SIZE=2' in err and '--comm torch' in err

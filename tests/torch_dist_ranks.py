@@ -673,3 +673,170 @@ def seq_world(rank, world, axes, cases, opt_kw, cli=None):
                   'mesh': mesh_summary(loop.mesh),
                   'digest': loop.state_digest()}
   return out
+
+
+# ---- step replay of a sharded run, launched as its ranks ----
+
+
+def _cli(main, argv):
+  """``main(argv)`` with its stdout and stderr captured: ``(rc, out,
+  err)``."""
+  import contextlib
+  import io
+  out, err = io.StringIO(), io.StringIO()
+  with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    rc = main(argv)
+  return rc, out.getvalue(), err.getvalue()
+
+
+def _record(rank, layout, root, run_kw, init=None, incident=None):
+  """Record ``layout``'s run on this rank: ``TrainLoop.run`` over its
+  mesh with the ledger on (this rank's file), a checkpoint every
+  ``run_kw['ckpt_every']`` (with ``init``, the whole state loaded and a
+  checkpoint at step 0 first); with ``incident`` (a fault spec) the
+  sentinel and the flight recorder on, into this rank's incident dir.
+  Returns the losses and the batch coordinates of the first ordinals."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.core import faults
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.telemetry import ledger, sentinel
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop, flight
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu', **layout['axes'])
+  d = os.path.join(root, layout['name'])
+  ledger._active = None
+  ledger.enable_ledger(directory=os.path.join(d, 'ledger'), rank=rank)
+  if incident is not None:
+    os.environ['LDDL_FAULTS'] = incident
+    faults.reset()
+    sentinel.enable_sentinel()
+    flight.enable_flight(out_dir=os.path.join(d, 'incidents', f'rank{rank}'))
+  try:
+    cfg = BertConfig(**layout['cfg'])
+    loop = TrainLoop.build(
+        layout['path'], load_bert_tokenizer(layout['vocab']), model_cfg=cfg,
+        device='cpu', mesh=mesh, comm=comm, **layout['build'])
+    if init is not None:
+      loop.load_whole_state({k: torch.from_numpy(v) for k, v in init.items()})
+      loop.save(os.path.join(d, 'ckpt'))
+    losses = loop.run(run_kw['steps'], ckpt_dir=os.path.join(d, 'ckpt'),
+                      ckpt_every=run_kw['ckpt_every'], log_every=0)
+    coords = [loop.loader.coordinate_of_batch(o)
+              for o in range(run_kw['steps'])]
+  finally:
+    ledger.disable_ledger()
+    ledger._active = None
+    if incident is not None:
+      del os.environ['LDDL_FAULTS']
+      faults.reset()
+      sentinel.disable_sentinel()
+      flight.disable_flight()
+  return {'losses': losses, 'coords': coords, 'dp': (loop.dp_rank,
+                                                      loop.dp_world)}
+
+
+def replay_ranks(rank, world, root, layouts, replay_kw, parity):
+  """Each layout of ``layouts`` recorded (:func:`_record`) and replayed by
+  the replay CLI launched as this world's ranks (``--comm torch``): step
+  ``replay_kw['target']`` from the corpus, the same step from bundles
+  that ``bundle`` wrote launched as ranks, and (``flip``) from a
+  checkpoint with one flipped bit; ``bisect --per-sample`` where the
+  layout asks, and for an ``incident`` layout the incident CLI's bisect
+  and replay over each rank's incident. Then ``parity``: a float32 run,
+  dropout off, from ``parity['init']`` (polled for: the test writes it
+  once lddl_tpu has drawn it), bisected through ``bisect_window``.
+  Returns every command's exit code and rank 0's output, and seconds per
+  layout."""
+  import time
+
+  import numpy as np
+  import torch
+
+  from lddl_tpu_torch.replay.cli import main as replay
+  from lddl_tpu_torch.training.flight import main as incident
+  torch.set_num_threads(2)
+  out = {}
+  for layout in layouts:
+    t0 = time.perf_counter()
+    name, d = layout['name'], os.path.join(root, layout['name'])
+    res = out[name] = {'record': _record(rank, layout, root, replay_kw,
+                                         incident=layout.get('incident'))}
+    target = replay_kw['target']
+    base = (['--checkpoint-dir', os.path.join(d, 'ckpt'), '--ledger',
+             os.path.join(d, 'ledger')] + layout['model_argv'] +
+            layout['mesh_argv'])
+    step = ['step', '--step', str(target)]
+    res['corpus'] = _cli(replay, step + base + layout['loader_argv'])
+    bundles = []
+    for o in range(replay_kw['ckpt_every'], target):
+      e, i = res['record']['coords'][o]
+      bundles.append(os.path.join(d, 'bundles', f'step{o + 1}'))
+      res.setdefault('bundle', []).append(_cli(replay, [
+          'bundle', os.path.join(d, 'ledger'), '--key',
+          f'epoch={e},index={i}', '--out', bundles[-1]] +
+          layout['bundle_argv'] + layout['mesh_argv']))
+    res['bundled'] = _cli(replay, step + base + layout['bundled_argv'] +
+                          [a for b in bundles for a in ('--bundle', b)])
+    res['bundle_ranks'] = (sorted(os.listdir(bundles[0]))
+                           if os.path.isdir(bundles[0]) else None)
+    if layout.get('flip'):
+      flipped = os.path.join(d, 'ckpt_flipped')
+      if rank == 0:
+        from chip_smoke import flip_a_bit
+        flip_a_bit(os.path.join(d, 'ckpt'), replay_kw['ckpt_every'],
+                   flipped)
+      torch.distributed.barrier()
+      argv = [a if a != os.path.join(d, 'ckpt') else flipped for a in base]
+      res['flipped'] = _cli(replay, step + argv + layout['loader_argv'])
+    window = ['--lo', str(replay_kw['ckpt_every']), '--hi', str(target),
+              '--per-sample', '--json']
+    if layout.get('bisect') or layout.get('incident'):
+      res['bisect'] = _cli(replay, ['bisect'] + window + base +
+                           layout['loader_argv'])
+    if layout.get('incident'):
+      inc = os.path.join(d, 'incidents', 'rank{rank}')
+      found = sorted(os.listdir(os.path.join(d, 'incidents', f'rank{rank}')))
+      res['incidents'] = found
+      path = os.path.join(inc, found[0])
+      res['incident_bisect'] = _cli(incident, [
+          'bisect', path, '--', '--per-sample', '--json'] + base[2:] +
+          layout['loader_argv'])
+      res['incident_replay'] = _cli(incident, [
+          'replay', path, '--', '--step', str(target)] + base +
+          layout['bundled_argv'])
+    res['seconds'] = time.perf_counter() - t0
+  if parity is None:
+    return out
+  t0 = time.perf_counter()
+  deadline = time.monotonic() + 90
+  while not os.path.exists(parity['init']):
+    if time.monotonic() > deadline:
+      raise TimeoutError(f'no {parity["init"]}')
+    time.sleep(0.1)
+  time.sleep(0.5)  # the writer renames it into place; let the fs settle
+  init = dict(np.load(parity['init']))
+  layout = parity['layout']
+  kw = dict(replay_kw, steps=parity['steps'])
+  res = out['parity'] = {'record': _record(rank, layout, root, kw,
+                                           init=init)}
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.replay.steps import bisect_window
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+  d = os.path.join(root, layout['name'])
+  loop = TrainLoop.build(
+      layout['path'], load_bert_tokenizer(layout['vocab']),
+      model_cfg=BertConfig(**layout['cfg']), device='cpu',
+      mesh=make_mesh(device_type='cpu', **layout['axes']),
+      comm=get_backend('torch'), **layout['build'])
+  res['bisect'] = bisect_window(loop, os.path.join(d, 'ckpt'), 0,
+                                parity['steps'], per_sample=True,
+                                ledger_path=os.path.join(d, 'ledger'))
+  res['seconds'] = time.perf_counter() - t0
+  return out
