@@ -127,9 +127,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and the phase failed past RANK_TIMEOUT; the processes are those of
      phases 14 and 15 (b in ``--rank-task 14``'s two ranks before 14a,
      a in ``--rank-task 14c``'s before 14c), started here, so phases 14,
-     15b-c and 16's recorded runs run now and are checked in their own
-     phases; (b) runs first, and (a)'s process also resumes (b)'s
-     checkpoint: (a) under
+     15b-c, 16's recorded runs and their replays run now and are checked
+     in their own phases; (a)'s process starts first and its CLI runs
+     (below, untimed) overlap (b); it waits for the two ranks to exit
+     before its timed steps and before it resumes (b)'s checkpoint: (a)
+     under
      ``torch.distributed.run`` at world 1 over NCCL, the CLI as 7d runs
      it, 4 steps with a checkpoint then --resume for 2, with --comm null
      and with --comm torch in one process, deterministic algorithms on:
@@ -192,13 +194,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      K1-K3; (c) ``python -m lddl_tpu_torch.replay.cli batch`` at BATCH_KEYS
      = the ledger, ``bundle`` of each batch from the incident's
      checkpoint to its suspect, and with corrupt:replay.read the bundled
-     step refused with exit 1; (b) in a fresh process (``--rank-task
-     11b``) the replay CLI's ``step`` at REPLAYS from the corpus (across
-     the epoch's end) and from the bundles with no corpus (from the
-     mid-epoch checkpoint): each matches its step line bit for bit, 12
-     launches a replayed step of each of K1-K3 counted in that process;
-     (d) beside it, ``python -m lddl_tpu_torch.training.flight replay
-     <incident> -- <step args>`` exits 0 with a match; the manifest's
+     step refused with exit 1; (b) the replay CLI's ``step`` (its
+     ``main``, in this process, each replay building its own loop from
+     the checkpoints) at REPLAYS from the corpus (across the epoch's end)
+     and from the bundles with no corpus (from the mid-epoch checkpoint):
+     each matches its step line bit for bit, 12 launches a replayed step
+     of each of K1-K3 counted on the device; (d) after it, the incident
+     CLI's ``replay <incident> -- <step args>`` (``lddl_tpu_torch.
+     training.flight``'s ``main``) exits 0 with a match; the manifest's
      trigger, step, replay_step, suspect (its digest = the ledger's) and
      checkpoint, and the incident CLI's list, show and replay; (e) for
      the record: the ops that warn under deterministic algorithms (an
@@ -210,7 +213,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      RESUME_TO with the ledger and tracing on, its ledger 11a's up to the
      step line at RESUME_AT: 12 launches a step of each of K1-K3 (counts
      at 0 just before, read just after), losses that are not 11a's; in
-     11b's child, the replay CLI's ``step`` of RESUME_TO bit for bit with
+     11b, the replay CLI's ``step`` of RESUME_TO bit for bit with
      that ledger and ``bisect --ledger`` over (RESUME_AT, RESUME_TO]
      giving the resumed run's losses bit for bit (the recorded stream);
      (g) after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
@@ -275,9 +278,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the ranks' gathered state bit for bit, and takes (a)'s next step
      through the step cache (a capture) within the same limits of (a)'s;
      ms/step per rank and world 1's, the peak allocated per rank and the
-     phase's seconds. ``--place-faults`` runs (a) and (b) alone, sound
-     and under the planted faults of PLACE_FAULTS, and prints their gaps
-     to world 1: the readings the two limits sit between;
+     phase's seconds; (d) in the same two processes, PLACE_DRIFT_STEPS
+     steps at tensor=2 with the ledger and deterministic algorithms off:
+     the replicated parameters (position and type tables, LayerNorms,
+     pooler, NSP head, mlm_transform, row-parallel biases) bit-equal
+     across the ranks after every step. ``--place-faults`` runs (a), (b)
+     and (d) alone, sound and under the planted faults of PLACE_FAULTS
+     (for (d), the exchange without its replica broadcast), and prints
+     their gaps to world 1 and (d)'s drift: the readings the two limits
+     sit between;
   15. ring attention over the mesh's seq axis: (a) in this process, the
      kernels on the inputs a ring at seq=2 gives them, bf16, against
      their plain versions (RING_TOL = 3e-2 for out on real rows,
@@ -314,10 +323,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (a) tensor=2 flash on pairs/, (b) seq=2 ring_flash on packed/ at
      s=8192 (the packed K4 through the ring; also a checkpoint at 0),
      (c) data=2 flash on pairs/; rank 0 also writes (a)'s checkpoint at
-     step 1 with one bit flipped. Then one launch of two ranks on the
-     card over gloo (``--rank-task 16``) runs ``python -m
-     lddl_tpu_torch.replay.cli``'s ``main`` as those ranks (``--comm
-     torch``), job after job: ``step 2`` of each run from its step-1
+     step 1 with one bit flipped. Then the same two processes (ranks on
+     the card over gloo) run ``python -m lddl_tpu_torch.replay.cli``'s
+     ``main`` as those ranks (``--comm torch``), job after job: ``step 2`` of each run from its step-1
      checkpoint over the corpus, exit 0 on both ranks with the step
      line's digest reconstructed (rank 0 alone printing the verdict),
      (a) from the flipped checkpoint exit 1 on both, and (b)'s ``bisect
@@ -326,14 +334,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each rank counted by the kernels on the device, 12 a replayed step
      of each kernel of the path (x 2 blocks under the ring, and one
      forward a row scored), and the seconds a rank.
+  17. preprocessing on the card: (a) both static-masking kernels
+     (csrc/masking.cu: the partition program, the port of lddl_tpu's jit
+     program _partition_kernel, and the matrix program, of
+     _device_kernel) against their plain versions on the card, exactly,
+     at s=128 and s=512 over MASK_ROWS rows made from --seed with the
+     preprocessor's row lengths (mostly full) and with a max_predictions
+     cap, two launches bitwise equal, timed with the plain version (the
+     jit program's argsort-twice form as torch ops) beside the bound; an
+     empty partition launches nothing; the matrix program
+     through mask_batch(backend='device'), one launch; (b) ``python -m
+     lddl_tpu_torch.preprocess.bert --target-seq-length 512 --bin-size
+     64 --num-blocks 8 --masking`` (the default mask backend, device) on
+     a PREP_CORPUS_MB MiB synthetic corpus (core/synth, --seed), telemetry
+     on: one masking kernel launch a partition (its telemetry export),
+     every bin file, footers tagged delta with duplicate factor 5, each
+     copy's k, its positions increasing inside A or B and never special,
+     every file read by the port's reader; MB/s of corpus and the seconds
+     of its parts; (c) the same with ``--mask-backend host``: every
+     non-masking column byte-identical, the masks not; (d) ``python -m
+     lddl_tpu_torch.balance --num-shards 8``: n or n+1 groups a shard in
+     every bin, the sum = (b)'s, ``.num_samples.json``; (e) BERT-base
+     from the balanced shards (static masks, step cache off): PREP_STEPS
+     finite losses, 12 launches a step of each of K1-K3.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12 and 14-16; phase 13 runs no kernel), the card's name and power
+phases 9-12 and 14-17; phase 13 runs no kernel), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits non-zero before printing any result.
 """
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import hashlib
@@ -2399,19 +2431,15 @@ def group_alive(pgid):
     return False
 
 
-def run_ranks(label, task, world, out_dir, extra=(), env=None,
-              torchrun=False):
-  """Run ``world`` rank processes of this script's ``--rank-task task``;
-  returns each rank's JSON result and the world's seconds.
-
-  By hand, each rank gets the rendezvous environment torch.distributed
-  reads (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``/
-  ``LOCAL_RANK``); with ``torchrun`` one ``torch.distributed.run``
-  launcher starts them. Every process runs in a session of its own; the
-  world has one deadline, RANK_TIMEOUT, past which every process of it
-  is killed and the phase fails, as it does for a non-zero exit or a
-  process left behind.
-  """
+def launch_ranks(label, task, world, out_dir, extra=(), env=None,
+                 torchrun=False, timeout=RANK_TIMEOUT):
+  """Start ``world`` rank processes of this script's ``--rank-task task``
+  (each in a session of its own); returns the handle
+  :func:`finish_ranks` takes. By hand, each rank gets the rendezvous
+  environment torch.distributed reads (``MASTER_ADDR``/``MASTER_PORT``/
+  ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``); with ``torchrun`` one
+  ``torch.distributed.run`` launcher starts them. The world has one
+  deadline, ``timeout`` seconds from now."""
   port = free_port()
   script = [RANK_SCRIPT, '--rank-task', task, '--out', out_dir, *extra]
   base_env = dict(os.environ, **(env or {}))
@@ -2426,7 +2454,7 @@ def run_ranks(label, task, world, out_dir, extra=(), env=None,
             for r in range(world)]
   procs, logs = [], []
   t0 = time.perf_counter()
-  deadline = time.monotonic() + RANK_TIMEOUT
+  deadline = time.monotonic() + timeout
   try:
     for i, (cmd, e) in enumerate(cmds):
       logs.append(os.path.join(out_dir, f'{task}.proc{i}.log'))
@@ -2435,21 +2463,40 @@ def run_ranks(label, task, world, out_dir, extra=(), env=None,
                                       stderr=subprocess.STDOUT,
                                       start_new_session=True))
       RANK_PROCS.append(procs[-1])
+  except BaseException:
+    kill_ranks((label, task, world, out_dir, procs, logs, t0, deadline,
+                timeout))
+    raise
+  return label, task, world, out_dir, procs, logs, t0, deadline, timeout
+
+
+def kill_ranks(handle):
+  """Kill every process of a launch's sessions that is left."""
+  for p in handle[4]:
+    if group_alive(p.pid):
+      os.killpg(p.pid, 9)
+    p.wait()
+
+
+def finish_ranks(handle):
+  """Wait for a launch's ranks: each rank's JSON result and the world's
+  seconds from its start. Past the world's deadline every process of it
+  is killed and the phase fails, as it does for a non-zero exit or a
+  process left behind."""
+  label, task, world, out_dir, procs, logs, t0, deadline, timeout = handle
+  try:
     for p in procs:
       try:
         p.wait(max(deadline - time.monotonic(), 0.1))
       except subprocess.TimeoutExpired:
         raise AssertionError(f'{label}: a rank process outlived its '
-                             f'{RANK_TIMEOUT} s; the world is killed')
+                             f'{timeout} s; the world is killed')
     left = [p.pid for p in procs if group_alive(p.pid)]
     if left:
       raise AssertionError(f'{label}: processes of the sessions {left} are '
                            'left after the ranks exited')
   finally:
-    for p in procs:
-      if group_alive(p.pid):
-        os.killpg(p.pid, 9)
-      p.wait()
+    kill_ranks(handle)
   seconds = time.perf_counter() - t0
   failed = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
   if failed:
@@ -2461,6 +2508,15 @@ def run_ranks(label, task, world, out_dir, extra=(), env=None,
     with open(os.path.join(out_dir, f'{task}.rank{r}.json')) as f:
       results.append(json.load(f))
   return results, seconds
+
+
+def run_ranks(label, task, world, out_dir, extra=(), env=None,
+              torchrun=False):
+  """Run ``world`` rank processes of ``--rank-task task`` to their end
+  (:func:`launch_ranks`, :func:`finish_ranks`): each rank's JSON result
+  and the world's seconds."""
+  return finish_ranks(launch_ranks(label, task, world, out_dir, extra, env,
+                                   torchrun))
 
 
 def check_no_rank_processes(label='9c'):
@@ -2551,15 +2607,15 @@ def rank_result(args, result):
 
 def world_9a(args, digests):
   """World 1 over NCCL (under torch.distributed.run; the first work of
-  ``--rank-task 14c``'s process): the CLI as 7d runs it, one process
-  (--comm null) and the world of one (--comm torch), 4 steps with a
-  checkpoint then --resume for 2, deterministic algorithms on; then the
-  steps to the end of the epoch timed through the same graphs,
-  deterministic algorithms off (as phase 7); then, in the same process,
-  9b's world-2 checkpoint resumed (:func:`resume_9b`)."""
+  ``--rank-task 14c``'s process, beside the two ranks): the CLI as 7d
+  runs it, one process (--comm null) and the world of one (--comm torch),
+  4 steps with a checkpoint then --resume for 2, deterministic algorithms
+  on; then, once the two ranks have written it, 9b's world-2 checkpoint
+  resumed (:func:`resume_9b`). Returns the results and the CLI loops, whose
+  steps :func:`time_9a` times once the two ranks have exited."""
   runs, seen = record_runs()
   batch = digests['pairs']['settings']['batch_size_per_rank']
-  out = {}
+  out, loops = {}, {}
   for comm in ('null', 'torch'):
     torch.use_deterministic_algorithms(True)
     with tempfile.TemporaryDirectory(prefix='lddl_smoke_9a_') as ckpt:
@@ -2570,15 +2626,27 @@ def world_9a(args, digests):
                           ['--comm', comm, '--checkpoint-dir', ckpt],
                           runs, seen)
         per.append(r)
-    torch.use_deterministic_algorithms(False)
+    out[comm] = {'runs': per}
+    loops[comm] = loop
+  del loop
+  torch.use_deterministic_algorithms(False)
+  out['waited_for_9b_s'] = wait_for(args, 'ckpt_9b.written')
+  out['9b_resume'] = resume_9b(args, digests, runs, seen)
+  return out, loops
+
+
+def time_9a(args, out, loops):
+  """9a's timed steps, once the two ranks have exited (GO_FILE): each CLI
+  loop's steps to the end of the epoch through its graphs."""
+  out['waited_for_two_ranks_s'] = wait_for(args, GO_FILE)
+  for comm, loop in loops.items():
     timer = StepTimer(loop.step_cache)
     loop.step_cache = timer
     loop.run(loop.step + DP_TIMED_STEPS, log_every=0)
-    out[comm] = {'runs': per, 'step_ms': float(np.median(timer.hit_ms)),
-                 'timed_hits': len(timer.hit_ms)}
-    del loop, timer
-    torch.cuda.empty_cache()
-  out['9b_resume'] = resume_9b(args, digests, runs, seen)
+    out[comm].update(step_ms=float(np.median(timer.hit_ms)),
+                     timed_hits=len(timer.hit_ms))
+  loops.clear()
+  torch.cuda.empty_cache()
   return out
 
 
@@ -2891,18 +2959,57 @@ def check_9b_resume(cli, resumed, card):
 
 def rank_worlds(args, root):
   """The rank launches phases 9, 14, 15 and 16 share: two ranks on the
-  card over gloo (``--rank-task 14``: 9b, 14a, 14b, 15b, then 16's
-  recorded runs), then one world-1 NCCL process under
+  card over gloo (``--rank-task 14``: 9b, 14a, 14b, 14d, 15b, then 16's
+  recorded runs and their replays), and one world-1 NCCL process under
   torch.distributed.run (``--rank-task 14c``: 9a with 9b's resume, 14c,
-  15c). Two process starts where phase 9 and phase 14 each made two.
+  15c), started first so that 9a's CLI runs overlap the two ranks; it
+  waits for them before anything timed or anything of theirs it reads.
   Files under ``root`` (the checkpoints, 16's runs) stay for phase 16."""
   seed = ['--seed', str(args.seed)]
-  two, two_s = run_ranks('9b, 14, 15b, 16 (record)', '14', 2, root,
-                         extra=['--ckpt', root] + seed,
-                         env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
-  (one,), one_s = run_ranks('9a, 14c, 15c', '14c', 1, root,
-                            extra=['--ckpt', root] + seed, torchrun=True)
+  # World 1 starts first: 9a's CLI runs (deterministic, checked by their
+  # bits, not timed) overlap the two ranks; it waits for GO_FILE, written
+  # when they have exited, before its timed steps and what reads their
+  # checkpoints.
+  one = launch_ranks('9a, 14c, 15c', '14c', 1, root,
+                     extra=['--ckpt', root] + seed, torchrun=True,
+                     timeout=2 * RANK_TIMEOUT)
+  try:
+    two, two_s = run_ranks('9b, 14, 15b, 16', '14', 2, root,
+                           extra=['--ckpt', root] + seed,
+                           env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+    with open(os.path.join(root, GO_FILE), 'w') as f:
+      f.write('go')
+    (one,), one_s = finish_ranks(one)
+  except BaseException:
+    kill_ranks(one)
+    raise
   return {'two': two, 'one': one, 'seconds': {'two': two_s, 'one': one_s}}
+
+
+# Written by rank_worlds when the two ranks have exited: world 1 waits for
+# it before its timed steps.
+GO_FILE = 'go_world1'
+
+
+def flag_written(args, comm, name):
+  """The two ranks: once both are past writing checkpoint ``name``, rank 0
+  marks it written (``<name>.written`` under ``--ckpt``) for world 1."""
+  comm.barrier()
+  if comm.rank == 0:
+    with open(os.path.join(args.ckpt, f'{name}.written'), 'w') as f:
+      f.write('written')
+
+
+def wait_for(args, name):
+  """World 1 (``--rank-task 14c``): wait for the file ``name`` under
+  ``--ckpt``; the seconds waited."""
+  t0 = time.perf_counter()
+  path = os.path.join(args.ckpt, name)
+  while not os.path.exists(path):
+    if time.perf_counter() - t0 > 2 * RANK_TIMEOUT:
+      raise AssertionError(f'14c: no {name} after {2 * RANK_TIMEOUT} s')
+    time.sleep(0.1)
+  return time.perf_counter() - t0
 
 
 def data_parallel(args, digests, cli7d, shards7, card, worlds):
@@ -3849,37 +3956,17 @@ def batches_and_bundles(args, digests, rec, root):
   return {'batch_digests': got, 'bundles': bundles, 'step_argv': step}
 
 
-def rank_11b(args, digests):
-  """11b and the bundled step of 11c, in a fresh process: the replay
-  CLI's ``step`` in this process, each replay's launches counted by the
-  kernels on the device."""
-  from lddl_tpu_torch.ops import _build
+def replays_in_this_process(args, digests, rec, bundled, resumed):
+  """11b (with 11c's bundled step and 11f's resumed replay and bisect)
+  through the replay CLI's ``main``, and 11d's ``flight replay``
+  through the incident CLI's, both in this process (the run that recorded
+  them is gone: each replay builds its own loop from the checkpoints): every
+  replay matches the recorded step line, 12 launches a replayed step of
+  each of K1-K3, counted by the kernels on the device; the bisect of the
+  resumed run over its ledger gives that run's losses bit for bit."""
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.replay import cli
-  _build.library()
-  with open(os.path.join(args.ckpt, 'replay_jobs.json')) as f:
-    jobs = json.load(f)
-  out = []
-  for label, argv in jobs:
-    tfa.reset_launches()
-    t0 = time.perf_counter()
-    rc, printed = run_cli(cli.main, argv + ['--json'])
-    seconds = time.perf_counter() - t0
-    res = json.loads(printed) if rc in (0, 1) else {'printed': printed[-2000:]}
-    if argv[0] == 'step':
-      res.pop('losses', None)
-    out.append({'label': label, 'rc': rc, 'result': res,
-                'launches': tfa.device_launches(), 'seconds': seconds})
-  rank_result(args, out)
-
-
-def replays_in_fresh_processes(args, digests, rec, bundled, resumed):
-  """11b (with 11c's bundled step and 11f's resumed replay and bisect) in
-  a child of this script, and 11d's ``python -m
-  lddl_tpu_torch.training.flight replay`` beside it: every replay matches
-  the recorded step line, 12 launches a replayed step of each of K1-K3 in
-  the child; the bisect of the resumed run over its ledger gives that
-  run's losses bit for bit."""
+  from lddl_tpu_torch.training import flight
   paths = rec['paths']
   model = replay_model_argv(args, digests)
   corpus = ['--path', shard_path('pairs')] + replay_loader_argv(digests)
@@ -3900,29 +3987,27 @@ def replays_in_fresh_processes(args, digests, rec, bundled, resumed):
                               '--lo', str(RESUME_AT), '--hi',
                               str(RESUME_TO), '--ledger', rp['ledger']] +
                corpus + model))
-  root = os.path.dirname(paths['ckpt'])
-  with open(os.path.join(root, 'replay_jobs.json'), 'w') as f:
-    json.dump(jobs, f)
+  t_all = time.perf_counter()
+  child = []
+  for label, argv in jobs:
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    rc, printed = run_cli(cli.main, argv + ['--json'])
+    seconds = time.perf_counter() - t0
+    res = json.loads(printed) if rc in (0, 1) else {'printed': printed[-2000:]}
+    if argv[0] == 'step':
+      res.pop('losses', None)
+    child.append({'label': label, 'rc': rc, 'result': res,
+                  'launches': tfa.device_launches(), 'seconds': seconds})
   inc = rec['incident']['dir']
-  flight_cmd = [sys.executable, '-m', 'lddl_tpu_torch.training.flight',
-                'replay', inc, '--', '--checkpoint-dir', paths['ckpt'],
-                '--step', str(RECORD_INCIDENT_STEP + 1), '--ledger',
-                paths['ledger'], '--json', '--vocab-size',
-                str(rec['vocab_size'])] + model
-  log_path = os.path.join(root, 'flight_replay.log')
-  with open(log_path, 'w') as f:
-    flight_proc = subprocess.Popen(flight_cmd, cwd=HERE, stdout=f,
-                                   stderr=subprocess.STDOUT,
-                                   start_new_session=True)
-  RANK_PROCS.append(flight_proc)
-  try:
-    (child,), seconds = run_ranks('11b', '11b', 1, root,
-                                  extra=['--ckpt', root])
-    flight_rc = flight_proc.wait(RANK_TIMEOUT)
-  finally:
-    if group_alive(flight_proc.pid):
-      os.killpg(flight_proc.pid, 9)
-    flight_proc.wait()
+  flight_argv = ['replay', inc, '--', '--checkpoint-dir', paths['ckpt'],
+                 '--step', str(RECORD_INCIDENT_STEP + 1), '--ledger',
+                 paths['ledger'], '--json', '--vocab-size',
+                 str(rec['vocab_size'])] + model
+  t0 = time.perf_counter()
+  flight_rc, printed = run_cli(flight.main, flight_argv)
+  flight_s = time.perf_counter() - t0
+  seconds = time.perf_counter() - t_all
   from lddl_tpu_torch.training import MODEL_SIZES
   layers = MODEL_SIZES[MODEL]['num_layers']
   want_restored = [c for _, c in REPLAYS] + [
@@ -3942,7 +4027,7 @@ def replays_in_fresh_processes(args, digests, rec, bundled, resumed):
                            f'match from checkpoint {restored}, {want}')
     log(f'  11b: {job["label"]}: restored {restored}, bit-identical to the '
         f'recorded step line ({res["digest"]}), {job["seconds"]:.1f} s; '
-        f'launches in the child, counted on the device: {job["launches"]}')
+        f'launches, counted on the device: {job["launches"]}')
   job = child[len(wanted_steps)]
   res = job['result']
   want = {k: m * (RESUME_TO - RESUME_AT) for k, m in per.items()}
@@ -3954,17 +4039,15 @@ def replays_in_fresh_processes(args, digests, rec, bundled, resumed):
                          f'run\'s losses {resumed["losses"]}, {want}')
   log(f'  11f: {job["label"]}: the resumed run\'s losses bit for bit '
       f'(spike at step {res["spike_step"]}, batch '
-      f'{res.get("batch_coordinate")}), {job["seconds"]:.1f} s; launches '
-      f'in the child: {job["launches"]}')
-  with open(log_path) as f:
-    printed = f.read()
+      f'{res.get("batch_coordinate")}), {job["seconds"]:.1f} s; launches: '
+      f'{job["launches"]}')
   if flight_rc != 0 or '"match": true' not in printed:
     raise AssertionError(f'11d: the incident CLI\'s replay exited '
                          f'{flight_rc}:\n{printed[-3000:]}')
-  log(f'  11d: python -m lddl_tpu_torch.training.flight replay <incident> '
-      f'-- ... --step {RECORD_INCIDENT_STEP + 1}: exit 0, a match (its '
-      f'ring\'s bundles from checkpoint {want_restored[-1]} on); the child '
-      f'and it took {seconds:.1f} s side by side')
+  log(f'  11d: lddl_tpu_torch.training.flight replay <incident> -- ... '
+      f'--step {RECORD_INCIDENT_STEP + 1}: exit 0, a match (its ring\'s '
+      f'bundles from checkpoint {want_restored[-1]} on), {flight_s:.1f} s; '
+      f'11b and it took {seconds:.1f} s in this process')
   return {'child': child, 'seconds': seconds}
 
 
@@ -4267,7 +4350,7 @@ def record_and_replay(args, digests, root, card):
   check_incident(rec, len(digests['pairs']['batches']))
   bundled = batches_and_bundles(args, digests, rec, root)
   resumed = resumed_run(loop, rec, root, card)
-  replays = replays_in_fresh_processes(args, digests, rec, bundled, resumed)
+  replays = replays_in_this_process(args, digests, rec, bundled, resumed)
   incident_cli(rec)
   warned = warned_ops(args, digests, loop)
   timing = phase11_timing(args, digests, loop, root, card)
@@ -4280,9 +4363,6 @@ def record_and_replay(args, digests, root, card):
           'record_seconds': rec['record_seconds'],
           'replay_seconds': replays['seconds'], 'warned_ops': warned,
           'timing': timing, 'fingerprint': cost}, rec, resumed
-
-
-RANK_TASKS['11b'] = rank_11b
 
 
 # ---- phase 12: the K-step scan window ----
@@ -4886,7 +4966,14 @@ PLACE_LOSS_RTOL, PLACE_GRAD_NORM_RTOL = 1.5e-3, 1.3e-2
 # attention output alone without its sum; every row-parallel bias added
 # on each rank before the sum (the ranks stay bit-equal).
 PLACE_FAULTS = {'no-row-sum': ('14a', '14b'), 'one-row-sum': ('14a',),
-                'row-bias-twice': ('14a',)}
+                'row-bias-twice': ('14a',),
+                # The tensor group's replicated gradients left unsynced
+                # (the exchange before TensorReplicas): read under 14d.
+                'no-replica-broadcast': ('14d',)}
+# 14d: steps at tensor=2 with the ledger and deterministic algorithms off
+# (CUDA's embedding backward then sums with atomics), the replicated
+# parameters compared across the ranks after each.
+PLACE_DRIFT_STEPS = 24
 PLACE_LAYOUTS = (('14a', {'tensor': 2}), ('14b', {'fsdp': 2}))
 # 14c's step cache: a capture, its all-reduce over NCCL.
 PLACE_RESUME = ('graph', 1, 'nccl')
@@ -4973,9 +5060,9 @@ def rank_14(args, digests):
   the same global batches (make_global_batch), deterministic algorithms
   on, the kernels' counts at 0 just before and read just after; 14a then
   saves (rank 0 writes the whole state) and steps once more. Rank 0 then
-  runs world 1 on the whole batches from the same init. Then 15b
-  (:func:`ring_rank`) and 16's recorded runs (:func:`record_sharded`;
-  not with ``--only``) in the same processes."""
+  runs world 1 on the whole batches from the same init. Then 14d
+  (:func:`replica_drift`), 15b (:func:`ring_rank`) and 16's recorded runs
+  (:func:`record_sharded`; not with ``--only``) in the same processes."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.loader.device import make_global_batch
   from lddl_tpu_torch.ops import flash_attention as tfa
@@ -4987,6 +5074,8 @@ def rank_14(args, digests):
     out['9b'] = world_9b(args, digests)
   torch.use_deterministic_algorithms(True)
   comm = get_backend('torch')
+  if args.only is None:
+    flag_written(args, comm, 'ckpt_9b')
   batches = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)
   build = placement_build(args)
   for label, axes in PLACE_LAYOUTS:
@@ -5012,6 +5101,8 @@ def rank_14(args, digests):
     if label == '14a':
       loop.step = PLACE_STEPS
       loop.save(os.path.join(args.ckpt, 'ckpt_14a'))
+      if args.only is None:
+        flag_written(args, comm, 'ckpt_14a')
     r['digest'], r['snapshot_extra_bytes'] = snapshot_extra(loop)
     r['flat_bytes'] = 4 * loop.step_fn.exchange.flat.numel()  # float32
     if label == '14a':
@@ -5032,28 +5123,79 @@ def rank_14(args, digests):
       del ref
       torch.cuda.empty_cache()
     comm.barrier()
+  if args.only != '15b' and '14d' in PLACE_FAULTS.get(args.fault, ('14d',)):
+    out['14d'] = replica_drift(comm, batches, build)
   out['15b'] = ring_rank(args, comm)
   if args.only is None:
     out['16'] = record_sharded(args, comm)
+    out['16replay'] = replay_in_ranks(args)
   rank_result(args, out)
 
 
+def replicated_digest(loop):
+  """A digest of this rank's copies of the parameters no rule cuts over
+  tensor (the replicated ones)."""
+  h = hashlib.sha256()
+  for (name, p), cut in zip(loop.model.named_parameters(),
+                            loop.model.tensor_sharded()):
+    if not cut:
+      h.update(name.encode())
+      h.update(p.detach().float().cpu().numpy().tobytes())
+  return h.hexdigest()[:16]
+
+
+def replica_drift(comm, batches, build):
+  """14d: PLACE_DRIFT_STEPS steps at tensor=2 with the ledger and
+  deterministic algorithms off, cycling over phase 14's global batches;
+  after each, whether the two ranks' replicated parameters are
+  bit-equal (their digests all-gathered)."""
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.training import TrainLoop
+  torch.use_deterministic_algorithms(False)
+  try:
+    mesh = make_mesh(device_type=torch.device(DEVICE).type, tensor=2)
+    loop = TrainLoop.build(mesh=mesh, comm=comm, **build)
+    loop.model.train()
+    rows = PLACE_ROWS
+    glob = [{k: v[:rows] for k, v in b.items()} for b in batches]
+    equal = []
+    t0 = time.perf_counter()
+    for i in range(PLACE_DRIFT_STEPS):
+      loop.step_fn(make_global_batch(glob[i % len(glob)], mesh,
+                                     device=DEVICE), loop.dropout_seed)
+      digests = comm.allgather_object(replicated_digest(loop))
+      equal.append(len(set(digests)) == 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del loop
+    torch.cuda.empty_cache()
+  finally:
+    torch.use_deterministic_algorithms(True)
+  drifted = [i + 1 for i, ok in enumerate(equal) if not ok]
+  return {'equal': equal, 'first_drift_step': drifted[0] if drifted else None,
+          'seconds': seconds}
+
+
 def rank_14c(args, digests):
-  """World 1 over NCCL (under torch.distributed.run): 9a first
-  (:func:`world_9a`, with 9b's resume); then it resumes 14a's checkpoint
-  with the step cache on and takes the step 14a took after saving,
-  deterministic algorithms on; then 15c (:func:`ring_capture`)."""
+  """World 1 over NCCL (under torch.distributed.run), beside the two
+  ranks: 9a first (:func:`world_9a`, with 9b's resume once they have
+  written its checkpoint); then it resumes 14a's checkpoint once written,
+  with the step cache on, and takes the step 14a took after saving,
+  deterministic algorithms on; then 15c (:func:`ring_capture`); then,
+  once the two ranks have exited, 9a's timed steps (:func:`time_9a`)."""
   from lddl_tpu_torch.comm import get_backend
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.parallel import make_mesh
   from lddl_tpu_torch.training import TrainLoop
   from lddl_tpu_torch.training.pretrain import CompiledStepCache
-  nine = world_9a(args, digests)
+  nine, loops = world_9a(args, digests)
   torch.use_deterministic_algorithms(True)
   comm = get_backend('torch')
   mesh = make_mesh(device_type=torch.device(DEVICE).type)
   batch = placement_batches(digests, 2 * PLACE_ROWS, PLACE_STEPS + 1)[-1]
   loop = TrainLoop.build(mesh=mesh, comm=comm, **placement_build(args))
+  nine['waited_for_14a_s'] = wait_for(args, 'ckpt_14a.written')
   loop.restore(os.path.join(args.ckpt, 'ckpt_14a'))
   digest = loop.state_digest()
   loop.model.train()
@@ -5069,7 +5211,8 @@ def rank_14c(args, digests):
   del cache, loop
   torch.cuda.empty_cache()
   out['15c'] = ring_capture(args)
-  out['9a'] = nine
+  torch.use_deterministic_algorithms(False)
+  out['9a'] = time_9a(args, nine, loops)
   rank_result(args, out)
 
 
@@ -5119,25 +5262,35 @@ def plant_fault(name):
   bert.Dense.forward = forward
   if name == 'no-row-sum':
     train.ShardedDataParallel.grads = grads
+  if name == 'no-replica-broadcast':
+    train.TensorReplicas.__call__ = lambda self: None
   PLACE_LAYOUTS = tuple(layout for layout in PLACE_LAYOUTS
                         if layout[0] in PLACE_FAULTS[name])
 
 
 def place_faults(args, card):
   """--place-faults: phase 14's two-rank world once under each fault of
-  PLACE_FAULTS; per fault and layout, rank 0's relative gap to world 1's
+  PLACE_FAULTS (only ``--fault``'s, when given); per fault and layout, rank 0's relative gap to world 1's
   loss and grad_norm at each step and whether the ranks stayed
   bit-equal, beside the same for a sound run. Checks nothing: the
   readings PLACE_LOSS_RTOL and PLACE_GRAD_NORM_RTOL are set between."""
   out = {}
+  names = (args.fault,) if args.fault in PLACE_FAULTS else tuple(PLACE_FAULTS)
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_faults_') as out_dir:
-    for name in (None, *PLACE_FAULTS):
+    for name in (None, *names):
       extra = ['--ckpt', os.path.join(out_dir, f'ckpt_{name}'), '--seed',
                str(args.seed), '--only', '14'] + (
                    [] if name is None else ['--fault', name])
       res, seconds = run_ranks(f'--place-faults {name}', '14', 2, out_dir,
                                extra=extra,
                                env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+      if '14d' in res[0]:
+        drift = res[0]['14d']
+        out[f'{name or "sound"} 14d'] = drift
+        log(f'  {name or "sound"} 14d: {PLACE_DRIFT_STEPS} steps at tensor=2, '
+            f'ledger and deterministic algorithms off: replicated '
+            f'parameters bit-equal after each step {drift["equal"]}; first '
+            f'drift at step {drift["first_drift_step"]} [{card}]')
       for label, _ in PLACE_LAYOUTS:
         if name is not None and label not in PLACE_FAULTS[name]:
           continue
@@ -5193,6 +5346,16 @@ def placement(args, digests, card, worlds):
   t0 = time.perf_counter()
   out = {}
   res, seconds = worlds['two'], worlds['seconds']['two']
+  drift = [r['14d'] for r in res]
+  if not all(all(d['equal']) and len(d['equal']) == PLACE_DRIFT_STEPS
+             for d in drift):
+    raise AssertionError(f'14d: the replicated parameters drifted apart '
+                         f'across the tensor group: {drift}')
+  out['14d'] = drift[0]
+  log(f'  14d: {PLACE_DRIFT_STEPS} steps at tensor=2, the ledger and '
+      f'deterministic algorithms off: the replicated parameters bit-equal '
+      f'across the ranks after every step ({drift[0]["seconds"]:.1f} s) '
+      f'[{card}]')
   for label, axes in PLACE_LAYOUTS:
     per = [r[label] for r in res]
     world1 = per[0]['world1']
@@ -5933,17 +6096,17 @@ def flip_a_bit(ckpt, step, out):
   torch.save(state, path)
 
 
-def rank_16(args, digests):
-  """16 on one of two ranks on the card (gloo): the replay CLI's ``main``
-  for each job of ``--ckpt``'s replay16_jobs.json, as ``python -m
-  lddl_tpu_torch.replay.cli`` runs it launched as the run's ranks (the
-  world from the launcher's environment, ``--comm torch``), each job's
-  exit code, rank 0's printed verdict, and the kernels' launches
-  counted on the device, at 0 just before and read just after."""
+def replay_in_ranks(args):
+  """16 on one of the two ranks of phase 14's world, after its
+  recordings (:func:`record_sharded`): the replay CLI's ``main`` for each
+  job of :func:`replay_jobs`, as ``python -m lddl_tpu_torch.replay.cli``
+  runs it launched as the run's ranks (``--comm torch``: the world these
+  processes already are), each job's exit code, rank 0's printed
+  verdict, and the kernels' launches counted on the device, at 0 just
+  before and read just after."""
   from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.replay import cli
-  with open(os.path.join(args.ckpt, 'replay16_jobs.json')) as f:
-    jobs = json.load(f)
+  jobs, _ = replay_jobs(args, os.path.join(args.ckpt, '16'))
   import io
   out = []
   for label, argv in jobs:
@@ -5960,10 +6123,7 @@ def rank_16(args, digests):
                 'launches': tfa.device_launches(),
                 'host_launches': dict(tfa.launches),
                 'seconds': time.perf_counter() - t0})
-  rank_result(args, out)
-
-
-RANK_TASKS['16'] = rank_16
+  return out
 
 
 def step_line(ledger_dir, rank, step):
@@ -6020,19 +6180,18 @@ def replay_launches(axes, data, kind, steps, rows):
 
 
 def sharded_replay(args, card, worlds, root):
-  """Phase 16: the replay CLI launched as the recorded runs' two ranks on
-  the card (gloo), one launch of :func:`rank_16` for every job; each
-  replay's exit code on both ranks, its verdict against the recorded
-  ``step`` line, its launches against :func:`replay_launches`; the
-  bisect's spike step and losses against the recorded loss lines."""
+  """Phase 16's checks: the replay CLI run as the recorded runs' two ranks
+  on the card (gloo), in phase 14's rank processes after the recordings
+  (:func:`replay_in_ranks`); each replay's exit code on both ranks, its
+  verdict against the recorded ``step`` line, its launches against
+  :func:`replay_launches`; the bisect's spike step and losses against
+  the recorded loss lines."""
   t0 = time.perf_counter()
   d16 = os.path.join(root, '16')
   rec = [r['16'] for r in worlds['two']]
   jobs, want = replay_jobs(args, d16)
-  with open(os.path.join(root, 'replay16_jobs.json'), 'w') as f:
-    json.dump(jobs, f)
-  res, seconds = run_ranks('16', '16', 2, root, extra=['--ckpt', root],
-                           env={'LDDL_DIST_CUDA_BACKEND': 'gloo'})
+  res = [r['16replay'] for r in worlds['two']]
+  seconds = sum(job['seconds'] for job in res[0])
   out = {'seconds': seconds, 'jobs': {}}
   for i, (label, axes, data, kind, rc, steps) in enumerate(want):
     per = [r[i] for r in res]
@@ -6088,9 +6247,599 @@ def sharded_replay(args, card, worlds, root):
   check_no_rank_processes('phase 16')
   out['recorded'] = {label: rec[0][label] for label, *_ in REPLAY_LAYOUTS}
   out['phase_seconds'] = time.perf_counter() - t0
-  log(f'  phase 16: {out["phase_seconds"]:.1f} s (the replay launch '
-      f'{seconds:.1f} s) [{card}]')
+  log(f'  phase 16: {out["phase_seconds"]:.1f} s of checks (the replays '
+      f'{seconds:.1f} s, in phase 14\'s rank processes) [{card}]')
   return out
+
+
+# ---- phase 17: preprocessing on the card ----
+
+MASK_SOURCE = 'lddl_tpu_torch/csrc/masking.cu'
+MASK_REPLACES = {'mask_partition': 'lddl_tpu/ops/masking.py:494',
+                 'mask_matrix': 'lddl_tpu/ops/masking.py:414'}
+MASK_ROWS = 16384            # rows of 17a's partitions
+MASK_SEQ_LENS = (128, 512)
+MASK_CAP = 9                 # 17a's max_predictions cap case
+MASK_RATIO = 0.15
+MASK_IDS = {'mask_id': 103, 'cls_id': 101, 'sep_id': 102}
+MASK_SHORT_PROB = 0.1        # the preprocessor's short_seq_prob
+# int32 operations a second: the table's 67 TFLOP/s of float32 outside
+# the tensor cores counts an FMA as two on 128 lanes an SM; an H100 SM has
+# 64 INT32 lanes, so a quarter of it counts single int32 operations.
+PEAK_INT32_OPS = 67e12 / 4
+# Integer operations of one threefry2x32 (threefry_bits in masking.cu,
+# counted from the code): 2 adds of the key, 20 rounds of add, funnel
+# rotate and xor, 5 key injections of 2 adds, the final xor.
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2 + 1
+# Per valid position beyond its threefry: the valid test (~6), the
+# uniform's shift, or and subtract, the key's shift and or (~5); per picked
+# position three more threefry (decide, randint's two draws) and the
+# 80/10/10 compares and randint's three remainders and multiply-add (~12).
+# A padding or special position needs no draw: the function's least work
+# there is its output bytes.
+POSITION_OPS = THREEFRY_OPS + 11
+PICKED_OPS = 3 * THREEFRY_OPS + 12
+PREP_CORPUS_MB = 64          # synthetic one-document-per-line corpus
+PREP_SEQ, PREP_BIN, PREP_BLOCKS = 512, 64, 8
+PREP_DUP = 5                 # the preprocessor's default duplicate factor
+PREP_FLAGS = ['--target-seq-length', str(PREP_SEQ), '--bin-size',
+              str(PREP_BIN), '--num-blocks', str(PREP_BLOCKS), '--masking']
+PREP_SHARDS = 8
+PREP_STEPS = 16
+PREP_BATCH = 16
+PREP_TIMEOUT = 600
+PREP_MASK_COLUMNS = ('mask_delta_positions', 'mask_delta_new_ids',
+                     'mask_delta_k')
+
+
+def mask_inputs(n, seq_len, seed):
+  """A partition's flat ids (uint16 of a 30,522 vocab) and ``n`` rows of
+  ragged A/B ranges into it, from ``seed``, with the row lengths the
+  preprocessor makes from documents longer than a row (preprocess/
+  pairing.py): a full row of ``seq_len`` tokens, or with MASK_SHORT_PROB a
+  short one of 5..seq_len."""
+  r = np.random.default_rng(seed)
+  lengths = np.where(r.random(n) < MASK_SHORT_PROB,
+                     r.integers(5, seq_len + 1, n), seq_len)
+  na = r.integers(1, lengths - 3)
+  nb = lengths - 3 - na
+  total = int((na + nb).sum()) + 64
+  flat = r.integers(0, VOCAB_REAL, total).astype(np.uint16)
+  a0 = r.integers(0, total - na)
+  b0 = r.integers(0, total - nb)
+  return flat, np.stack([a0, a0 + na], 1), np.stack([b0, b0 + nb], 1)
+
+
+def path_partition(sink, seed, part=0):
+  """The masking kernel's inputs of one of the preprocessor's launches:
+  partition ``part``'s base rows as written under ``sink`` (every bin; A's
+  and B's lengths), each tiled PREP_DUP times copy-adjacent as the
+  preprocessor tiles them, A and B of a row adjacent in a flat array of
+  ids from ``seed``."""
+  na, nb = [], []
+  for name, t in shard_tables(sink).items():
+    if name.startswith(f'part.{part}.parquet') and t.num_rows:
+      a = t.column('A').token_counts().astype(np.int64)
+      na.append(a)
+      nb.append(t.column('num_tokens').astype(np.int64) - 3 - a)
+  na, nb = np.concatenate(na), np.concatenate(nb)
+  a0 = np.concatenate([[0], np.cumsum(na + nb)[:-1]])
+  flat = np.random.default_rng(seed).integers(
+      0, VOCAB_REAL, int((na + nb).sum())).astype(np.uint16)
+  a = np.repeat(np.stack([a0, a0 + na], 1), PREP_DUP, axis=0)
+  b = np.repeat(np.stack([a0 + na, a0 + na + nb], 1), PREP_DUP, axis=0)
+  return flat, a, b
+
+
+def mask_bound(kind, n, seq_len, valid, picked, width=None):
+  """(ms, 'operations' or 'bytes'): the least time the card could take for
+  one program's work on these inputs: a uniform draw at each of the
+  ``valid`` positions (A's and B's tokens) and three more at each picked
+  one; each input byte read once (the partition program reads the flat ids
+  at valid positions only) and each output byte written once."""
+  ops = valid * POSITION_OPS + picked * PICKED_OPS
+  if kind == 'mask_partition':
+    moved = valid * 2 + n * 16 + n * width * (2 + 4) + n * 4
+  else:
+    moved = n * seq_len * 4 + n * 8 + n * seq_len * (4 + 1)
+  t_ops, t_bytes = ops / PEAK_INT32_OPS, moved / PEAK_BYTES
+  return 1e3 * max(t_ops, t_bytes), (
+      'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def check_equal(label, got, want):
+  """Every output of ``got`` equals ``want``'s exactly."""
+  for i, (g, w) in enumerate(zip(got, want)):
+    if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+      bad = (g != w).sum().item() if g.shape == w.shape else 'shape'
+      raise AssertionError(f'{label}: output {i} differs ({bad} elements; '
+                           f'{tuple(g.shape)} {g.dtype} vs '
+                           f'{tuple(w.shape)} {w.dtype})')
+
+
+def mask_kernel_case(tm, kind, seq_len, seed, cap=None, inputs=None):
+  """One program at one shape: the kernel twice (bitwise equal) and its
+  plain version (the jit program as torch ops, argsort of the argsort: the
+  yardstick too) on the same card inputs, equal exactly; each timed by
+  CUDA events. ``inputs``: (flat, a, b, label) in place of mask_inputs'
+  MASK_ROWS rows."""
+  flat, a, b, rows = inputs or (*mask_inputs(MASK_ROWS, seq_len, seed),
+                                'full')
+  keys = tm.draw_keys(seed)
+  n = len(a)
+  if kind == 'mask_partition':
+    max_pred = tm.partition_max_pred(seq_len, MASK_RATIO, cap)
+    args = [torch.from_numpy(flat).to(DEVICE)] + [
+        torch.from_numpy(np.ascontiguousarray(c, dtype=np.int32)).to(DEVICE)
+        for c in (a[:, 0], a[:, 1], b[:, 0], b[:, 1])]
+    kw = dict(seq_len=seq_len, masked_lm_ratio=MASK_RATIO,
+              vocab_size=VOCAB_REAL, max_pred=max_pred, **MASK_IDS)
+    run = tm.partition_program
+  else:
+    ids, row_len, na = tm.assemble_pair_matrix(
+        flat.astype(np.int32), a, b, MASK_IDS['cls_id'], MASK_IDS['sep_id'],
+        seq_len)
+    args = [torch.from_numpy(x).to(DEVICE) for x in (ids, row_len, na)]
+    kw = dict(masked_lm_ratio=MASK_RATIO, vocab_size=VOCAB_REAL,
+              mask_id=MASK_IDS['mask_id'], max_pred=cap)
+    run = tm.matrix_program
+  kernel = lambda: run(*args, keys, **kw)  # noqa: E731
+  plain = lambda: run(*[x.cpu() for x in args], keys, **kw)  # noqa: E731
+  on_card_plain = lambda: _on_card_plain(tm, kind, args, keys, kw)  # noqa
+  first, second = kernel(), kernel()
+  torch.cuda.synchronize()
+  label = f'17a: {kind} s={seq_len} x {n} ({rows} rows)' + (
+      f' cap {cap}' if cap else '')
+  check_equal(f'{label}: two launches', second, first)
+  want = on_card_plain()
+  check_equal(f'{label}: kernel vs plain', first, want)
+  if seq_len == MASK_SEQ_LENS[0] and cap is None:
+    # The CPU's plain version (what the CPU tests hold against JAX) too.
+    check_equal(f'{label}: the CPU plain version', [x.to(DEVICE) for x in
+                                                    plain()], want)
+  k = (first[2] if kind == 'mask_partition' else first[1].sum(1)).to(
+      torch.int64)
+  picked = int(k.sum())
+  valid = int((a[:, 1] - a[:, 0]).sum() + (b[:, 1] - b[:, 0]).sum())
+  width = first[0].shape[1] if kind == 'mask_partition' else None
+  bound_ms, bound_by = mask_bound(kind, n, seq_len, valid, picked, width)
+  ms = cuda_ms(kernel)
+  plain_ms = cuda_ms(on_card_plain, reps=5, warmup=1)
+  share = valid / (n * seq_len)
+  row = {'name': kind, 'shape': [n, seq_len], 'rows': rows, 'cap': cap,
+         'max_abs_err': 0,
+         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+         'bound_by': bound_by, 'picked': picked, 'valid': valid,
+         'valid_share': share, 'k_max': int(k.max())}
+  log(f'  {label}: = plain exactly, two launches bitwise equal; kernel '
+      f'{ms:.4f} ms, plain (argsort-twice yardstick) {plain_ms:.3f} ms, '
+      f'bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound;'
+      f' {valid} valid positions ({share:.1%}), {picked} picked')
+  return row
+
+
+def _on_card_plain(tm, kind, args, keys, kw):
+  """The plain version on the card's tensors (what the wrapper runs for
+  CPU tensors), for the comparison and its time."""
+  span, mult = tm.randint_constants(kw['vocab_size'])
+  if kind == 'mask_partition':
+    return tm._partition_plain(
+        *args, keys, seq_len=kw['seq_len'], ratio=kw['masked_lm_ratio'],
+        span=span, mult=mult, mask_id=kw['mask_id'], cls_id=kw['cls_id'],
+        sep_id=kw['sep_id'], max_pred=kw['max_pred'])
+  return tm._matrix_plain(
+      *args, keys, ratio=kw['masked_lm_ratio'], span=span, mult=mult,
+      mask_id=kw['mask_id'], max_pred=kw['max_pred'])
+
+
+def masking_kernels(args, card, path_sink):
+  """17a: both masking programs against their plain versions on the
+  card, at s=128 and s=512 over MASK_ROWS full rows, over the rows of one
+  of the preprocessor's launches (partition 0 under ``path_sink``, 17c's
+  sink: 17b's rows), a max_predictions cap, an empty partition; and the
+  matrix program through its entry point, mask_batch(backend='device'),
+  counted."""
+  from lddl_tpu_torch.ops import masking as tm
+  rows = []
+  for seq_len in MASK_SEQ_LENS:
+    for kind in MASK_REPLACES:
+      rows.append(mask_kernel_case(tm, kind, seq_len, args.seed + seq_len))
+  path = (*path_partition(path_sink, args.seed + 3), '17b partition 0')
+  for kind in MASK_REPLACES:
+    rows.append(mask_kernel_case(tm, kind, PREP_SEQ, args.seed + 3,
+                                 inputs=path))
+    torch.cuda.empty_cache()
+  for kind in MASK_REPLACES:
+    rows.append(mask_kernel_case(tm, kind, MASK_SEQ_LENS[-1],
+                                 args.seed + 1, cap=MASK_CAP))
+    torch.cuda.empty_cache()
+  empty = np.zeros((0, 2), np.int64)
+  tm.reset_launches()
+  pos, new, k = tm.mask_partition_device(
+      np.zeros(4, np.int32), empty, empty, seq_len=PREP_SEQ,
+      masked_lm_ratio=MASK_RATIO, vocab_size=VOCAB_REAL, seed=args.seed,
+      **MASK_IDS)
+  if pos.shape != (0, tm.partition_max_pred(PREP_SEQ, MASK_RATIO)) or \
+      len(k) or any(tm.launches.values()):
+    raise AssertionError(f'17a: an empty partition gave {pos.shape}, '
+                         f'{len(k)} k, launches {tm.launches}')
+  # M2's entry point as a user calls it (it has no caller in the
+  # preprocessor): mask_batch(backend='device') on a padded id matrix.
+  flat, a, b = mask_inputs(MASK_ROWS, PREP_SEQ, args.seed + 7)
+  ids, row_len, na = tm.assemble_pair_matrix(
+      flat.astype(np.int32), a, b, MASK_IDS['cls_id'], MASK_IDS['sep_id'],
+      PREP_SEQ)
+  tm.reset_launches()
+  masked, picked = tm.mask_batch(
+      ids, row_len, na, masked_lm_ratio=MASK_RATIO, vocab_size=VOCAB_REAL,
+      mask_id=MASK_IDS['mask_id'], seed=args.seed + 7, backend='device')
+  matrix_launches = tm.launches['mask_matrix']
+  want = _on_card_plain(
+      tm, 'mask_matrix', [torch.from_numpy(x).to(DEVICE) for x in
+                          (ids, row_len, na)],
+      tm.draw_keys(args.seed + 7),
+      dict(masked_lm_ratio=MASK_RATIO, vocab_size=VOCAB_REAL,
+           mask_id=MASK_IDS['mask_id'], max_pred=None))
+  if matrix_launches != 1 or not (
+      np.array_equal(masked, want[0].cpu().numpy()) and
+      np.array_equal(picked, want[1].cpu().numpy())):
+    raise AssertionError(f'17a: mask_batch(backend=device) launched '
+                         f'{matrix_launches} kernels or differs from the '
+                         'plain version')
+  log(f'  17a: an empty partition launches nothing; mask_batch(backend='
+      f"'device') on {MASK_ROWS} x {PREP_SEQ}: 1 launch, = plain exactly")
+  return {'rows': rows, 'mask_matrix_launches': matrix_launches}
+
+
+# Phase 17's subprocesses: killed at exit if still running.
+PREP_PROCS = []
+
+
+def prep_run(cmd, env, label):
+  """``cmd`` from the checkout: (stdout, seconds); raises with its output
+  on a non-zero exit or past PREP_TIMEOUT."""
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True)
+  PREP_PROCS.append(proc)
+  try:
+    out, err = proc.communicate(timeout=PREP_TIMEOUT)
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
+  seconds = time.perf_counter() - t0
+  if proc.returncode:
+    raise AssertionError(f'{label}: {" ".join(cmd[1:4])} exited '
+                         f'{proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}')
+  return out, seconds
+
+
+def prep_cli(module, argv, env, label):
+  """``python -m <module> <argv>`` from the checkout, as a user runs it."""
+  return prep_run([sys.executable, '-m', module, *argv], env, label)
+
+
+def telemetry_lines(directory):
+  with open(os.path.join(directory, 'telemetry.rank0.jsonl')) as f:
+    return {x['name']: x for x in map(json.loads, f) if 'name' in x}
+
+
+def preprocess_run(corpus, sink, tele, backend, label):
+  """One preprocess of ``corpus`` into ``sink`` by the CLI (telemetry on,
+  exported to ``tele``): (partitions, samples, seconds, telemetry)."""
+  env = dict(os.environ, LDDL_TELEMETRY='1', LDDL_TELEMETRY_DIR=tele)
+  argv = ['--source', corpus, '--sink', sink, '--vocab-file', VOCAB_FILE,
+          *PREP_FLAGS] + (['--mask-backend', backend] if backend else [])
+  out, seconds = prep_cli('lddl_tpu_torch.preprocess.bert', argv, env, label)
+  m = re.search(r'preprocessed (\d+) samples into (\d+) partitions in '
+                r'([0-9.]+)s', out)
+  if not m or 'mask=device' not in out and backend != 'host':
+    raise AssertionError(f'{label}: unexpected output:\n{out[-2000:]}')
+  return (int(m.group(2)), int(m.group(1)), float(m.group(3)), seconds,
+          telemetry_lines(tele))
+
+
+def shard_tables(sink):
+  """``{file name: Table}`` of every shard under ``sink`` (port reader)."""
+  from lddl_tpu_torch.pipeline.parquet_io import ParquetFile
+  out = {}
+  for name in sorted(os.listdir(sink)):
+    if '.parquet' in name:
+      with ParquetFile(os.path.join(sink, name)) as pf:
+        out[name] = pf.read()
+  return out
+
+
+def npy_u2_values(column, counts):
+  """The uint16 payloads of a binary column of np.save-framed ``<u2``
+  arrays (the writer's delta columns), ``counts[i]`` values in row i,
+  gathered flat in numpy; raises where a row's framing says otherwise."""
+  offsets, data = column.offsets, column.data
+  starts = offsets[:-1]
+  hlen = data[starts + 8].astype(np.int64) | (
+      data[starts + 9].astype(np.int64) << 8)
+  payload = starts + 10 + hlen
+  counts = np.asarray(counts, dtype=np.int64)
+  if not np.array_equal(offsets[1:] - payload, 2 * counts) or not all(
+      b"'descr': '<u2'" in data[a:a + 10 + int(h)].tobytes()
+      for a, h in zip(starts[:1], hlen[:1])):
+    raise AssertionError('a delta column\'s framing disagrees with its k')
+  total = int(counts.sum())
+  at = np.repeat(payload - 2 * np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                 counts) + 2 * np.arange(total)
+  return (data[at].astype(np.int64) | (data[at + 1].astype(np.int64) << 8))
+
+
+def check_delta_rows(tables, label, backend):
+  """The row invariants of a delta shard, over every copy of every row
+  in numpy: each copy's k is min(max(1, rint(num_tokens * 0.15)),
+  num_tokens - 3[, max_pred]) (the device program's float32 arithmetic
+  and its max_pred cap; the host pass's float64, uncapped), its
+  positions strictly increasing, inside A or B, never on [CLS] or a
+  [SEP]. Returns (rows, copies, tokens of A and B)."""
+  from lddl_tpu_torch.ops.masking import partition_max_pred
+  max_pred = partition_max_pred(PREP_SEQ, MASK_RATIO)
+  rows = copies = tokens = 0
+  for name, t in tables.items():
+    n = t.num_rows
+    if not n:
+      continue
+    num_tokens = t.column('num_tokens').astype(np.int64)
+    na = t.column('A').token_counts()
+    if backend == 'device':
+      want_k = np.minimum(np.maximum(1, np.rint(
+          num_tokens.astype(np.float32) * np.float32(MASK_RATIO)).astype(
+              np.int64)), max_pred)
+    else:
+      want_k = np.maximum(1, np.rint(num_tokens * MASK_RATIO).astype(
+          np.int64))
+    want_k = np.minimum(want_k, num_tokens - 3)
+    k = npy_u2_values(t.column('mask_delta_k'),
+                      np.full(n, PREP_DUP)).reshape(n, PREP_DUP)
+    if (k != want_k[:, None]).any():
+      bad = int(np.nonzero((k != want_k[:, None]).any(1))[0][0])
+      raise AssertionError(f'{label}: {name} row {bad}: k {k[bad].tolist()}'
+                           f', want {int(want_k[bad])} x {PREP_DUP}')
+    pos = npy_u2_values(t.column('mask_delta_positions'), k.sum(1))
+    per_copy = k.reshape(-1)
+    row = np.repeat(np.repeat(np.arange(n), PREP_DUP), per_copy)
+    first = np.zeros(len(pos), dtype=bool)
+    first[np.concatenate([[0], np.cumsum(per_copy)[:-1]])[per_copy > 0]] = True
+    rising = np.diff(pos, prepend=-1) > 0
+    in_a = (pos >= 1) & (pos < 1 + na[row])
+    in_b = (pos >= 2 + na[row]) & (pos < num_tokens[row] - 1)
+    ok = (first | rising) & (in_a | in_b)
+    if not ok.all():
+      bad = int(row[np.nonzero(~ok)[0][0]])
+      raise AssertionError(f'{label}: {name} row {bad}: positions break the '
+                           f'invariants (na {na[bad]}, num_tokens '
+                           f'{num_tokens[bad]})')
+    rows += n
+    copies += n * PREP_DUP
+    tokens += int((num_tokens - 3).sum())
+  return rows, copies, tokens
+
+
+def prep_seconds(tele):
+  """Seconds of the preprocessor's parts, from its telemetry export."""
+  pick = {'tokenize': 'preprocess.tokenize_seconds',
+          'plan': 'preprocess.plan_seconds',
+          'mask': 'preprocess.mask_seconds',
+          'assemble': 'preprocess.assemble_seconds',
+          'write': 'pipeline.write_seconds',
+          'scatter': 'pipeline.scatter.map_seconds',
+          'process': 'pipeline.process.map_seconds'}
+  return {k: round(tele.get(v, {}).get('sum', 0.0), 3)
+          for k, v in pick.items()}
+
+
+class PrepBackground:
+  """Phase 17's host-only work, started beside the kernels' build at the
+  script's start (it needs no kernel, and the build leaves the host's
+  cores idle; the script joins it before its first timed phase): the synthetic corpus (core/synth, PREP_CORPUS_MB
+  MiB from --seed), then 17c's preprocess with ``--mask-backend host``.
+  Phase 17 reads its results; :meth:`close` kills what still runs."""
+
+  def __init__(self, args):
+    import threading
+    self.root = tempfile.mkdtemp(prefix='lddl_smoke_prep_')
+    self.corpus = os.path.join(self.root, 'corpus')
+    self.started = time.perf_counter()
+    self.done = None
+    self.result, self.error = {}, None
+    self.thread = threading.Thread(target=self._run, args=(args.seed,),
+                                   daemon=True)
+    self.thread.start()
+
+  def _run(self, seed):
+    try:
+      code = ('from lddl_tpu_torch.core import synth; '
+              f'print(synth.write_corpus({self.corpus!r}, {PREP_CORPUS_MB}, '
+              f'seed={seed}))')
+      out, seconds = prep_run([sys.executable, '-c', code],
+                              dict(os.environ), '17b corpus')
+      self.result['corpus'] = (float(out.strip().splitlines()[-1]), seconds)
+      self.result['host'] = preprocess_run(
+          self.corpus, os.path.join(self.root, 'sink_host'),
+          os.path.join(self.root, 'tele_host'), 'host', '17c')
+    except BaseException as e:  # re-raised by join(), on the main thread
+      self.error = e
+    finally:
+      self.done = time.perf_counter()
+
+  def join(self):
+    """Wait for it (seconds waited); raise what it raised."""
+    t0 = time.perf_counter()
+    self.thread.join(PREP_TIMEOUT)
+    if self.thread.is_alive():
+      raise AssertionError('17: the background preprocess outlived '
+                           f'{PREP_TIMEOUT} s')
+    if self.error is not None:
+      raise self.error
+    return time.perf_counter() - t0
+
+  def close(self):
+    for proc in PREP_PROCS:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(self.root, ignore_errors=True)
+
+
+def preprocess_on_card(args, card, bg):
+  """17b-17e: the preprocessor as users call it on a synthetic corpus,
+  device masking by default (17b); the same with --mask-backend host
+  (17c, run by ``bg`` beside the build); the balancer (17d); BERT-base
+  trained from the balanced shards (17e)."""
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.pipeline import shard_format as tformat
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  from lddl_tpu_torch.training import TrainLoop
+
+  root = bg.root
+  waited = bg.join()
+  mb, corpus_s = bg.result['corpus']
+  log(f'  17b: synthetic corpus of {mb:.1f} MiB (core/synth, seed '
+      f'{args.seed}) in {corpus_s:.1f} s, then 17c, both in processes '
+      f'started beside the build: done {bg.done - bg.started:.1f} s after '
+      f'the script\'s start; phase 17 waited {waited:.1f} s for them')
+  out = {'corpus_mib': mb, 'corpus_seconds': corpus_s}
+  sinks = {}
+  for backend in ('device', 'host'):
+    label = '17b' if backend == 'device' else '17c'
+    sink = os.path.join(root, f'sink_{backend}')
+    if backend == 'device':
+      parts, samples, run_s, wall_s, tl = preprocess_run(
+          bg.corpus, sink, os.path.join(root, 'tele_device'), None, label)
+    else:
+      parts, samples, run_s, wall_s, tl = bg.result['host']
+    sinks[backend] = sink
+    # The counter exists once a partition masked on the device.
+    launches = tl.get('preprocess.mask_kernel_launches', {}).get('total', 0)
+    tasks = tl.get('pipeline.process.tasks', {}).get('total')
+    want_launches = parts if backend == 'device' else 0
+    if launches != want_launches or tasks != parts:
+      raise AssertionError(f'{label}: {launches} masking kernel launches '
+                           f'for {tasks} tasks, {parts} partitions; want '
+                           f'{want_launches}')
+    names = sorted(x for x in os.listdir(sink) if '.parquet' in x)
+    want_names = sorted(f'part.{p}.parquet_{b}' for p in range(parts)
+                        for b in range(PREP_SEQ // PREP_BIN))
+    if names != want_names:
+      raise AssertionError(f'{label}: shards {names[:5]}...; want every '
+                           f'bin of every partition')
+    tables = shard_tables(sink)
+    for name in names:
+      tag = tformat.shard_format_of(os.path.join(sink, name))
+      if tag != ('delta', PREP_DUP):
+        raise AssertionError(f'{label}: {name} is tagged {tag}')
+    rows, copies, tokens = check_delta_rows(tables, label, backend)
+    if rows != samples:
+      raise AssertionError(f'{label}: the reader read {rows} rows of '
+                           f'{samples}')
+    secs = prep_seconds(tl)
+    res = {'partitions': parts, 'rows': rows, 'samples': copies,
+           'valid_share': tokens / (rows * PREP_SEQ),
+           'seconds': run_s, 'wall_seconds': wall_s,
+           'mb_per_s': mb / run_s, 'launches': launches, 'parts': secs}
+    out[backend] = res
+    log(f'  {label}: python -m lddl_tpu_torch.preprocess.bert '
+        f'{" ".join(PREP_FLAGS)} (mask backend {backend}): {parts} '
+        f'partitions, {rows} delta rows ({copies} samples at dup '
+        f'{PREP_DUP}), every bin file, tags (delta, {PREP_DUP}); k, '
+        f'positions in A or B, none special, increasing: held on every '
+        f'copy ({tokens / (rows * PREP_SEQ):.1%} of the positions in A or '
+        f'B); masking kernel launches {launches} (telemetry export); '
+        f'{run_s:.1f} s in run ({wall_s:.1f} s of process): '
+        f'{mb / run_s:.2f} MB/s of corpus on one card at dup {PREP_DUP}; '
+        f'parts {secs} [{card}]')
+  dev, host = shard_tables(sinks['device']), shard_tables(sinks['host'])
+  differ = 0
+  for name, t in dev.items():
+    h = host[name]
+    for col, kind in t.fields:
+      a, b = t.column(col), h.column(col)
+      same = (np.array_equal(a.offsets, b.offsets) and
+              np.array_equal(a.data, b.data)) if kind in (
+                  'string', 'binary') else np.array_equal(a, b)
+      if col in PREP_MASK_COLUMNS:
+        differ += not same
+      elif not same:
+        raise AssertionError(f'17c: {name} column {col} differs between '
+                             'the device and host backends')
+  if not differ:
+    raise AssertionError('17c: the two backends wrote the same masks')
+  log(f'  17c: every non-masking column byte-identical to 17b\'s, row for '
+      f'row; the masking columns differ ({differ} file-columns: '
+      'different draws)')
+  bal = os.path.join(root, 'balanced')
+  _, bal_s = prep_cli('lddl_tpu_torch.balance',
+                      ['--indir', sinks['device'], '--outdir', bal,
+                       '--num-shards', str(PREP_SHARDS)], dict(os.environ),
+                      '17d')
+  with open(os.path.join(bal, '.num_samples.json')) as f:
+    meta = json.load(f)
+  balanced = shard_tables(bal)
+  total = 0
+  for b in range(PREP_SEQ // PREP_BIN):
+    counts = [balanced[f'shard-{s}.parquet_{b}'].num_rows
+              for s in range(PREP_SHARDS)]
+    if max(counts) - min(counts) > 1 or any(
+        meta[f'shard-{s}.parquet_{b}'] != c for s, c in enumerate(counts)):
+      raise AssertionError(f'17d: bin {b} shards hold {counts} groups, the '
+                           f'cache says {meta}')
+    total += sum(counts)
+  if total != out['device']['rows']:
+    raise AssertionError(f'17d: {total} groups balanced of '
+                         f'{out["device"]["rows"]}')
+  out['balance'] = {'seconds': bal_s, 'groups': total}
+  log(f'  17d: python -m lddl_tpu_torch.balance --num-shards {PREP_SHARDS}:'
+      f' every bin\'s {PREP_SHARDS} shards hold n or n+1 groups, {total} in '
+      f'all = 17b\'s, .num_samples.json written, {bal_s:.1f} s')
+  settings = {'base_seed': args.seed, 'batch_size_per_rank': PREP_BATCH,
+              'bin_size': PREP_BIN, 'max_seq_length': PREP_SEQ,
+              'masking': 'static', 'shuffle_buffer_size': 256}
+  with step_cache(False):
+    loop = TrainLoop.build(bal, load_bert_tokenizer(VOCAB_FILE),
+                           **pairs_build(args, settings))
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = loop.run(PREP_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / max(1, len(losses))
+    counts = tfa.device_launches()
+  layers = loop.model.cfg.num_layers
+  want = {k: (layers * PREP_STEPS if not k.endswith('_seg') else 0)
+          for k in counts}
+  if len(losses) != PREP_STEPS or not np.isfinite(losses).all():
+    raise AssertionError(f'17e: losses {losses}')
+  check_launches(counts, dict(tfa.launches), want, '17e')
+  out['train'] = {'losses': [float(x) for x in losses],
+                  'ms_per_step': 1e3 * step_s, 'launches': counts}
+  log(f'  17e: BERT-base from the balanced shards (static masks, bins of '
+      f'{PREP_BIN}, batch {PREP_BATCH}, step cache off): {PREP_STEPS} '
+      f'finite losses {losses[0]:.4f} -> {losses[-1]:.4f}, '
+      f'{1e3 * step_s:.1f} ms/step [{card}]')
+  del loop
+  torch.cuda.empty_cache()
+  return out
+
+
+def preprocessing(args, card, bg):
+  """Phase 17: 17a the masking kernels, 17b-17e the preprocessing path
+  (``bg``: its host-only part, started at the script's start)."""
+  from lddl_tpu_torch.ops import masking as tm
+  try:
+    bg.join()
+    kernels = masking_kernels(args, card, os.path.join(bg.root, 'sink_host'))
+    torch.cuda.empty_cache()
+    tm.reset_launches()
+    path = preprocess_on_card(args, card, bg)
+  finally:
+    bg.close()
+  return {'kernels': kernels, 'path': path}
 
 
 def main():
@@ -6109,7 +6858,7 @@ def main():
   parser.add_argument('--packed-warmup', type=int, default=2,
                       help='untimed packed steps before the timed ones')
   parser.add_argument('--rank-task', choices=sorted(RANK_TASKS),
-                      help="the rank processes of phases 9, 11, 14 and 16 "
+                      help="the rank processes of phases 9, 14, 15 and 16 "
                       '(the script starts them itself)')
   parser.add_argument('--out', help='--rank-task: where it writes')
   parser.add_argument('--ckpt', help='--rank-task: the checkpoint dir')
@@ -6145,6 +6894,12 @@ def main():
 
   card = card_line()
   log(f'card: {card}')
+  # Phase 17's host-only work (a corpus, a preprocess on the host) runs
+  # beside the build, which leaves the host's cores idle.
+  prep_bg = None
+  if not (args.place_faults or args.ring_faults):
+    prep_bg = PrepBackground(args)
+    atexit.register(prep_bg.close)
   log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
       f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -6152,9 +6907,15 @@ def main():
 
   log('== build')
   t0 = time.perf_counter()
-  _build.library()
+  _build.build_all()  # the flash and masking libraries' nvcc together
   log(f'  kernels loaded in {time.perf_counter() - t0:.1f}s from '
-      f'{_build.library_path()}')
+      f'{_build.library_path()} and {_build.masking_library_path()}')
+  if _build.masking_build_info['log'] is not None:
+    log(f'  masking.cu: nvcc took {_build.masking_build_info["seconds"]:.1f}s;'
+        ' ' + '; '.join(
+            line.strip() for line in
+            _build.masking_build_info['log'].splitlines()
+            if 'registers' in line or 'spill' in line))
   if args.place_faults:
     place_faults(args, card)
     return 0
@@ -6165,6 +6926,10 @@ def main():
   if _build.build_info['log'] is not None:
     log(f'  nvcc took {_build.build_info["seconds"]:.1f}s; ptxas:')
     ptxas = ptxas_report(_build.build_info['log'])
+  # Phase 17's host work ends here, before the first timed phase (K1-K4's
+  # CUDA-event times): no host process of it runs beside a timing.
+  log(f'  (phase 17\'s corpus and host preprocess, started beside the '
+      f'build: waited {prep_bg.join():.1f} s for them here)')
 
   log('== kernels vs plain versions [' + card + ']')
   cases = []
@@ -6258,6 +7023,11 @@ def main():
   finally:
     shutil.rmtree(ranks_root, ignore_errors=True)
 
+  log(f'== preprocessing on the card: the masking kernels (17a), the '
+      f'preprocessor, the balancer and training from their shards (17b-e) '
+      f'[{card}]')
+  prep = preprocessing(args, card, prep_bg)
+
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
   # Each kernel at the shape of the training phase that runs it, bf16.
@@ -6294,8 +7064,7 @@ def main():
     entry['phase11_launches'] = {
         'record': replayed['launches'][name],
         'resumed': replayed['resumed_launches'][name],
-        'replays_in_a_fresh_process': [x[name] for x in
-                                       replayed['replay_launches']]}
+        'replays': [x[name] for x in replayed['replay_launches']]}
     entry['phase12_launches_per_window'] = {
         label: c['window_launches'][name] for label, c in scanned.items()}
     entry['phase14_launches_per_rank'] = {
@@ -6318,6 +7087,27 @@ def main():
                    segment_free_ms=r['segment_free_ms'],
                    intervals_ms=r['intervals_ms'])
     summary.append(entry)
+  for name, replaces in MASK_REPLACES.items():
+    # Timed on the rows of one of 17b's launches: the main path's load.
+    r = next(x for x in prep['kernels']['rows'] if x['name'] == name and
+             x['rows'] == '17b partition 0')
+    summary.append({
+        'name': name, 'route': 'cuda', 'source': MASK_SOURCE,
+        'replaces': replaces,
+        'launches': (prep['path']['device']['launches']
+                     if name == 'mask_partition' else
+                     prep['kernels']['mask_matrix_launches']),
+        'launches_counted_by': (
+            "the wrapper, in the preprocessor's process (its telemetry "
+            'export), one a partition (17b)' if name == 'mask_partition'
+            else "the wrapper, over mask_batch(backend='device') (17a)"),
+        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': None,
+        'plain': 'the jit program as torch ops (argsort of the argsort), '
+                 'on the card: the yardstick too',
+        'valid_share': r['valid_share'],
+        'shape': r['shape'], 'dtype': 'int32'})
   log(json.dumps({'training': [{k: v for k, v in b.items() if k != 'losses'}
                                for b in per_bin],
                   'packed': {k: v for k, v in packed.items()
@@ -6334,6 +7124,7 @@ def main():
                   'record_and_replay': replayed,
                   'scan_window': scanned, 'bart': bart,
                   'placement': placed, 'sharded_replay': sharded,
+                  'preprocessing': {k: v for k, v in prep.items()},
                   'card': card}, default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))

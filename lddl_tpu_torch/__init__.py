@@ -7,7 +7,7 @@ jax, anything of :mod:`lddl_tpu`, pyarrow or transformers. Entry points
 put tensors on ``cuda`` unless the caller passes ``device='cpu'``.
 
 Ported so far: BERT pretraining on one card from balanced Parquet shards
-that :mod:`lddl_tpu` wrote, segment-free and packed long-context with
+(written by :mod:`lddl_tpu` or by the port itself), segment-free and packed long-context with
 block-diagonal attention. The corpus loader: ``pipeline.parquet_io`` (a
 Parquet reader in numpy, no pyarrow) with ``pipeline.codecs`` (LZ4 and
 Snappy in host C++, ``csrc/codecs.cpp``), ``pipeline.shard_format``,
@@ -73,5 +73,17 @@ gradients over ``data x fsdp x seq``) and the CLI's ``--sp``. Step
 replay, bisect and bundles of a sharded run launched as its ranks: the
 replay CLI's ``--comm torch`` over the run's mesh (``replay.cli``'s
 ``World``: the world's verdict), each rank's own ledger file and batch
-rank, ``training.flight`` over each rank's incident.
+rank, ``training.flight`` over each rank's incident. BERT preprocessing
+and balancing on the card: ``preprocess.bert`` (the fast engine, ``python
+-m lddl_tpu_torch.preprocess.bert``) over ``preprocess.readers``,
+``pipeline.partition``, ``pipeline.shuffle``, ``preprocess.common``,
+``pipeline.executor`` (the serial map over comm ranks, with write-back),
+``preprocess.pairing`` (and ``native``'s ``src/pairing.cpp``),
+``tokenization.sentences``, the encoder's preprocessing half, host
+masking (``native/src/masking.cpp``) and device masking as CUDA
+(``ops.masking``, ``csrc/masking.cu``: both jit programs of
+:mod:`lddl_tpu.ops.masking`, bit for bit), and the shard writer
+(``pipeline.parquet_io``: Parquet in numpy, LZ4_RAW pages from
+``csrc/codecs.cpp``; ``pipeline.shard_format``'s tags); ``balance``
+(``python -m lddl_tpu_torch.balance``); ``core.synth``.
 """

@@ -10,16 +10,31 @@ nothing of ``lddl_tpu``):
     own reader (:mod:`lddl_tpu_torch.pipeline.parquet_io`);
   - ``serialize_np_array`` / ``deserialize_np_array``: preprocessed shards
     store masked positions, packed token ids and document offsets as
-    np.save bytes in a binary column.
+    np.save bytes in a binary column;
+  - the preprocessor's batched form of that framing
+    (``npy_batch_binary_parts``), which builds a whole binary column as
+    (offsets, bytes) buffers with no per-row Python object, and the
+    command-line helpers of the preprocessor and the balancer.
 """
 
+import functools
 import io
 import os
 import re
 
 import numpy as np
 
-from ..pipeline.parquet_io import ParquetFile
+from ..pipeline.parquet_io import ByteArrays, ParquetFile
+
+
+def mkdir(d):
+  os.makedirs(d, exist_ok=True)
+
+
+def expand_outdir_and_mkdir(outdir):
+  outdir = os.path.abspath(os.path.expanduser(outdir))
+  mkdir(outdir)
+  return outdir
 
 
 def get_all_files_paths_under(root):
@@ -34,6 +49,13 @@ def get_all_parquets_under(path):
   return [
       p for p in get_all_files_paths_under(path)
       if '.parquet' in os.path.splitext(p)[1]
+  ]
+
+
+def get_all_txt_files_under(path):
+  return [
+      p for p in get_all_files_paths_under(path)
+      if '.txt' in os.path.splitext(p)[1]
   ]
 
 
@@ -76,21 +98,24 @@ def get_num_samples_of_parquet(path):
 
 
 def count_parquet_samples_strided(paths, comm=None):
-  """Per-file sample counts (a list of ints) from the Parquet footers. The
-  JAX package spreads the footers over the ranks of ``comm`` and sums the
-  counts; the port has one process until its comm backend is ported, so
-  a ``comm`` with a world size above 1 raises."""
-  if comm is not None and comm.world_size > 1:
-    raise NotImplementedError(
-        'count_parquet_samples_strided over a comm of world size '
-        f'{comm.world_size}: the port has no comm backend yet')
-  return [get_num_samples_of_parquet(p) for p in paths]
+  """Per-file sample counts (a list of ints) from the Parquet footers:
+  rank ``r`` reads the footers of ``paths[r::world]`` and the count
+  vector is summed over the ranks of ``comm`` (None: one process)."""
+  counts = np.zeros((len(paths),), dtype=np.int64)
+  rank = comm.rank if comm is not None else 0
+  world = comm.world_size if comm is not None else 1
+  for i in range(rank, len(paths), world):
+    counts[i] = get_num_samples_of_parquet(paths[i])
+  if world > 1:
+    counts = comm.allreduce_sum(counts)
+  return [int(c) for c in counts]
 
 _NPY_1D_HEADER_RE = re.compile(
     rb"^\{'descr': '([^']+)', 'fortran_order': False, "
     rb"'shape': \((\d+),\), \}\s*\n$")
 
 
+@functools.lru_cache(maxsize=4096)
 def _npy_header(descr, n):
   """The exact ``.npy`` v1.0 header ``np.save`` writes for a 1-D array."""
   body = "{'descr': '%s', 'fortran_order': False, 'shape': (%d,), }" % (
@@ -110,6 +135,112 @@ def serialize_np_array(a):
   buf = io.BytesIO()
   np.save(buf, a, allow_pickle=False)
   return buf.getvalue()
+
+
+def serialize_u16_batch(values, offsets):
+  """Many uint16 position arrays at once: a list of ``np.save`` bytes, one
+  per ``values[offsets[k]:offsets[k + 1]]``."""
+  values = np.ascontiguousarray(values, dtype='<u2')
+  raw = values.tobytes()
+  return [
+      _npy_header('<u2', int(offsets[k + 1] - offsets[k])) +
+      raw[int(offsets[k]) * 2:int(offsets[k + 1]) * 2]
+      for k in range(len(offsets) - 1)
+  ]
+
+
+def npy_batch_binary_parts(values, offsets, dtype='<u2'):
+  """The ``np.save`` framing of many arrays at once, as the buffers of a
+  binary column: ``(value_offsets int64 [n+1], data uint8)``, where row
+  ``i`` holds ``values[offsets[i]:offsets[i + 1]]`` as ``dtype``. No
+  per-row Python object exists at any point."""
+  dtype = np.dtype(dtype)
+  descr = dtype.str
+  itemsize = dtype.itemsize
+  values = np.ascontiguousarray(values, dtype=dtype)
+  offsets = np.asarray(offsets, dtype=np.int64)
+  n = len(offsets) - 1
+  if n <= 0:
+    return np.zeros(1, dtype=np.int64), np.zeros(0, dtype=np.uint8)
+  # Offsets may describe a sub-span of values: make the span 0-based.
+  if offsets[0] != 0 or offsets[-1] != len(values):
+    values = np.ascontiguousarray(values[offsets[0]:offsets[-1]])
+    offsets = offsets - offsets[0]
+  counts = np.diff(offsets)
+  uniq = np.unique(counts)
+  hdr_bytes = {int(c): np.frombuffer(_npy_header(descr, int(c)), np.uint8)
+               for c in uniq}
+  hdr_len = np.zeros(int(uniq.max()) + 1, dtype=np.int64)
+  for c, h in hdr_bytes.items():
+    hdr_len[c] = len(h)
+  hl = hdr_len[counts]
+  row_bytes = hl + itemsize * counts
+  boffs = np.zeros(n + 1, dtype=np.int64)
+  np.cumsum(row_bytes, out=boffs[1:])
+  data = np.empty(int(boffs[-1]), dtype=np.uint8)
+  for c, h in hdr_bytes.items():
+    rows = np.nonzero(counts == c)[0]
+    idx = boffs[rows][:, None] + np.arange(len(h), dtype=np.int64)[None, :]
+    data[idx.ravel()] = np.tile(h, len(rows))
+  # Payload: the flat values are in row order, so each payload byte lands
+  # at its row's payload start plus its offset within the row's payload.
+  payload = values.view(np.uint8)
+  nbytes = itemsize * counts
+  target = (np.repeat(boffs[:n] + hl - itemsize * offsets[:n], nbytes)
+            + np.arange(len(payload), dtype=np.int64))
+  data[target] = payload
+  return boffs, data
+
+
+def u16_batch_binary_parts(values, offsets):
+  """:func:`npy_batch_binary_parts` of uint16 positions (the
+  ``masked_lm_positions`` column)."""
+  return npy_batch_binary_parts(values, offsets, '<u2')
+
+
+def binary_column_from_parts(boffs, bdata, n, column_name):
+  """The writer's binary column (:class:`~lddl_tpu_torch.pipeline.
+  parquet_io.ByteArrays`) over :func:`npy_batch_binary_parts`' buffers.
+  A Parquet BYTE_ARRAY value and an Arrow ``binary`` column are both
+  capped at 2 GiB; a partition past that raises instead of wrapping."""
+  boffs = np.asarray(boffs, dtype=np.int64)
+  if len(boffs) != n + 1:
+    raise ValueError(f'{column_name}: {len(boffs) - 1} values for {n} rows')
+  if int(boffs[-1]) > np.iinfo(np.int32).max:
+    raise ValueError(
+        f'{column_name} column exceeds 2 GiB (the int32 offset limit); '
+        'split the partition into smaller batches')
+  return ByteArrays(boffs, np.asarray(bdata, dtype=np.uint8))
+
+
+def attach_bool_arg(parser, flag_name, default=False, help_str=None):
+  """Attach a ``--flag/--no-flag`` boolean argument pair to a parser."""
+  attr_name = flag_name.replace('-', '_')
+  group = parser.add_mutually_exclusive_group()
+  help_str = help_str if help_str is not None else flag_name
+  group.add_argument(
+      '--' + flag_name,
+      dest=attr_name,
+      action='store_true',
+      help=help_str + ' (default: {})'.format(default))
+  group.add_argument(
+      '--no-' + flag_name,
+      dest=attr_name,
+      action='store_false',
+      help='disable ' + help_str)
+  parser.set_defaults(**{attr_name: default})
+
+
+def parse_str_of_num_bytes(s, return_str=False):
+  """Parse ``"n[KMG]"`` into bytes."""
+  try:
+    power = 'kmg'.find(s[-1].lower()) + 1
+    size = float(s[:-1]) * 1024**power if power > 0 else float(s)
+  except ValueError:
+    raise ValueError('Invalid size: {}'.format(s))
+  if return_str:
+    return s
+  return int(size)
 
 
 def deserialize_np_array(b):

@@ -2,7 +2,9 @@
 // blocks (raw, and in the Hadoop framing Parquet's LZ4 codec writes) and
 // Snappy. These are the byte-serial loops of the shard reader
 // (lddl_tpu_torch/pipeline/parquet_io.py); everything else it decodes
-// with numpy. Built with `c++ -O3 -shared -fPIC` at first use and loaded
+// with numpy. The shard writer's byte-serial loops live here too: an LZ4
+// block compressor (its pages are LZ4_RAW) and the PLAIN encoding of a
+// BYTE_ARRAY column (a 4-byte length before each value). Built with `c++ -O3 -shared -fPIC` at first use and loaded
 // with ctypes (lddl_tpu_torch/pipeline/codecs.py).
 //
 // Every function takes the compressed bytes and an output buffer of
@@ -12,6 +14,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -170,6 +173,85 @@ int64_t lddl_snappy_decompress(const uint8_t* src, int64_t src_len,
     op += len;
   }
   return op == expected ? op : kMalformed;
+}
+
+// One LZ4 block of src (greedy, a 4-byte hash of each position into a
+// table of the last position it was seen at, matches within 64 KiB). It
+// keeps the block format's end rules: no match starts in the last 12
+// bytes, and the last 5 bytes are literals. Returns the block's size, or
+// kOverflow when dst_cap is short (n + n / 255 + 16 always suffices).
+int64_t lddl_lz4_block_compress(const uint8_t* src, int64_t n, uint8_t* dst,
+                                int64_t dst_cap) {
+  constexpr int kHashBits = 16;
+  constexpr int64_t kMinMatch = 4, kLastLiterals = 5, kMfLimit = 12;
+  std::vector<int64_t> table(size_t(1) << kHashBits, -1);
+  int64_t ip = 0, anchor = 0, op = 0;
+  auto put_length = [&](int64_t len) -> bool {  // the bytes after 15
+    for (; len >= 255; len -= 255) {
+      if (op >= dst_cap) return false;
+      dst[op++] = 255;
+    }
+    if (op >= dst_cap) return false;
+    dst[op++] = static_cast<uint8_t>(len);
+    return true;
+  };
+  auto put_literals = [&](int64_t lit, int64_t match) -> bool {
+    if (op >= dst_cap) return false;
+    const int64_t token_at = op++;
+    dst[token_at] = static_cast<uint8_t>(
+        (lit < 15 ? lit : 15) << 4 | (match < 15 ? match : 15));
+    if (lit >= 15 && !put_length(lit - 15)) return false;
+    if (lit > dst_cap - op) return false;
+    std::memcpy(dst + op, src + anchor, static_cast<size_t>(lit));
+    op += lit;
+    return true;
+  };
+  auto load32 = [&](int64_t at) {
+    uint32_t v;
+    std::memcpy(&v, src + at, 4);
+    return v;
+  };
+  const int64_t limit = n - kMfLimit;
+  while (ip < limit) {
+    const uint32_t seq = load32(ip);
+    const uint32_t h = (seq * 2654435761u) >> (32 - kHashBits);
+    const int64_t ref = table[h];
+    table[h] = ip;
+    if (ref < 0 || ip - ref > 65535 || load32(ref) != seq) {
+      ++ip;
+      continue;
+    }
+    int64_t len = kMinMatch;
+    const int64_t max_len = n - kLastLiterals - ip;
+    while (len < max_len && src[ref + len] == src[ip + len]) ++len;
+    const int64_t code = len - kMinMatch;
+    if (!put_literals(ip - anchor, code)) return kOverflow;
+    if (dst_cap - op < 2) return kOverflow;
+    const int64_t offset = ip - ref;
+    dst[op++] = static_cast<uint8_t>(offset & 0xff);
+    dst[op++] = static_cast<uint8_t>(offset >> 8);
+    if (code >= 15 && !put_length(code - 15)) return kOverflow;
+    ip += len;
+    anchor = ip;
+  }
+  if (!put_literals(n - anchor, 0)) return kOverflow;
+  return op;
+}
+
+// PLAIN encoding of n BYTE_ARRAY values (value i is
+// data[offsets[i]:offsets[i + 1]]): each value's 4-byte little-endian
+// length, then its bytes. dst holds 4 * n + offsets[n] - offsets[0] bytes.
+void lddl_plain_byte_arrays(const int64_t* offsets, const uint8_t* data,
+                            int64_t n, uint8_t* dst) {
+  int64_t op = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t len = offsets[i + 1] - offsets[i];
+    const uint32_t len32 = static_cast<uint32_t>(len);
+    for (int b = 0; b < 4; ++b)
+      dst[op++] = static_cast<uint8_t>((len32 >> (8 * b)) & 0xff);
+    std::memcpy(dst + op, data + offsets[i], static_cast<size_t>(len));
+    op += len;
+  }
 }
 
 }  // extern "C"

@@ -2,15 +2,16 @@
 // longest-match encoding, one C call per batch of texts, multithreaded and
 // GIL-free, driven through ctypes (lddl_tpu_torch/native/wordpiece.py).
 //
-// The encoder of lddl_tpu/native/src/wordpiece.cpp, copied: UTF-8
-// decoding, the normalizer and basic tokenizer, the vocabulary tables, the
-// per-thread word cache, encode_text and the batch entry point. One part
-// departs: the accent-stripping lowercase of Latin, Greek and Cyrillic
-// letters is a table generated from Unicode's data (lower_strip below),
-// so the ids equal HF's where lddl_tpu's hand-written folding does not. The sentence
-// splitter, the document encoder, the string-column decoder and the
-// columnar emitter only serve preprocessing and are not copied; nor is the
-// decode arena of the Model, which only they read.
+// lddl_tpu/native/src/wordpiece.cpp, copied: UTF-8 decoding, the
+// normalizer and basic tokenizer, the vocabulary tables, the per-thread
+// word cache, encode_text and the batch entry point, and the
+// preprocessor's half: the rule-based sentence splitter
+// (lddl_split_sentences), the document encoder (lddl_encode_docs), the
+// string-column decoder (lddl_decode_join) and the fused columnar emitter
+// (lddl_columnar_sizes, lddl_columnar_emit). One part departs: the
+// accent-stripping lowercase of Latin, Greek and Cyrillic letters is a
+// table generated from Unicode's data (lower_strip below), so the ids
+// equal HF's where lddl_tpu's hand-written folding does not.
 //
 // Normalization parity: matches HuggingFace's BertNormalizer for ASCII,
 // U+00C0..U+024F and U+0370..U+04FF (accents stripped when lowercasing),
@@ -21,6 +22,7 @@
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <functional>
 #include <string>
@@ -294,6 +296,14 @@ struct Model {
   // Unique instance tag (never reused, unlike the heap address) so
   // thread-local word caches can detect a model switch.
   uint64_t gen = ++g_model_gen;
+  // Decode arena: per id, ' ' + token bytes padded to kDecodeStride so the
+  // decode hot loop is one unconditional fixed-size copy (tokens longer
+  // than kDecodeStride - 1 take the slow path; none exist in BERT vocabs,
+  // where entries are <= max_input_chars wordpieces but practically < 30
+  // bytes). decode_lens[id] = token byte length (without the space).
+  static constexpr int32_t kDecodeStride = 32;
+  std::vector<char> decode_arena;
+  std::vector<int32_t> decode_lens;
 };
 
 // Per-thread memo of normalized-word bytes -> wordpiece ids. Natural text
@@ -519,10 +529,217 @@ inline void encode_text(const Model& m, const char* s, int64_t len,
     out.resize(start_size + max_tokens);
 }
 
+// ------------------------------------------------------ sentence splitting
+// Exact port of lddl_tpu/tokenization/sentences.py's rule-based splitter:
+// boundary = [.!?]+['")\]]* whitespace+ (?=["'([]?[A-Z0-9]), except after
+// abbreviations / initials when the boundary involves '.'.
+
+inline bool abbrev_core_matches(std::string_view core) {
+  static const char* kAbbrev[] = {
+      "mr", "mrs", "ms", "dr", "prof", "sr", "jr", "st", "vs", "etc", "inc",
+      "ltd", "co", "corp", "dept", "univ", "assn", "bros", "e.g", "i.e",
+      "cf", "al", "ave", "blvd", "rd", "fig", "no", "vol", "pp", "op",
+      "cit", "ca", "gen", "col", "sgt", "capt", "lt", "cmdr", "adm", "gov",
+      "sen", "rep", "rev", "hon", "pres", "supt", "det", "mt", "ft",
+      "approx"};
+  std::string low(core);
+  for (char& c : low)
+    if (c >= 'A' && c <= 'Z') c += 32;
+  for (const char* a : kAbbrev)
+    if (low == a) return true;
+  return false;
+}
+
+inline bool is_ascii_alpha(char c) {
+  return (c >= 'a' && c <= 'z') || (c >= 'A' && c <= 'Z');
+}
+
+// Mirror of _looks_like_abbreviation(text_before) in sentences.py.
+inline bool looks_like_abbreviation(const char* s, int64_t start, int64_t end) {
+  // Last whitespace-separated token of s[start:end] (Python rsplit(None,1)).
+  int64_t e = end;
+  while (e > start && static_cast<unsigned char>(s[e - 1]) <= ' ') --e;
+  if (e == start) return false;
+  int64_t b = e;
+  while (b > start && static_cast<unsigned char>(s[b - 1]) > ' ') --b;
+  // lstrip('("\'[')
+  while (b < e && (s[b] == '(' || s[b] == '"' || s[b] == '\'' || s[b] == '['))
+    ++b;
+  if (b >= e) return false;
+  int64_t core_end = (s[e - 1] == '.') ? e - 1 : e;
+  std::string_view core(s + b, core_end - b);
+  if (core.empty()) return false;
+  if (abbrev_core_matches(core)) return true;
+  if (core.size() == 1 && core[0] >= 'A' && core[0] <= 'Z') return true;
+  // Dotted initialisms: (?:[A-Za-z]\.)+[A-Za-z]?
+  {
+    size_t i = 0;
+    bool any = false;
+    while (i + 1 < core.size() && is_ascii_alpha(core[i]) &&
+           core[i + 1] == '.') {
+      i += 2;
+      any = true;
+    }
+    if (any) {
+      if (i == core.size()) return true;
+      if (i + 1 == core.size() && is_ascii_alpha(core[i])) return true;
+    }
+  }
+  return false;
+}
+
+inline bool is_py_space(char c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == '\f' ||
+         c == '\v';
+}
+
+// Emit [start,end) byte ranges of sentences in text (ASCII-rule splitter;
+// multibyte UTF-8 content passes through inside sentences untouched).
+inline void split_sentences_rule(const char* s, int64_t len,
+                                 std::vector<int64_t>& bounds) {
+  auto strip_range = [&](int64_t b, int64_t e, int64_t& ob, int64_t& oe) {
+    while (b < e && is_py_space(s[b])) ++b;
+    while (e > b && is_py_space(s[e - 1])) --e;
+    ob = b; oe = e;
+  };
+  int64_t start = 0;
+  int64_t i = 0;
+  while (i < len) {
+    char c = s[i];
+    if (c != '.' && c != '!' && c != '?') { ++i; continue; }
+    int64_t punct_start = i;
+    while (i < len && (s[i] == '.' || s[i] == '!' || s[i] == '?')) ++i;
+    int64_t group_mid = i;  // end of [.!?]+ run
+    while (i < len && (s[i] == '\'' || s[i] == '"' || s[i] == ')' ||
+                       s[i] == ']'))
+      ++i;
+    int64_t group_end = i;  // end of group(1)
+    // \s+ (regex \s on str: space, \t..\r, \f, \v; ASCII view suffices here)
+    int64_t ws_end = i;
+    while (ws_end < len && is_py_space(s[ws_end])) ++ws_end;
+    if (ws_end == i) { continue; }  // no whitespace: not a boundary
+    // lookahead (?=["'([]?[A-Z0-9])
+    int64_t la = ws_end;
+    if (la < len && (s[la] == '"' || s[la] == '\'' || s[la] == '(' ||
+                     s[la] == '['))
+      ++la;
+    if (!(la < len &&
+          ((s[la] >= 'A' && s[la] <= 'Z') || (s[la] >= '0' && s[la] <= '9')))) {
+      i = group_end;
+      continue;
+    }
+    // Abbreviation guard applies when the group's last char or first char
+    // is '.' (sentences.py:46-48).
+    bool dotty = (s[group_end - 1] == '.') || (s[punct_start] == '.');
+    if (dotty && looks_like_abbreviation(s, start, group_end)) {
+      i = group_end;
+      continue;
+    }
+    int64_t ob, oe;
+    strip_range(start, group_end, ob, oe);
+    if (oe > ob) { bounds.push_back(ob); bounds.push_back(oe); }
+    start = ws_end;
+    i = ws_end;
+  }
+  int64_t ob, oe;
+  strip_range(start, len, ob, oe);
+  if (oe > ob) { bounds.push_back(ob); bounds.push_back(oe); }
+}
+
 struct ThreadSlice {
   std::vector<int32_t> ids;
   std::vector<int64_t> seq_ends;    // per-sequence end offset (local)
+  std::vector<int64_t> seq_owner;   // which input text produced it (docs mode)
 };
+
+// Shared decode loop: id ranges -> Arrow string-column buffers. Returns
+// total data bytes, -1 on cap overflow, -2 past the int32 offset limit.
+// (Body of lddl_decode_join, reused by the fused columnar emitter.)
+int64_t decode_join_impl(const Model& m, const int32_t* ids,
+                         const int64_t* offsets, int64_t n_seqs,
+                         char* out_data, int64_t cap_data,
+                         int32_t* out_offsets) {
+  const int32_t nvocab = static_cast<int32_t>(m.tokens.size());
+  const char* arena = m.decode_arena.data();
+  const int32_t* lens = m.decode_lens.data();
+  constexpr int32_t kStride = Model::kDecodeStride;
+  int64_t pos = 0;
+  out_offsets[0] = 0;
+  for (int64_t s = 0; s < n_seqs; ++s) {
+    for (int64_t k = offsets[s]; k < offsets[s + 1]; ++k) {
+      const int32_t id = ids[k];
+      const bool first = (k == offsets[s]);
+      if (id >= 0 && id < nvocab && lens[id] < kStride - 1 &&
+          pos + kStride + 1 <= cap_data) {
+        // Hot path: one unconditional fixed-width copy of the arena slot
+        // (' ' + token, zero-padded); the advance truncates the padding.
+        // First-of-sequence reads from slot+1 to skip the space (the
+        // trailing arena pad byte makes the over-read safe).
+        std::memcpy(out_data + pos,
+                    arena + static_cast<size_t>(id) * kStride + (first ? 1 : 0),
+                    kStride);
+        pos += lens[id] + (first ? 0 : 1);
+      } else {
+        // Exact path: long/invalid ids, or too close to the buffer end
+        // for the wide store (callers leave slack, so this is rare).
+        std::string_view tok = (id >= 0 && id < nvocab)
+                                   ? m.tokens[id]
+                                   : std::string_view("[UNK]");
+        int64_t need = static_cast<int64_t>(tok.size()) + (first ? 0 : 1);
+        if (pos + need > cap_data) return -1;
+        if (!first) out_data[pos++] = ' ';
+        std::memcpy(out_data + pos, tok.data(), tok.size());
+        pos += static_cast<int64_t>(tok.size());
+      }
+    }
+    // Arrow string offsets are int32; joined output past 2 GiB must fail
+    // loudly (callers split the batch), never wrap into corrupt offsets.
+    if (pos > INT32_MAX) return -2;
+    out_offsets[s + 1] = static_cast<int32_t>(pos);
+  }
+  return pos;
+}
+
+// Exact joined-output byte count for one column of id ranges (token byte
+// lengths + one separator between tokens of a sequence). The caller adds
+// the wide-store slack itself.
+int64_t decode_join_size(const Model& m, const int32_t* ids,
+                         const int64_t* offsets, int64_t n_seqs) {
+  const int32_t nvocab = static_cast<int32_t>(m.tokens.size());
+  const int32_t* lens = m.decode_lens.data();
+  int64_t total = 0;
+  const int64_t n_ids = offsets[n_seqs];
+  for (int64_t k = 0; k < n_ids; ++k) {
+    const int32_t id = ids[k];
+    total += (id >= 0 && id < nvocab) ? lens[id] : 5;  // '[UNK]'
+  }
+  for (int64_t s = 0; s < n_seqs; ++s) {
+    const int64_t cnt = offsets[s + 1] - offsets[s];
+    if (cnt > 1) total += cnt - 1;
+  }
+  return total;
+}
+
+// The exact .npy v1.0 header np.save writes for a 1-D '<u2' array of n
+// elements (mirror of core/utils._npy_header — the fused positions
+// column must be byte-identical to the numpy framing path). Writes into
+// buf (>= 192 bytes is always enough) and returns the header length.
+int64_t npy_header_u2(int64_t n, char* buf) {
+  char body[96];
+  int len0 = std::snprintf(
+      body, sizeof(body),
+      "{'descr': '<u2', 'fortran_order': False, 'shape': (%lld,), }",
+      static_cast<long long>(n));
+  int64_t pad = ((-(10 + len0 + 1)) % 64 + 64) % 64;
+  int64_t body_len = len0 + pad + 1;
+  std::memcpy(buf, "\x93NUMPY\x01\x00", 8);
+  buf[8] = static_cast<char>(body_len & 0xFF);
+  buf[9] = static_cast<char>((body_len >> 8) & 0xFF);
+  std::memcpy(buf + 10, body, len0);
+  std::memset(buf + 10 + len0, ' ', pad);
+  buf[10 + len0 + pad] = '\n';
+  return 10 + body_len;
+}
 
 void run_threads(int64_t n_items, int nthreads,
                  const std::function<void(int64_t, int64_t, int)>& body) {
@@ -573,6 +790,21 @@ void* lddl_wp_create(const char* vocab_blob, const int64_t* offsets,
   m->unk_id = unk_id;
   m->lowercase = lowercase != 0;
   m->max_input_chars = max_input_chars;
+  // One extra stride of zero padding: the first-of-sequence fast path
+  // reads kDecodeStride bytes from slot + 1, which for the last id would
+  // otherwise run one byte past the arena.
+  m->decode_arena.assign(
+      static_cast<size_t>(n + 1) * Model::kDecodeStride, 0);
+  m->decode_lens.resize(n);
+  for (int32_t i = 0; i < n; ++i) {
+    char* slot = m->decode_arena.data() +
+                 static_cast<size_t>(i) * Model::kDecodeStride;
+    slot[0] = ' ';
+    size_t len = std::min<size_t>(m->tokens[i].size(),
+                                  Model::kDecodeStride - 1);
+    std::memcpy(slot + 1, m->tokens[i].data(), len);
+    m->decode_lens[i] = static_cast<int32_t>(m->tokens[i].size());
+  }
   return m;
 }
 
@@ -591,8 +823,11 @@ int64_t lddl_wp_encode_batch(void* model, const char* blob,
   std::vector<ThreadSlice> slices(std::max<int64_t>(
       1, std::min<int64_t>(nthreads <= 0 ? 1 : nthreads, n_texts)));
   int real_threads = static_cast<int>(slices.size());
+  std::vector<std::pair<int64_t, int64_t>> ranges(real_threads);
+  int64_t chunk = (n_texts + real_threads - 1) / real_threads;
   auto body = [&](int64_t lo, int64_t hi, int t) {
     ThreadSlice& sl = slices[t];
+    ranges[t] = {lo, hi};
     sl.ids.reserve((offsets[hi] - offsets[lo]) / 4 + 16);
     WordCache& cache = local_word_cache(m);
     for (int64_t k = lo; k < hi; ++k) {
@@ -615,6 +850,177 @@ int64_t lddl_wp_encode_batch(void* model, const char* blob,
     pos += static_cast<int64_t>(sl.ids.size());
   }
   return total;
+}
+
+// Sentence-split one text; writes up to cap (start,end) byte-range pairs.
+// Returns number of sentences (caller retries with bigger buffer if > cap).
+int64_t lddl_split_sentences(const char* text, int64_t len,
+                             int64_t* out_bounds, int64_t cap) {
+  std::vector<int64_t> bounds;
+  split_sentences_rule(text, len, bounds);
+  int64_t n = static_cast<int64_t>(bounds.size()) / 2;
+  if (n <= cap)
+    std::memcpy(out_bounds, bounds.data(), bounds.size() * sizeof(int64_t));
+  return n;
+}
+
+// Full document front end: for each document (blob + offsets), rule-split
+// into sentences and WordPiece-encode each sentence, dropping sentences
+// that produce no tokens. Outputs ragged ids with per-sentence offsets and
+// per-document sentence counts.
+// Capacities: out_ids cap_ids (blob bytes is enough), out_sent_offsets
+// cap_sents+1 entries, out_doc_counts int64[n_docs].
+// Returns total ids, or -1 (cap_ids) / -2 (cap_sents) on overflow.
+int64_t lddl_encode_docs(void* model, const char* blob,
+                         const int64_t* offsets, int64_t n_docs,
+                         int32_t max_tokens_per_sent, int32_t* out_ids,
+                         int64_t cap_ids, int64_t* out_sent_offsets,
+                         int64_t cap_sents, int64_t* out_doc_counts,
+                         int32_t nthreads) {
+  const Model& m = *static_cast<Model*>(model);
+  int real_threads = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(nthreads <= 0 ? 1 : nthreads, n_docs)));
+  struct DocSlice {
+    std::vector<int32_t> ids;
+    std::vector<int64_t> sent_ends;  // local id-offsets per kept sentence
+    std::vector<int64_t> doc_counts;
+  };
+  std::vector<DocSlice> slices(real_threads);
+  auto body = [&](int64_t lo, int64_t hi, int t) {
+    DocSlice& sl = slices[t];
+    std::vector<int64_t> bounds;
+    WordCache& cache = local_word_cache(m);
+    for (int64_t d = lo; d < hi; ++d) {
+      const char* text = blob + offsets[d];
+      int64_t len = offsets[d + 1] - offsets[d];
+      bounds.clear();
+      split_sentences_rule(text, len, bounds);
+      int64_t kept = 0;
+      for (size_t b = 0; b + 1 < bounds.size(); b += 2) {
+        size_t before = sl.ids.size();
+        encode_text(m, text + bounds[b], bounds[b + 1] - bounds[b], sl.ids,
+                    max_tokens_per_sent, cache);
+        if (sl.ids.size() > before) {
+          sl.sent_ends.push_back(static_cast<int64_t>(sl.ids.size()));
+          ++kept;
+        }
+      }
+      sl.doc_counts.push_back(kept);
+    }
+  };
+  run_threads(n_docs, real_threads, body);
+  int64_t total_ids = 0, total_sents = 0, doc_i = 0;
+  for (auto& sl : slices) {
+    total_ids += static_cast<int64_t>(sl.ids.size());
+    total_sents += static_cast<int64_t>(sl.sent_ends.size());
+  }
+  if (total_ids > cap_ids) return -1;
+  if (total_sents > cap_sents) return -2;
+  int64_t pos = 0, sent = 0;
+  out_sent_offsets[0] = 0;
+  for (auto& sl : slices) {
+    if (!sl.ids.empty())
+      std::memcpy(out_ids + pos, sl.ids.data(), sl.ids.size() * 4);
+    for (int64_t e : sl.sent_ends) out_sent_offsets[++sent] = pos + e;
+    for (int64_t c : sl.doc_counts) out_doc_counts[doc_i++] = c;
+    pos += static_cast<int64_t>(sl.ids.size());
+  }
+  return total_ids;
+}
+
+// Decode: for each of n_seqs id ranges, emit the space-joined token string.
+// Outputs Arrow string-column buffers: out_offsets int32[n_seqs+1] and
+// out_data (cap_data bytes). Returns total data bytes, or -1 on overflow.
+int64_t lddl_decode_join(void* model, const int32_t* ids,
+                         const int64_t* offsets, int64_t n_seqs,
+                         char* out_data, int64_t cap_data,
+                         int32_t* out_offsets) {
+  const Model& m = *static_cast<Model*>(model);
+  return decode_join_impl(m, ids, offsets, n_seqs, out_data, cap_data,
+                          out_offsets);
+}
+
+// ------------------------------------------------- fused columnar emit
+// One sizes pass + one emit pass build every Arrow column of a shard
+// directly from token ids: up to `ncols` string columns (per-column ids +
+// int64[n+1] offsets) and optionally one npy-framed uint16 binary column
+// (masked_lm_positions). This replaces, per column, the Python-side
+// capacity LUT pass, the decode call, and the vectorized-numpy npy
+// framing — all output bytes are identical to those paths.
+
+// Sizes: out_caps[c] = exact joined bytes of column c plus wide-store
+// slack (kDecodeStride + a final-token pad, rounded to 48 to match the
+// Python caller's historical slack). When pos_offs is non-null,
+// out_pos_boffs (int64[pos_n+1]) receives the npy-framed row byte
+// offsets. Returns 0.
+int64_t lddl_columnar_sizes(void* model, int32_t ncols,
+                            const int32_t* const* ids,
+                            const int64_t* const* offs, const int64_t* ns,
+                            int64_t* out_caps, const int64_t* pos_offs,
+                            int64_t pos_n, int64_t* out_pos_boffs) {
+  const Model& m = *static_cast<Model*>(model);
+  for (int32_t c = 0; c < ncols; ++c)
+    out_caps[c] = decode_join_size(m, ids[c], offs[c], ns[c]) + 48;
+  if (pos_offs != nullptr && out_pos_boffs != nullptr) {
+    char hdr[192];
+    int64_t prev_cnt = -1, prev_hdr = 0;
+    out_pos_boffs[0] = 0;
+    for (int64_t i = 0; i < pos_n; ++i) {
+      const int64_t cnt = pos_offs[i + 1] - pos_offs[i];
+      if (cnt != prev_cnt) {
+        prev_hdr = npy_header_u2(cnt, hdr);
+        prev_cnt = cnt;
+      }
+      out_pos_boffs[i + 1] = out_pos_boffs[i] + prev_hdr + 2 * cnt;
+    }
+  }
+  return 0;
+}
+
+// Emit: fill each column's (int32[n+1] offsets, data) buffers and, when
+// pos_vals is non-null, the positions binary data (headers + raw
+// little-endian uint16 payloads at the boffs computed by the sizes
+// pass). Column tasks run on up to `nthreads` threads. Returns 0, or the
+// first column's negative rc (-1 capacity, -2 int32 offset overflow).
+int64_t lddl_columnar_emit(void* model, int32_t ncols,
+                           const int32_t* const* ids,
+                           const int64_t* const* offs, const int64_t* ns,
+                           int32_t* const* out_offs, char* const* out_data,
+                           const int64_t* caps, const uint16_t* pos_vals,
+                           const int64_t* pos_offs, int64_t pos_n,
+                           const int64_t* pos_boffs, char* pos_data,
+                           int32_t nthreads) {
+  const Model& m = *static_cast<Model*>(model);
+  const int64_t n_tasks = ncols + (pos_vals != nullptr ? 1 : 0);
+  std::vector<int64_t> rc(n_tasks, 0);
+  auto body = [&](int64_t lo, int64_t hi, int t) {
+    (void)t;
+    for (int64_t task = lo; task < hi; ++task) {
+      if (task < ncols) {
+        int64_t r = decode_join_impl(m, ids[task], offs[task], ns[task],
+                                     out_data[task], caps[task],
+                                     out_offs[task]);
+        rc[task] = r < 0 ? r : 0;
+      } else {
+        char hdr[192];
+        int64_t prev_cnt = -1, prev_hdr = 0;
+        for (int64_t i = 0; i < pos_n; ++i) {
+          const int64_t cnt = pos_offs[i + 1] - pos_offs[i];
+          if (cnt != prev_cnt) {
+            prev_hdr = npy_header_u2(cnt, hdr);
+            prev_cnt = cnt;
+          }
+          char* row = pos_data + pos_boffs[i];
+          std::memcpy(row, hdr, prev_hdr);
+          std::memcpy(row + prev_hdr, pos_vals + pos_offs[i], 2 * cnt);
+        }
+      }
+    }
+  };
+  run_threads(n_tasks, nthreads, body);
+  for (int64_t r : rc)
+    if (r < 0) return r;
+  return 0;
 }
 
 int64_t lddl_native_abi_version() { return 4; }

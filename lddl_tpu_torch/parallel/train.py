@@ -327,6 +327,50 @@ def global_norm(tensors):
   return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+class TensorReplicas:
+  """Makes a tensor group's replicated gradients equal by construction.
+
+  The parameters no rule cuts over ``tensor`` (the position and type
+  tables, the LayerNorms, the pooler, the NSP head, ``mlm_transform``,
+  the row-parallel biases) are held whole by every rank of a tensor
+  group, and each rank computes their gradients on its own: outside
+  deterministic mode CUDA's atomics can round them differently on each
+  rank, and the replicas would drift where GSPMD holds one array. So the
+  exchange copies them into one flat buffer and broadcasts it from the
+  group's rank 0 before its data/fsdp reduction. A broadcast of values
+  that are already equal changes no bit (an average over more than two
+  ranks could round). NCCL broadcasts, inside a captured step too; any
+  other backend (gloo, which stages CUDA tensors through host memory)
+  sums the int64 words of the buffer, zeroed on every rank but the
+  source, which moves the source's bits unchanged."""
+
+  def __init__(self, tensor, views, sharded):
+    import torch.distributed as dist
+    self._dist = dist
+    self.group = tensor
+    self.views = [v for v, cut in zip(views, sharded) if not cut]
+    sizes = [v.numel() for v in self.views]
+    n = sum(sizes)
+    device = self.views[0].device
+    # An even length: the int64 sum moves 8-byte words.
+    self.buf = torch.zeros(n + n % 2, dtype=torch.float32, device=device)
+    self.parts = [part.view_as(v) for part, v in
+                  zip(self.buf[:n].split(sizes), self.views)]
+    self.src = dist.get_global_rank(tensor, 0)
+    self.is_src = dist.get_rank() == self.src
+    self.backend = backend_for(tensor, device)
+
+  def __call__(self):
+    torch._foreach_copy_(self.parts, self.views)
+    if self.backend == 'nccl':
+      self._dist.broadcast(self.buf, src=self.src, group=self.group)
+    else:
+      if not self.is_src:
+        self.buf.zero_()
+      self._dist.all_reduce(self.buf.view(torch.int64), group=self.group)
+    torch._foreach_copy_(self.views, self.parts)
+
+
 class DataParallel:
   """The data-parallel exchange of one step over a process group (the
   mesh's ``data x fsdp x seq`` group, :func:`~lddl_tpu_torch.parallel.
@@ -346,9 +390,10 @@ class DataParallel:
   Under tensor parallelism (``tensor``: the tensor group, ``sharded``:
   per parameter whether the rank holds a tensor shard of it) the
   parameters are the rank's shards, their gradients need no exchange
-  over the tensor group (the model's collectives made them whole), and
-  :meth:`grad_norm` sums the sharded parameters' squares over it while
-  the replicated ones count once.
+  over the tensor group (the model's collectives made them whole), the
+  replicated parameters' gradients are broadcast from the group's rank 0
+  first (:class:`TensorReplicas`), and :meth:`grad_norm` sums the sharded
+  parameters' squares over it while the replicated ones count once.
 
   :attr:`capturable`: whether the group's backend for the parameters'
   device can run inside a CUDA graph (NCCL can; gloo, which stages CUDA
@@ -372,9 +417,12 @@ class DataParallel:
     self.capturable = device.type == 'cuda' and self.backend == 'nccl'
     self.tensor = tensor
     self._sharded = None
+    self.replicas = None
     if tensor is not None:
-      self._sharded = torch.tensor(list(sharded), dtype=torch.float32,
+      sharded = list(sharded)
+      self._sharded = torch.tensor(sharded, dtype=torch.float32,
                                    device=device)
+      self.replicas = TensorReplicas(tensor, self.views, sharded)
 
   def sum_(self, t):
     """All-reduce ``t`` in place (a sum over the ranks); returns it."""
@@ -385,6 +433,8 @@ class DataParallel:
     """The global gradients: the sum of every rank's, as views of the
     flat buffer aligned with ``grads``."""
     torch._foreach_copy_(self.views, grads)
+    if self.replicas is not None:
+      self.replicas()
     self.sum_(self.flat)
     return self.views
 
@@ -449,7 +499,9 @@ class ShardedDataParallel(DataParallel):
   its rule is per element, so ``mu`` and ``nu`` are ``1 / fsdp`` too).
   A step (:class:`TrainStep`) gathers the working buffer from the shards
   before the forward (:meth:`gather_params`); after the backward the
-  gradients' flat buffer is reduce-scattered over ``fsdp`` and its shard
+  replicated parameters' gradients are broadcast over ``tensor``
+  (:class:`TensorReplicas`), then the gradients' flat buffer is
+  reduce-scattered over ``fsdp`` and its shard
   all-reduced over ``data x seq`` (:meth:`grads`, the ranks that hold the
   same shard), and the update runs on the shard. Eager steps then free the working buffer (:meth:`release_params`),
   so between steps a rank keeps ``1 / fsdp`` of the parameters and the
@@ -492,8 +544,9 @@ class ShardedDataParallel(DataParallel):
     self.flat = torch.zeros_like(self.full)
     self.views, at = [], 0
     sharded = torch.zeros_like(self.full)
+    cuts = list(model.tensor_sharded())
     with torch.no_grad():
-      for p, cut in zip(params, model.tensor_sharded()):
+      for p, cut in zip(params, cuts):
         view = self.full[at:at + p.numel()].view_as(p)
         view.copy_(p)
         p.data = view
@@ -506,6 +559,8 @@ class ShardedDataParallel(DataParallel):
     self.capturable = device.type == 'cuda' and self.backend == 'nccl'
     self.tensor = tensor_group(mesh) if model.tp is not None else None
     self._sharded = sharded[self.lo:self.hi].clone() if self.tensor else None
+    self.replicas = (TensorReplicas(self.tensor, self.views, cuts)
+                     if self.tensor is not None else None)
     self._nbytes = self.full.numel() * self.full.element_size()
     self._release = not self.capturable
     self._released = False
@@ -566,6 +621,8 @@ class ShardedDataParallel(DataParallel):
   def grads(self, grads):
     """This rank's shard of the global gradient: ``[grad_shard]``."""
     torch._foreach_copy_(self.views, grads)
+    if self.replicas is not None:
+      self.replicas()
     if self.backend == 'nccl':
       self._dist.reduce_scatter_tensor(self.grad_shard, self.flat,
                                        group=self.fsdp)

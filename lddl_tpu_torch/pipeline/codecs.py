@@ -1,4 +1,4 @@
-"""Decompress Parquet pages: the host codec library, built at first use.
+"""Parquet page codecs: the host codec library, built at first use.
 
 The page codecs the shard reader meets (:mod:`.parquet_io`) are LZ4 and
 Snappy; their decoders are byte-serial loops, so they live in C++
@@ -14,6 +14,9 @@ slower fallback.
 Parquet codec ids (``CompressionCodec`` in parquet.thrift): 0
 UNCOMPRESSED, 1 SNAPPY, 5 LZ4 (Hadoop-framed blocks, or one raw block as
 older writers left it), 7 LZ4_RAW. Any other codec raises and names it.
+The shard writer compresses its pages as LZ4_RAW (:func:`compress`) and
+PLAIN-encodes its BYTE_ARRAY columns (:func:`plain_byte_arrays`) with the
+same library.
 """
 
 import ctypes
@@ -70,6 +73,12 @@ def library():
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                        ctypes.c_int64]
         fn.restype = ctypes.c_int64
+      lib.lddl_lz4_block_compress.argtypes = [
+          ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+      lib.lddl_lz4_block_compress.restype = ctypes.c_int64
+      lib.lddl_plain_byte_arrays.argtypes = [
+          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+      lib.lddl_plain_byte_arrays.restype = None
       _lib = lib
     return _lib
 
@@ -102,4 +111,36 @@ def decompress(codec, data, size):
   if got != size:
     why = _ERRORS.get(got, f'{got} bytes where the page says {size}')
     raise ValueError(f'{CODEC_NAMES[codec]} page does not decompress: {why}')
+  return out
+
+
+def compress(codec, page):
+  """``page`` (a contiguous uint8 array) compressed with Parquet codec id
+  ``codec`` (UNCOMPRESSED or LZ4_RAW), as a uint8 array."""
+  if codec == UNCOMPRESSED:
+    return page
+  if codec != LZ4_RAW:
+    raise ValueError(f'the shard writer compresses with LZ4_RAW or not at '
+                     f'all, not {CODEC_NAMES.get(codec, codec)}')
+  n = page.shape[0]
+  cap = n + n // 255 + 16
+  out = np.empty(cap, dtype=np.uint8)
+  got = library().lddl_lz4_block_compress(page.ctypes.data, n,
+                                          out.ctypes.data, cap)
+  if got < 0:
+    raise RuntimeError(f'LZ4 block compression overflowed {cap} bytes')
+  return out[:got]
+
+
+def plain_byte_arrays(offsets, data):
+  """PLAIN encoding of a BYTE_ARRAY column given as int64 ``offsets``
+  (``[n + 1]``) into uint8 ``data``: each value's 4-byte length, then its
+  bytes."""
+  offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+  data = np.ascontiguousarray(data, dtype=np.uint8)
+  n = offsets.shape[0] - 1
+  out = np.empty(4 * n + int(offsets[-1] - offsets[0]), dtype=np.uint8)
+  if n:
+    library().lddl_plain_byte_arrays(offsets.ctypes.data, data.ctypes.data, n,
+                                     out.ctypes.data)
   return out

@@ -1,9 +1,37 @@
-"""The lease timeout of :mod:`lddl_tpu.pipeline.executor`, which
-:class:`~lddl_tpu_torch.training.elastic.RankMembership` reads. The
-elastic map executor itself stays with :mod:`lddl_tpu` (host-only data
-preparation)."""
+"""Task execution across comm ranks: the preprocessor's map.
 
+The port's :mod:`lddl_tpu.pipeline.executor`, its serial path: the
+global task list is strided across comm ranks (``tasks[rank::world]``),
+each rank runs its share in order in its own process with overlapped
+write-back (an :class:`~.pool.AsyncShardWriter` installed as the ambient
+writer, so a task's shard writes run while the next task encodes), and
+the results (small metadata; bulk data goes through the shared
+filesystem) are all-gathered over the comm, a missing task named at the
+boundary. Telemetry and trace names are the JAX package's
+(``pipeline.<label>.*``), and so is the ``LDDL_PROGRESS`` reporter.
+
+The JAX package's persistent worker pool (``num_local_workers > 1``) and
+its elastic lease path are not ported yet (ROADMAP, Queue 1): asking for
+either raises. The masking kernel runs on one card per process, so the
+device backend needs no more than this.
+
+:func:`lease_timeout` is the elastic executor's, which
+:class:`~lddl_tpu_torch.training.elastic.RankMembership` reads.
+"""
+
+import json
 import os
+import sys
+import tempfile
+import time
+
+from ..comm import NullBackend
+from ..telemetry import get_telemetry
+from ..telemetry.trace import get_tracer
+from .pool import AsyncShardWriter, install_writer, write_back_enabled
+
+_NOT_PORTED = ('is not ported yet (ROADMAP, Queue 1: the persistent worker '
+               'pool and the elastic executor)')
 
 
 def lease_timeout():
@@ -14,3 +42,220 @@ def lease_timeout():
     return max(0.2, float(os.environ.get('LDDL_LEASE_TIMEOUT', '60')))
   except ValueError:
     return 60.0
+
+
+def elastic_enabled(comm):
+  """Whether the JAX package's ``map()`` would run its lease-claimed
+  elastic path over ``comm`` (env ``LDDL_ELASTIC``; unset: where the
+  backend's store is first-class)."""
+  v = os.environ.get('LDDL_ELASTIC', '').strip().lower()
+  if v in ('0', 'false', 'off', 'no'):
+    return False
+  if v in ('1', 'true', 'on', 'yes'):
+    return True
+  return getattr(comm, 'elastic_default', False)
+
+
+def _run_task(fn, global_index, task):
+  t0 = time.monotonic()
+  result = fn(task, global_index)
+  return global_index, result, t0, time.monotonic() - t0, os.getpid()
+
+
+class ProgressReporter:
+  """Live per-rank progress of a phase, controlled by ``LDDL_PROGRESS``:
+  ``1``/``stderr`` prints a line per phase every >= 2 s on stderr; a
+  directory path gets per-rank JSON heartbeats
+  ``lddl_status.rank<R>.json`` (atomic rename). A finished phase leaves
+  a ``{"complete": true}`` record, so a status file never claims an
+  in-flight phase after the run."""
+
+  def __init__(self, spec, rank):
+    self._stderr = spec in ('1', 'true', 'stderr')
+    self._dir = None if self._stderr else spec
+    if self._dir:
+      os.makedirs(self._dir, exist_ok=True)
+    self._rank = rank
+    self._label = None
+    self._t0 = 0.0
+    self._done0 = 0
+    self._last = 0.0
+
+  def update(self, label, done, total, force=False, extra=None):
+    now = time.monotonic()
+    if label != self._label:
+      self._label, self._t0, self._done0 = label, now, done
+    due = force or now - self._last >= 2.0
+    self._last = now if due else self._last
+    elapsed = max(now - self._t0, 1e-9)
+    rate = (done - self._done0) / elapsed if done > self._done0 else None
+    eta = (total - done) / rate if rate else None
+    if due and self._stderr:
+      rate_s = f'{rate:.1f}/s' if rate else '--/s'
+      eta_s = f'eta {eta:.0f}s' if eta is not None else 'eta --'
+      tail = ' done' if extra and extra.get('complete') else ''
+      print(f'[lddl {label}] rank {self._rank}: {done}/{total} '
+            f'({rate_s}, {eta_s}){tail}', file=sys.stderr, flush=True)
+    elif due:
+      record = {
+          'rank': self._rank, 'pid': os.getpid(), 'phase': label,
+          'done': done, 'total': total,
+          'tasks_per_sec': round(rate, 3) if rate else None,
+          'eta_sec': round(eta, 1) if eta is not None else None,
+          'updated_unix': time.time(),
+          'monotonic_elapsed_sec': round(now - self._t0, 3),
+      }
+      record.update(extra or {})
+      fd, tmp = tempfile.mkstemp(dir=self._dir)
+      with os.fdopen(fd, 'w') as f:
+        f.write(json.dumps(record))
+      os.replace(tmp, os.path.join(self._dir,
+                                   f'lddl_status.rank{self._rank}.json'))
+
+  def finish(self, label, total, workers):
+    self.update(label, total, total, force=True,
+                extra={'complete': True, 'workers': workers})
+
+
+class Executor:
+  """Rank-local scheduler: one process per rank, its tasks run in order.
+
+  ``num_local_workers`` defaults to 1; more raises, as does a comm whose
+  elastic path is on (``LDDL_ELASTIC``): both are the JAX package's
+  worker pool and lease protocol, not ported yet. Use as a context
+  manager, as the JAX package's."""
+
+  def __init__(self, comm=None, num_local_workers=None):
+    self._comm = comm if comm is not None else NullBackend()
+    num_local_workers = 1 if num_local_workers is None else num_local_workers
+    if num_local_workers != 1:
+      raise NotImplementedError(
+          f'num_local_workers={num_local_workers}: the local worker pool '
+          + _NOT_PORTED)
+    if elastic_enabled(self._comm):
+      raise NotImplementedError('the elastic map (LDDL_ELASTIC) ' +
+                                _NOT_PORTED)
+    self._num_local_workers = num_local_workers
+    self._warmups = {}
+    spec = os.environ.get('LDDL_PROGRESS', '')
+    self._progress = (ProgressReporter(spec, self._comm.rank)
+                      if spec not in ('', '0', 'false', 'off') else None)
+
+  @property
+  def comm(self):
+    return self._comm
+
+  @property
+  def num_local_workers(self):
+    return self._num_local_workers
+
+  def set_warmup(self, fn, key=None):
+    """Run a warmup hook once per key (the JAX package runs it in each
+    pool worker; here the one process is the worker)."""
+    key = key if key is not None else fn
+    if key not in self._warmups:
+      self._warmups[key] = fn
+      fn()
+
+  def resume_pending(self, label):
+    """Whether a restarted elastic run holds manifests for ``label``:
+    never, without the elastic path."""
+    del label
+    return False
+
+  def close(self):
+    """Nothing to tear down: no pool."""
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, exc_type, exc, tb):
+    self.close()
+    return False
+
+  def map(self, fn, tasks, gather=True, label='map', cost_key=None):
+    """Run ``fn(task, global_index)`` for every task, strided over the
+    comm's ranks. With ``gather=True`` every rank returns the full,
+    task-ordered result list (raising, with the missing indices, if any
+    task has no result); with ``gather=False`` each rank returns its own
+    ``[(global_index, result), ...]`` after a barrier. ``cost_key`` (the
+    pool's scheduling order) changes nothing here: results never depend
+    on it."""
+    del cost_key
+    tasks = list(tasks)
+    rank = self._comm.rank
+    world = self._comm.world_size
+    my_indices = list(range(rank, len(tasks), world))
+    tele = get_telemetry()
+    tracer = get_tracer()
+    if tracer.enabled:
+      tracer.set_identity(rank=rank)
+    local_results = []
+    t_map = time.monotonic()
+    with tele.span(f'pipeline.{label}.map_seconds'):
+      self._map_serial(fn, tasks, my_indices, label, tele, tracer,
+                       local_results)
+    if self._progress:
+      self._progress.finish(label, len(my_indices), 1)
+    if tracer.enabled:
+      tracer.complete(f'pipeline.{label}.map', t_map,
+                      time.monotonic() - t_map,
+                      args={'tasks': len(my_indices)})
+    if not gather:
+      self._comm.barrier()
+      return local_results
+    return self._gather(local_results, len(tasks), label)
+
+  def _map_serial(self, fn, tasks, my_indices, label, tele, tracer,
+                  local_results):
+    total = len(my_indices)
+    task_name = f'pipeline.{label}.task'
+    task_hist = tele.histogram(f'pipeline.{label}.task_seconds')
+    tasks_done = tele.counter(f'pipeline.{label}.tasks')
+    progress_gauge = tele.gauge(f'pipeline.{label}.progress_frac')
+    # Overlapped write-back: a task hands its shard writes to the ambient
+    # writer's thread, so the encode of shard N+1 overlaps the write of N.
+    writer = AsyncShardWriter() if write_back_enabled() else None
+    previous = install_writer(writer)
+    try:
+      for i in my_indices:
+        gi, res, t0, dt, pid = _run_task(fn, i, tasks[i])
+        task_hist.observe(dt)
+        tasks_done.add(1)
+        tracer.complete(task_name, t0, dt, tid=pid)
+        local_results.append((gi, res))
+        progress_gauge.set(len(local_results) / total)
+        if self._progress:
+          self._progress.update(label, len(local_results), total)
+      if writer is not None:
+        writer.flush()
+    except BaseException:
+      # The task's error is the story; drain the writer quietly.
+      if writer is not None:
+        writer.close(raise_errors=False)
+        writer = None
+      raise
+    finally:
+      install_writer(previous)
+      if writer is not None:
+        backlog = writer.take_backlog_hwm()
+        writer.close()
+        tele.gauge('pipeline.pool.writer_backlog').set(backlog)
+
+  def _gather(self, local_results, n, label):
+    gathered = self._comm.allgather_object(local_results)
+    ordered = [None] * n
+    seen = [False] * n
+    for rank_results in gathered:
+      for i, res in rank_results:
+        ordered[i] = res
+        seen[i] = True
+    missing = [i for i, ok in enumerate(seen) if not ok]
+    if missing:
+      shown = ', '.join(map(str, missing[:32]))
+      more = f' (+{len(missing) - 32} more)' if len(missing) > 32 else ''
+      raise RuntimeError(
+          f'map({label!r}) gather returned no result for {len(missing)} '
+          f'of {n} tasks — missing global indices: {shown}{more}. A rank '
+          'likely dropped tasks or returned a truncated result list.')
+    return ordered

@@ -1,7 +1,9 @@
-"""A read-only Parquet reader in numpy, for the shards lddl_tpu writes.
+"""A Parquet reader and writer in numpy, for the shards of lddl_tpu.
 
-The card's machine has no pyarrow, so the port reads shards itself. This
-module covers the part of ``pyarrow.parquet.ParquetFile`` the loader uses
+The card's machine has no pyarrow, so the port reads and writes shards
+itself. The write side (:class:`Table`, :func:`write_parquet`, and the
+preprocessor's partition writers below) is at the end of this module. The
+read side covers the part of ``pyarrow.parquet.ParquetFile`` the loader uses
 (``lddl_tpu/loader/dataset.py:207``, ``lddl_tpu/core/utils.py:81``,
 ``lddl_tpu/pipeline/shard_format.py:94``): the footer's row count and
 key-value metadata, and :meth:`ParquetFile.iter_batches`, one
@@ -34,7 +36,8 @@ import struct
 
 import numpy as np
 
-from .codecs import decompress
+from .codecs import (LZ4_RAW, UNCOMPRESSED, compress, decompress,
+                     plain_byte_arrays)
 
 MAGIC = b'PAR1'
 
@@ -222,6 +225,12 @@ class ByteArrays:
     src = (np.repeat(self.offsets[:-1][idx] - offsets[:-1], lens) +
            np.arange(offsets[-1], dtype=np.int64))
     return ByteArrays(offsets, self.data[src])
+
+  def slice(self, start, stop):
+    """Values ``[start, stop)``, their offsets rebased to 0."""
+    offsets = self.offsets[start:stop + 1]
+    return ByteArrays(offsets - offsets[0],
+                      self.data[offsets[0]:offsets[-1]])
 
   @staticmethod
   def concat(parts):
@@ -503,6 +512,20 @@ class ParquetFile:
                          f'{i} of {rg.num_rows} rows')
     return RecordBatch(rg.num_rows, self.metadata.columns, values)
 
+  def read_row_groups(self, indices):
+    """Row groups ``indices``, in that order, as one :class:`Table` with
+    the file's schema and key-value metadata."""
+    with open(self.path, 'rb') as f:
+      batches = [self._read_row_group(f, i) for i in indices]
+    fields = schema_of(self.metadata.columns)
+    columns = {name: _concat_values([b._values[name] for b in batches])
+               if batches else _empty_values(kind) for name, kind in fields}
+    return Table(columns, fields, self.metadata.metadata)
+
+  def read(self):
+    """The whole file as one :class:`Table`."""
+    return self.read_row_groups(range(self.metadata.num_row_groups))
+
   def iter_batches(self):
     """One :class:`RecordBatch` per non-empty row group, in file order."""
     with open(self.path, 'rb') as f:
@@ -518,3 +541,462 @@ class ParquetFile:
 
   def __exit__(self, *exc):
     self.close()
+
+
+# ---------------------------------------------------------------------------
+# the write side: tables in column buffers, and the Parquet writer
+
+#: The column kinds the writer takes, as Arrow names them: kind ->
+#: (physical type, ConvertedType, LogicalType union as a thrift struct,
+#: numpy dtype). ``uint16`` carries both the converted and the logical
+#: type, so pyarrow reads ``num_tokens`` as uint16, not int32.
+KINDS = {
+    'string': (BYTE_ARRAY, _UTF8, {1: {}}, None),
+    'binary': (BYTE_ARRAY, None, None, None),
+    'bool': (BOOLEAN, None, None, np.dtype(bool)),
+    'uint16': (INT32, 12, {10: {1: 16, 2: False}}, np.dtype('<u2')),
+    'int32': (INT32, None, None, np.dtype('<i4')),
+    'int64': (INT64, None, None, np.dtype('<i8')),
+}
+_KIND_OF_DTYPE = {np.dtype(bool): 'bool', np.dtype('<u2'): 'uint16',
+                  np.dtype('<i4'): 'int32', np.dtype('<i8'): 'int64'}
+
+
+def schema_of(columns):
+  """``[(name, kind)]`` of the reader's leaf :class:`Column` s."""
+  fields = []
+  for c in columns:
+    if c.physical == BYTE_ARRAY:
+      kind = 'string' if c.text else 'binary'
+    elif c.dtype in _KIND_OF_DTYPE:
+      kind = _KIND_OF_DTYPE[c.dtype]
+    else:
+      raise ValueError(f'column {c.name!r}: {c.dtype} has no writer kind')
+    fields.append((c.name, kind))
+  return fields
+
+
+def byte_arrays_of(values):
+  """A :class:`ByteArrays` column of Python ``str`` (UTF-8) or ``bytes``."""
+  raw = [v.encode('utf-8') if isinstance(v, str) else bytes(v)
+         for v in values]
+  offsets = np.zeros(len(raw) + 1, dtype=np.int64)
+  np.cumsum([len(r) for r in raw], out=offsets[1:])
+  return ByteArrays(offsets, np.frombuffer(b''.join(raw), dtype=np.uint8))
+
+
+def _empty_values(kind):
+  if KINDS[kind][0] == BYTE_ARRAY:
+    return ByteArrays(np.zeros(1, np.int64), np.zeros(0, np.uint8))
+  return np.zeros(0, dtype=KINDS[kind][3])
+
+
+def _concat_values(parts):
+  if isinstance(parts[0], ByteArrays):
+    return ByteArrays.concat(parts)
+  return np.concatenate(parts)
+
+
+def _as_column(kind, values):
+  if kind not in KINDS:
+    raise ValueError(f'unknown column kind {kind!r} ({", ".join(KINDS)})')
+  if KINDS[kind][0] == BYTE_ARRAY:
+    if isinstance(values, ByteArrays):
+      return ByteArrays(np.asarray(values.offsets, dtype=np.int64),
+                        np.asarray(values.data, dtype=np.uint8))
+    return byte_arrays_of(values)
+  return np.ascontiguousarray(values, dtype=KINDS[kind][3])
+
+
+class Schema:
+  """A flat schema: ``fields`` ``[(name, kind)]`` and the key-value
+  ``metadata`` (``{bytes: bytes}``) the footer carries."""
+
+  def __init__(self, fields, metadata=None):
+    self.fields = [(name, kind) for name, kind in fields]
+    self.metadata = dict(metadata or {})
+
+  @property
+  def names(self):
+    return [name for name, _ in self.fields]
+
+  def with_metadata(self, metadata):
+    return Schema(self.fields, metadata)
+
+  def empty_table(self):
+    return Table({name: _empty_values(kind) for name, kind in self.fields},
+                 self.fields, self.metadata)
+
+
+class Table:
+  """A flat table held as column buffers: a numpy array per fixed-width
+  column, a :class:`ByteArrays` per string or binary column, in the order
+  of ``fields`` (``[(name, kind)]``, kinds of :data:`KINDS`), plus the
+  footer's key-value ``metadata``."""
+
+  def __init__(self, columns, fields, metadata=None):
+    self.schema = Schema(fields, metadata)
+    self._columns = {name: _as_column(kind, columns[name])
+                     for name, kind in self.schema.fields}
+    lengths = {name: len(v) for name, v in self._columns.items()}
+    if len(set(lengths.values())) > 1:
+      raise ValueError(f'columns of unequal length: {lengths}')
+    self.num_rows = next(iter(lengths.values()), 0)
+
+  @property
+  def fields(self):
+    return self.schema.fields
+
+  @property
+  def names(self):
+    return self.schema.names
+
+  @property
+  def metadata(self):
+    return self.schema.metadata
+
+  def column(self, name):
+    return self._columns[name]
+
+  def take(self, idx):
+    """Rows ``idx`` (an int array), in that order."""
+    idx = np.asarray(idx, dtype=np.int64)
+    return Table({n: v.take(idx) if isinstance(v, ByteArrays) else v[idx]
+                  for n, v in self._columns.items()}, self.fields,
+                 self.metadata)
+
+  def slice(self, start, stop):
+    return Table({n: v.slice(start, stop) if isinstance(v, ByteArrays)
+                  else v[start:stop] for n, v in self._columns.items()},
+                 self.fields, self.metadata)
+
+  def append_column(self, name, kind, values):
+    columns = dict(self._columns)
+    columns[name] = values
+    return Table(columns, self.fields + [(name, kind)], self.metadata)
+
+  def with_metadata(self, metadata):
+    return Table(self._columns, self.fields, metadata)
+
+  @staticmethod
+  def concat(tables):
+    """Row-wise concatenation of tables of one schema (the first's
+    metadata)."""
+    first = tables[0]
+    if any(t.fields != first.fields for t in tables[1:]):
+      raise ValueError('concat of tables with different schemas')
+    return Table({n: _concat_values([t.column(n) for t in tables])
+                  for n in first.names}, first.fields, first.metadata)
+
+  def to_pylist(self):
+    """Rows as dicts: ``str`` for strings, ``bytes`` for binary values,
+    Python ints and bools otherwise (as ``pyarrow``'s ``to_pylist``)."""
+    cols = {}
+    for name, kind in self.fields:
+      v = self._columns[name]
+      cols[name] = (v.to_pylist(kind == 'string')
+                    if isinstance(v, ByteArrays) else v.tolist())
+    return [dict(zip(cols, row)) for row in zip(*cols.values())] \
+        if cols else []
+
+
+# Thrift compact-protocol types.
+_T_TRUE, _T_FALSE, _T_BYTE, _T_I16, _T_I32, _T_I64 = 1, 2, 3, 4, 5, 6
+_T_BINARY, _T_LIST, _T_STRUCT = 8, 9, 12
+
+
+class _CompactWriter:
+  """Thrift compact-protocol writer. A struct is a list of ``(field id,
+  type, value)`` in ascending field order (None values are left out); a
+  list value is ``(element type, items)``."""
+
+  def __init__(self):
+    self.out = bytearray()
+
+  def varint(self, n):
+    while True:
+      b = n & 0x7f
+      n >>= 7
+      if n:
+        self.out.append(b | 0x80)
+      else:
+        self.out.append(b)
+        return
+
+  def zigzag(self, n):
+    self.varint((n << 1) ^ (n >> 63))
+
+  def value(self, kind, v):
+    if kind in (_T_BYTE,):
+      self.out.append(v & 0xff)
+    elif kind in (_T_I16, _T_I32, _T_I64):
+      self.zigzag(v)
+    elif kind == _T_BINARY:
+      v = v.encode('utf-8') if isinstance(v, str) else bytes(v)
+      self.varint(len(v))
+      self.out += v
+    elif kind == _T_LIST:
+      elem, items = v
+      if len(items) < 15:
+        self.out.append(len(items) << 4 | elem)
+      else:
+        self.out.append(0xf0 | elem)
+        self.varint(len(items))
+      for item in items:
+        self.value(elem, item)
+    elif kind == _T_STRUCT:
+      self.struct(v)
+    else:
+      raise ValueError(f'thrift compact type {kind} is not written here')
+
+  def struct(self, fields):
+    last = 0
+    for fid, kind, v in fields:
+      if v is None:
+        continue
+      head = kind
+      if kind == _T_TRUE:  # a bool field: its value is its type
+        head = _T_TRUE if v else _T_FALSE
+      delta = fid - last
+      if 0 < delta <= 15:
+        self.out.append(delta << 4 | head)
+      else:
+        self.out.append(head)
+        self.zigzag(fid)
+      if kind != _T_TRUE:
+        self.value(kind, v)
+      last = fid
+    self.out.append(0)  # STOP
+
+
+def _thrift(fields):
+  w = _CompactWriter()
+  w.struct(fields)
+  return bytes(w.out)
+
+
+def _logical_struct(logical):
+  """A LogicalType union (``{field: struct-or-IntType}``) as writer
+  fields."""
+  (fid, body), = logical.items()
+  if fid == 10:  # IntType {1: bitWidth (i8), 2: isSigned}
+    inner = [(1, _T_BYTE, body[1]), (2, _T_TRUE, body[2])]
+  else:
+    inner = []
+  return [(fid, _T_STRUCT, inner)]
+
+
+#: Bytes of encoded values per data page (pyarrow's default page size).
+PAGE_BYTES = 1 << 20
+#: Rows per row group, at most (pyarrow's default).
+ROW_GROUP_ROWS = 1 << 20
+CREATED_BY = 'lddl_tpu_torch parquet writer'
+
+
+def _page_rows(kind, values, start, stop):
+  """Row bounds ``[start, ..., stop]`` of pages of about PAGE_BYTES."""
+  if KINDS[kind][0] == BYTE_ARRAY:
+    sizes = 4 + np.diff(values.offsets[start:stop + 1])
+    cum = np.cumsum(sizes)
+    bounds = [0]
+    while bounds[-1] < stop - start:
+      base = cum[bounds[-1] - 1] if bounds[-1] else 0
+      nxt = int(np.searchsorted(cum, base + PAGE_BYTES, side='right'))
+      bounds.append(min(stop - start, max(nxt, bounds[-1] + 1)))
+    return [start + b for b in bounds]
+  width = KINDS[kind][3].itemsize if kind != 'bool' else 1
+  step = max(8, PAGE_BYTES // width)
+  return list(range(start, stop, step)) + [stop]
+
+
+def _encode_page(kind, values, start, stop):
+  physical = KINDS[kind][0]
+  if physical == BYTE_ARRAY:
+    o = values.offsets[start:stop + 1]
+    return plain_byte_arrays(o - o[0], values.data[o[0]:o[-1]])
+  part = values[start:stop]
+  if physical == BOOLEAN:
+    return np.packbits(part, bitorder='little')
+  raw = np.dtype('<i4') if physical == INT32 else np.dtype('<i8')
+  return np.ascontiguousarray(part.astype(raw)).view(np.uint8)
+
+
+def _write_chunk(f, kind, values, start, stop, codec):
+  """One column chunk (PLAIN data pages v1) at ``f``'s position; returns
+  its ColumnMetaData fields without the name."""
+  offset = f.tell()
+  raw_total = packed_total = 0
+  bounds = _page_rows(kind, values, start, stop)
+  for a, b in zip(bounds, bounds[1:]):
+    body = _encode_page(kind, values, a, b)
+    packed = compress(codec, body)
+    header = _thrift([
+        (1, _T_I32, DATA_PAGE), (2, _T_I32, int(body.shape[0])),
+        (3, _T_I32, int(packed.shape[0])),
+        (5, _T_STRUCT, [(1, _T_I32, b - a), (2, _T_I32, PLAIN),
+                        (3, _T_I32, RLE), (4, _T_I32, RLE)])])
+    f.write(header)
+    f.write(packed.tobytes())
+    raw_total += len(header) + body.shape[0]
+    packed_total += len(header) + packed.shape[0]
+  return offset, raw_total, packed_total
+
+
+def write_parquet(table, path, compression=LZ4_RAW,
+                  row_group_rows=ROW_GROUP_ROWS):
+  """Write ``table`` (a :class:`Table`) to ``path`` as Parquet: required
+  columns, PLAIN data pages v1 of about :data:`PAGE_BYTES` compressed
+  with ``compression`` (a codec id: LZ4_RAW or UNCOMPRESSED), row groups
+  of at most ``row_group_rows`` rows (none for a zero-row table), and
+  the table's metadata as the footer's key-value metadata."""
+  if compression not in (LZ4_RAW, UNCOMPRESSED):
+    raise ValueError(f'compression {compression!r}: the writer takes '
+                     f'LZ4_RAW ({LZ4_RAW}) or UNCOMPRESSED ({UNCOMPRESSED})')
+  row_groups = []
+  with open(path, 'wb') as f:
+    f.write(MAGIC)
+    for r0 in range(0, table.num_rows, max(1, int(row_group_rows))):
+      r1 = min(table.num_rows, r0 + int(row_group_rows))
+      chunks, raw_rg, packed_rg = [], 0, 0
+      for name, kind in table.fields:
+        offset, raw, packed = _write_chunk(f, kind, table.column(name), r0,
+                                           r1, compression)
+        meta = [(1, _T_I32, KINDS[kind][0]), (2, _T_LIST, (_T_I32, [PLAIN])),
+                (3, _T_LIST, (_T_BINARY, [name])),
+                (4, _T_I32, compression), (5, _T_I64, r1 - r0),
+                (6, _T_I64, raw), (7, _T_I64, packed), (9, _T_I64, offset)]
+        chunks.append([(2, _T_I64, offset), (3, _T_STRUCT, meta)])
+        raw_rg += raw
+        packed_rg += packed
+      first = chunks[0][0][2] if chunks else f.tell()
+      row_groups.append([
+          (1, _T_LIST, (_T_STRUCT, chunks)), (2, _T_I64, raw_rg),
+          (3, _T_I64, r1 - r0), (5, _T_I64, first),
+          (6, _T_I64, packed_rg), (7, _T_I16, len(row_groups))])
+    schema = [[(4, _T_BINARY, 'schema'),
+               (5, _T_I32, len(table.fields))]]
+    for name, kind in table.fields:
+      physical, converted, logical, _ = KINDS[kind]
+      schema.append([
+          (1, _T_I32, physical), (3, _T_I32, REQUIRED),
+          (4, _T_BINARY, name), (6, _T_I32, converted),
+          (10, _T_STRUCT, _logical_struct(logical) if logical else None)])
+    kv = [[(1, _T_BINARY, k), (2, _T_BINARY, v)]
+          for k, v in table.metadata.items()]
+    footer = _thrift([
+        (1, _T_I32, 1), (2, _T_LIST, (_T_STRUCT, schema)),
+        (3, _T_I64, table.num_rows), (4, _T_LIST, (_T_STRUCT, row_groups)),
+        (5, _T_LIST, (_T_STRUCT, kv)) if kv else (5, _T_LIST, None),
+        (6, _T_BINARY, CREATED_BY)])
+    f.write(footer)
+    f.write(len(footer).to_bytes(4, 'little'))
+    f.write(MAGIC)
+
+
+# ---------------------------------------------------------------------------
+# the preprocessor's partition writers (lddl_tpu/pipeline/parquet_io.py)
+
+
+def compute_bin_ids(num_tokens, bin_size, nbins):
+  """``clamp((num_tokens - 1) // bin_size, 0, nbins - 1)``, vectorized."""
+  num_tokens = np.asarray(num_tokens, dtype=np.int64)
+  return np.clip((num_tokens - 1) // bin_size, 0, nbins - 1)
+
+
+# The writers' ``compression`` names (pyarrow's, as lddl_tpu passes them):
+# 'default' and 'lz4' are LZ4_RAW, which pyarrow writes for 'lz4'.
+_COMPRESSION = {'default': LZ4_RAW, 'lz4': LZ4_RAW, None: UNCOMPRESSED}
+
+
+def _codec(compression):
+  if compression not in _COMPRESSION:
+    raise ValueError(f'compression {compression!r}: the port writes '
+                     f'{", ".join(map(repr, _COMPRESSION))}')
+  return _COMPRESSION[compression]
+
+
+def write_shard_file(table, path, output_format='parquet',
+                     compression='default'):
+  """Write one shard file atomically: a pid-unique tmp file in the same
+  directory (invisible to shard discovery: a leading dot and ``.tmp``),
+  fingerprinted into the ledger when it is on, then renamed into place.
+  ``compression='default'`` is LZ4_RAW, the codec lddl_tpu writes.
+
+  Module-level, so an :class:`~.pool.AsyncShardWriter` can run it: a
+  deferred write changes when bytes land, never what lands."""
+  from ..telemetry import get_telemetry
+  out_dir = os.path.dirname(path) or '.'
+  tmp = os.path.join(out_dir, f'.{os.path.basename(path)}.{os.getpid()}.tmp')
+  try:
+    if output_format == 'parquet':
+      with get_telemetry().span('pipeline.write_seconds'):
+        write_parquet(table, tmp, compression=_codec(compression))
+    elif output_format == 'txt':
+      with open(tmp, 'w', encoding='utf-8') as f:
+        for row in table.to_pylist():
+          f.write(repr(row) + '\n')
+    else:
+      raise ValueError(f'unknown output_format {output_format!r}')
+    from ..telemetry.ledger import fingerprint_file, get_ledger
+    ledger = get_ledger()
+    if ledger.enabled:
+      # The shard boundary: the exact bytes about to be renamed into place.
+      ledger.record('shard', fingerprint_file(tmp),
+                    path=os.path.basename(path))
+    os.rename(tmp, path)
+  finally:
+    if os.path.exists(tmp):
+      os.remove(tmp)
+
+
+def write_table_partition(table, out_dir, partition_idx, bin_size=None,
+                          nbins=None, compression='default',
+                          output_format='parquet', writer=None):
+  """Write one partition's :class:`Table`: ``part.<idx>.parquet``, or one
+  file per sequence bin, ``part.<idx>.parquet_<bin>``, each with an int64
+  ``bin_id`` column (every bin's file is written, empty or not, so the
+  bin-id set stays contiguous). The bin split is one stable argsort and a
+  take per bin. With ``writer`` (an :class:`~.pool.AsyncShardWriter`) the
+  writes go to its thread. Returns ``{bin_id_or_None: (path,
+  num_samples)}``."""
+  os.makedirs(out_dir, exist_ok=True)
+
+  def _write(tbl, path):
+    if writer is not None:
+      writer.submit(write_shard_file, tbl, path, output_format=output_format,
+                    compression=compression)
+    else:
+      write_shard_file(tbl, path, output_format=output_format,
+                       compression=compression)
+
+  ext = 'parquet' if output_format == 'parquet' else 'txt'
+  if bin_size is None:
+    path = os.path.join(out_dir, f'part.{partition_idx}.{ext}')
+    _write(table, path)
+    return {None: (path, table.num_rows)}
+  if nbins is None:
+    raise ValueError('nbins is required when bin_size is set')
+  bin_ids = compute_bin_ids(table.column('num_tokens'), bin_size, nbins)
+  order = np.argsort(bin_ids, kind='stable')
+  boundaries = np.searchsorted(bin_ids[order], np.arange(nbins + 1))
+  out = {}
+  for b in range(nbins):
+    idx = order[boundaries[b]:boundaries[b + 1]]
+    tbl = table.take(idx).append_column(
+        'bin_id', 'int64', np.full(len(idx), b, dtype=np.int64))
+    path = os.path.join(out_dir, f'part.{partition_idx}.{ext}_{b}')
+    _write(tbl, path)
+    out[b] = (path, len(idx))
+  return out
+
+
+def write_samples_partition(samples, schema, out_dir, partition_idx,
+                            bin_size=None, nbins=None, compression='default',
+                            output_format='parquet', writer=None):
+  """:func:`write_table_partition` of a list of sample dicts over
+  ``schema`` (a :class:`Schema`, whose metadata rides into the footer)."""
+  cols = {name: [r[name] for r in samples] for name in schema.names}
+  return write_table_partition(
+      Table(cols, schema.fields, schema.metadata), out_dir, partition_idx,
+      bin_size=bin_size, nbins=nbins, compression=compression,
+      output_format=output_format, writer=writer)

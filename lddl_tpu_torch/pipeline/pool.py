@@ -1,17 +1,33 @@
 """Bounded background write-back (the part of
 :mod:`lddl_tpu.pipeline.pool` the port needs).
 
-Only :class:`AsyncShardWriter` and :class:`WriteBackError` are copied:
-the train loop's :class:`~lddl_tpu_torch.training.elastic.
-AsyncCheckpointWriter` rides their overlap-and-flush discipline. The
-JAX package's worker pool and its ambient writer are not ported.
+:class:`AsyncShardWriter` and :class:`WriteBackError`: the train loop's
+:class:`~lddl_tpu_torch.training.elastic.AsyncCheckpointWriter` rides
+their overlap-and-flush discipline, and the executor's serial map hands
+the preprocessor's shard writes to one (the ambient writer,
+:func:`current_writer`). The JAX package's persistent worker pool is not
+ported.
 """
 
+import os
 import queue as _queue
 import threading
 import traceback
 
 from ..telemetry import get_telemetry
+
+
+def write_back_enabled():
+  """Overlapped write-back is on unless ``LDDL_WRITE_BACK`` disables it."""
+  return os.environ.get('LDDL_WRITE_BACK', '').strip().lower() not in (
+      '0', 'false', 'off')
+
+
+def _write_back_depth():
+  try:
+    return max(1, int(os.environ.get('LDDL_WRITE_BACK_DEPTH', '2')))
+  except ValueError:
+    return 2
 
 
 class WriteBackError(RuntimeError):
@@ -29,14 +45,15 @@ class AsyncShardWriter:
   counter completions are billed to and the thread.
   """
 
-  def __init__(self, max_pending, counter='pipeline.pool.writes',
+  def __init__(self, max_pending=None, counter='pipeline.pool.writes',
                thread_name='lddl-write-back'):
-    self._q = _queue.Queue(max_pending)
+    self._q = _queue.Queue(max_pending or _write_back_depth())
     self._err = None
     # _err is written by the writer thread and read by flush()/failed on
     # the submitting thread; the lock makes first-failure-wins atomic.
     self._err_lock = threading.Lock()
     self._counter = counter
+    self.backlog_hwm = 0  # max queue depth observed since last reset
     self._thread = threading.Thread(
         target=self._run, name=thread_name, daemon=True)
     self._thread.start()
@@ -75,12 +92,20 @@ class AsyncShardWriter:
   def submit(self, fn, *args, **kwargs):
     """Enqueue one write job (blocks when ``max_pending`` are in flight)."""
     self.raise_pending()
+    depth = self._q.qsize() + 1
+    if depth > self.backlog_hwm:
+      self.backlog_hwm = depth
     self._q.put((fn, args, kwargs))
 
   def flush(self):
     """Block until all submitted jobs ran; raise on any failure."""
     self._q.join()
     self.raise_pending()
+
+  def take_backlog_hwm(self):
+    """Read and reset the high-water mark (per-phase accounting)."""
+    hwm, self.backlog_hwm = self.backlog_hwm, 0
+    return hwm
 
   def close(self, raise_errors=True):
     """Drain, stop the thread, and (optionally) raise pending failures."""
@@ -89,3 +114,21 @@ class AsyncShardWriter:
     self._thread.join(timeout=30.0)
     if raise_errors:
       self.raise_pending()
+
+
+# The process's ambient writer, which tasks pick up via current_writer():
+# the executor's serial map installs one around its task loop; everywhere
+# else it is None and writes stay synchronous.
+_CURRENT_WRITER = None
+
+
+def current_writer():
+  """The ambient :class:`AsyncShardWriter` of this process, or None."""
+  return _CURRENT_WRITER
+
+
+def install_writer(writer):
+  """Install ``writer`` as the ambient writer; returns the previous one."""
+  global _CURRENT_WRITER
+  previous, _CURRENT_WRITER = _CURRENT_WRITER, writer
+  return previous

@@ -1,11 +1,10 @@
-"""Shard format tags, read side: materialized vs mask-delta corpora.
+"""Shard format tags: materialized vs mask-delta corpora.
 
-Copied from :mod:`lddl_tpu.pipeline.shard_format` (the constants,
-``format_of_schema``, ``shard_format_of``, ``scan_shard_format``). The
-JAX package reads the tag from the Arrow schema's metadata, which Parquet
-round-trips as the footer's key-value metadata; the port reads that
-footer directly (:mod:`.parquet_io`). Tagging tables stays with the
-writer, :mod:`lddl_tpu`.
+Copied from :mod:`lddl_tpu.pipeline.shard_format`. The JAX package keeps
+the tag in the Arrow schema's metadata, which Parquet round-trips as the
+footer's key-value metadata; the port writes and reads that footer
+directly (:mod:`.parquet_io`), under the same keys, so either package
+reads the other's tag.
 
   - ``materialized``: one physical row per training sample (and the
     implicit format of untagged shards);
@@ -27,6 +26,28 @@ DUP_KEY = b'lddl_duplicate_factor'
 #: The three ragged-packed delta columns of a delta-format BERT shard.
 DELTA_COLUMNS = ('mask_delta_positions', 'mask_delta_new_ids',
                  'mask_delta_k')
+
+
+def _tag_metadata(existing, shard_format, duplicate_factor):
+  if shard_format not in (MATERIALIZED, DELTA):
+    raise ValueError(f'unknown shard format {shard_format!r}')
+  meta = dict(existing or {})
+  meta[FORMAT_KEY] = shard_format.encode()
+  meta[DUP_KEY] = str(int(duplicate_factor)).encode()
+  return meta
+
+
+def tag_table(table, shard_format, duplicate_factor):
+  """Merge the shard-format tag into a :class:`~.parquet_io.Table`'s
+  metadata."""
+  return table.with_metadata(
+      _tag_metadata(table.metadata, shard_format, duplicate_factor))
+
+
+def tag_schema(schema, shard_format, duplicate_factor):
+  """Schema-level sibling of :func:`tag_table`."""
+  return schema.with_metadata(
+      _tag_metadata(schema.metadata, shard_format, duplicate_factor))
 
 
 def format_of_schema(metadata):

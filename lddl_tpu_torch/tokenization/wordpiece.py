@@ -10,6 +10,9 @@ token per line, its id the line number, an unknown token mapped to
 package's): HF's normalization (accents stripped only when lowercasing,
 CJK characters split) and its greedy longest-match WordPiece.
 
+The preprocessor (:mod:`lddl_tpu_torch.preprocess.bert`) also decodes
+through it: id ranges back to space-joined token columns.
+
 Most collates take from the tokenizer only the special ids,
 ``vocab_size`` and ``convert_tokens_to_ids`` (the BERT, packed and
 CodeBERT shards hold tokens or ids already), so the encoder is built at
@@ -82,6 +85,27 @@ class BertWordPiece:
             self._vocab_words, unk_token=self.unk_token,
             lowercase=self.lowercase)
       return self._native
+
+  @property
+  def native(self):
+    """The native encoder (built at the first use); the preprocessor's
+    document encoder and column assembly run through it."""
+    return self.encoder()
+
+  def decode_join_buffers(self, flat_ids, offsets):
+    """Id ranges -> the buffers of a column of space-joined tokens:
+    (int32 offsets [n+1], uint8 UTF-8 data)."""
+    return self.encoder().decode_join_buffers(flat_ids, offsets)
+
+  def decode_join(self, flat_ids, offsets):
+    """Id ranges -> a list of space-joined token strings."""
+    return self.encoder().decode_join(flat_ids, offsets)
+
+  def columnar_emit(self, columns, positions=None):
+    """Every string column of a shard (and the npy-framed positions
+    column) in one native round trip; see
+    :meth:`~lddl_tpu_torch.native.NativeWordPiece.columnar_emit`."""
+    return self.encoder().columnar_emit(columns, positions=positions)
 
   def encode_batch_ids(self, texts, max_tokens=None):
     """Tokenize many texts straight to ids: (flat int32 ids, int64 [n+1]

@@ -25,6 +25,7 @@ from lddl_tpu.loader import get_bart_pretrain_data_loader as jax_bart
 from lddl_tpu.tokenization.wordpiece import load_bert_tokenizer as jax_tok
 from lddl_tpu_torch.loader import get_bart_pretrain_data_loader
 from lddl_tpu_torch.loader.shm import SEGMENT_PREFIX, live_segments
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 SHARDS = ROOT / 'tests' / 'assets' / 'torch_shards'

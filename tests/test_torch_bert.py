@@ -15,6 +15,7 @@ from lddl_tpu.models import BertConfig as JaxConfig
 from lddl_tpu.models import BertForPretraining as JaxBert
 from lddl_tpu_torch.models import (BertConfig, BertForPretraining,
                                    flax_to_state_dict)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def _no_leaked_shm_segments():

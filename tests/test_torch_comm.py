@@ -13,6 +13,7 @@ import pytest
 import torch_dist_ranks as ranks
 from lddl_tpu_torch.comm import (FileBackend, NullBackend, TorchDistBackend,
                                  get_backend)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

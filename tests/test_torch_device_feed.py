@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from lddl_tpu_torch.loader.device import prefetch_to_device
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

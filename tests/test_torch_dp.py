@@ -39,6 +39,7 @@ from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
 from lddl_tpu_torch.models import (BertConfig, BertForPretraining,
                                    flax_to_state_dict)
 from lddl_tpu_torch.parallel import train as ttrain
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -41,6 +41,7 @@ from lddl_tpu_torch.training.elastic import (RankMembership,
                                              elastic_train_enabled,
                                              maybe_membership,
                                              shed_threshold)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

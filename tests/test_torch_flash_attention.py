@@ -20,6 +20,7 @@ import torch
 
 from lddl_tpu.ops import flash_attention as jfa
 from lddl_tpu_torch.ops import flash_attention as tfa
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

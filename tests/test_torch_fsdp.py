@@ -34,6 +34,7 @@ from lddl_tpu_torch.models import BertConfig
 from lddl_tpu_torch.training import TrainLoop
 from test_torch_dp import NAMES, OPT, TINY, _pairs
 from test_torch_tp import check_case, check_tensor_groups, mesh_world
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -60,7 +60,16 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.replay.bundle', 'lddl_tpu_torch.replay.steps',
            'lddl_tpu_torch.replay.cli', 'lddl_tpu_torch.training.flight',
            'lddl_tpu_torch.native', 'lddl_tpu_torch.native.build',
-           'lddl_tpu_torch.native.wordpiece', 'lddl_tpu_torch.loader.bart')
+           'lddl_tpu_torch.native.wordpiece', 'lddl_tpu_torch.loader.bart',
+           'lddl_tpu_torch.ops.masking', 'lddl_tpu_torch.native.pairing',
+           'lddl_tpu_torch.preprocess', 'lddl_tpu_torch.preprocess.bert',
+           'lddl_tpu_torch.preprocess.common',
+           'lddl_tpu_torch.preprocess.pairing',
+           'lddl_tpu_torch.preprocess.readers',
+           'lddl_tpu_torch.pipeline.partition',
+           'lddl_tpu_torch.pipeline.shuffle',
+           'lddl_tpu_torch.tokenization.sentences',
+           'lddl_tpu_torch.core.synth')
 
 
 def test_import_loads_no_jax_and_no_lddl_tpu():

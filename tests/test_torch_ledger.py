@@ -33,6 +33,7 @@ from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                    get_packed_pretrain_data_loader)
 from lddl_tpu_torch.loader.shm import SEGMENT_PREFIX, _pack_into, live_segments
 from test_torch_loader import batch_sha256, corpus  # noqa: F401 (fixtures)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

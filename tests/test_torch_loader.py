@@ -34,6 +34,7 @@ from lddl_tpu_torch.loader import (get_bert_pretrain_data_loader,
                                    get_packed_pretrain_data_loader)
 from lddl_tpu_torch.loader.dataset import count_samples
 from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -51,6 +51,7 @@ from lddl_tpu_torch.telemetry.server import (NOOP_MONITOR, get_monitor,
                                              maybe_start_monitor,
                                              prometheus_lines, stop_monitor)
 from torch_live_procs import straggler_rank
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -12,6 +12,7 @@ from lddl_tpu.core import utils as jutils
 from lddl_tpu.loader.packed import PackedCollate as JaxPackedCollate
 from lddl_tpu_torch.core import utils as tutils
 from lddl_tpu_torch.loader.packed import PackedCollate
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

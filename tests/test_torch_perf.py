@@ -33,6 +33,7 @@ from lddl_tpu.telemetry import perf as jperf
 from lddl_tpu_torch.telemetry import perf as tperf
 
 from torch_dist_ranks import run_world
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIRS = os.path.join(REPO_ROOT, 'tests', 'assets', 'torch_shards', 'pairs')

@@ -12,6 +12,7 @@ from lddl_tpu_torch.loader import PackedCollate
 from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
 from lddl_tpu_torch.models import BertConfig
 from lddl_tpu_torch.training import TrainLoop
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def _no_leaked_shm_segments():

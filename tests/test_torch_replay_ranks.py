@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 
 import torch_dist_ranks as ranks
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHARDS = os.path.join(ROOT, 'tests', 'assets', 'torch_shards')

@@ -34,6 +34,7 @@ from lddl_tpu.parallel.ring import make_ring_attention as jax_ring
 from lddl_tpu_torch.parallel.mesh import (MESH_AXES, canonical_batch_spec,
                                           local_batch, seq_columns)
 from lddl_tpu_torch.parallel.ring import make_ring_attention, ring_attention
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

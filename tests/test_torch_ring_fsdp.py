@@ -13,6 +13,7 @@ import pytest
 
 from test_torch_ring_step import (check_bit_equal, check_mesh_and_refusal,
                                   check_step, seq_run)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

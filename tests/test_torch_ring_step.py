@@ -42,6 +42,7 @@ from lddl_tpu.parallel import shard_batch
 from lddl_tpu.parallel.train import pretrain_loss as jax_pretrain_loss
 from lddl_tpu_torch.models import flax_to_state_dict
 from test_torch_dp import NAMES, OPT, TINY, _packed, _pairs, _uneven
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

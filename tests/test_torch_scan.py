@@ -42,6 +42,7 @@ from lddl_tpu_torch.parallel import (TrainStep, make_scan_train_step,
 from lddl_tpu_torch.parallel import train as ttrain
 
 from test_torch_train import TINY, _batch, _packed_batch
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 K = 3
 LR, WARMUP, TOTAL, WD = 1e-3, 2, 10, 0.01

@@ -56,6 +56,7 @@ from lddl_tpu_torch.loader.service import (DataServer, NetworkBatchSource,
                                            pack_batch, resolve_endpoint,
                                            unpack_batch)
 from torch_live_procs import digest, read_records, union_client
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PAIRS = ROOT / 'tests' / 'assets' / 'torch_shards' / 'pairs'

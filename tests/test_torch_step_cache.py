@@ -40,6 +40,7 @@ from lddl_tpu_torch.training.elastic import WriteBackError
 from lddl_tpu_torch.training.pretrain import _step_cache_enabled
 
 from test_torch_pretrain import CFG, _batch, _Loader
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

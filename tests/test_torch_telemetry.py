@@ -39,6 +39,7 @@ from lddl_tpu_torch.telemetry import trace as ttrace
 from lddl_tpu_torch.training import TrainLoop, export_telemetry
 
 from test_torch_pretrain import CFG, _batch
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -52,6 +52,7 @@ from lddl_tpu_torch.parallel.mesh import (MESH_AXES, batch_pspec,
                                           shard, unshard)
 from lddl_tpu_torch.training import TrainLoop
 from test_torch_dp import NAMES, OPT, TINY, _packed, _pairs, _uneven
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -392,6 +393,17 @@ def test_tensor_group_stays_bit_equal(tp_run):
   # Each rank holds the cut parameters' halves and the rest whole.
   sizes = dropout[0]['sizes']
   assert sizes['local'] == sizes['opt'] == sizes['mu'] < sizes['whole']
+
+
+def test_a_drifted_replica_is_made_equal_by_the_exchange(tp_run):
+  """Rank 1's replicated ``pooler.weight`` gradient moved by one ulp
+  before each of 3 exchanges (a test hook): the exchange broadcasts the
+  replicated gradients from tensor rank 0, so the replicas stay
+  bit-equal after every step."""
+  perturbed = [tp_run['port'][r]['perturbed'] for r in range(2)]
+  assert perturbed[1]['fired'] == 3 and perturbed[0]['fired'] == 0
+  assert len(perturbed[0]['digests']) == 3
+  assert perturbed[0]['digests'] == perturbed[1]['digests']
 
 
 def test_world1_checkpoint_restores_at_tensor2(tp_run):

@@ -29,6 +29,7 @@ from lddl_tpu_torch.core.utils import serialize_np_array
 from lddl_tpu_torch.loader import PackedCollate
 from lddl_tpu_torch.parallel import train as ttrain
 from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def _no_leaked_shm_segments():

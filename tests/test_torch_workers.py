@@ -46,6 +46,7 @@ from lddl_tpu_torch.loader import (MultiprocessLoader,
 from lddl_tpu_torch.loader.shm import SEGMENT_PREFIX, live_segments
 from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
 from test_torch_loader import batch_sha256, corpus  # noqa: F401 (fixtures)
+from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

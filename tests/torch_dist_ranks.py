@@ -4,9 +4,12 @@
 ``fn(rank, world, *args)`` with the ``torch.distributed`` rendezvous
 environment set (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE``, the port from ``bind(('localhost', 0))``), and returns
-``{rank: result}``. The whole world has one deadline: a rank that has
+``{rank: result}``. Every world has a deadline of its own, from its
+start (:data:`WORLD_DEADLINE`, or the caller's), and its join waits at
+most ``timeout`` seconds more than the parent's own work: a rank that has
 not reported by then, or that dies without reporting, fails the call,
-and every process still alive is killed, so a stuck rank fails its test
+naming the rank and the last thing it said it was doing (:func:`doing`),
+and every process still alive is killed, so a stuck world costs its test
 instead of holding the tier-1 run.
 
 The rank functions live here, not in the test files: a spawned child
@@ -24,6 +27,25 @@ import traceback
 import numpy as np
 
 WORLD_TIMEOUT = 120.0
+#: Seconds a world may live from its start, whatever its join waits.
+WORLD_DEADLINE = 480.0
+
+# (queue, rank) in a rank process: where doing() reports.
+_REPORT = None
+
+
+def doing(what):
+  """Tell the parent what this rank is doing now: a world past its
+  deadline names each silent rank's last report."""
+  if _REPORT is not None:
+    q, rank = _REPORT
+    q.put((rank, 'doing', str(what)))
+
+
+class _World(list):
+  """A world's processes and its deadline (``time.monotonic()``)."""
+
+  deadline = float('inf')
 
 
 def free_port():
@@ -33,10 +55,13 @@ def free_port():
 
 
 def _entry(fn, rank, world, port, env, args, q):
+  global _REPORT
   os.environ.update(env)
   os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(port),
                     RANK=str(rank), WORLD_SIZE=str(world),
                     LOCAL_RANK=str(rank))
+  _REPORT = (q, rank)
+  doing(f'{fn.__name__}: started')
   try:
     q.put((rank, 'ok', fn(rank, world, *args)))
   except BaseException:
@@ -49,13 +74,16 @@ def _entry(fn, rank, world, port, env, args, q):
       dist.destroy_process_group()
 
 
-def start_world(fn, world, args=(), env=None, rank_env=None):
+def start_world(fn, world, args=(), env=None, rank_env=None,
+                deadline=WORLD_DEADLINE):
   """Start the ranks; returns ``(procs, queue)`` for :func:`join_world`.
-  ``rank_env``: extra environment per rank (``{rank: {...}}``)."""
+  ``rank_env``: extra environment per rank (``{rank: {...}}``);
+  ``deadline``: seconds the world may live from now."""
   ctx = multiprocessing.get_context('spawn')
   q = ctx.Queue()
   port = free_port()
-  procs = []
+  procs = _World()
+  procs.deadline = time.monotonic() + deadline
   for r in range(world):
     e = dict(env or {})
     e.update((rank_env or {}).get(r, {}))
@@ -69,17 +97,27 @@ def start_world(fn, world, args=(), env=None, rank_env=None):
 
 def join_world(procs, q, timeout=WORLD_TIMEOUT, expect=None):
   """Collect the reports of the ranks in ``expect`` (default all) within
-  ``timeout`` seconds, join every process, kill what is left; raises on
-  a rank's error, a silent death or the deadline."""
+  ``timeout`` seconds and the world's own deadline, join every process,
+  kill what is left; raises on a rank's error, a silent death or a
+  deadline, naming what each missing rank was doing."""
   expect = set(range(len(procs)) if expect is None else expect)
-  deadline = time.monotonic() + timeout
-  results, errors = {}, {}
+  deadline = min(time.monotonic() + timeout,
+                 getattr(procs, 'deadline', float('inf')))
+  results, errors, said = {}, {}, {}
+
+  def what(ranks):
+    return '; '.join(f'rank {r} was at: {said.get(r, "(nothing said)")}'
+                     for r in sorted(ranks))
+
   try:
     while expect - set(results) - set(errors):
       left = deadline - time.monotonic()
       if left <= 0:
-        raise TimeoutError(f'ranks {sorted(expect - set(results))} did not '
-                           f'report within {timeout:.0f}s')
+        missing = expect - set(results) - set(errors)
+        raise TimeoutError(f'ranks {sorted(missing)} did not report by the '
+                           f'world\'s deadline ({timeout:.0f}s after the '
+                           f'join, at most its own from its start); '
+                           f'{what(missing)}')
       try:
         rank, kind, payload = q.get(timeout=min(left, 0.5))
       except queue.Empty:
@@ -92,9 +130,12 @@ def join_world(procs, q, timeout=WORLD_TIMEOUT, expect=None):
           except queue.Empty:
             raise RuntimeError(
                 f'rank {silent[0]} exited with {procs[silent[0]].exitcode} '
-                'without reporting') from None
+                f'without reporting; {what(silent[:1])}') from None
         else:
           continue
+      if kind == 'doing':
+        said[rank] = payload
+        continue
       (results if kind == 'ok' else errors)[rank] = payload
     for p in procs:
       p.join(max(deadline - time.monotonic(), 0.1))
@@ -130,6 +171,22 @@ def comm_file_ranks(rank, world, d, n_gc=20):
     b.allgather_object(i)
   b.barrier()
   return got, total.tolist(), root_val
+
+
+def preprocess_ranks(rank, world, argv):
+  """The port's preprocess CLI (``argv`` + ``--comm torch``) and then its
+  balancer as the ranks of one world: each rank's returned counts and
+  balance metadata."""
+  import torch
+
+  from lddl_tpu_torch import balance
+  from lddl_tpu_torch.preprocess import bert
+  torch.set_num_threads(1)
+  doing('preprocess_ranks: the preprocess CLI')
+  counts = bert.main([*argv[0], '--comm', 'torch'])
+  doing('preprocess_ranks: the balancer')
+  meta = balance.main([*argv[1], '--comm', 'torch'])
+  return {'counts': counts, 'meta': meta}
 
 
 def comm_torch_ranks(rank, world):
@@ -467,6 +524,7 @@ def mesh_steps(rank, world, axes, cases, opt_kw, ckpt=None):
   mesh = make_mesh(device_type='cpu', **axes)
   out = []
   for i, case in enumerate(cases):
+    doing(f'mesh_steps {axes}: case {i} of {len(cases)}')
     res, loop = mesh_case(rank, mesh, comm, case, opt_kw)
     if ckpt is not None and ckpt['case'] == i:
       loop.step = len(case['batches'])
@@ -510,8 +568,12 @@ def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
     out['refused']['seq'] = str(e)
   out['rows'] = make_global_batch(restore['next'], mesh,
                                   device='cpu')['input_ids'].numpy()
+  doing('tp_world: counted_run')
   out['counted'] = counted_run(mesh, comm, dict(restore['cfg']), opt_kw,
                                counted)
+  doing('tp_world: perturbed_steps')
+  out['perturbed'] = perturbed_steps(rank, mesh, comm, cases[0], opt_kw)
+  doing('tp_world: restore and step')
   loop = mesh_loop(mesh, comm, restore['cfg'], opt_kw).restore(
       restore['dir'])
   out['restored'] = {'digest': loop.state_digest(),
@@ -520,6 +582,7 @@ def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
   m = loop.step_fn(make_global_batch(restore['next'], mesh, device='cpu'),
                    loop.dropout_seed)
   out['restored']['next'] = {k: float(v) for k, v in m.items()}
+  doing('tp_world: the pretrain CLI')
   cli_loop = pretrain.main(cli)
   out['cli'] = {'step': cli_loop.step, 'samples': cli_loop.samples_seen,
                 'dp': (cli_loop.dp_rank, cli_loop.dp_world),
@@ -527,6 +590,34 @@ def tp_world(rank, world, axes, cases, opt_kw, restore, cli, counted):
                 'heads': cli_loop.model.encoder.layers[0].attention.heads,
                 'digest': cli_loop.state_digest()}
   return out
+
+
+def perturbed_steps(rank, mesh, comm, case, opt_kw):
+  """The case's steps with rank 1's ``pooler.weight`` gradient (a
+  replicated parameter) moved up by one ulp before the exchange, by a
+  hook put there here (the program has none): per step, the replicated
+  digest; and how often the hook ran."""
+  import math
+
+  import torch
+
+  from lddl_tpu_torch.loader.device import make_global_batch
+  loop = mesh_loop(mesh, comm, case['cfg'], opt_kw, state=case['state'])
+  fired = [0]
+
+  def one_ulp(g):
+    fired[0] += 1
+    return torch.nextafter(g, torch.full_like(g, math.inf))
+
+  if rank == 1:
+    dict(loop.model.named_parameters())['pooler.weight'].register_hook(
+        one_ulp)
+  digests = []
+  for batch in case['batches']:
+    loop.step_fn(make_global_batch(batch, mesh, device='cpu'),
+                 loop.dropout_seed)
+    digests.append(replicated_digest(loop))
+  return {'digests': digests, 'fired': fired[0]}
 
 
 class ListLoader:
@@ -659,14 +750,17 @@ def seq_world(rank, world, axes, cases, opt_kw, cli=None):
   torch.set_num_threads(2)
   comm = get_backend('torch')
   mesh = make_mesh(device_type='cpu', **axes)
-  out = {'mesh': mesh_summary(mesh),
-         'cases': [seq_case(rank, mesh, comm, c, opt_kw) for c in cases]}
+  out = {'mesh': mesh_summary(mesh), 'cases': []}
+  for i, c in enumerate(cases):
+    doing(f'seq_world {axes}: case {i} of {len(cases)}')
+    out['cases'].append(seq_case(rank, mesh, comm, c, opt_kw))
   try:
     BertForPretraining(BertConfig(**dict(cases[0]['cfg'],
                                          attention_impl='flash')), mesh)
   except ValueError as e:
     out['refused'] = str(e)
   if cli is not None:
+    doing(f'seq_world {axes}: the pretrain CLI')
     loop = pretrain.main(cli)
     out['cli'] = {'step': loop.step, 'samples': loop.samples_seen,
                   'dp': (loop.dp_rank, loop.dp_world),
@@ -763,6 +857,7 @@ def replay_ranks(rank, world, root, layouts, replay_kw, parity):
   for layout in layouts:
     t0 = time.perf_counter()
     name, d = layout['name'], os.path.join(root, layout['name'])
+    doing(f'replay_ranks: layout {name}')
     res = out[name] = {'record': _record(rank, layout, root, replay_kw,
                                          incident=layout.get('incident'))}
     target = replay_kw['target']
