@@ -357,6 +357,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      every bin, the sum = (b)'s, ``.num_samples.json``; (e) BERT-base
      from the balanced shards (static masks, step cache off): PREP_STEPS
      finite losses, 12 launches a step of each of K1-K3.
+  18. every shard format the port trains on, written on the card's
+     machine: (a) beside the build, the sources of the committed packed/,
+     codebert/ and bart/ sets remade from digests.json's corpus seeds
+     (lddl_tpu_torch.testing's recipes) and run through ``python -m
+     lddl_tpu_torch.preprocess.packed|codebert|bart`` and ``python -m
+     lddl_tpu_torch.balance`` at tests/make_torch_shards.py's settings;
+     before the first timed phase, the port's loaders over the results
+     give every committed batch_sha256 (bart: epochs 0 and 1, and every
+     chunk's token_sha256): lddl_tpu's shards, bit for bit, made where
+     lddl_tpu cannot run; (b) phase 7c trains from 18a's packed/ (K4,
+     12 launches a step of each) and 8e from its codebert/ (K1-K3, the
+     same), the counts at 0 just before and read just after; (c) last,
+     with nothing else of the script running, phase 17's corpus through
+     the BERT (``--mask-backend host``) and packed preprocessors at
+     ``--num-workers 1`` and N = min(POOL_MAX_WORKERS, cores), wall
+     seconds and MB/s of each: every file byte-identical at 1 and N;
+     then the BERT run at N with ``--mask-backend auto`` (it must resolve
+     to host) and one pool worker SIGKILLed at a task's start by the
+     pool.task fault hook: one respawn, and the clean run's bytes.
 
 The last lines are the kernels' JSON summary (with the launch counts of
 phases 9-12 and 14-17; phase 13 runs no kernel), the card's name and power
@@ -1887,11 +1906,12 @@ def check_shard_resume(build, tok, epoch, label='pairs'):
       'digest, deterministic algorithms on)')
 
 
-def train_packed_from_shards(args, digests, card, workers=0):
+def train_packed_from_shards(args, digests, card, workers=0, path=None):
   """7c (8c with ``workers``: through that many loader worker processes):
   BERT-base at s=8192 through TrainLoop.build(path=packed/,
   data_format='packed', block_diagonal=True) for the warm-up and timed
-  steps, the step cache on."""
+  steps, the step cache on. ``path``: the set to read in packed/'s place
+  (7c reads 18a's, whose batches are packed/'s: 18b)."""
   from lddl_tpu_torch import telemetry
   from lddl_tpu_torch.models import BertConfig
   from lddl_tpu_torch.ops import flash_attention as tfa
@@ -1908,10 +1928,12 @@ def train_packed_from_shards(args, digests, card, workers=0):
     tok = load_bert_tokenizer(VOCAB_FILE)
   label = f'packed through {workers} workers' if workers else (
       'packed from shards')
+  if path:
+    label += " (18b: the port's own, 18a)"
   cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
                    max_position_embeddings=max(s, 512), **MODEL_SIZES[MODEL])
   loop = TrainLoop.build(
-      shard_path('packed'), tok, model_cfg=cfg, device=DEVICE,
+      path or shard_path('packed'), tok, model_cfg=cfg, device=DEVICE,
       learning_rate=1e-4, warmup_steps=10, total_steps=1000,
       seed=settings['base_seed'], max_predictions=PACKED[2],
       batch_size_per_rank=b, max_seq_length=s, data_format='packed',
@@ -1946,7 +1968,7 @@ def train_packed_from_shards(args, digests, card, workers=0):
   dt = float(np.mean([x['compute'] for x in timed]))
   wall = float(np.mean([x['wall'] for x in timed]))
   stats = {'seq_len': s, 'batch': b, 'steps': n, 'ms_per_step': 1e3 * dt,
-           'wall_ms_per_step': 1e3 * wall,
+           'launches': counts, 'wall_ms_per_step': 1e3 * wall,
            'data_wait_ms_per_step': 1e3 * wait[1] / max(wait[0], 1),
            'data_wait_max_s': wait[2], 'losses': losses}
   if workers:
@@ -2304,11 +2326,15 @@ class DigestingLoader:
       yield batch
 
 
-def codebert_through_workers(args, digests, card):
-  """8e: a few BERT-base steps from codebert/ through a TrainLoop whose
-  loader is get_codebert_pretrain_data_loader(..., num_workers=WORKERS):
-  finite losses, and the batches it took are lddl_tpu's (digests.json)."""
+def codebert_through_workers(args, digests, card, path=None):
+  """8e: a few BERT-base steps from codebert/ (or the set at ``path``: 18a's,
+  whose batches are codebert/'s, in 18b) through a TrainLoop whose loader
+  is get_codebert_pretrain_data_loader(..., num_workers=WORKERS): finite
+  losses, 12 launches a step of each of K1-K3 (counts at 0 just before,
+  read just after), and the batches it took are lddl_tpu's
+  (digests.json)."""
   from lddl_tpu_torch.loader import get_codebert_pretrain_data_loader
+  from lddl_tpu_torch.ops import flash_attention as tfa
   from lddl_tpu_torch.training import TrainLoop
 
   settings = digests['codebert']['settings']
@@ -2316,12 +2342,18 @@ def codebert_through_workers(args, digests, card):
   del build['loader_kwargs']
   loop = TrainLoop.build(**build)
   loop.loader = DigestingLoader(get_codebert_pretrain_data_loader(
-      shard_path('codebert'), vocab_file=VOCAB_FILE,
+      path or shard_path('codebert'), vocab_file=VOCAB_FILE,
       num_workers=WORKERS, **settings))
   n = CODEBERT_STEPS
+  layers = build['model_cfg'].num_layers
+  tfa.reset_launches()
   t0 = time.perf_counter()
   losses = loop.run(n, log_every=0)
   seconds = time.perf_counter() - t0
+  counts = tfa.device_launches()
+  check_launches(counts, dict(tfa.launches),
+                 {k: 0 if k.endswith('_seg') else layers * n for k in counts},
+                 f'codebert through {WORKERS} workers, {n} steps')
   got = loop.loader.digests
   want = digests['codebert']['batches']
   del loop
@@ -2332,11 +2364,13 @@ def codebert_through_workers(args, digests, card):
     raise AssertionError(f'codebert: the {len(got)} batches the loop took '
                          'are not lddl_tpu\'s (digests.json)')
   check_no_segments('8e')
-  log(f'  codebert through {WORKERS} workers: {n} steps in {seconds:.1f} s '
-      f'(graph captures included), losses {losses[0]:.4f} -> '
+  where = " (18b: the port's own shards, 18a)" if path else ''
+  log(f'  codebert through {WORKERS} workers{where}: {n} steps in '
+      f'{seconds:.1f} s (graph captures included), losses {losses[0]:.4f} -> '
       f'{losses[-1]:.4f}; the {len(got)} batches taken = lddl_tpu\'s '
       f'(digests.json) [{card}]')
-  return {'steps': n, 'seconds': seconds, 'losses': losses}
+  return {'steps': n, 'seconds': seconds, 'losses': losses,
+          'launches': counts}
 
 
 def kill_a_worker(digests, card):
@@ -4710,13 +4744,14 @@ def bart_want(digests):
   return digests['bart']['batches_by_epoch'][:BART_EPOCHS]
 
 
-def bart_chunks():
-  """Every ``sentences`` chunk of bart/, read by the port's Parquet
-  reader in the loaders' file order, rows in file order."""
+def bart_chunks(root=None):
+  """Every ``sentences`` chunk of bart/ (or of the set at ``root``), read
+  by the port's Parquet reader in the loaders' file order, rows in file
+  order."""
   from lddl_tpu_torch.core.utils import get_all_parquets_under
   from lddl_tpu_torch.pipeline.parquet_io import ParquetFile
   chunks = []
-  for path in get_all_parquets_under(shard_path('bart')):
+  for path in get_all_parquets_under(root or shard_path('bart')):
     with ParquetFile(path) as pf:
       for batch in pf.iter_batches():
         chunks += list(batch.column('sentences'))
@@ -6290,6 +6325,23 @@ PREP_BATCH = 16
 PREP_TIMEOUT = 600
 PREP_MASK_COLUMNS = ('mask_delta_positions', 'mask_delta_new_ids',
                      'mask_delta_k')
+# Phase 18: the committed sets the card's machine remakes (18a), and the
+# pool's runs over phase 17's corpus (18c).
+FORMAT_SETS = ('packed', 'codebert', 'bart')
+FORMAT_MODULES = {'packed': 'lddl_tpu_torch.preprocess.packed',
+                  'codebert': 'lddl_tpu_torch.preprocess.codebert',
+                  'bart': 'lddl_tpu_torch.preprocess.bart'}
+POOL_MAX_WORKERS = 8
+POOL_RUNS = {'bert': ('lddl_tpu_torch.preprocess.bert',
+                      PREP_FLAGS + ['--mask-backend', 'host']),
+             'packed': ('lddl_tpu_torch.preprocess.packed',
+                        ['--target-seq-length', '8192', '--num-blocks',
+                         str(PREP_BLOCKS)])}
+# One pool worker SIGKILLed at the start of its third task, once in the run:
+# with N=8 workers over 10 partitions a worker takes at most two of the
+# shuffle's scatter tasks, so the kill lands in the process phase, where the
+# worker's earlier shard writes may still wait on its write-back thread.
+POOL_FAULT = 'kill:pool.task:nth=3,once'
 
 
 def mask_inputs(n, seq_len, seed):
@@ -6829,17 +6881,253 @@ def preprocess_on_card(args, card, bg):
 
 def preprocessing(args, card, bg):
   """Phase 17: 17a the masking kernels, 17b-17e the preprocessing path
-  (``bg``: its host-only part, started at the script's start)."""
+  (``bg``: its host-only part, started at the script's start; phase 18c
+  reads its corpus, and the caller closes it)."""
   from lddl_tpu_torch.ops import masking as tm
-  try:
-    bg.join()
-    kernels = masking_kernels(args, card, os.path.join(bg.root, 'sink_host'))
-    torch.cuda.empty_cache()
-    tm.reset_launches()
-    path = preprocess_on_card(args, card, bg)
-  finally:
-    bg.close()
+  bg.join()
+  kernels = masking_kernels(args, card, os.path.join(bg.root, 'sink_host'))
+  torch.cuda.empty_cache()
+  tm.reset_launches()
+  path = preprocess_on_card(args, card, bg)
   return {'kernels': kernels, 'path': path}
+
+
+class FormatsBackground:
+  """Phase 18a's host work, started beside the build with phase 17's
+  (joined with it before the first timed phase): the sources of the
+  committed sets of FORMAT_SETS remade from digests.json's corpus seeds
+  by lddl_tpu_torch.testing's recipes, then each through the port's
+  preprocessor and balancer CLIs at tests/make_torch_shards.py's settings
+  (``testing.SHARD_SETS``). :attr:`sets` names each balanced directory;
+  :meth:`close` kills what still runs and removes them."""
+
+  def __init__(self, digests):
+    import threading
+    self.root = tempfile.mkdtemp(prefix='lddl_smoke_formats_')
+    self.sets = {n: os.path.join(self.root, n) for n in FORMAT_SETS}
+    self.started = time.perf_counter()
+    self.done = None
+    self.result, self.error = {}, None
+    self.thread = threading.Thread(target=self._run, args=(digests,),
+                                   daemon=True)
+    self.thread.start()
+
+  def _run(self, digests):
+    from lddl_tpu_torch import testing
+    try:
+      seeds = {n: digests[n]['corpus_seed'] for n in FORMAT_SETS}
+      srcs = {n: os.path.join(self.root, f'{n}_src') for n in FORMAT_SETS}
+      code = '; '.join(['from lddl_tpu_torch import testing'] + [
+          f'testing.write_set_source({n!r}, {srcs[n]!r}, {seeds[n]}, '
+          f'{VOCAB_FILE!r})' for n in FORMAT_SETS])
+      _, self.result['sources_seconds'] = prep_run(
+          [sys.executable, '-c', code], dict(os.environ), '18a sources')
+      for n in FORMAT_SETS:
+        sink = os.path.join(self.root, f'{n}_sink')
+        out, prep_s = prep_cli(
+            FORMAT_MODULES[n], testing.shard_set_argv(
+                n, srcs[n], sink, seeds[n], VOCAB_FILE), dict(os.environ),
+            f'18a {n}')
+        _, bal_s = prep_cli(
+            'lddl_tpu_torch.balance',
+            ['--indir', sink, '--outdir', self.sets[n], '--num-shards',
+             str(testing.SHARD_SETS[n][1])], dict(os.environ),
+            f'18a {n} balance')
+        self.result[n] = {'printed': out.strip().splitlines()[-1],
+                          'preprocess_seconds': prep_s,
+                          'balance_seconds': bal_s}
+    except BaseException as e:  # re-raised by join(), on the main thread
+      self.error = e
+    finally:
+      self.done = time.perf_counter()
+
+  def join(self):
+    """Wait for it (seconds waited); raise what it raised."""
+    t0 = time.perf_counter()
+    self.thread.join(PREP_TIMEOUT)
+    if self.thread.is_alive():
+      raise AssertionError(f'18a: the background preprocessors outlived '
+                           f'{PREP_TIMEOUT} s')
+    if self.error is not None:
+      raise self.error
+    return time.perf_counter() - t0
+
+  def close(self):
+    for proc in PREP_PROCS:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(self.root, ignore_errors=True)
+
+
+def formats_rebuilt(digests, fb, card):
+  """18a's check: the port's loaders over the sets ``fb`` wrote give every
+  committed digest (packed, codebert: epoch 0; bart: epochs 0 and 1, and
+  every chunk's token_sha256), so they are lddl_tpu's shards, made on the
+  card's machine. Returns each set's directory and times."""
+  from lddl_tpu_torch.loader import (get_bart_pretrain_data_loader,
+                                     get_codebert_pretrain_data_loader,
+                                     get_packed_pretrain_data_loader)
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  waited = fb.join()
+  out = {'sources_seconds': fb.result['sources_seconds'],
+         'done_after_start_s': fb.done - fb.started, 'waited_s': waited}
+  for name, make in (('packed', get_packed_pretrain_data_loader),
+                     ('codebert', get_codebert_pretrain_data_loader)):
+    t0 = time.perf_counter()
+    got = [batch_sha256(b) for b in make(fb.sets[name], vocab_file=VOCAB_FILE,
+                                         **digests[name]['settings'])]
+    check_digests(f'18a {name}', got, digests[name]['batches'])
+    out[name] = dict(fb.result[name], batches=len(got),
+                     check_seconds=time.perf_counter() - t0)
+  t0 = time.perf_counter()
+  loader = get_bart_pretrain_data_loader(
+      path=fb.sets['bart'], vocab_file=VOCAB_FILE,
+      **digests['bart']['settings'])
+  for e, want in enumerate(bart_want(digests)):
+    check_digests(f'18a bart, epoch {e}', [batch_sha256(b) for b in loader],
+                  want)
+  chunks = bart_chunks(fb.sets['bart'])
+  ids, offsets = load_bert_tokenizer(VOCAB_FILE).encode_batch_ids(chunks)
+  if (len(chunks) != digests['bart']['chunks'] or
+      token_sha256(ids, offsets) != digests['bart']['token_sha256']):
+    raise AssertionError(f'18a bart: the ids of {len(chunks)} chunks are not '
+                         'the committed set\'s (digests.json)')
+  out['bart'] = dict(fb.result['bart'], chunks=len(chunks),
+                     check_seconds=time.perf_counter() - t0)
+  for name in FORMAT_SETS:
+    r = out[name]
+    log(f'  18a {name}: source remade from corpus seed '
+        f'{digests[name]["corpus_seed"]}, python -m {FORMAT_MODULES[name]} '
+        f'({r["printed"]}; {r["preprocess_seconds"]:.1f} s of process) and '
+        f'the balancer ({r["balance_seconds"]:.1f} s): every committed '
+        'digest (digests.json' + (', epochs 0 and 1 and token_sha256'
+                                   if name == 'bart' else '') +
+        f'), {r["check_seconds"]:.1f} s [{card}]')
+  log(f'  18a: sources in {out["sources_seconds"]:.1f} s; all done '
+      f'{out["done_after_start_s"]:.1f} s after the script\'s start, '
+      f'beside the build; waited {waited:.1f} s here')
+  return out
+
+
+def sink_files(sink):
+  """``{name: sha256}`` of a sink's shard files, and its hidden files (a
+  killed writer's temporary files)."""
+  files, hidden = {}, []
+  for name in sorted(os.listdir(sink)):
+    if name.startswith('.'):
+      hidden.append(name)
+    elif os.path.isfile(os.path.join(sink, name)):
+      with open(os.path.join(sink, name), 'rb') as f:
+        files[name] = hashlib.sha256(f.read()).hexdigest()
+  return files, hidden
+
+
+def pool_run(module, argv, corpus, workers, root, label, env=None):
+  """One preprocess CLI run over ``corpus`` at ``--num-workers workers``,
+  telemetry on: {run seconds (printed), wall seconds (the process), its
+  output, its telemetry lines, its files, its hidden files}."""
+  sink, tele = os.path.join(root, label), os.path.join(root, label + '_tele')
+  env = dict(env or os.environ, LDDL_TELEMETRY='1', LDDL_TELEMETRY_DIR=tele)
+  out, wall = prep_cli(module, ['--source', corpus, '--sink', sink,
+                                '--vocab-file', VOCAB_FILE, *argv,
+                                '--num-workers', str(workers)], env, label)
+  m = re.search(r' in ([0-9.]+)s$', out.strip().splitlines()[-1])
+  if not m:
+    raise AssertionError(f'{label}: unexpected output:\n{out[-2000:]}')
+  files, hidden = sink_files(sink)
+  if not files:
+    raise AssertionError(f'{label}: no shard written')
+  return {'seconds': float(m.group(1)), 'wall_seconds': wall, 'out': out,
+          'tele': telemetry_lines(tele), 'files': files, 'hidden': hidden}
+
+
+def tele_total(tele, name):
+  return tele.get(name, {}).get('total', 0)
+
+
+def pool_parts(tele):
+  """A pooled run's seconds by part, from its telemetry export: the pool's
+  start (inside the scatter map), the scatter and process maps, and the
+  process tasks' summed seconds (over all workers)."""
+  pick = {'pool_start': 'pipeline.pool.start_seconds',
+          'scatter': 'pipeline.scatter.map_seconds',
+          'process': 'pipeline.process.map_seconds',
+          'process_tasks': 'pipeline.process.task_seconds'}
+  return {k: round(tele.get(v, {}).get('sum', 0.0), 3)
+          for k, v in pick.items()}
+
+
+def pool_runs(card, bg):
+  """18c: phase 17's corpus through the BERT (host masking) and packed
+  preprocessors at --num-workers 1 and N, nothing else of the script
+  running: wall seconds and MB/s, the same files byte for byte; then BERT
+  at N with --mask-backend auto and POOL_FAULT: mask=host, one respawn,
+  the clean run's bytes."""
+  mb = bg.result['corpus'][0]
+  n = min(POOL_MAX_WORKERS, os.cpu_count() or 1)
+  root = tempfile.mkdtemp(prefix='lddl_smoke_pool_', dir=bg.root)
+  out = {'workers': n, 'corpus_mib': mb}
+  for fmt, (module, argv) in POOL_RUNS.items():
+    runs = {}
+    for workers in (1, n):
+      label = f'18c_{fmt}_w{workers}'
+      r = pool_run(module, argv, bg.corpus, workers, root, label)
+      steals = tele_total(r['tele'], 'pipeline.process.steals')
+      runs[workers] = r
+      log(f'  18c {fmt}, --num-workers {workers}: {len(r["files"])} files, '
+          f'{r["seconds"]:.1f} s in run ({r["wall_seconds"]:.1f} s of '
+          f'process), {mb / r["seconds"]:.2f} MB/s of corpus (host CPU of '
+          f'the card machine, {os.cpu_count()} cores); parts '
+          f'{pool_parts(r["tele"])}; process-phase steals {steals} [{card}]')
+    if runs[n]['files'] != runs[1]['files']:
+      bad = sorted(set(runs[n]['files'].items()) ^
+                   set(runs[1]['files'].items()))[:4]
+      raise AssertionError(f'18c {fmt}: {n} workers wrote other files than '
+                           f'1: {bad}')
+    out[fmt] = {w: {'seconds': r['seconds'], 'wall_seconds': r['wall_seconds'],
+                    'mb_per_s': mb / r['seconds'], 'files': len(r['files']),
+                    'steals': tele_total(r['tele'], 'pipeline.process.steals'),
+                    'parts': pool_parts(r['tele'])}
+                for w, r in runs.items()}
+    out[fmt]['speedup'] = runs[1]['seconds'] / runs[n]['seconds']
+    if fmt == 'bert':
+      clean = runs[n]
+  # 17c ran the same flags at one worker beside the build: its bytes too.
+  if sink_files(os.path.join(bg.root, 'sink_host'))[0] != clean['files']:
+    raise AssertionError('18c bert: the pool\'s files are not 17c\'s')
+  log(f'  18c: BERT and packed at {n} workers wrote the files of 1, byte for '
+      f'byte (BERT\'s also = 17c\'s); speedup {out["bert"]["speedup"]:.2f}x '
+      f'/ {out["packed"]["speedup"]:.2f}x [{card}]')
+  faults = os.path.join(root, 'faults')
+  os.makedirs(faults)
+  module, argv = POOL_RUNS['bert']
+  argv = [a for a in argv if a not in ('--mask-backend', 'host')]
+  r = pool_run(module, argv + ['--mask-backend', 'auto'], bg.corpus, n, root,
+               '18c_bert_kill', env=dict(os.environ, LDDL_FAULTS=POOL_FAULT,
+                                         LDDL_FAULTS_DIR=faults))
+  respawns = tele_total(r['tele'], 'pipeline.pool.respawns')
+  replays = tele_total(r['tele'], 'pipeline.pool.replays')
+  fired = os.listdir(faults)
+  if 'mask=host' not in r['out']:
+    raise AssertionError(f'18c: --mask-backend auto at {n} workers did not '
+                         f'resolve to host:\n{r["out"][-1500:]}')
+  if len(fired) != 1 or respawns != 1:
+    raise AssertionError(f'18c: fault markers {fired}, respawns {respawns}; '
+                         'want one kill and one respawn')
+  if r['files'] != clean['files']:
+    raise AssertionError('18c: the run with a killed worker wrote other '
+                         'files than the clean run')
+  out['kill'] = {'seconds': r['seconds'], 'wall_seconds': r['wall_seconds'],
+                 'respawns': respawns, 'replays': replays,
+                 'hidden_files': r['hidden'], 'auto': 'host'}
+  log(f'  18c: --mask-backend auto at {n} workers resolved to host; with '
+      f'{POOL_FAULT} one worker SIGKILLed, {respawns} respawn, {replays} '
+      f'task(s) run again for writes the dead worker had not landed, '
+      f'{len(r["hidden"])} temporary file(s) it left; the clean run\'s '
+      f'files byte for byte, {r["seconds"]:.1f} s in run [{card}]')
+  shutil.rmtree(root, ignore_errors=True)
+  return out
 
 
 def main():
@@ -6896,10 +7184,12 @@ def main():
   log(f'card: {card}')
   # Phase 17's host-only work (a corpus, a preprocess on the host) runs
   # beside the build, which leaves the host's cores idle.
-  prep_bg = None
+  prep_bg = formats_bg = None
   if not (args.place_faults or args.ring_faults):
     prep_bg = PrepBackground(args)
     atexit.register(prep_bg.close)
+    formats_bg = FormatsBackground(load_digests())
+    atexit.register(formats_bg.close)
   log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
       f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -6930,6 +7220,10 @@ def main():
   # CUDA-event times): no host process of it runs beside a timing.
   log(f'  (phase 17\'s corpus and host preprocess, started beside the '
       f'build: waited {prep_bg.join():.1f} s for them here)')
+  digests = load_digests()
+  log('== 18a: the committed packed/, codebert/ and bart/ sets, remade by the '
+      'port\'s preprocessors beside the build [' + card + ']')
+  formats = {'rebuilt': formats_rebuilt(digests, formats_bg, card)}
 
   log('== kernels vs plain versions [' + card + ']')
   cases = []
@@ -6956,10 +7250,10 @@ def main():
   torch.cuda.empty_cache()
 
   log('== training from shards: the corpus loader [' + card + ']')
-  digests = load_digests()
   shards = {'loader': loader_alone(digests, card)}
   shards['pairs'] = train_from_shards(args, digests, card)
-  shards['packed'] = train_packed_from_shards(args, digests, card)
+  shards['packed'] = train_packed_from_shards(
+      args, digests, card, path=formats_bg.sets['packed'])
   shards['cli'] = cli_from_shards(digests, card)
   check_no_segments('phase 7')
 
@@ -6971,7 +7265,8 @@ def main():
                                                workers=WORKERS)
   check_no_segments('8c')
   workers['ledger'] = ledger_on_card(args, digests, card)
-  workers['codebert'] = codebert_through_workers(args, digests, card)
+  workers['codebert'] = codebert_through_workers(
+      args, digests, card, path=formats_bg.sets['codebert'])
   workers['kill'] = kill_a_worker(digests, card)
 
   ranks_root = tempfile.mkdtemp(prefix='lddl_smoke_ranks_')
@@ -7026,7 +7321,16 @@ def main():
   log(f'== preprocessing on the card: the masking kernels (17a), the '
       f'preprocessor, the balancer and training from their shards (17b-e) '
       f'[{card}]')
-  prep = preprocessing(args, card, prep_bg)
+  try:
+    prep = preprocessing(args, card, prep_bg)
+    log(f'== 18c: the preprocessors through the local worker pool, nothing '
+        f'else running [{card}]')
+    formats['pool'] = pool_runs(card, prep_bg)
+  finally:
+    prep_bg.close()
+    formats_bg.close()
+  formats['trained'] = {'packed_7c': shards['packed']['launches'],
+                        'codebert_8e': workers['codebert']['launches']}
 
   profiled = {'': per_bin[1]['profile']['flash_calls_per_step'],
               '_seg': packed['profile']['flash_calls_per_step']}
@@ -7075,6 +7379,9 @@ def main():
         label: [x[name] for x in placed['15b'][label]['launches_per_rank']]
         for label, *_ in RING_CELLS}
     entry['phase15_launches_captured'] = placed['15c']['launches'][name]
+    entry['phase18b_launches'] = {
+        'packed_7c': shards['packed']['launches'][name],
+        'codebert_8e': workers['codebert']['launches'][name]}
     entry['phase16_launches_per_rank'] = {
         job: r['launches_per_rank'][0][name]
         for job, r in sharded['jobs'].items()}
@@ -7125,7 +7432,7 @@ def main():
                   'scan_window': scanned, 'bart': bart,
                   'placement': placed, 'sharded_replay': sharded,
                   'preprocessing': {k: v for k, v in prep.items()},
-                  'card': card}, default=str))
+                  'formats': formats, 'card': card}, default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))
   log(card)

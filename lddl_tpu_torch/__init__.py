@@ -30,7 +30,7 @@ over the ``loader.shm`` batch ring) and the determinism ledger's
 bin, and the ``pretrain`` CLI), and the train loop's hooks: ``telemetry``
 (metrics, trace, roofline, profiler, sentinels), ``core.faults``,
 ``training.elastic`` (preemption, async checkpoints, loader re-seek,
-rank membership) and ``pipeline.pool`` (its background writer).
+rank membership) and ``pipeline.pool``'s background writer.
 Data-parallel training across processes: ``comm`` (the null, file and
 ``torch.distributed`` backends, with lease stores), ``core.topology``,
 ``pipeline.executor`` (its lease timeout), ``parallel.mesh`` (the
@@ -85,5 +85,11 @@ masking (``native/src/masking.cpp``) and device masking as CUDA
 :mod:`lddl_tpu.ops.masking`, bit for bit), and the shard writer
 (``pipeline.parquet_io``: Parquet in numpy, LZ4_RAW pages from
 ``csrc/codecs.cpp``; ``pipeline.shard_format``'s tags); ``balance``
-(``python -m lddl_tpu_torch.balance``); ``core.synth``.
+(``python -m lddl_tpu_torch.balance``); ``core.synth``. Every other shard
+format the port trains on, and the local worker pool: ``preprocess.packed``,
+``preprocess.codebert`` and ``preprocess.bart`` (``python -m
+lddl_tpu_torch.preprocess.packed|codebert|bart``), ``pipeline.pool``'s
+``WorkerPool`` and ``pipeline.executor``'s pooled map (``--num-workers``),
+``ops.masking_host`` (host masking without torch), and ``testing``'s
+recipes of the committed shard sets' sources.
 """

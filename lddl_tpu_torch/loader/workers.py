@@ -93,7 +93,7 @@ PRELOAD = ('lddl_tpu_torch.loader.workers',)
 _start_lock = threading.Lock()
 
 
-def _mp_context(factory_module):
+def worker_context(factory_module):
   """The forkserver (spawn where the platform has none): never a fork of
   the parent (see the module docstring)."""
   if 'forkserver' not in _mp.get_all_start_methods():
@@ -106,7 +106,7 @@ def _mp_context(factory_module):
   return ctx
 
 
-def _start(procs):
+def start_processes(procs):
   """Start ``procs`` without re-running ``__main__`` in them: while they
   start, ``sys.modules['__main__']`` is a bare module, so the children's
   preparation data names no main script or module to import."""
@@ -149,7 +149,7 @@ def _resolve_factory(factory):
   return getattr(importlib.import_module(module), attr)
 
 
-def _adopt_env(env):
+def adopt_env(env):
   """Make this worker's ``LDDL_*`` environment exactly the parent's."""
   for k in [k for k in os.environ if k.startswith('LDDL_')]:
     if k not in env:
@@ -213,7 +213,7 @@ def _await_done(q, proc):
 
 def _worker_main(env, build_kwargs, factory, epoch, first_step, exact, w,
                  num_workers, q, free_q, ring_desc):
-  _adopt_env(env)
+  adopt_env(env)
   tele = get_telemetry()
   tracer = get_tracer()
   rank = int(build_kwargs.get('dp_rank') or 0)
@@ -473,7 +473,7 @@ class MultiprocessLoader:
     depth_g = tele.gauge('loader.queue_depth')
     W = self._num_workers
     depth = self._queue_depth
-    ctx = _mp_context(self._factory[0])
+    ctx = worker_context(self._factory[0])
     env = {k: v for k, v in os.environ.items() if k.startswith('LDDL_')}
     queues, rings, free_qs, procs = [], [], [None] * W, []
     # Closed last, after the workers are gone: the parent owns every
@@ -498,7 +498,7 @@ class MultiprocessLoader:
               daemon=True, name=f'lddl-torch-loader-w{w}')
           for w in range(W)
       ]
-      _start(procs)
+      start_processes(procs)
       step = first_step
       pulls = 0
       held = [None] * W  # zero-copy mode: last yielded slot per worker

@@ -1,37 +1,40 @@
-"""Task execution across comm ranks: the preprocessor's map.
+"""Task execution across local worker processes and comm ranks: the
+preprocessor's map.
 
-The port's :mod:`lddl_tpu.pipeline.executor`, its serial path: the
-global task list is strided across comm ranks (``tasks[rank::world]``),
-each rank runs its share in order in its own process with overlapped
-write-back (an :class:`~.pool.AsyncShardWriter` installed as the ambient
-writer, so a task's shard writes run while the next task encodes), and
-the results (small metadata; bulk data goes through the shared
-filesystem) are all-gathered over the comm, a missing task named at the
-boundary. Telemetry and trace names are the JAX package's
-(``pipeline.<label>.*``), and so is the ``LDDL_PROGRESS`` reporter.
+The port's :mod:`lddl_tpu.pipeline.executor`: the global task list is
+strided across comm ranks (``tasks[rank::world]``); each rank runs its
+share in its own process (``num_local_workers=1``, the default) or fans
+it out to a persistent local :class:`~.pool.WorkerPool`
+(``num_local_workers > 1``), created at the first pooled map and reused by
+every later phase until :meth:`Executor.close`. In the pool, tasks go out
+largest first (LPT by a deterministic cost key) to whichever worker is
+idle. Results (small metadata; bulk data goes through the shared
+filesystem) come back in task order and are all-gathered over the comm,
+a missing task named at the boundary. Either way a task's shard writes
+run on a write-back thread while the next task encodes. Telemetry and
+trace names are the JAX package's (``pipeline.<label>.*``, the pool's
+``steals``, ``worker_idle_seconds`` and ``pipeline.pool.queue_depth``),
+and so is the ``LDDL_PROGRESS`` reporter.
 
-The JAX package's persistent worker pool (``num_local_workers > 1``) and
-its elastic lease path are not ported yet (ROADMAP, Queue 1): asking for
-either raises. The masking kernel runs on one card per process, so the
-device backend needs no more than this.
-
-:func:`lease_timeout` is the elastic executor's, which
-:class:`~lddl_tpu_torch.training.elastic.RankMembership` reads.
+The elastic lease path (``LDDL_ELASTIC``) is not ported yet (ROADMAP,
+Queue 1): asking for it raises. :func:`lease_timeout` is the elastic
+executor's, which :class:`~lddl_tpu_torch.training.elastic.RankMembership`
+reads.
 """
 
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
 import time
+import weakref
 
 from ..comm import NullBackend
 from ..telemetry import get_telemetry
 from ..telemetry.trace import get_tracer
-from .pool import AsyncShardWriter, install_writer, write_back_enabled
-
-_NOT_PORTED = ('is not ported yet (ROADMAP, Queue 1: the persistent worker '
-               'pool and the elastic executor)')
+from .pool import (AsyncShardWriter, PoolBroken, WorkerPool, install_writer,
+                   write_back_enabled)
 
 
 def lease_timeout():
@@ -118,25 +121,28 @@ class ProgressReporter:
 
 
 class Executor:
-  """Rank-local scheduler: one process per rank, its tasks run in order.
-
-  ``num_local_workers`` defaults to 1; more raises, as does a comm whose
-  elastic path is on (``LDDL_ELASTIC``): both are the JAX package's
-  worker pool and lease protocol, not ported yet. Use as a context
-  manager, as the JAX package's."""
+  """Rank-local scheduler: one process a rank, or a persistent pool of
+  ``num_local_workers`` processes. The default is 1 (lddl_tpu's is a
+  worker a core): the BERT preprocessor's default mask backend, device,
+  masks in one process a card. A comm whose elastic path is on
+  (``LDDL_ELASTIC``) raises: the lease protocol is not ported. Use as a
+  context manager (or call :meth:`close`) so the pool is torn down when
+  the caller says; a forgotten one is reaped by a finalizer."""
 
   def __init__(self, comm=None, num_local_workers=None):
     self._comm = comm if comm is not None else NullBackend()
     num_local_workers = 1 if num_local_workers is None else num_local_workers
-    if num_local_workers != 1:
-      raise NotImplementedError(
-          f'num_local_workers={num_local_workers}: the local worker pool '
-          + _NOT_PORTED)
+    if num_local_workers < 1:
+      raise ValueError(f'num_local_workers must be >= 1, got '
+                       f'{num_local_workers}')
     if elastic_enabled(self._comm):
-      raise NotImplementedError('the elastic map (LDDL_ELASTIC) ' +
-                                _NOT_PORTED)
+      raise NotImplementedError(
+          'the elastic map (LDDL_ELASTIC) is not ported yet (ROADMAP, Queue '
+          '1: the elastic executor)')
     self._num_local_workers = num_local_workers
-    self._warmups = {}
+    self._pool = None
+    self._finalizer = None
+    self._warmups = {}  # key -> zero-arg picklable hook
     spec = os.environ.get('LDDL_PROGRESS', '')
     self._progress = (ProgressReporter(spec, self._comm.rank)
                       if spec not in ('', '0', 'false', 'off') else None)
@@ -150,12 +156,54 @@ class Executor:
     return self._num_local_workers
 
   def set_warmup(self, fn, key=None):
-    """Run a warmup hook once per key (the JAX package runs it in each
-    pool worker; here the one process is the worker)."""
+    """Register a zero-arg picklable warmup hook, once per ``key``: it
+    runs in each pool worker at its start (or at once, by broadcast, in a
+    pool already running) and again in a respawned one; with one local
+    worker it runs here, now."""
     key = key if key is not None else fn
-    if key not in self._warmups:
-      self._warmups[key] = fn
+    if key in self._warmups:
+      return
+    self._warmups[key] = fn
+    if self._num_local_workers == 1:
       fn()
+    elif self._pool is not None:
+      self._pool.broadcast(fn)
+
+  def _get_pool(self):
+    if self._pool is None:
+      with get_telemetry().span('pipeline.pool.start_seconds'):
+        pool = WorkerPool(self._num_local_workers,
+                          warmups=tuple(self._warmups.values()))
+      self._pool = pool
+      # Reaps the workers if the owner forgets close(); it holds the pool,
+      # not the executor, so the executor stays collectable.
+      self._finalizer = weakref.finalize(self, pool.shutdown)
+    return self._pool
+
+  def _drop_pool(self, force=False):
+    if self._finalizer is not None:
+      self._finalizer.detach()
+      self._finalizer = None
+    if self._pool is not None:
+      pool, self._pool = self._pool, None
+      pool.shutdown(force=force)
+
+  def scheduler_info(self):
+    """The scheduler's configuration, for stamping telemetry and logs."""
+    pooled = self._num_local_workers > 1
+    start_method = None
+    if pooled:
+      start_method = ('forkserver' if 'forkserver' in
+                      multiprocessing.get_all_start_methods() else 'spawn')
+    return {
+        'workers': self._num_local_workers,
+        'start_method': start_method,
+        'persistent_pool': pooled,
+        'stealing': pooled,
+        'lpt': pooled,
+        'write_back': write_back_enabled(),
+        'elastic': False,
+    }
 
   def resume_pending(self, label):
     """Whether a restarted elastic run holds manifests for ``label``:
@@ -164,7 +212,8 @@ class Executor:
     return False
 
   def close(self):
-    """Nothing to tear down: no pool."""
+    """Tear down the pool, if one was started (idempotent)."""
+    self._drop_pool()
 
   def __enter__(self):
     return self
@@ -175,13 +224,14 @@ class Executor:
 
   def map(self, fn, tasks, gather=True, label='map', cost_key=None):
     """Run ``fn(task, global_index)`` for every task, strided over the
-    comm's ranks. With ``gather=True`` every rank returns the full,
-    task-ordered result list (raising, with the missing indices, if any
-    task has no result); with ``gather=False`` each rank returns its own
-    ``[(global_index, result), ...]`` after a barrier. ``cost_key`` (the
-    pool's scheduling order) changes nothing here: results never depend
-    on it."""
-    del cost_key
+    comm's ranks; in the pool, largest ``cost_key(task, global_index)``
+    first (any deterministic number, e.g. input bytes; default the
+    index). Results never depend on the order or the worker count: a
+    task's output is a function of ``(task, global_index)``. With
+    ``gather=True`` every rank returns the full, task-ordered result list
+    (raising, with the missing indices, if any task has no result); with
+    ``gather=False`` each rank returns its own ``[(global_index, result),
+    ...]`` in index order, after a barrier."""
     tasks = list(tasks)
     rank = self._comm.rank
     world = self._comm.world_size
@@ -190,13 +240,19 @@ class Executor:
     tracer = get_tracer()
     if tracer.enabled:
       tracer.set_identity(rank=rank)
+    pooled = self._num_local_workers > 1 and len(my_indices) > 1
     local_results = []
     t_map = time.monotonic()
     with tele.span(f'pipeline.{label}.map_seconds'):
-      self._map_serial(fn, tasks, my_indices, label, tele, tracer,
-                       local_results)
+      if pooled:
+        self._map_pooled(fn, tasks, my_indices, label, cost_key, tele, tracer,
+                         local_results)
+      else:
+        self._map_serial(fn, tasks, my_indices, label, tele, tracer,
+                         local_results)
     if self._progress:
-      self._progress.finish(label, len(my_indices), 1)
+      self._progress.finish(label, len(my_indices),
+                            self._num_local_workers if pooled else 1)
     if tracer.enabled:
       tracer.complete(f'pipeline.{label}.map', t_map,
                       time.monotonic() - t_map,
@@ -241,6 +297,55 @@ class Executor:
         backlog = writer.take_backlog_hwm()
         writer.close()
         tele.gauge('pipeline.pool.writer_backlog').set(backlog)
+
+  def _map_pooled(self, fn, tasks, my_indices, label, cost_key, tele,
+                  tracer, local_results):
+    total = len(my_indices)
+    pool = self._get_pool()
+    items = [(i, tasks[i], cost_key(tasks[i], i) if cost_key else i)
+             for i in my_indices]
+    task_name = f'pipeline.{label}.task'
+    task_hist = tele.histogram(f'pipeline.{label}.task_seconds')
+    tasks_done = tele.counter(f'pipeline.{label}.tasks')
+    steals = tele.counter(f'pipeline.{label}.steals')
+    idle_hist = tele.histogram(f'pipeline.{label}.worker_idle_seconds')
+    depth_gauge = tele.gauge('pipeline.pool.queue_depth')
+    progress_gauge = tele.gauge(f'pipeline.{label}.progress_frac')
+    done = 0
+
+    def on_result(msg):
+      nonlocal done
+      _, gi, res, terr, t0, dt, pid, wid, pos, wait = msg
+      done += 1
+      pending = total - done
+      depth_gauge.set(pending)
+      progress_gauge.set(done / total)
+      if terr is None:
+        task_hist.observe(dt)
+        tasks_done.add(1)
+        idle_hist.observe(wait)
+        # Under a static stride, queue position ``pos`` would have been
+        # worker ``pos % N``'s: another worker taking it is a steal.
+        if pos % pool.num_workers != wid:
+          steals.add(1)
+        tracer.complete(task_name, t0, dt, tid=pid)
+        if wait > 0:
+          tracer.complete(f'pipeline.{label}.worker_idle', t0 - wait, wait,
+                          tid=pid)
+        tracer.counter('pipeline.pool.queue_depth', pending)
+        local_results.append((gi, res))
+      if self._progress:
+        self._progress.update(label, done, total)
+
+    try:
+      _, hwms = pool.run_phase(fn, items, on_result=on_result)
+    except PoolBroken:
+      # The pool cannot be trusted: the next map starts a new one.
+      self._drop_pool(force=True)
+      raise
+    tele.gauge('pipeline.pool.writer_backlog').set(max(hwms))
+    # Results arrive in completion order; the contract is task order.
+    local_results.sort(key=lambda r: r[0])
 
   def _gather(self, local_results, n, label):
     gathered = self._comm.allgather_object(local_results)

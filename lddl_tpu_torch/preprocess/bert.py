@@ -34,7 +34,11 @@ either mask backend:
   - ``host``: the fused native Philox pass, bit for bit the JAX
     package's host backend;
   - ``auto``: ``device`` where a card with a usable host link is
-    attached, else ``host``.
+    attached, else ``host``; always ``host`` with more than one local
+    worker (``--num-workers``), whose pool's workers cannot share the
+    card. An explicit ``device`` with more than one worker is refused
+    before any worker starts: which backend masks is part of the shards'
+    bits.
 
 The reference-style ``python`` engine is not ported (ROADMAP, Queue 1):
 asking for it raises.
@@ -43,7 +47,6 @@ asking for it raises.
 import argparse
 import dataclasses
 import functools
-import os
 import time
 
 import numpy as np
@@ -60,7 +63,7 @@ from ..pipeline.shard_format import (DELTA, DELTA_COLUMNS, MATERIALIZED,
 from ..pipeline.shuffle import gather_partition
 from ..telemetry import get_telemetry
 from ..tokenization.sentences import split_sentences
-from .common import run_shuffled
+from .common import export_telemetry, run_shuffled
 from .readers import read_corpus, split_id_text
 
 #: Telemetry counter of masking kernel launches (one per partition).
@@ -176,8 +179,7 @@ def process_partition_columnar(doc_texts, tokenizer, cfg, rng, mask_seed):
   mask streams are keyed by row index, so each tiled copy draws its own
   mask. Both shard formats hold the same logical rows: delta stores each
   base once plus the per-copy (positions, new ids, k)."""
-  from ..ops import masking as _masking_ops
-  from ..ops.masking import mask_partition_host, resolve_mask_backend
+  from ..ops.masking_host import mask_partition_host, ragged_indices
   from .common import fused_string_columns
   from .pairing import plan_pairs_partition
 
@@ -212,7 +214,8 @@ def process_partition_columnar(doc_texts, tokenizer, cfg, rng, mask_seed):
   if n and int(row_len.max()) > cfg.target_seq_length:
     raise ValueError(f'pair of {int(row_len.max())} tokens exceeds '
                      f'target_seq_length {cfg.target_seq_length}')
-  mask_mode = resolve_mask_backend(cfg.mask_backend) if cfg.masking else None
+  mask_mode = resolve_pool_mask_backend(cfg.mask_backend, 1) \
+      if cfg.masking else None
   offs_a = np.zeros(n + 1, dtype=np.int64)
   np.cumsum(na, out=offs_a[1:])
   offs_b = np.zeros(n + 1, dtype=np.int64)
@@ -238,9 +241,9 @@ def process_partition_columnar(doc_texts, tokenizer, cfg, rng, mask_seed):
                       flat_b[np.where(in_a, 0, idx_b)])
   else:
     if not delta:
-      ra, ca = _masking_ops.ragged_indices(na)
+      ra, ca = ragged_indices(na)
       flat_a = flat_ids[a_ranges[ra, 0] + ca]
-      rb, cb = _masking_ops.ragged_indices(nb)
+      rb, cb = ragged_indices(nb)
       flat_b = flat_ids[b_ranges[rb, 0] + cb]
     if mask_mode == 'device':
       positions, new_ids, kk = _mask_device(flat_ids, a_ranges, b_ranges,
@@ -286,9 +289,9 @@ def process_partition_columnar(doc_texts, tokenizer, cfg, rng, mask_seed):
       np.cumsum(base_na, out=boffs_a[1:])
       boffs_b = np.zeros(nbase + 1, dtype=np.int64)
       np.cumsum(base_nb, out=boffs_b[1:])
-      ra, ca = _masking_ops.ragged_indices(base_na)
+      ra, ca = ragged_indices(base_na)
       base_flat_a = flat_ids[base_a[ra, 0] + ca]
-      rb, cb = _masking_ops.ragged_indices(base_nb)
+      rb, cb = ragged_indices(base_nb)
       base_flat_b = flat_ids[base_b[rb, 0] + cb]
       fused = fused_string_columns(
           tokenizer, [(base_flat_a, boffs_a), (base_flat_b, boffs_b)])
@@ -392,6 +395,19 @@ def _warmup_worker(cfg):
   _get_tokenizer(cfg).batch_tokenize(['warmup'])
 
 
+def resolve_pool_mask_backend(backend, num_local_workers):
+  """The mask backend a run of ``num_local_workers`` takes: ``auto`` is
+  ``host`` under a pool (its workers cannot share the card), else
+  :func:`~lddl_tpu_torch.ops.masking.resolve_mask_backend`'s pick; any
+  other name as given."""
+  if backend != 'auto':
+    return backend
+  if num_local_workers > 1:
+    return 'host'
+  from ..ops.masking import resolve_mask_backend
+  return resolve_mask_backend(backend)
+
+
 def _mask_seed(seed, tgt_idx):
   """Per-partition masking seed, independent of the pairing rng stream."""
   return int(
@@ -437,14 +453,20 @@ def run(corpus, sink_dir, cfg, executor=None, num_shuffle_partitions=None):
     cfg = dataclasses.replace(cfg, tokenizer_backend='native')
   if cfg.masking and cfg.mask_backend == 'auto':
     # The backends draw independently, so which one runs is part of the
-    # output: resolve once on rank 0, not per rank.
+    # output: resolve once on rank 0, not per rank (nor per pool worker).
     local = None
     if executor.comm.rank == 0:
-      from ..ops.masking import resolve_mask_backend
-      local = resolve_mask_backend('auto')
+      local = resolve_pool_mask_backend('auto', executor.num_local_workers)
     resolved = executor.comm.broadcast_object(local, root=0)
     cfg = dataclasses.replace(cfg, mask_backend=resolved)
   cfg = dataclasses.replace(cfg, shard_format=resolve_shard_format(cfg))
+  if cfg.masking and cfg.mask_backend == 'device' and \
+      executor.num_local_workers > 1:
+    raise ValueError(
+        f'mask backend device with {executor.num_local_workers} local '
+        'workers: the device backend masks in one process a card, and pool '
+        'workers mask on the host; pass --mask-backend host (or auto), or '
+        '--num-workers 1')
   if cfg.masking and cfg.mask_backend == 'device':
     from ..ops.masking import resolve_device
     resolve_device(cfg.device)  # no card: raise before any work
@@ -514,23 +536,11 @@ def attach_args(parser):
   parser.add_argument('--output-format', type=str, default='parquet',
                       choices=['parquet', 'txt'])
   parser.add_argument('--num-workers', type=int, default=None,
-                      help='local worker processes (the port runs 1; more '
-                      'raises)')
+                      help='local worker processes (default 1); more run '
+                      'a persistent pool, which masks on the host')
   parser.add_argument('--comm', type=str, default='null',
                       choices=['null', 'file', 'torch'])
   return parser
-
-
-def export_telemetry(rank):
-  """This rank's ``telemetry.rank<R>.jsonl`` under ``LDDL_TELEMETRY_DIR``
-  when telemetry is on (the ``pipeline.*`` and ``preprocess.*`` names,
-  :data:`MASK_LAUNCHES` among them); returns its path or None."""
-  from ..telemetry import rank_file_name
-  tele = get_telemetry()
-  out_dir = os.environ.get('LDDL_TELEMETRY_DIR')
-  if not tele.enabled or not out_dir:
-    return None
-  return tele.write_jsonl(rank_file_name(out_dir, rank), rank=rank)
 
 
 def main(args=None):
@@ -592,5 +602,9 @@ def main(args=None):
   return counts
 
 
+
 if __name__ == '__main__':
-  main()
+  # Run under the module's import name: a pool worker finds the task
+  # functions by it (it never imports the script's __main__).
+  from lddl_tpu_torch.preprocess import bert as _module
+  _module.main()

@@ -111,5 +111,18 @@ def run_shuffled(corpus, sink_dir, process_partition, seed, executor=None,
       executor.close()
 
 
+def export_telemetry(rank):
+  """This rank's ``telemetry.rank<R>.jsonl`` under ``LDDL_TELEMETRY_DIR``
+  when telemetry is on (the ``pipeline.*`` and ``preprocess.*`` names, the
+  pool's among them); returns its path or None. The preprocessor CLIs
+  call it last."""
+  from ..telemetry import get_telemetry, rank_file_name
+  tele = get_telemetry()
+  out_dir = os.environ.get('LDDL_TELEMETRY_DIR')
+  if not tele.enabled or not out_dir:
+    return None
+  return tele.write_jsonl(rank_file_name(out_dir, rank), rank=rank)
+
+
 def _process_cost(spill_dir, tgt_idx, global_idx):
   return spill_partition_bytes(spill_dir, tgt_idx, global_idx)

@@ -99,3 +99,102 @@ def get_synthetic_batch_loader(**kwargs):
   """Factory entry point for worker processes (importable by module
   path, the :data:`~lddl_tpu_torch.loader.workers.DEFAULT_FACTORY` shape)."""
   return SyntheticBatchLoader(**kwargs)
+
+
+# The source corpora of the committed shard sets (tests/assets/torch_shards,
+# written by lddl_tpu through tests/make_torch_shards.py): the same recipes
+# over the port's copy of core/synth, so a machine without lddl_tpu remakes
+# each set's source from its digests.json ``corpus_seed`` and checks that
+# the port's preprocessor writes lddl_tpu's shards.
+
+#: Per set: the port's preprocessor CLI flags that make it from its source
+#: (besides ``--source``, ``--sink``, ``--seed`` and ``--vocab-file``) and
+#: the balancer's ``--num-shards``: tests/make_torch_shards.py's settings.
+SHARD_SETS = {
+    'packed': (['--target-seq-length', '8192', '--num-blocks', '1',
+                '--sample-ratio', '1.0', '--sentence-backend', 'rules'], 2),
+    'codebert': (['--target-seq-length', '512', '--bin-size', '128',
+                  '--num-blocks', '2', '--lowercase'], 2),
+    'bart': (['--target-seq-length', '128', '--num-blocks', '2',
+              '--sample-ratio', '1.0', '--sentence-backend', 'rules'], 2),
+}
+
+
+def shard_set_argv(name, src, sink, seed, vocab_file):
+  """The preprocessor CLI's arguments that make set ``name``'s sink."""
+  argv = ['--source', src, '--sink', sink, '--seed', str(seed),
+          *SHARD_SETS[name][0]]
+  return argv + (['--vocab-file', vocab_file] if name != 'bart' else [])
+
+
+def synth_docs(seed, target_bytes):
+  """core/synth documents of about ``target_bytes`` from ``seed``."""
+  from .core import synth
+  words, probs = synth.build_word_population()
+  return list(synth.generate_documents(words, probs, target_bytes,
+                                       seed=seed))
+
+
+def write_doc_source(src, docs):
+  """One-document-per-line source: ``src/0.txt``, ``synth-<i> <doc>``."""
+  import os
+  os.makedirs(src)
+  with open(os.path.join(src, '0.txt'), 'w', encoding='utf-8') as f:
+    for i, doc in enumerate(docs):
+      f.write(f'synth-{i} {doc}\n')
+
+
+def write_packed_source(src, seed, vocab_file, doc_tokens=(500, 680),
+                        rows=24, docs=(12, 16), draw_bytes=1 << 20):
+  """The packed set's source: synth documents of ``doc_tokens`` tokens
+  (the vocab's WordPiece count), drawn ``draw_bytes`` at a time from
+  seeds 10000 + seed, 10001 + seed, ... until there are enough for
+  ``rows`` rows of ``docs`` documents."""
+  import numpy as np
+
+  from .tokenization.wordpiece import load_bert_tokenizer
+  tok = load_bert_tokenizer(vocab_file)
+  lo, hi = doc_tokens
+  kept = []
+  draw = seed
+  while len(kept) < rows * sum(docs) // 2 + 16:
+    batch = synth_docs(10_000 + draw, draw_bytes)
+    draw += 1
+    n = np.diff(tok.encode_batch_ids(batch)[1])
+    kept += [d for d, k in zip(batch, n) if lo <= k <= hi]
+  write_doc_source(src, kept)
+
+
+def write_codebert_source(src, seed, target_bytes=320 << 10):
+  """The CodeBERT set's source: ``id<CODESPLIT>docstring<CODESPLIT>code``
+  records (CRLF-delimited) made of synth documents from seed 20000 +
+  seed: a document's first sentence is its docstring (none for every
+  fourth), its other sentences its code lines."""
+  import os
+  os.makedirs(src)
+  with open(os.path.join(src, '0.txt'), 'w', encoding='utf-8',
+            newline='') as f:
+    for i, doc in enumerate(synth_docs(20_000 + seed, target_bytes)):
+      lines = [x.strip() for x in doc.split('. ') if x.strip()]
+      if len(lines) < 2:
+        continue
+      docstring = '' if i % 4 == 3 else lines[0]
+      code = '\n'.join(lines[1:])
+      f.write(f'synth-{i}<CODESPLIT>{docstring}<CODESPLIT>{code}\r\n')
+
+
+def write_bart_source(src, seed, target_bytes=480 << 10):
+  """The BART set's source: synth documents from seed 30000 + seed."""
+  write_doc_source(src, synth_docs(30_000 + seed, target_bytes))
+
+
+def write_set_source(name, src, seed, vocab_file):
+  """Set ``name``'s source (its recipe above) under ``src``."""
+  if name == 'packed':
+    write_packed_source(src, seed, vocab_file)
+  elif name == 'codebert':
+    write_codebert_source(src, seed)
+  elif name == 'bart':
+    write_bart_source(src, seed)
+  else:
+    raise ValueError(f'no source recipe for shard set {name!r}')

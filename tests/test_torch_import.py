@@ -63,6 +63,10 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.native.wordpiece', 'lddl_tpu_torch.loader.bart',
            'lddl_tpu_torch.ops.masking', 'lddl_tpu_torch.native.pairing',
            'lddl_tpu_torch.preprocess', 'lddl_tpu_torch.preprocess.bert',
+           'lddl_tpu_torch.preprocess.packed',
+           'lddl_tpu_torch.preprocess.codebert',
+           'lddl_tpu_torch.preprocess.bart', 'lddl_tpu_torch.pipeline.pool',
+           'lddl_tpu_torch.ops.masking_host', 'lddl_tpu_torch.testing',
            'lddl_tpu_torch.preprocess.common',
            'lddl_tpu_torch.preprocess.pairing',
            'lddl_tpu_torch.preprocess.readers',
@@ -119,6 +123,27 @@ def test_the_bart_loader_and_the_native_encoder_import_no_torch():
           'from lddl_tpu_torch.tokenization.wordpiece import '
           'load_bert_tokenizer\n'
           f'load_bert_tokenizer({str(vocab)!r}).encode_batch_ids(["a b"])\n'
+          'print("torch" in sys.modules)\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, check=True, timeout=120)
+  assert out.stdout.strip() == 'False', out.stdout
+
+
+def test_the_preprocessors_and_their_pool_import_no_torch():
+  """A preprocessor's pool worker masking on the host, and every packed,
+  CodeBERT or BART worker, never pays torch's import (seconds on the
+  card's host, in every worker)."""
+  code = ('import sys\n'
+          'import numpy as np\n'
+          'import lddl_tpu_torch.preprocess.bert, '
+          'lddl_tpu_torch.preprocess.packed, '
+          'lddl_tpu_torch.preprocess.codebert, '
+          'lddl_tpu_torch.preprocess.bart, lddl_tpu_torch.pipeline.pool\n'
+          'from lddl_tpu_torch.ops.masking_host import mask_partition_host\n'
+          'r = np.array([[0, 3]])\n'
+          'mask_partition_host(np.arange(8, dtype=np.int32), r, r + 4, '
+          'masked_lm_ratio=0.15, vocab_size=100, mask_id=3, seed=1)\n'
           'print("torch" in sys.modules)\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

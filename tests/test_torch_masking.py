@@ -15,6 +15,7 @@ import torch
 
 from lddl_tpu.ops import masking as jm
 from lddl_tpu_torch.ops import masking as tm
+from lddl_tpu_torch.ops import masking_host as tm_host
 from torch_threads import torch_one_thread_a_file  # noqa: F401
 
 
@@ -196,7 +197,9 @@ def test_host_backend_equals_lddl_tpu(native, monkeypatch):
   package's (which runs its own native library)."""
   flat, a, b = _pairs(80, 128, seed=21, dup=2)
   if not native:
-    monkeypatch.setattr(tm, '_TOPK_NATIVE', False)
+    # The host backend lives in ops/masking_host.py (torch-free).
+    monkeypatch.setattr(tm_host, '_TOPK_NATIVE', False)
+  assert bool(tm_host._native()) == native
   kw = dict(masked_lm_ratio=0.15, vocab_size=VOCAB, mask_id=MASK, seed=9)
   _same(jm.mask_partition_host(flat, a, b, **kw),
         tm.mask_partition_host(flat, a, b, **kw))

@@ -212,8 +212,14 @@ def test_refusals(corpus, tmp_path, monkeypatch):
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     tbert.run(_read(treaders, corpus), str(tmp_path / 'b'),
               tbert.BertPretrainConfig(engine='python', **SETTINGS))
-  with pytest.raises(NotImplementedError, match='worker pool'):
+  # The pool runs (tests/test_torch_pool.py); the elastic map does not.
+  monkeypatch.setenv('LDDL_ELASTIC', '1')
+  with pytest.raises(NotImplementedError, match='elastic'):
     Executor(num_local_workers=2)
+  monkeypatch.delenv('LDDL_ELASTIC')
+  with pytest.raises(ValueError, match='--mask-backend host'):
+    tbert.run(_read(treaders, corpus), str(tmp_path / 'c'), cfg,
+              executor=Executor(num_local_workers=2))
   assert not os.path.exists(tmp_path / 'a' / 'part.0.parquet_0')
 
 

@@ -189,6 +189,26 @@ def preprocess_ranks(rank, world, argv):
   return {'counts': counts, 'meta': meta}
 
 
+def pooled_map_ranks(rank, world, tasks, workers):
+  """A pooled map (``workers`` local workers a rank) over the torch comm:
+  the gathered results and this rank's own, with its pool's telemetry."""
+  import torch
+
+  import torch_pool_tasks
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.pipeline.executor import Executor
+  torch.set_num_threads(1)
+  # The world starts its ranks as daemons, which may start no process; a
+  # rank a launcher starts (torchrun) is none.
+  multiprocessing.current_process().daemon = False
+  doing('pooled_map_ranks: the pool')
+  with Executor(comm=get_backend('torch'), num_local_workers=workers) as ex:
+    gathered = ex.map(torch_pool_tasks.mix, tasks)
+    own = ex.map(torch_pool_tasks.mix, tasks, gather=False)
+    info = ex.scheduler_info()
+  return {'gathered': gathered, 'own': own, 'info': info}
+
+
 def comm_torch_ranks(rank, world):
   """The same cases on TorchDistBackend, plus its lease store (CAS,
   index listing, heartbeats) and topology."""
