@@ -377,8 +377,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      to host) and one pool worker SIGKILLed at a task's start by the
      pool.task fault hook: one respawn, and the clean run's bytes.
 
+  19. the preprocessor's front end and its fleet on the card's machine:
+     (a) beside the build, WIKI_CORPUS_MB MiB of synth articles in
+     wikiextractor's format through ``python -m lddl_tpu_torch.cli
+     download_wikipedia --no-download --no-extract`` (every article in
+     WIKI_SHARDS shards), then ``preprocess_bert_pretrain --engine
+     python`` (no masking) and ``balance_shards``; before the first timed
+     phase, the port's loader reads WIKI_BATCHES batches of the result;
+     (b) after 18c, 17b's run as two ``--comm file`` ranks (the elastic
+     executor, device masking), rank 1 SIGKILLed at its first task
+     (ELASTIC_KILL): rank 0 revokes its lease through the death probe,
+     runs every partition in under half the lease timeout with an M1
+     launch each (its telemetry), and writes 17b's files byte for byte;
+     (c) one rank SIGKILLed at the third task of the process phase, then
+     restarted with the same run id: the partitions manifested before the
+     kill keep their files' inode and mtime, resume_skipped counts every
+     manifest the kill left, the rest run again, 17b's files.
+
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12 and 14-17; phase 13 runs no kernel), the card's name and power
+phases 9-12, 14-17 and 19; phase 13 runs no kernel), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits non-zero before printing any result.
 """
@@ -6547,23 +6564,35 @@ def masking_kernels(args, card, path_sink):
 PREP_PROCS = []
 
 
-def prep_run(cmd, env, label):
-  """``cmd`` from the checkout: (stdout, seconds); raises with its output
-  on a non-zero exit or past PREP_TIMEOUT."""
-  t0 = time.perf_counter()
+def prep_start(cmd, env):
+  """Start ``cmd`` from the checkout (killed by the backgrounds' close)."""
   proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True)
   PREP_PROCS.append(proc)
+  return proc
+
+
+def stopped(proc):
+  """Wait for ``proc`` (killed past PREP_TIMEOUT, which raises): (exit
+  code, stdout, stderr)."""
   try:
     out, err = proc.communicate(timeout=PREP_TIMEOUT)
   finally:
     if proc.poll() is None:
       proc.kill()
       proc.wait()
+  return proc.returncode, out, err
+
+
+def prep_run(cmd, env, label):
+  """``cmd`` from the checkout: (stdout, seconds); raises with its output
+  on a non-zero exit or past PREP_TIMEOUT."""
+  t0 = time.perf_counter()
+  rc, out, err = stopped(prep_start(cmd, env))
   seconds = time.perf_counter() - t0
-  if proc.returncode:
+  if rc:
     raise AssertionError(f'{label}: {" ".join(cmd[1:4])} exited '
-                         f'{proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}')
+                         f'{rc}:\n{out[-3000:]}\n{err[-5000:]}')
   return out, seconds
 
 
@@ -7130,6 +7159,316 @@ def pool_runs(card, bg):
   return out
 
 
+# Phase 19: the preprocessor's front end and its fleet on the card's
+# machine. 19a: synth articles in wikiextractor's format through the
+# download CLI's offline step, then the python engine (no masking).
+WIKI_CORPUS_MB = 1
+WIKI_SHARDS = 4
+WIKI_FLAGS = ['--engine', 'python', '--target-seq-length', '128',
+              '--bin-size', '64', '--num-blocks', '4']
+WIKI_BATCHES, WIKI_BATCH = 2, 16
+# 19b/19c: phase 17's corpus and flags over --comm file (the elastic
+# executor by default), device masking. The lease timeout is the default;
+# the death probe (the dead rank's pid beacon) must revoke far sooner.
+ELASTIC_ENV = {'LDDL_LEASE_TIMEOUT': '60', 'LDDL_COMM_HEARTBEAT': '0.2'}
+ELASTIC_KILL = 'kill:elastic.task:rank=1,nth=1'
+# 19c's kill lands on the third task of the process phase: the scatter
+# phase's tasks (one a corpus partition) come first, so nth counts past
+# them (the partitions of 17b's run).
+ELASTIC_RESUME_NTH = 3
+
+
+class WikiBackground:
+  """Phase 19a's host work, started beside the build with phase 17's and
+  18a's (joined with them before the first timed phase): synth articles
+  (WIKI_CORPUS_MB MiB from --seed) written as wikiextractor's output,
+  ``python -m lddl_tpu_torch.cli download_wikipedia --no-download
+  --no-extract``, then ``preprocess_bert_pretrain --engine python`` over
+  its source and ``balance_shards``. :meth:`close` removes it."""
+
+  def __init__(self, args):
+    import threading
+    self.root = tempfile.mkdtemp(prefix='lddl_smoke_wiki_')
+    self.balanced = os.path.join(self.root, 'balanced')
+    self.started = time.perf_counter()
+    self.done = None
+    self.result, self.error = {}, None
+    self.thread = threading.Thread(target=self._run, args=(args.seed,),
+                                   daemon=True)
+    self.thread.start()
+
+  def _run(self, seed):
+    try:
+      wiki = os.path.join(self.root, 'wiki')
+      code = ('from lddl_tpu_torch import testing; print(testing.'
+              f'write_wikiextractor_source({wiki + "/extracted/en"!r}, '
+              f'{seed}, {WIKI_CORPUS_MB << 20}))')
+      out, secs = prep_run([sys.executable, '-c', code], dict(os.environ),
+                           '19a articles')
+      self.result['articles'] = (int(out.split()[-1]), secs)
+      cli = 'lddl_tpu_torch.cli'
+      out, secs = prep_cli(cli, ['download_wikipedia', '--outdir', wiki,
+                                 '--no-download', '--no-extract',
+                                 '--num-shards', str(WIKI_SHARDS)],
+                           dict(os.environ), '19a download_wikipedia')
+      self.result['shard'] = (out.strip().splitlines()[-1], secs)
+      sink = os.path.join(self.root, 'sink')
+      out, secs = prep_cli(cli, ['preprocess_bert_pretrain', '--wikipedia',
+                                 os.path.join(wiki, 'source', 'en'),
+                                 '--sink', sink, '--vocab-file', VOCAB_FILE,
+                                 '--seed', str(seed), *WIKI_FLAGS],
+                           dict(os.environ), '19a preprocess')
+      self.result['preprocess'] = (out.strip().splitlines(), secs)
+      out, secs = prep_cli(cli, ['balance_shards', '--indir', sink,
+                                 '--outdir', self.balanced, '--num-shards',
+                                 '2'], dict(os.environ), '19a balance')
+      self.result['balance'] = (out.strip().splitlines()[-1], secs)
+    except BaseException as e:  # re-raised by join(), on the main thread
+      self.error = e
+    finally:
+      self.done = time.perf_counter()
+
+  def join(self):
+    """Wait for it (seconds waited); raise what it raised."""
+    t0 = time.perf_counter()
+    self.thread.join(PREP_TIMEOUT)
+    if self.thread.is_alive():
+      raise AssertionError(f'19a: the background run outlived '
+                           f'{PREP_TIMEOUT} s')
+    if self.error is not None:
+      raise self.error
+    return time.perf_counter() - t0
+
+  def close(self):
+    shutil.rmtree(self.root, ignore_errors=True)
+
+
+def wiki_python_engine(args, wb, card):
+  """19a's check: the articles sharded, the python engine's samples (its
+  printed backends: no masking, materialized), and the port's loader
+  reading WIKI_BATCHES batches of the balanced output."""
+  from lddl_tpu_torch.loader import get_bert_pretrain_data_loader
+  from lddl_tpu_torch.tokenization.wordpiece import load_bert_tokenizer
+  cls_id = load_bert_tokenizer(VOCAB_FILE).cls_token_id
+  waited = wb.join()
+  articles, art_s = wb.result['articles']
+  shard_line, shard_s = wb.result['shard']
+  lines, prep_s = wb.result['preprocess']
+  m = re.search(r'sharded (\d+) articles into (\d+) shards', shard_line)
+  if not m or int(m.group(1)) != articles or \
+      int(m.group(2)) != WIKI_SHARDS:
+    raise AssertionError(f'19a: {articles} articles written, the download '
+                         f'CLI said: {shard_line!r}')
+  p = re.search(r'preprocessed (\d+) samples into (\d+) partitions in '
+                r'([0-9.]+)s', lines[-1])
+  if not p or 'mask=off format=materialized' not in '\n'.join(lines):
+    raise AssertionError(f'19a: the python engine printed {lines[-3:]}')
+  samples, run_s = int(p.group(1)), float(p.group(3))
+  with open(os.path.join(wb.balanced, '.num_samples.json')) as f:
+    balanced = sum(json.load(f).values())
+  if balanced != samples:
+    raise AssertionError(f'19a: {balanced} samples balanced of {samples}')
+  t0 = time.perf_counter()
+  loader = get_bert_pretrain_data_loader(
+      wb.balanced, vocab_file=VOCAB_FILE, batch_size_per_rank=WIKI_BATCH,
+      bin_size=64, max_seq_length=128, masking='dynamic',
+      base_seed=args.seed, shuffle_buffer_size=64)
+  batches = []
+  for batch in loader:
+    batches.append(batch)
+    if len(batches) == WIKI_BATCHES:
+      break
+  load_s = time.perf_counter() - t0
+  for b in batches:
+    ids = b['input_ids']
+    if ids.shape[0] != WIKI_BATCH or ids.shape[1] > 128 or \
+        not (ids >= 0).all() or not (ids[:, 0] == cls_id).all():
+      raise AssertionError(f'19a: a batch of input_ids {ids.shape} '
+                           f'{ids[:1, :4]}')
+  if len(batches) != WIKI_BATCHES:
+    raise AssertionError(f'19a: the loader gave {len(batches)} batches')
+  out = {'articles': articles, 'samples': samples, 'run_seconds': run_s,
+         'seconds': {'articles': art_s, 'download_wikipedia': shard_s,
+                     'preprocess': prep_s, 'balance': wb.result['balance'][1],
+                     'load': load_s},
+         'done_after_start_s': wb.done - wb.started, 'waited_s': waited,
+         'batch_shapes': [list(b['input_ids'].shape) for b in batches]}
+  log(f'  19a: {articles} synth articles ({WIKI_CORPUS_MB} MiB, '
+      f'wikiextractor\'s format) through python -m lddl_tpu_torch.cli '
+      f'download_wikipedia --no-download --no-extract ({shard_s:.1f} s) into '
+      f'{WIKI_SHARDS} shards; preprocess_bert_pretrain '
+      f'{" ".join(WIKI_FLAGS)}: {samples} samples, {run_s:.1f} s in run '
+      f'({prep_s:.1f} s of process); balanced ({wb.result["balance"][1]:.1f} '
+      f's); the port\'s loader read {WIKI_BATCHES} batches '
+      f'{out["batch_shapes"]} in {load_s:.2f} s; all done '
+      f'{out["done_after_start_s"]:.1f} s after the script\'s start, beside '
+      f'the build; waited {waited:.1f} s here [{card}]')
+  return out
+
+
+def elastic_env(rdv, run_id, tele, rank=0, world=1, faults=None,
+                faults_dir=None):
+  """The environment of one ``--comm file`` rank: the rendezvous, the
+  lease and heartbeat settings, telemetry on, and a fault spec."""
+  env = dict(os.environ, LDDL_COMM_DIR=rdv, LDDL_COMM_RUN_ID=run_id,
+             LDDL_RANK=str(rank), LDDL_WORLD_SIZE=str(world),
+             LDDL_TELEMETRY='1', LDDL_TELEMETRY_DIR=tele, **ELASTIC_ENV)
+  if faults:
+    env.update(LDDL_FAULTS=faults, LDDL_FAULTS_DIR=faults_dir or tele)
+  return env
+
+
+def elastic_cmd(corpus, sink):
+  return [sys.executable, '-m', 'lddl_tpu_torch.preprocess.bert',
+          '--source', corpus, '--sink', sink, '--vocab-file', VOCAB_FILE,
+          *PREP_FLAGS, '--comm', 'file']
+
+
+def run_seconds(out):
+  m = re.search(r'preprocessed \d+ samples into \d+ partitions in '
+                r'([0-9.]+)s', out)
+  return float(m.group(1)) if m else None
+
+
+def elastic_fleet(card, bg, prep):
+  """19b and 19c over phase 17b's corpus, against 17b's files."""
+  root = tempfile.mkdtemp(prefix='lddl_smoke_elastic_', dir=bg.root)
+  want, _ = sink_files(os.path.join(bg.root, 'sink_device'))
+  parts = prep['path']['device']['partitions']
+  out = {'fleet': killed_rank(card, bg.corpus, root, want, parts),
+         'resume': killed_and_resumed(card, bg.corpus, root, want, parts)}
+  shutil.rmtree(root, ignore_errors=True)
+  return out
+
+
+def killed_rank(card, corpus, root, want, parts):
+  """19b: 17b's run as two ``--comm file`` ranks, rank 1 SIGKILLed at its
+  first task: rank 0 revokes its lease through the death probe, runs
+  every partition in well under the lease timeout with an M1 launch each,
+  and writes ``want`` (17b's files)."""
+  rdv, sink = os.path.join(root, 'rdv_b'), os.path.join(root, 'sink_b')
+  procs = []
+  t0 = time.perf_counter()
+  for rank in (0, 1):
+    tele = os.path.join(root, f'tele_b{rank}')
+    env = elastic_env(rdv, 'fleet', tele, rank, 2,
+                      ELASTIC_KILL if rank else None)
+    procs.append(prep_start(elastic_cmd(corpus, sink), env))
+  rc1, _, err1 = stopped(procs[1])
+  rc0, out0, err0 = stopped(procs[0])
+  wall = time.perf_counter() - t0
+  if rc1 != -9:
+    raise AssertionError(f'19b: rank 1 exited {rc1}, not by SIGKILL:\n'
+                         f'{err1[-2000:]}')
+  if rc0:
+    raise AssertionError(f'19b: rank 0 exited {rc0}:\n{out0[-1500:]}\n'
+                         f'{err0[-3000:]}')
+  run_s = run_seconds(out0)
+  tl = telemetry_lines(os.path.join(root, 'tele_b0'))
+  tasks = tele_total(tl, 'pipeline.process.tasks')
+  launches = tele_total(tl, 'preprocess.mask_kernel_launches')
+  revokes = tele_total(tl, 'pipeline.elastic.revokes')
+  lease_timeout = float(ELASTIC_ENV['LDDL_LEASE_TIMEOUT'])
+  if tasks != parts or launches < tasks or revokes < 1:
+    raise AssertionError(f'19b: rank 0 ran {tasks} of {parts} partitions, '
+                         f'{launches} M1 launches, {revokes} revocations')
+  if run_s is None or 'mask=device' not in out0 or \
+      run_s > lease_timeout / 2:
+    raise AssertionError(f'19b: rank 0 took {run_s} s in run (the lease '
+                         f'timeout is {lease_timeout:.0f} s):\n{out0[-1500:]}')
+  files, hidden = sink_files(sink)
+  if files != want:
+    bad = sorted(set(files.items()) ^ set(want.items()))[:4]
+    raise AssertionError(f'19b: the survivor\'s shards are not 17b\'s: {bad}')
+  out = {'rank1_exit': rc1, 'partitions': tasks,
+         'scatter_tasks': tele_total(tl, 'pipeline.scatter.tasks'),
+         'mask_launches': launches, 'revokes': revokes,
+         'reexecutions': tele_total(tl, 'pipeline.elastic.reexecutions'),
+         'run_seconds': run_s, 'wall_seconds': wall, 'hidden_files': hidden}
+  log(f'  19b: two --comm file ranks of python -m '
+      f'lddl_tpu_torch.preprocess.bert {" ".join(PREP_FLAGS)} (device '
+      f'masking) on 17b\'s corpus, {ELASTIC_KILL}: rank 1 SIGKILLed; rank 0 '
+      f'revoked {revokes} lease(s) through the death probe, ran every '
+      f'scatter task ({out["scatter_tasks"]}) and all {tasks} '
+      f'partitions with {launches} M1 launches, {run_s:.1f} s in run (lease '
+      f'timeout {lease_timeout:.0f} s), {wall:.1f} s of processes; its '
+      f'{len(files)} files = 17b\'s, byte for byte [{card}]')
+  return out
+
+
+def killed_and_resumed(card, corpus, root, want, parts):
+  """19c: one ``--comm file`` rank SIGKILLed at the third task of the
+  process phase, then restarted with the same run id: the partitions
+  manifested before the kill keep their files' inode and mtime,
+  resume_skipped counts every manifest the kill left, the rest run again,
+  and the files are ``want`` (17b's)."""
+  rdv, sink = os.path.join(root, 'rdv_c'), os.path.join(root, 'sink_c')
+  faults = os.path.join(root, 'faults_c')
+  os.makedirs(faults)
+  spec = f'kill:elastic.task:nth={parts + ELASTIC_RESUME_NTH},once'
+
+  def run(tele):
+    t0 = time.perf_counter()
+    rc, o, e = stopped(prep_start(
+        elastic_cmd(corpus, sink),
+        elastic_env(rdv, 'resume', tele, faults=spec, faults_dir=faults)))
+    return rc, o, e, time.perf_counter() - t0
+
+  rc, _, e, killed_s = run(os.path.join(root, 'tele_c0'))
+  if rc != -9:
+    raise AssertionError(f'19c: the first run exited {rc}, not by '
+                         f'SIGKILL:\n{e[-2000:]}')
+  manifests = {ph: sorted(int(n[5:]) for n in os.listdir(os.path.join(
+      rdv, f'resume.elastic.{ph}.0')) if n.startswith('done.'))
+               for ph in ('scatter', 'process')}
+  kept = {n: (st.st_ino, st.st_mtime_ns)
+          for gi in manifests['process']
+          for n in [f'part.{gi}.parquet_{b}'
+                    for b in range(PREP_SEQ // PREP_BIN)]
+          for st in [os.stat(os.path.join(sink, n))]}
+  tele = os.path.join(root, 'tele_c1')
+  rc, o, e, wall2 = run(tele)
+  if rc:
+    raise AssertionError(f'19c: the restart exited {rc}:\n{o[-1500:]}\n'
+                         f'{e[-3000:]}')
+  manifested = len(manifests['scatter']) + len(manifests['process'])
+  if len(manifests['scatter']) != parts or not manifests['process'] or \
+      len(manifests['process']) >= parts or run_seconds(o) is None:
+    raise AssertionError(f'19c: manifests at the kill {manifests}')
+  tl = telemetry_lines(tele)
+  skipped = tele_total(tl, 'pipeline.elastic.resume_skipped')
+  tasks = tele_total(tl, 'pipeline.process.tasks')
+  launches = tele_total(tl, 'preprocess.mask_kernel_launches')
+  if skipped != manifested or tasks != parts - len(manifests['process']) \
+      or launches < tasks:
+    raise AssertionError(f'19c: resume_skipped {skipped} of {manifested} '
+                         f'manifests, {tasks} partitions run again, '
+                         f'{launches} M1 launches')
+  for n, stat in kept.items():
+    st = os.stat(os.path.join(sink, n))
+    if (st.st_ino, st.st_mtime_ns) != stat:
+      raise AssertionError(f'19c: {n} was manifested before the kill and '
+                           'rewritten by the restart')
+  files, hidden = sink_files(sink)
+  if files != want:
+    bad = sorted(set(files.items()) ^ set(want.items()))[:4]
+    raise AssertionError(f'19c: the resumed shards are not 17b\'s: {bad}')
+  out = {'spec': spec, 'manifests_at_kill': manifests,
+         'resume_skipped': skipped, 'partitions_rerun': tasks,
+         'mask_launches': launches, 'killed_wall_seconds': killed_s,
+         'run_seconds': run_seconds(o), 'wall_seconds': wall2,
+         'hidden_files': hidden}
+  log(f'  19c: one --comm file rank (elastic by default), {spec}: killed '
+      f'with {len(manifests["scatter"])} scatter and '
+      f'{len(manifests["process"])} process manifests '
+      f'({killed_s:.1f} s); restarted with the same run id: '
+      f'resume_skipped {skipped}, {tasks} partitions run again with '
+      f'{launches} M1 launches, {run_seconds(o):.1f} s in run ({wall2:.1f} s '
+      f'of process); the {len(kept)} manifested files kept their inode and '
+      f'mtime; {len(files)} files = 17b\'s, byte for byte [{card}]')
+  return out
+
+
 def main():
   global PLACE_LAYOUTS, RING_CELLS
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -7184,12 +7523,14 @@ def main():
   log(f'card: {card}')
   # Phase 17's host-only work (a corpus, a preprocess on the host) runs
   # beside the build, which leaves the host's cores idle.
-  prep_bg = formats_bg = None
+  prep_bg = formats_bg = wiki_bg = None
   if not (args.place_faults or args.ring_faults):
     prep_bg = PrepBackground(args)
     atexit.register(prep_bg.close)
     formats_bg = FormatsBackground(load_digests())
     atexit.register(formats_bg.close)
+    wiki_bg = WikiBackground(args)
+    atexit.register(wiki_bg.close)
   log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
       f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -7224,6 +7565,10 @@ def main():
   log('== 18a: the committed packed/, codebert/ and bart/ sets, remade by the '
       'port\'s preprocessors beside the build [' + card + ']')
   formats = {'rebuilt': formats_rebuilt(digests, formats_bg, card)}
+  log('== 19a: download_wikipedia\'s offline step and the python engine, '
+      'beside the build [' + card + ']')
+  fleet = {'wiki': wiki_python_engine(args, wiki_bg, card)}
+  wiki_bg.close()
 
   log('== kernels vs plain versions [' + card + ']')
   cases = []
@@ -7326,6 +7671,9 @@ def main():
     log(f'== 18c: the preprocessors through the local worker pool, nothing '
         f'else running [{card}]')
     formats['pool'] = pool_runs(card, prep_bg)
+    log(f'== 19b-c: the elastic executor: a killed rank of two, a killed '
+        f'and resumed run, over --comm file [{card}]')
+    fleet.update(elastic_fleet(card, prep_bg, prep))
   finally:
     prep_bg.close()
     formats_bg.close()
@@ -7415,6 +7763,10 @@ def main():
                  'on the card: the yardstick too',
         'valid_share': r['valid_share'],
         'shape': r['shape'], 'dtype': 'int32'})
+    if name == 'mask_partition':
+      summary[-1]['phase19_launches'] = {
+          '19b_survivor': fleet['fleet']['mask_launches'],
+          '19c_restart': fleet['resume']['mask_launches']}
   log(json.dumps({'training': [{k: v for k, v in b.items() if k != 'losses'}
                                for b in per_bin],
                   'packed': {k: v for k, v in packed.items()
@@ -7432,7 +7784,8 @@ def main():
                   'scan_window': scanned, 'bart': bart,
                   'placement': placed, 'sharded_replay': sharded,
                   'preprocessing': {k: v for k, v in prep.items()},
-                  'formats': formats, 'card': card}, default=str))
+                  'formats': formats, 'fleet': fleet, 'card': card},
+                 default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))
   log(card)

@@ -91,5 +91,13 @@ format the port trains on, and the local worker pool: ``preprocess.packed``,
 lddl_tpu_torch.preprocess.packed|codebert|bart``), ``pipeline.pool``'s
 ``WorkerPool`` and ``pipeline.executor``'s pooled map (``--num-workers``),
 ``ops.masking_host`` (host masking without torch), and ``testing``'s
-recipes of the committed shard sets' sources.
+recipes of the committed shard sets' sources. The preprocessor's fleet
+and front end: ``pipeline.executor``'s elastic map (leases over the
+comm's store, completion manifests from ``pipeline.parquet_io``, the
+resume of a killed run; ``--comm file`` and ``LDDL_ELASTIC``),
+``preprocess.bert``'s ``python`` engine, ``download`` (the downloaders;
+their offline steps write ``lddl_tpu``'s bytes), ``cli`` (``python -m
+lddl_tpu_torch.cli <name>``, ``lddl_tpu``'s command table), and
+``testing``'s word-salad corpus, Parquet hash and data-parallel drain
+accounting.
 """

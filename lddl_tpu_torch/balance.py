@@ -218,5 +218,17 @@ def main(args=None):
   return meta
 
 
+def cache_main(args=None):
+  """The ``generate_num_samples_cache`` command: rewrite
+  ``.num_samples.json`` of a balanced directory."""
+  parser = argparse.ArgumentParser(
+      description=generate_num_samples_cache.__doc__)
+  parser.add_argument('--path', type=str, required=True)
+  parser.add_argument('--comm', type=str, default='null',
+                      choices=['null', 'file', 'torch'])
+  args = parser.parse_args(args)
+  return generate_num_samples_cache(args.path, get_backend(args.comm))
+
+
 if __name__ == '__main__':
   main()

@@ -133,6 +133,11 @@ class CommBackend:
   #: where the claim/heartbeat substrate is first-class (FileBackend).
   elastic_default = False
 
+  @property
+  def has_lease_store(self):
+    """Whether :meth:`lease_store` gives a store (without making one)."""
+    return False
+
   def lease_store(self, namespace):
     """A :class:`LeaseStore` over this backend's substrate for one map
     phase (``namespace`` must be identical across ranks), or None when
@@ -455,6 +460,8 @@ class FileBackend(CommBackend):
       tracer.complete('comm.allgather', t_start,
                       time.monotonic() - t_start, args={'seq': seq})
     return results
+
+  has_lease_store = True
 
   def lease_store(self, namespace):
     """Lease/claim substrate for one elastic map phase, rooted at
@@ -828,10 +835,14 @@ class TorchDistBackend(CommBackend):
   def collective_seq(self):
     return self._seq
 
+  @property
+  def has_lease_store(self):
+    return self.group is not None and self.world_size > 1
+
   def lease_store(self, namespace):
     """A :class:`StoreLeaseStore` over the default group's store, or
     None in a single-process world (nothing to lease)."""
-    if self.group is None or self.world_size <= 1:
+    if not self.has_lease_store:
       return None
     from torch.distributed import distributed_c10d
     return StoreLeaseStore(distributed_c10d._get_default_store(), namespace,

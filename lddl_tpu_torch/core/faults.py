@@ -31,7 +31,11 @@ independently)::
             at=B    corrupt: the byte to flip (default 0, modulo the
                     buffer's length)
 
-The port instruments ``train.step`` (train-loop step entry, after the
+The port instruments ``elastic.task`` (the elastic executor's task
+entry, in the process that runs the task, ``gi`` and ``rank``
+filterable: a ``kill`` models a rank or worker dying mid-phase),
+``pool.task`` (a pool worker's task entry, ``gi`` filterable),
+``train.step`` (train-loop step entry, after the
 batch is pulled: a ``kill`` models a process dying mid-training, a
 ``term`` the preemption notice), ``train.ckpt`` (checkpoint write entry;
 it fires on the background writer thread under ``LDDL_ASYNC_CKPT``, so

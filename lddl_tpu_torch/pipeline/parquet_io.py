@@ -32,7 +32,9 @@ decompression runs in the host C++ library of :mod:`.codecs`.
 """
 
 import os
+import pickle
 import struct
+import tempfile
 
 import numpy as np
 
@@ -1000,3 +1002,62 @@ def write_samples_partition(samples, schema, out_dir, partition_idx,
       Table(cols, schema.fields, schema.metadata), out_dir, partition_idx,
       bin_size=bin_size, nbins=nbins, compression=compression,
       output_format=output_format, writer=writer)
+
+
+# ---------------------------------------------------------------------------
+# completion manifests (the elastic executor; lddl_tpu/pipeline/parquet_io.py)
+
+
+def manifest_key(global_index):
+  """Completion-manifest key of one task of an elastic map phase."""
+  return f'done.{int(global_index)}'
+
+
+def write_manifest_file(manifest_root, global_index, payload):
+  """Publish one completion manifest atomically (a temporary file in the
+  same directory, then a rename, as :func:`write_shard_file` does).
+  ``payload`` is the pickled task result; the manifest's existence is the
+  completion bit that claims and a restart's resume read, so it only ever
+  appears whole."""
+  fd, tmp = tempfile.mkstemp(dir=manifest_root)
+  with os.fdopen(fd, 'wb') as f:
+    f.write(payload)
+  os.rename(tmp, os.path.join(manifest_root, manifest_key(global_index)))
+
+
+def publish_result_manifest(manifest_root, global_index, result):
+  """Publish ``done.<gi>`` for a finished task, behind its shard writes.
+
+  Runs in the process that ran the task. With an ambient
+  :class:`~.pool.AsyncShardWriter` the manifest is submitted to the queue
+  the task's shard writes went through, so it lands only after them, and
+  not at all where an earlier write on that queue failed: a manifest never
+  vouches for shards that were not written. Without a writer the task's
+  writes have already landed, and the manifest is written here."""
+  from .pool import current_writer
+  payload = pickle.dumps(result)
+  writer = current_writer()
+  if writer is not None:
+    writer.submit(_manifest_write_job, writer, manifest_root, global_index,
+                  payload)
+  else:
+    write_manifest_file(manifest_root, global_index, payload)
+
+
+def _manifest_write_job(writer, manifest_root, global_index, payload):
+  # On the writer thread, after every earlier job of the task.
+  if writer.failed:
+    return  # an earlier shard write failed: the phase fails and reruns it
+  write_manifest_file(manifest_root, global_index, payload)
+
+
+def read_result_manifest(store, global_index):
+  """The unpickled result of a :class:`~..comm.backend.LeaseStore`
+  manifest, or :data:`MANIFEST_MISSING` where there is none (a result may
+  be None)."""
+  raw = store.read(manifest_key(global_index))
+  return MANIFEST_MISSING if raw is None else pickle.loads(raw)
+
+
+#: Tells "no manifest yet" from a published None.
+MANIFEST_MISSING = object()

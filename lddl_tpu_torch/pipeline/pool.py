@@ -153,9 +153,29 @@ class AsyncShardWriter:
       self.backlog_hwm = depth
     self._q.put((fn, args, kwargs))
 
+  @property
+  def failed(self):
+    """Whether a submitted job has failed (the first error is kept)."""
+    with self._err_lock:
+      return self._err is not None
+
+  def _drain(self):
+    """Wait until every submitted job has run: True, or False where the
+    writer thread ended with jobs left. The wait is on this process's own
+    thread, in steps of :data:`_POLL_SECONDS`, and checks that the thread
+    still runs at each step (``Queue.join`` would wait forever on a dead
+    one)."""
+    done = self._q.all_tasks_done
+    with done:
+      while self._q.unfinished_tasks and self._thread.is_alive():
+        done.wait(timeout=_POLL_SECONDS)
+      return not self._q.unfinished_tasks
+
   def flush(self):
     """Block until all submitted jobs ran; raise on any failure."""
-    self._q.join()
+    if not self._drain():
+      raise WriteBackError('the write-back thread ended with '
+                           f'{self._q.unfinished_tasks} job(s) not run')
     self.raise_pending()
 
   def take_backlog_hwm(self):
@@ -166,7 +186,7 @@ class AsyncShardWriter:
   def close(self, raise_errors=True):
     """Drain, stop the thread, and (optionally) raise pending failures."""
     self._q.put(None)
-    self._q.join()
+    self._drain()
     self._thread.join(timeout=30.0)
     if raise_errors:
       self.raise_pending()

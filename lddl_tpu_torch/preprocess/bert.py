@@ -40,8 +40,17 @@ either mask backend:
     before any worker starts: which backend masks is part of the shards'
     bits.
 
-The reference-style ``python`` engine is not ported (ROADMAP, Queue 1):
-asking for it raises.
+The ``python`` engine (``--engine python``) is the JAX package's
+reference-style one: each partition's documents are tokenized into
+:class:`Document` s of token strings, paired per document
+(:func:`create_pairs_from_document`, the reference recipe of
+``lddl/dask/bert/pretrain.py:241-365``) and, with ``--masking``, masked
+per pair on the host by a Philox stream keyed ``[seed, partition]``
+(:func:`create_masked_lm_predictions_np`); its rows are dicts, written
+materialized by :func:`~lddl_tpu_torch.pipeline.parquet_io.
+write_samples_partition`. It draws the JAX package's streams in the JAX
+package's order, so it writes the JAX package's rows; it runs on the host
+only and launches no kernel.
 """
 
 import argparse
@@ -53,10 +62,11 @@ import numpy as np
 
 from ..core.random import rng_from_key
 from ..core.utils import (attach_bool_arg, binary_column_from_parts,
-                          npy_batch_binary_parts, u16_batch_binary_parts)
+                          npy_batch_binary_parts, serialize_np_array,
+                          u16_batch_binary_parts)
 from ..pipeline.executor import Executor
 from ..pipeline.parquet_io import ByteArrays, Schema, Table, \
-    write_table_partition
+    write_samples_partition, write_table_partition
 from ..pipeline.pool import current_writer
 from ..pipeline.shard_format import (DELTA, DELTA_COLUMNS, MATERIALIZED,
                                      tag_table)
@@ -68,6 +78,185 @@ from .readers import read_corpus, split_id_text
 
 #: Telemetry counter of masking kernel launches (one per partition).
 MASK_LAUNCHES = 'preprocess.mask_kernel_launches'
+
+
+@dataclasses.dataclass(frozen=True)
+class Document:
+  doc_id: str
+  sentences: tuple  # tuple of tuples of tokens
+
+  def __len__(self):
+    return len(self.sentences)
+
+  def __getitem__(self, i):
+    return self.sentences[i]
+
+
+def documents_from_lines(lines, tokenizer, max_length=512,
+                         sentence_backend='auto'):
+  """Raw document lines -> tokenized :class:`Document` s, every sentence
+  of the partition tokenized in one batched call (the partition-level
+  form of the reference's per-sentence loop,
+  ``lddl/dask/bert/pretrain.py:77-97``). Documents and sentences that
+  tokenize to nothing are dropped."""
+  doc_ids, doc_sentence_strs = [], []
+  for line in lines:
+    doc_id, text = split_id_text(line)
+    if not text:
+      continue
+    sents = [s.strip() for s in split_sentences(text,
+                                                backend=sentence_backend)]
+    sents = [s for s in sents if s]
+    if sents:
+      doc_ids.append(doc_id)
+      doc_sentence_strs.append(sents)
+  flat = [s for sents in doc_sentence_strs for s in sents]
+  flat_tokens = tokenizer.batch_tokenize(flat, max_length=max_length)
+  documents = []
+  pos = 0
+  for doc_id, sents in zip(doc_ids, doc_sentence_strs):
+    toks = [tuple(t) for t in flat_tokens[pos:pos + len(sents)]]
+    pos += len(sents)
+    toks = [t for t in toks if t]
+    if toks:
+      documents.append(Document(doc_id, tuple(toks)))
+  return documents
+
+
+def truncate_seq_pair(tokens_a, tokens_b, max_num_tokens, rng):
+  """Trim the longer segment, from the front or the back at random, until
+  the pair fits (reference ``pretrain.py:161-176``)."""
+  while len(tokens_a) + len(tokens_b) > max_num_tokens:
+    trunc = tokens_a if len(tokens_a) > len(tokens_b) else tokens_b
+    if rng.random() < 0.5:
+      del trunc[0]
+    else:
+      trunc.pop()
+
+
+def create_masked_lm_predictions(tokens_a, tokens_b, masked_lm_ratio,
+                                 vocab_words, rng, max_predictions=None):
+  """Static 80/10/10 MLM masking over ``[CLS] A [SEP] B [SEP]`` with a
+  ``random.Random``-like ``rng`` (reference ``pretrain.py:182-238``).
+  Returns the masked A and B token lists, the sorted positions (into the
+  assembled sequence) and their original tokens."""
+  n_a, n_b = len(tokens_a), len(tokens_b)
+  tokens = ['[CLS]'] + list(tokens_a) + ['[SEP]'] + list(tokens_b) + ['[SEP]']
+  cand = [i for i, t in enumerate(tokens) if t not in ('[CLS]', '[SEP]')]
+  rng.shuffle(cand)
+  num_to_predict = max(1, int(round(len(tokens) * masked_lm_ratio)))
+  if max_predictions is not None:
+    num_to_predict = min(num_to_predict, max_predictions)
+  picked = sorted(cand[:num_to_predict])
+  labels = [tokens[i] for i in picked]
+  for i in picked:
+    r = rng.random()
+    if r < 0.8:
+      tokens[i] = '[MASK]'
+    elif r >= 0.9:
+      tokens[i] = vocab_words[rng.randrange(len(vocab_words))]
+  return tokens[1:1 + n_a], tokens[2 + n_a:2 + n_a + n_b], picked, labels
+
+
+def create_masked_lm_predictions_np(tokens_a, tokens_b, masked_lm_ratio,
+                                    vocab_words, np_rng,
+                                    max_predictions=None):
+  """:func:`create_masked_lm_predictions` drawn from a numpy
+  ``Generator``: one ``choice`` of the positions and one uniform and one
+  integer draw per pick, instead of a shuffle of every candidate."""
+  n_a, n_b = len(tokens_a), len(tokens_b)
+  tokens = ['[CLS]'] + list(tokens_a) + ['[SEP]'] + list(tokens_b) + ['[SEP]']
+  cand = np.concatenate(
+      [np.arange(1, 1 + n_a), np.arange(2 + n_a, 2 + n_a + n_b)])
+  num_to_predict = max(1, int(round(len(tokens) * masked_lm_ratio)))
+  if max_predictions is not None:
+    num_to_predict = min(num_to_predict, max_predictions)
+  num_to_predict = min(num_to_predict, cand.size)
+  picked = np.sort(np_rng.choice(cand, size=num_to_predict, replace=False))
+  labels = [tokens[i] for i in picked]
+  decide = np_rng.random(num_to_predict)
+  rand_ids = np_rng.integers(0, len(vocab_words), num_to_predict)
+  for j, i in enumerate(picked):
+    if decide[j] < 0.8:
+      tokens[i] = '[MASK]'
+    elif decide[j] >= 0.9:
+      tokens[i] = vocab_words[rand_ids[j]]
+  return (tokens[1:1 + n_a], tokens[2 + n_a:2 + n_a + n_b], picked.tolist(),
+          labels)
+
+
+def create_pairs_from_document(all_documents, document_index, rng,
+                               max_seq_length=128, short_seq_prob=0.1,
+                               masking=False, masked_lm_ratio=0.15,
+                               vocab_words=None, np_rng=None):
+  """The NSP pairs of one document (reference ``pretrain.py:241-365``):
+  sentences gather into chunks up to a target length, each chunk splits
+  at a random point into A, and with probability 0.5 (always for a
+  one-sentence chunk) B comes from a random other document of the
+  partition, the chunk's unused sentences then read again. Masked with
+  ``np_rng`` where given, else with ``rng``."""
+  document = all_documents[document_index]
+  max_num_tokens = max_seq_length - 3
+  target_seq_length = max_num_tokens
+  if rng.random() < short_seq_prob:
+    target_seq_length = rng.randint(2, max_num_tokens)
+
+  instances = []
+  chunk = []
+  chunk_len = 0
+  i = 0
+  while i < len(document):
+    chunk.append(document[i])
+    chunk_len += len(document[i])
+    if i == len(document) - 1 or chunk_len >= target_seq_length:
+      if chunk:
+        a_end = 1 if len(chunk) < 2 else rng.randint(1, len(chunk) - 1)
+        tokens_a = [t for seg in chunk[:a_end] for t in seg]
+        tokens_b = []
+        if len(chunk) == 1 or rng.random() < 0.5:
+          is_random_next = True
+          target_b_length = target_seq_length - len(tokens_a)
+          random_document_index = document_index
+          for _ in range(10):
+            candidate = rng.randint(0, len(all_documents) - 1)
+            if candidate != document_index:
+              random_document_index = candidate
+              break
+          if random_document_index == document_index:
+            is_random_next = False
+          random_document = all_documents[random_document_index]
+          start = rng.randint(0, len(random_document) - 1)
+          for j in range(start, len(random_document)):
+            tokens_b.extend(random_document[j])
+            if len(tokens_b) >= target_b_length:
+              break
+          i -= len(chunk) - a_end
+        else:
+          is_random_next = False
+          tokens_b = [t for seg in chunk[a_end:] for t in seg]
+        truncate_seq_pair(tokens_a, tokens_b, max_num_tokens, rng)
+        if tokens_a and tokens_b:
+          if masking:
+            mask = (create_masked_lm_predictions_np if np_rng is not None
+                    else create_masked_lm_predictions)
+            tokens_a, tokens_b, positions, labels = mask(
+                tokens_a, tokens_b, masked_lm_ratio, vocab_words,
+                np_rng if np_rng is not None else rng)
+          instance = {
+              'A': ' '.join(tokens_a),
+              'B': ' '.join(tokens_b),
+              'is_random_next': is_random_next,
+              'num_tokens': len(tokens_a) + len(tokens_b) + 3,
+          }
+          if masking:
+            instance['masked_lm_positions'] = serialize_np_array(
+                np.asarray(positions, dtype=np.uint16))
+            instance['masked_lm_labels'] = ' '.join(labels)
+          instances.append(instance)
+      chunk = []
+      chunk_len = 0
+    i += 1
+  return instances
 
 
 def encode_documents(doc_texts, tokenizer, sentence_backend='rules',
@@ -356,7 +545,7 @@ class BertPretrainConfig:
   lowercase: bool = True
   tokenizer_backend: str = 'auto'
   sentence_backend: str = 'auto'
-  engine: str = 'fast'  # the 'python' engine is not ported
+  engine: str = 'fast'  # 'fast' (columnar, batched masking) | 'python'
   mask_backend: str = 'device'  # 'device' | 'host' | 'auto'
   target_seq_length: int = 128
   short_seq_prob: float = 0.1
@@ -421,6 +610,9 @@ def _process_partition(tgt_idx, global_idx, spill_dir, out_dir, cfg):
   tokenizer = _get_tokenizer(cfg)
   lines = gather_partition(tgt_idx, spill_dir, cfg.seed)
   rng = rng_from_key(cfg.seed, 'pairs', tgt_idx)
+  if cfg.engine == 'python':
+    return _process_partition_python(lines, tgt_idx, out_dir, cfg, tokenizer,
+                                      rng)
   doc_texts = []
   for line in lines:
     _, text = split_id_text(line)
@@ -434,15 +626,39 @@ def _process_partition(tgt_idx, global_idx, spill_dir, out_dir, cfg):
   return {b: nrows for b, (_, nrows) in out.items()}
 
 
+def _process_partition_python(lines, tgt_idx, out_dir, cfg, tokenizer, rng):
+  """The python engine on one partition: documents, then
+  ``duplicate_factor`` passes of per-document pairing (and masking, from
+  the Philox stream keyed ``[seed, tgt_idx]``), written as dict rows."""
+  documents = documents_from_lines(lines, tokenizer,
+                                   sentence_backend=cfg.sentence_backend)
+  np_rng = np.random.Generator(
+      np.random.Philox(key=[np.uint64(cfg.seed), np.uint64(tgt_idx)]))
+  instances = []
+  for _ in range(cfg.duplicate_factor):
+    for di in range(len(documents)):
+      instances.extend(create_pairs_from_document(
+          documents, di, rng, max_seq_length=cfg.target_seq_length,
+          short_seq_prob=cfg.short_seq_prob, masking=cfg.masking,
+          masked_lm_ratio=cfg.masked_lm_ratio,
+          vocab_words=tokenizer.vocab_words, np_rng=np_rng))
+  out = write_samples_partition(
+      instances, bert_schema(cfg.masking), out_dir, tgt_idx,
+      bin_size=cfg.bin_size, nbins=cfg.nbins,
+      output_format=cfg.output_format, writer=current_writer())
+  return {b: n for b, (_, n) in out.items()}
+
+
 def run(corpus, sink_dir, cfg, executor=None, num_shuffle_partitions=None):
   """The full preprocess: global document shuffle -> pair/mask/bin ->
   Parquet shards under ``sink_dir``. Returns per-partition sample counts
   (``[{bin_id_or_None: n}]`` in partition order)."""
-  if cfg.engine != 'fast':
-    raise NotImplementedError(
-        f'engine={cfg.engine!r}: the reference-style python engine is not '
-        "ported yet (ROADMAP, Queue 1); the port runs engine='fast'")
+  if cfg.engine not in ('fast', 'python'):
+    raise ValueError(f'unknown engine {cfg.engine!r} (fast|python)')
   executor = executor or Executor()
+  # The mask backends are the fast engine's; the python engine masks each
+  # pair on the host, in its task.
+  fast_masking = cfg.masking and cfg.engine == 'fast'
   if cfg.sentence_backend == 'auto':
     # Resolved once and broadcast: shard content must not depend on which
     # host has nltk's data.
@@ -451,7 +667,7 @@ def run(corpus, sink_dir, cfg, executor=None, num_shuffle_partitions=None):
     cfg = dataclasses.replace(cfg, sentence_backend=resolved)
   if cfg.tokenizer_backend == 'auto':
     cfg = dataclasses.replace(cfg, tokenizer_backend='native')
-  if cfg.masking and cfg.mask_backend == 'auto':
+  if fast_masking and cfg.mask_backend == 'auto':
     # The backends draw independently, so which one runs is part of the
     # output: resolve once on rank 0, not per rank (nor per pool worker).
     local = None
@@ -460,19 +676,20 @@ def run(corpus, sink_dir, cfg, executor=None, num_shuffle_partitions=None):
     resolved = executor.comm.broadcast_object(local, root=0)
     cfg = dataclasses.replace(cfg, mask_backend=resolved)
   cfg = dataclasses.replace(cfg, shard_format=resolve_shard_format(cfg))
-  if cfg.masking and cfg.mask_backend == 'device' and \
+  if fast_masking and cfg.mask_backend == 'device' and \
       executor.num_local_workers > 1:
     raise ValueError(
         f'mask backend device with {executor.num_local_workers} local '
         'workers: the device backend masks in one process a card, and pool '
         'workers mask on the host; pass --mask-backend host (or auto), or '
         '--num-workers 1')
-  if cfg.masking and cfg.mask_backend == 'device':
+  if fast_masking and cfg.mask_backend == 'device':
     from ..ops.masking import resolve_device
     resolve_device(cfg.device)  # no card: raise before any work
   if executor.comm.rank == 0:
-    mask = cfg.mask_backend if cfg.masking else 'off'
-    where = f' on {cfg.device}' if cfg.masking and mask == 'device' else ''
+    mask = cfg.mask_backend if fast_masking else (
+        'python' if cfg.masking else 'off')
+    where = f' on {cfg.device}' if mask == 'device' else ''
     print(f'preprocess backends: tokenizer={cfg.tokenizer_backend} '
           f'sentences={cfg.sentence_backend} mask={mask}{where} '
           f'format={cfg.shard_format}')
@@ -509,7 +726,8 @@ def attach_args(parser):
   parser.add_argument('--engine', type=str, default='fast',
                       choices=['fast', 'python'],
                       help='fast: columnar ids + batched/device masking; '
-                      'python: not ported (raises)')
+                      'python: reference-style per-document loop, on the '
+                      'host')
   parser.add_argument('--mask-backend', type=str, default='device',
                       choices=['auto', 'device', 'host'],
                       help='where the static MLM masking runs: device (the '

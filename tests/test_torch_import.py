@@ -73,6 +73,13 @@ MODULES = ('lddl_tpu_torch', 'lddl_tpu_torch.models.bert',
            'lddl_tpu_torch.pipeline.partition',
            'lddl_tpu_torch.pipeline.shuffle',
            'lddl_tpu_torch.tokenization.sentences',
+           'lddl_tpu_torch.cli', 'lddl_tpu_torch.download',
+           'lddl_tpu_torch.download.utils',
+           'lddl_tpu_torch.download.wikipedia',
+           'lddl_tpu_torch.download.books',
+           'lddl_tpu_torch.download.common_crawl',
+           'lddl_tpu_torch.download.openwebtext',
+           'lddl_tpu_torch.download.codesearchnet',
            'lddl_tpu_torch.core.synth')
 
 

@@ -209,13 +209,22 @@ def test_refusals(corpus, tmp_path, monkeypatch):
   cfg = tbert.BertPretrainConfig(masking=True, **SETTINGS)
   with pytest.raises(RuntimeError, match='needs a CUDA card'):
     tbert.run(_read(treaders, corpus), str(tmp_path / 'a'), cfg)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  # The python engine runs (tests/test_torch_python_engine.py), but not
+  # in the delta format.
+  with pytest.raises(ValueError, match='fast engine'):
     tbert.run(_read(treaders, corpus), str(tmp_path / 'b'),
-              tbert.BertPretrainConfig(engine='python', **SETTINGS))
-  # The pool runs (tests/test_torch_pool.py); the elastic map does not.
+              tbert.BertPretrainConfig(engine='python', masking=True,
+                                       shard_format='delta', **SETTINGS))
+  with pytest.raises(ValueError, match='unknown engine'):
+    tbert.run(_read(treaders, corpus), str(tmp_path / 'b'),
+              tbert.BertPretrainConfig(engine='rust', **SETTINGS))
+  # The pool and the elastic map run (tests/test_torch_pool.py,
+  # tests/test_torch_elastic_executor.py); without a lease store the
+  # elastic switch leaves the static stride, and says so.
   monkeypatch.setenv('LDDL_ELASTIC', '1')
-  with pytest.raises(NotImplementedError, match='elastic'):
-    Executor(num_local_workers=2)
+  with Executor(num_local_workers=2) as ex:
+    assert ex.scheduler_info()['elastic'] is False
+    assert not ex.resume_pending('process')
   monkeypatch.delenv('LDDL_ELASTIC')
   with pytest.raises(ValueError, match='--mask-backend host'):
     tbert.run(_read(treaders, corpus), str(tmp_path / 'c'), cfg,
