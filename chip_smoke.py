@@ -221,7 +221,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its device records keyed by (epoch, index); ``--replay-smoke`` over
      the pairs loader), phase 11's incident tree and phase 12's bench
      history: exit 1 for the injected incident, the audit and the smoke
-     ok, a verdict per series and no regression; 11e's two ledgers
+     ok, a verdict per series and no regression, the concurrency leg
+     linting lddl_tpu_torch/ with the port's analyzer, clean (no
+     "concurrency lint unavailable"); 11e's two ledgers
      verified one against the other (exit 0); ``python -m
      lddl_tpu_torch.telemetry.trace`` over (f)'s trace: exit 0 and a
      merged document with events, exit 2 over a directory with none;
@@ -393,6 +395,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      restarted with the same run id: the partitions manifested before the
      kill keep their files' inode and mtime, resume_skipped counts every
      manifest the kill left, the rest run again, 17b's files.
+  20. the port's static analyzer on the card's machine, host only: (a)
+     beside the build (joined before the first timed phase), ``python -m
+     lddl_tpu_torch.cli lddl_analyze --format json`` over lddl_tpu_torch/
+     exits 0 with no unsuppressed finding and exactly the suppressions of
+     ANALYZE_SUPPRESSED; a cold and a warm run over a fresh
+     ``LDDL_ANALYZE_CACHE`` give the same document, each with its seconds;
+     a planted package (ANALYZE_PLANTED) exits 1 naming LDA005 (a torch
+     collective under a rank branch), LDA010 (``.cpu()`` in a
+     ``capture_step`` body) and LDA002 (``torch.rand(3)``); ``--format
+     sarif`` parses; the probed processes load nothing of lddl_tpu, torch
+     or jax. 11g's gate lints over 20a's warm cache.
 
 The last lines are the kernels' JSON summary (with the launch counts of
 phases 9-12, 14-17 and 19; phase 13 runs no kernel), the card's name and power
@@ -4315,15 +4328,17 @@ def resumed_run(loop, rec, root, card):
   return {'paths': paths, 'losses': losses, 'launches': counts}
 
 
-def gate_and_trace(digests, rec, resumed, history, card):
+def gate_and_trace(digests, rec, resumed, history, card, analyze_cache=None):
   """11g, after phase 12: ``python -m lddl_tpu_torch.telemetry.perf
   --gate`` with 11a's ledger of two epochs (``--audit``: the auditor's
   self-check, ``diff run run``, which the device records keyed by their
   batch's (epoch, index) pass; the replay smoke over the pairs loader),
   phase 11's incident tree and phase 12's bench history: exit 1 for the
   one injected incident, the audit and the smoke ok, a verdict line per
-  series and no regression; ``python -m lddl_tpu_torch.telemetry.audit
-  verify`` of 11e's two ledgers of one epoch each, the first against the
+  series and no regression, the concurrency leg linting the port with
+  the port's analyzer (clean; over ``analyze_cache``, 20a's warm
+  ``LDDL_ANALYZE_CACHE``, where given); ``python -m
+  lddl_tpu_torch.telemetry.audit verify`` of 11e's two ledgers of one epoch each, the first against the
   second: exit 0; then ``python -m lddl_tpu_torch.telemetry.trace`` over
   11f's traced run (exit 0, a merged document with events) and over an
   empty directory (exit 2)."""
@@ -4350,9 +4365,12 @@ def gate_and_trace(digests, rec, resumed, history, card):
          'lddl_tpu_torch.loader.bert:get_bert_pretrain_data_loader',
          '--replay-kwargs-json', json.dumps(kwargs), '--incidents',
          rec['paths']['incidents'], '--root', os.path.dirname(history)]
+  env = dict(os.environ)
+  if analyze_cache:
+    env['LDDL_ANALYZE_CACHE'] = analyze_cache
   t0 = time.perf_counter()
   p = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                     timeout=RANK_TIMEOUT)
+                     timeout=RANK_TIMEOUT, env=env)
   seconds = time.perf_counter() - t0
   verdicts = dict(
       (m.group(2), m.group(1)) for m in
@@ -4363,7 +4381,8 @@ def gate_and_trace(digests, rec, resumed, history, card):
   if (p.returncode != 1 or 'lddl-perf: determinism audit ok' not in p.stdout
       or not re.search(r'replay-smoke collate: ok', p.stdout)
       or f'injected at step {step}' not in p.stderr
-      or 'concurrency lint unavailable' not in p.stderr
+      or 'concurrency lint unavailable' in p.stderr
+      or 'lddl-perf: concurrency lint clean' not in p.stdout
       or sorted(verdicts) != series
       or 'regression' in verdicts.values()):
     raise AssertionError(f'11g: the perf gate exited {p.returncode}, '
@@ -4372,7 +4391,8 @@ def gate_and_trace(digests, rec, resumed, history, card):
   log(f'  11g: python -m lddl_tpu_torch.telemetry.perf --gate: exit 1 for '
       f'the injected incident at step {step}; determinism audit of 11a\'s '
       f'two-epoch ledger ok, replay smoke ok; verdicts {verdicts} over phase '
-      f'12\'s history ({seconds:.1f} s)')
+      f'12\'s history; the concurrency leg linted lddl_tpu_torch/ with the '
+      f'port\'s analyzer: clean ({seconds:.1f} s)')
   traced = resumed['paths']['telemetry']
   merged = os.path.join(traced, 'merged.json')
   empty = os.path.join(os.path.dirname(traced), 'no_trace')
@@ -7469,6 +7489,190 @@ def killed_and_resumed(card, corpus, root, want, parts):
   return out
 
 
+
+# Phase 20: the port's static analyzer on the card's machine. The
+# suppressions it reports over lddl_tpu_torch/ (rule, file, the definition
+# its message names), as tests/test_torch_analysis_self.py pins them.
+ANALYZE_SUPPRESSED = (
+    ('LDA011', 'lddl_tpu_torch/parallel/train.py',
+     'TensorReplicas.__call__()'),
+    ('LDA011', 'lddl_tpu_torch/parallel/train.py',
+     'ShardedDataParallel.grads()'),
+)
+# Workers of each run's per-file pass: the build and phases 17-19's host
+# work share the host's cores meanwhile.
+ANALYZE_JOBS = '2'
+# 20a's planted package: one torch spelling per file, by the rule that
+# must name it.
+ANALYZE_PLANTED = {
+    'collective.py': ('LDA005', (
+        'import torch.distributed as dist\n\n\n'
+        'def step(rank, t):\n'
+        '  if rank == 0:\n'
+        '    dist.all_reduce(t)\n')),
+    'captured.py': ('LDA010', (
+        'from lddl_tpu_torch.parallel.train import capture_step\n\n\n'
+        'def _body(t):\n'
+        '  return t.cpu()\n\n\n'
+        'def step(stream, t):\n'
+        '  return capture_step(stream, lambda: t, lambda: _body(t), [],\n'
+        '                      "a step")\n')),
+    'draw.py': ('LDA002', (
+        'import torch\n\n\n'
+        'def init():\n'
+        '  return torch.rand(3)\n')),
+}
+# ``lddl_analyze`` through the port's command table, then the modules of
+# lddl_tpu, torch and jax the process loaded (stderr's last line).
+ANALYZE_PROBE = (
+    'import json, sys\n'
+    'from lddl_tpu_torch.cli import main\n'
+    'rc = main(["lddl_analyze", *sys.argv[1:]])\n'
+    'print("loaded " + json.dumps(sorted(m for m in sys.modules if '
+    'm.split(".")[0] in ("lddl_tpu", "torch", "jax"))), file=sys.stderr)\n'
+    'sys.exit(rc)\n')
+
+
+class AnalyzeBackground:
+  """Phase 20a, host only, started beside the build with phases 17-19's
+  host work (joined with them before the first timed phase): ``python -m
+  lddl_tpu_torch.cli lddl_analyze --format json`` over lddl_tpu_torch/;
+  a cold and a warm run over a fresh ``LDDL_ANALYZE_CACHE``; the planted
+  package (ANALYZE_PLANTED); ``--format sarif``. :attr:`cache` stays
+  warm for 11g's gate until :meth:`close`."""
+
+  def __init__(self):
+    import threading
+    self.root = tempfile.mkdtemp(prefix='lddl_smoke_analyze_')
+    self.cache = os.path.join(self.root, 'cache')
+    self.started = time.perf_counter()
+    self.done = None
+    self.result, self.error = {}, None
+    self.thread = threading.Thread(target=self._run, daemon=True)
+    self.thread.start()
+
+  @staticmethod
+  def _analyze(argv, env, probe=True):
+    cmd = ([sys.executable, '-c', ANALYZE_PROBE, *argv] if probe else
+           [sys.executable, '-m', 'lddl_tpu_torch.cli', 'lddl_analyze',
+            *argv])
+    t0 = time.perf_counter()
+    rc, out, err = stopped(prep_start(cmd, env))
+    return rc, out, err, time.perf_counter() - t0
+
+  def _run(self):
+    try:
+      env = {k: v for k, v in os.environ.items()
+             if k != 'LDDL_ANALYZE_CACHE'}
+      env['LDDL_ANALYZE_JOBS'] = ANALYZE_JOBS
+      self.result['plain'] = self._analyze(
+          ['--format', 'json', 'lddl_tpu_torch'], env, probe=False)
+      # The installed tree's absolute path, as the perf gate lints it, so
+      # 11g's gate reads this cache warm.
+      tree = os.path.join(HERE, 'lddl_tpu_torch')
+      cached = dict(env, LDDL_ANALYZE_CACHE=self.cache)
+      for run in ('cold', 'warm'):
+        self.result[run] = self._analyze(['--format', 'json', tree], cached)
+      planted = os.path.join(self.root, 'planted')
+      os.makedirs(planted)
+      for name, (_, src) in [('__init__.py', ('', '')),
+                             *ANALYZE_PLANTED.items()]:
+        with open(os.path.join(planted, name), 'w') as f:
+          f.write(src)
+      self.result['planted'] = self._analyze(['--format', 'json', planted],
+                                             env)
+      self.result['sarif'] = self._analyze(['--format', 'sarif', tree],
+                                           cached)
+    except BaseException as e:  # re-raised by join(), on the main thread
+      self.error = e
+    finally:
+      self.done = time.perf_counter()
+
+  def join(self):
+    """Wait for it (seconds waited); raise what it raised."""
+    t0 = time.perf_counter()
+    self.thread.join(PREP_TIMEOUT)
+    if self.thread.is_alive():
+      raise AssertionError(f'20a: the analyzer runs outlived '
+                           f'{PREP_TIMEOUT} s')
+    if self.error is not None:
+      raise self.error
+    return time.perf_counter() - t0
+
+  def close(self):
+    shutil.rmtree(self.root, ignore_errors=True)
+
+
+def _analyzer_doc(label, run, want_rc, probe=True):
+  """The JSON document of one 20a run, its exit code checked, and (a
+  probed run) that its process loaded nothing of lddl_tpu, torch or
+  jax."""
+  rc, out, err, _ = run
+  if rc != want_rc:
+    raise AssertionError(f'20a: lddl_analyze ({label}) exited {rc}, not '
+                         f'{want_rc}:\n{out[-3000:]}\n{err[-3000:]}')
+  if probe:
+    last = (err.strip().splitlines() or [''])[-1]
+    if not last.startswith('loaded ') or json.loads(last[7:]):
+      raise AssertionError(f'20a: the analyzer\'s process ({label}): '
+                           f'{last!r}')
+  return json.loads(out)
+
+
+def static_analysis(ab, card):
+  """20a's checks, from the runs ``ab`` made beside the build: the tree
+  clean with exactly ANALYZE_SUPPRESSED, cold and warm runs equal with
+  their seconds, every planted spelling named, the SARIF document, and no
+  module of lddl_tpu (nor torch, nor jax) in the probed processes."""
+  waited = ab.join()
+  doc = _analyzer_doc('python -m, JSON', ab.result['plain'], 0, probe=False)
+  suppressed = [(f['rule'], f['path'], f['message']) for f in doc['findings']
+                if f['suppressed']]
+  got = [(r, p[p.index('lddl_tpu_torch/'):]) for r, p, _ in suppressed]
+  if (not doc['clean'] or doc['num_findings'] or doc['mode'] != 'project'
+      or got != [(r, p) for r, p, _ in ANALYZE_SUPPRESSED]
+      or not all(name in m for (_, _, name), (_, _, m) in
+                 zip(ANALYZE_SUPPRESSED, suppressed))):
+    raise AssertionError(f'20a: lddl_analyze over lddl_tpu_torch/: '
+                         f'{doc["num_findings"]} unsuppressed, suppressed '
+                         f'{suppressed}')
+  cold = _analyzer_doc('cold cache', ab.result['cold'], 0)
+  warm = _analyzer_doc('warm cache', ab.result['warm'], 0)
+  if cold != warm or cold['num_suppressed'] != len(ANALYZE_SUPPRESSED):
+    raise AssertionError('20a: the warm run\'s document is not the cold '
+                         'run\'s')
+  planted = _analyzer_doc('planted', ab.result['planted'], 1)
+  named = sorted((os.path.basename(f['path']), f['rule'])
+                 for f in planted['findings'] if not f['suppressed'])
+  want = sorted((name, rule) for name, (rule, _) in ANALYZE_PLANTED.items())
+  if named != want:
+    raise AssertionError(f'20a: the planted package gave {named}, not '
+                         f'{want}')
+  sarif = _analyzer_doc('SARIF', ab.result['sarif'], 0)
+  results = sarif['runs'][0]['results']
+  if sarif['version'] != '2.1.0' or len(results) != len(
+      ANALYZE_SUPPRESSED) or any(r.get('suppressions') != [
+          {'kind': 'inSource'}] for r in results):
+    raise AssertionError(f'20a: the SARIF document: {sarif["version"]}, '
+                         f'{len(results)} results')
+  seconds = {k: round(v[3], 2) for k, v in ab.result.items()}
+  log(f'  20a: python -m lddl_tpu_torch.cli lddl_analyze over '
+      f'lddl_tpu_torch/: exit 0, {doc["files_scanned"]} files, 0 '
+      f'unsuppressed, {len(suppressed)} suppressed '
+      f'({", ".join(n for _, _, n in ANALYZE_SUPPRESSED)}); '
+      f'{seconds["plain"]:.2f} s; over LDDL_ANALYZE_CACHE cold '
+      f'{seconds["cold"]:.2f} s, warm {seconds["warm"]:.2f} s, the same '
+      f'document; the planted package exit 1 naming {named}; SARIF '
+      f'{sarif["version"]} with {len(results)} suppressed results; no '
+      f'module of lddl_tpu, torch or jax in the probed processes; '
+      f'LDDL_ANALYZE_JOBS={ANALYZE_JOBS}; done '
+      f'{ab.done - ab.started:.1f} s after the script\'s start, waited '
+      f'{waited:.1f} s here [{card}]')
+  return {'files': doc['files_scanned'], 'suppressed': got,
+          'seconds': seconds, 'planted': named, 'waited': waited,
+          'done_after': ab.done - ab.started, 'jobs': int(ANALYZE_JOBS)}
+
+
 def main():
   global PLACE_LAYOUTS, RING_CELLS
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -7523,7 +7727,7 @@ def main():
   log(f'card: {card}')
   # Phase 17's host-only work (a corpus, a preprocess on the host) runs
   # beside the build, which leaves the host's cores idle.
-  prep_bg = formats_bg = wiki_bg = None
+  prep_bg = formats_bg = wiki_bg = analyze_bg = None
   if not (args.place_faults or args.ring_faults):
     prep_bg = PrepBackground(args)
     atexit.register(prep_bg.close)
@@ -7531,6 +7735,8 @@ def main():
     atexit.register(formats_bg.close)
     wiki_bg = WikiBackground(args)
     atexit.register(wiki_bg.close)
+    analyze_bg = AnalyzeBackground()
+    atexit.register(analyze_bg.close)
   log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
       f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -7569,6 +7775,9 @@ def main():
       'beside the build [' + card + ']')
   fleet = {'wiki': wiki_python_engine(args, wiki_bg, card)}
   wiki_bg.close()
+  log('== 20a: the static analyzer over lddl_tpu_torch/, beside the build '
+      '[' + card + ']')
+  analysis = static_analysis(analyze_bg, card)
 
   log('== kernels vs plain versions [' + card + ']')
   cases = []
@@ -7639,7 +7848,9 @@ def main():
 
     log(f'== phase 11, the gate and the trace CLI over phases 11 and 12 '
         f'[{card}]')
-    replayed['gate'] = gate_and_trace(digests, rec, resumed, history, card)
+    replayed['gate'] = gate_and_trace(digests, rec, resumed, history, card,
+                                      analyze_bg.cache)
+    analyze_bg.close()
   finally:
     shutil.rmtree(replay_root, ignore_errors=True)
 
@@ -7784,7 +7995,8 @@ def main():
                   'scan_window': scanned, 'bart': bart,
                   'placement': placed, 'sharded_replay': sharded,
                   'preprocessing': {k: v for k, v in prep.items()},
-                  'formats': formats, 'fleet': fleet, 'card': card},
+                  'formats': formats, 'fleet': fleet,
+                  'static_analysis': analysis, 'card': card},
                  default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))

@@ -99,5 +99,9 @@ resume of a killed run; ``--comm file`` and ``LDDL_ELASTIC``),
 their offline steps write ``lddl_tpu``'s bytes), ``cli`` (``python -m
 lddl_tpu_torch.cli <name>``, ``lddl_tpu``'s command table), and
 ``testing``'s word-salad corpus, Parquet hash and data-parallel drain
-accounting.
+accounting. The static analyzer: ``analysis`` (``python -m
+lddl_tpu_torch.cli lddl_analyze``, the stdlib only: ``lddl_tpu``'s rules
+LDA001-LDA018 with torch's collectives, compiled-code roots, host syncs
+and global-generator draws beside JAX's), which also runs the perf
+gate's concurrency leg.
 """

@@ -17,9 +17,7 @@ Every name of ``lddl_tpu``'s table, each a thin delegate:
   lddl_data_server               -> lddl_tpu_torch.loader.service
   lddl_replay                    -> lddl_tpu_torch.replay.cli
   lddl_incident                  -> lddl_tpu_torch.training.flight
-  lddl_analyze                   -> raises: the static analyzer
-                                    (lddl_tpu/analysis/) is not ported
-                                    (ROADMAP, Queue 1)
+  lddl_analyze                   -> lddl_tpu_torch.analysis.cli
 
 and the dash-form aliases. Run as ``python -m lddl_tpu_torch.cli <name>
 [args...]``; the installed console scripts stay ``lddl_tpu``'s.
@@ -98,16 +96,9 @@ def telemetry_trace(args=None):
   return main(args)
 
 
-class AnalyzerNotPorted(NotImplementedError):
-  """``lddl_analyze``: the static analyzer is not ported."""
-
-
 def lddl_analyze(args=None):
-  del args
-  raise AnalyzerNotPorted(
-      'lddl_analyze: the static analyzer (lddl_tpu/analysis/) is not ported '
-      'to lddl_tpu_torch yet (ROADMAP, Queue 1: analysis/); run python -m '
-      'lddl_tpu.cli lddl_analyze')
+  from .analysis.cli import main
+  return main(args)
 
 
 def lddl_monitor(args=None):

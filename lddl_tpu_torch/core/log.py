@@ -12,6 +12,7 @@ loader passes its own ``dp_rank`` where the JAX package asks
 import logging
 import os
 import pathlib
+import sys
 import threading
 import warnings
 
@@ -62,6 +63,21 @@ class DummyLogger:
     pass
 
 
+class _StderrHandler(logging.StreamHandler):
+  """A stream handler on the process's own stderr (``sys.__stderr__``),
+  not on whatever ``sys.stderr`` was when the logger was made: the
+  loggers live for the process, and a stderr swapped in and closed since
+  (a ``redirect_stderr`` block's, a captured test's) must not fail their
+  records."""
+
+  def __init__(self):
+    logging.Handler.__init__(self)
+
+  @property
+  def stream(self):
+    return sys.__stderr__
+
+
 class DatasetLogger:
   """Loggers scoped to the node or the rank: a real logger on the rank
   that owns the scope (local rank 0 for 'node'), a no-op one elsewhere.
@@ -105,7 +121,7 @@ class DatasetLogger:
         'lddl_tpu_torch - %(asctime)s - %(filename)s:%(lineno)d:'
         '%(funcName)s - %(levelname)s - %(message)s')
     if not logger.handlers:
-      sh = logging.StreamHandler()
+      sh = _StderrHandler()
       sh.setFormatter(fmt)
       logger.addHandler(sh)
       if self._log_dir is not None:

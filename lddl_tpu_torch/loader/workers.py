@@ -106,18 +106,26 @@ def worker_context(factory_module):
   return ctx
 
 
-def start_processes(procs):
-  """Start ``procs`` without re-running ``__main__`` in them: while they
-  start, ``sys.modules['__main__']`` is a bare module, so the children's
-  preparation data names no main script or module to import."""
+@contextlib.contextmanager
+def bare_main():
+  """While the block runs, ``sys.modules['__main__']`` is a bare module:
+  the preparation data of a process started in it names no main script
+  or module for the child to import."""
   with _start_lock:
     main = sys.modules.get('__main__')
     sys.modules['__main__'] = types.ModuleType('__main__')
     try:
-      for p in procs:
-        p.start()
+      yield
     finally:
       sys.modules['__main__'] = main
+
+
+def start_processes(procs):
+  """Start ``procs`` without re-running ``__main__`` in them
+  (:func:`bare_main`)."""
+  with bare_main():
+    for p in procs:
+      p.start()
 
 
 def _resolve_transport(transport):

@@ -362,6 +362,8 @@ class TensorReplicas:
 
   def __call__(self):
     torch._foreach_copy_(self.parts, self.views)
+    # lddl: noqa[LDA011] rank-uniform: the backend is the tensor group's
+    # one backend (backend_for), the same on every rank of the group.
     if self.backend == 'nccl':
       self._dist.broadcast(self.buf, src=self.src, group=self.group)
     else:
@@ -623,6 +625,8 @@ class ShardedDataParallel(DataParallel):
     torch._foreach_copy_(self.views, grads)
     if self.replicas is not None:
       self.replicas()
+    # lddl: noqa[LDA011] rank-uniform: the backend is the fsdp group's one
+    # backend (backend_for), the same on every rank of the group.
     if self.backend == 'nccl':
       self._dist.reduce_scatter_tensor(self.grad_shard, self.flat,
                                        group=self.fsdp)

@@ -30,10 +30,10 @@ auditor (:mod:`~lddl_tpu_torch.telemetry.audit`), ``--replay-smoke``
 over its batch replay (:func:`~lddl_tpu_torch.replay.rematerialize.
 replay_smoke`; default factory the port's synthetic loader) and
 ``--incidents`` over its flight recorder's tree
-(:func:`~lddl_tpu_torch.training.flight.scan_incidents`). The JAX gate's
-concurrency leg lints the package with ``lddl_tpu.analysis``, which the
-port may not import: here it reports the lint unavailable and passes,
-as the JAX gate does when its analyzer cannot load.
+(:func:`~lddl_tpu_torch.training.flight.scan_incidents`), and the
+concurrency leg: the port's own analyzer
+(:mod:`~lddl_tpu_torch.analysis`) over the installed
+``lddl_tpu_torch`` tree.
 """
 
 import argparse
@@ -235,8 +235,9 @@ def attach_args(parser):
                            '(default %(default)s)')
   parser.add_argument('--gate', action='store_true',
                       help='exit 1 when any series regressed (CI mode); '
-                           'the JAX gate\'s concurrency lint is reported '
-                           'unavailable here')
+                           'also runs the thread-graph concurrency lint '
+                           '(LDA014-LDA018) over lddl_tpu_torch/ and exits '
+                           '1 on any unsuppressed finding')
   parser.add_argument('--audit', nargs='+', metavar='LEDGER',
                       help='also run the determinism auditor over these '
                            'ledger paths: one path self-checks the run '
@@ -314,17 +315,42 @@ def check_incidents(root):
   return 0, 0
 
 
+_CONC_VERDICT = None
+
+
 def check_concurrency():
-  """``--gate``'s concurrency leg. The JAX gate runs
-  ``lddl_tpu.analysis``'s thread-graph rules over its package; the port
-  may not import that package, so the leg reports the lint unavailable
-  and passes (``(0, 0)``), as the JAX gate does when its analyzer cannot
-  load. ``tests/test_torch_analysis.py`` holds the port at zero
-  findings instead."""
-  print('lddl-perf: concurrency lint unavailable: the analyzer is '
-        'lddl_tpu.analysis, which lddl_tpu_torch does not import',
-        file=sys.stderr)
-  return 0, 0
+  """``--gate``: run the thread-graph concurrency rules (LDA014–LDA018)
+  over the installed ``lddl_tpu_torch`` tree with the port's analyzer.
+  Returns ``(rc, count)`` — rc 1 when any *unsuppressed*
+  race/lifecycle/lock-order/signal/blocking finding exists, each
+  rendered with its labeled chains. A perf number captured on a tree
+  with an open deadlock or torn-read finding is not a number CI should
+  bless.
+
+  The verdict is memoized per process (the installed tree does not
+  change under us), so repeated --gate invocations lint once; with
+  ``LDDL_ANALYZE_CACHE`` set even that first lint reuses parsed facts.
+  The lint is reported unavailable (and passes) only when the analyzer
+  itself raises.
+  """
+  global _CONC_VERDICT
+  if _CONC_VERDICT is not None:
+    return _CONC_VERDICT
+  try:
+    from ..analysis import (CONCURRENCY_RULE_IDS, analyze_package,
+                            cache_from_env)
+    unsuppressed, _ = analyze_package(cache=cache_from_env())
+  except Exception as e:  # the analyzer itself must never crash the gate
+    print(f'lddl-perf: concurrency lint unavailable: {e}', file=sys.stderr)
+    return 0, 0
+  conc = [f for f in unsuppressed if f.rule_id in CONCURRENCY_RULE_IDS]
+  for f in conc:
+    print(f'lddl-perf: concurrency finding:\n{f.render()}', file=sys.stderr)
+  if conc:
+    print(f'lddl-perf: {len(conc)} unsuppressed concurrency finding(s)',
+          file=sys.stderr)
+  _CONC_VERDICT = (1 if conc else 0, len(conc))
+  return _CONC_VERDICT
 
 
 def run_replay_smoke(ledger_path, factory_spec=None, kwargs_json='{}'):
@@ -373,7 +399,9 @@ def main(argv=None):
   incident_rc, incident_count = 0, 0
   if args.incidents:
     incident_rc, incident_count = check_incidents(args.incidents)
-  # Concurrency leg only under --gate, as in the JAX gate.
+  # Concurrency leg only under --gate: it re-lints the whole package
+  # (cheap when LDDL_ANALYZE_CACHE is warm), which a report-only
+  # invocation shouldn't pay for.
   conc_rc, conc_count = check_concurrency() if args.gate else (0, 0)
   series = gather_series(args.root, args.history)
   if not series:
@@ -418,6 +446,8 @@ def main(argv=None):
       print('lddl-perf: determinism audit ok')
     if args.incidents and incident_rc == 0:
       print(f'lddl-perf: no incidents under {args.incidents}')
+    if args.gate and conc_rc == 0:
+      print('lddl-perf: concurrency lint clean')
   # One command, one verdict: under --gate a determinism failure or a
   # captured incident is a gate failure exactly like a perf regression
   # (perf's code wins when several fired, so CI triage starts from the

@@ -1,8 +1,8 @@
 """The port's command table, ``python -m lddl_tpu_torch.cli``, on the CPU.
 
 Every name of ``lddl_tpu.cli`` has a counterpart in the port's table, each
-delegate reaches its module's ``--help``, and ``lddl_analyze`` refuses by
-name (the analyzer is not ported). The counterparts of
+delegate reaches its module's ``--help``, and ``lddl_analyze`` runs the
+port's analyzer (``lddl_tpu_torch.analysis.cli``). The counterparts of
 ``tests/test_download_cli.py``'s CLI cases: the usage (exit 2); the BERT
 preprocess, the balancer and the cache command end to end through the
 table, the same rows and sample counts as lddl_tpu's table writes; BART
@@ -45,7 +45,7 @@ def test_every_lddl_tpu_name_has_a_counterpart():
 
 
 @pytest.mark.parametrize('name', sorted(
-    n for n in tcli._COMMANDS if '-' not in n and n != 'lddl_analyze'))
+    n for n in tcli._COMMANDS if '-' not in n))
 def test_each_delegate_reaches_its_module(name, capsys):
   with pytest.raises(SystemExit) as e:
     tcli._COMMANDS[name](['--help'])
@@ -53,10 +53,25 @@ def test_each_delegate_reaches_its_module(name, capsys):
   assert 'usage' in capsys.readouterr().out
 
 
-def test_the_analyzer_is_refused_by_name():
+def test_the_analyzer_runs_by_name(tmp_path, capsys, monkeypatch):
+  """``lddl_analyze`` and ``lddl-analyze`` run the port's analyzer: its
+  exit code (1 on an unsuppressed finding, 0 on a clean tree) and its
+  JSON document; with no path it lints ./lddl_tpu_torch."""
+  pkg = tmp_path / 'pkg'
+  pkg.mkdir()
+  (pkg / '__init__.py').write_text('')
+  (pkg / 'm.py').write_text('import torch.distributed as dist\n\n\n'
+                            'def f(rank, t):\n'
+                            '  if rank == 0:\n'
+                            '    dist.all_reduce(t)\n')
   for name in ('lddl_analyze', 'lddl-analyze'):
-    with pytest.raises(tcli.AnalyzerNotPorted, match='analysis'):
-      tcli.main([name, 'lddl_tpu_torch'])
+    assert tcli.main([name, '--format', 'json', str(pkg)]) == 1
+    doc = json.loads(capsys.readouterr().out)
+    assert [f['rule'] for f in doc['findings']] == ['LDA005']
+    assert doc['mode'] == 'project' and doc['files_scanned'] == 2
+  monkeypatch.chdir(ROOT)
+  assert tcli.main(['lddl_analyze', '--no-project', '--rule', 'LDA001']) == 0
+  assert 'files (files mode), 0 finding(s)' in capsys.readouterr().out
 
 
 def test_usage(capsys):

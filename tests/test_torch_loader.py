@@ -6,8 +6,9 @@ through pyarrow and its HF tokenizer, the port through its own Parquet
 reader and vocab map, and every batch must be equal byte for byte
 (:func:`chip_smoke.batch_sha256`). Also: the vocab map against
 ``BertTokenizerFast`` on the bench vocab, the committed shard assets of
-chip_smoke.py's phase 7 against their digests, and the collates'
-``loader.*`` telemetry against the JAX package's.
+chip_smoke.py's phase 7 against their digests, the collates'
+``loader.*`` telemetry against the JAX package's, and the loader's
+logger outliving a swapped stderr.
 """
 
 import importlib.util
@@ -278,3 +279,24 @@ def test_committed_pairs_hold_two_batches_per_bin():
     seqs[s] = seqs.get(s, 0) + 1
   assert sorted(seqs) == [128, 256, 384, 512]
   assert min(seqs.values()) >= 2
+
+
+def test_the_loader_logger_outlives_a_swapped_stderr(tmp_path, monkeypatch,
+                                                    capfd):
+  """``DatasetLogger``'s loggers live for the process, so their stream
+  handler writes to the process's own stderr: a logger made while
+  ``sys.stderr`` was a stream closed since (a ``redirect_stderr`` block,
+  a test's captured stderr) still logs, with no "--- Logging error
+  ---"."""
+  import io
+  import sys
+  from lddl_tpu_torch.core.log import DatasetLogger
+  swapped = io.StringIO()
+  monkeypatch.setattr(sys, 'stderr', swapped)
+  logger = DatasetLogger(log_dir=str(tmp_path)).to('rank')
+  swapped.close()
+  monkeypatch.undo()
+  logger.info('after')
+  err = capfd.readouterr().err
+  assert 'after' in err
+  assert 'Logging error' not in err

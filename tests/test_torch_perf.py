@@ -6,12 +6,12 @@ lddl_tpu's, on the CPU.
   TestLoaders, TestGateCli, TestAuditFold) on the same inputs in both
   packages, the committed BENCH_r*.json, MULTICHIP_r*.json and
   bench_history.jsonl included: equal verdict dicts, series and exit
-  codes. The JAX gate's concurrency leg lints lddl_tpu with its analyzer,
-  which the port does not import (a documented departure): the port's
-  leg reports itself unavailable, and the JAX leg is pinned clean here so
-  the other legs compare. Beyond those: the port's ``--incidents`` over a
-  tree its own flight recorder wrote, ``--replay-smoke`` over a ledger
-  its own loader recorded.
+  codes. Each gate's concurrency leg lints its own package with its own
+  analyzer: the port's lints lddl_tpu_torch/ (clean, and rc 1 on a
+  planted finding), and the JAX leg is pinned clean here so the other
+  legs compare. Beyond those: the port's ``--incidents`` over a tree its
+  own flight recorder wrote, ``--replay-smoke`` over a ledger its own
+  loader recorded.
 - The trace CLI: two rank files merge into the same Chrome-trace
   document in both packages; a directory without trace files exits 2.
 - The sentinel's ledger_divergence detector (tests/test_sentinel.py's
@@ -62,9 +62,9 @@ def _same(fn):
 
 
 def _main(mod, argv, capsys):
-  """``mod.main(argv)``: its exit code, stdout and stderr. The JAX gate's
-  "concurrency lint clean" line is left out of its stdout: the port's
-  leg reports itself unavailable (on stderr) instead."""
+  """``mod.main(argv)``: its exit code, stdout and stderr. The
+  "concurrency lint clean" line is left out of stdout: each gate prints
+  it for its own package."""
   rc = mod.main(argv)
   out = capsys.readouterr()
   return rc, out.out.replace('lddl-perf: concurrency lint clean\n',
@@ -212,8 +212,8 @@ def test_gate_json_output_matches(tmp_path, capsys):
 def test_the_gate_runs_as_a_module(tmp_path):
   """The JAX gate is the console script ``lddl-perf``; the port's runs as
   ``python -m lddl_tpu_torch.telemetry.perf`` (setup.py's console
-  scripts stay lddl_tpu's), and its concurrency leg says it is
-  unavailable."""
+  scripts stay lddl_tpu's), and its concurrency leg lints the port with
+  the port's analyzer: clean."""
   with open(os.path.join(REPO_ROOT, 'setup.py')) as f:
     assert 'lddl-perf=lddl_tpu.telemetry.perf:main' in f.read()
   _write_history(tmp_path / 'bench_history.jsonl',
@@ -224,9 +224,46 @@ def test_the_gate_runs_as_a_module(tmp_path):
       text=True, timeout=120)
   assert proc.returncode == 0, proc.stderr
   assert 'tput_rows_per_sec' in proc.stdout
-  assert ('lddl-perf: concurrency lint unavailable: the analyzer is '
-          'lddl_tpu.analysis') in proc.stderr
-  assert 'concurrency lint clean' not in proc.stdout
+  assert 'concurrency lint unavailable' not in proc.stderr
+  assert 'lddl-perf: concurrency lint clean' in proc.stdout
+
+
+def test_a_concurrency_finding_fails_the_gate(tmp_path, capsys,
+                                              monkeypatch):
+  """The leg keeps the unsuppressed LDA014-LDA018 findings of the port's
+  analyzer: one planted finding is rendered and fails the gate (rc 1),
+  a suppressed one or another rule's does not; the verdict is memoized
+  per process."""
+  from lddl_tpu_torch import analysis
+  from lddl_tpu_torch.analysis import Finding
+  race = Finding('LDA014', 'lddl_tpu_torch/x.py', 3, 1, 'a planted race')
+  other = Finding('LDA001', 'lddl_tpu_torch/x.py', 4, 1, 'unsorted')
+  calls = []
+
+  def planted(cache=None):
+    calls.append(cache)
+    return [race, other], [Finding('LDA015', 'y.py', 1, 1, 'x',
+                                   suppressed=True)]
+
+  monkeypatch.setattr(analysis, 'analyze_package', planted)
+  monkeypatch.setattr(tperf, '_CONC_VERDICT', None)
+  _write_history(tmp_path / 'bench_history.jsonl',
+                 [10.0, 10.4, 9.6, 10.2, 9.7])
+  rc, out, err = _main(tperf, ['--root', str(tmp_path), '--gate'], capsys)
+  assert rc == 1
+  assert 'a planted race' in err and 'unsorted' not in err
+  assert '1 unsuppressed concurrency finding(s)' in err
+  assert 'concurrency lint clean' not in out
+  assert tperf.check_concurrency() == (1, 1) and len(calls) == 1
+  assert _main(tperf, ['--root', str(tmp_path)], capsys)[0] == 0
+
+  def broken(cache=None):
+    raise RuntimeError('no tree')
+
+  monkeypatch.setattr(analysis, 'analyze_package', broken)
+  monkeypatch.setattr(tperf, '_CONC_VERDICT', None)
+  assert tperf.check_concurrency() == (0, 0)
+  assert 'concurrency lint unavailable: no tree' in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
