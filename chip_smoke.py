@@ -48,10 +48,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      recompute's dropout, deterministic algorithms on); save, restore and
      check the resumed
      losses bit for bit, into a fresh loop and into the same loop (its
-     graphs survive restore); with telemetry and trace on, check that
-     export_telemetry writes both files with the train.step_cache_*
-     counters, train.mfu and non-zero hbm.* gauges, and that an armed
-     StepProfiler writes one trace;
+     graphs survive restore); with telemetry and trace on, for each bin,
+     check that export_telemetry writes both files with the
+     train.step_cache_* counters, train.mfu and non-zero hbm.* gauges,
+     and that an armed StepProfiler writes one trace; and the step cost
+     model: train.xla_flops / train.xla_bytes are the steps' bills, the
+     count's matmul + flash FLOPs are the analytic count (models/flops.py)
+     + the flash recompute + the NSP head to STEP_FLOPS_RTOL, the
+     profiled steps' billed FLOPs over their device-busy time are at most
+     989 TFLOP/s, and the roofline verdict over the file names a bound
+     class (printed with the fractions, the intensity against the machine
+     balance, and counted against analytic MFU);
   6. packed long-context training: the same model with 8192 positions at
      seq 8192 x batch 2, rows of 12-16 documents packed as
      preprocess/packed.py writes them and collated by PackedCollate
@@ -62,7 +69,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with the cache on and off; check one packed s=2048 step against
      dense attention, the timed graph against eager steps, graph vs eager
      (with and without remat) on packed rows bit for bit, and save,
-     restore and resume bit for bit;
+     restore and resume bit for bit; the telemetry and step-cost checks
+     of phase 5, each step billed its own computed attention tiles;
   7. training from shards, through the corpus loader as a user calls it,
      from the balanced Parquet shards lddl_tpu wrote (tests/assets/
      torch_shards, made by tests/make_torch_shards.py): (a) drain one
@@ -517,6 +525,8 @@ TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (3e-2, 3e-2)}
 # One full-width step, flash vs dense attention from the same weights:
 # both round attention to bf16 at different points; 12 layers compound it.
 DENSE_LOSS_RTOL, DENSE_GRAD_NORM_RTOL = 1e-2, 5e-2
+# The step cost model's matmul + flash FLOPs against expected_flops().
+STEP_FLOPS_RTOL = 1e-6
 # Gaps between two kernels up to this long (microseconds) count as launch
 # latency in the profile's idle split; longer ones as waiting on the host.
 LAUNCH_GAP_US = 50
@@ -653,23 +663,6 @@ def attention_inputs(b, h, s, d, dtype, seed):
   return q, k, v, do, g_lse, mask
 
 
-def work(name, b, h, s, d, dtype, pairs, seg=False):
-  """(FLOPs, bytes) the function needs on these inputs: products over the
-  ``pairs`` (query, key) pairs of one head that take part (attended keys,
-  and same-document ones with segment ids: a kernel could skip the
-  rest), each input read once and each output written once."""
-  elt = torch.finfo(dtype).bits // 8
-  mat = b * h * s * d * elt      # one [bh, s, d] tensor
-  row = b * h * s * 4            # one [bh, s] float32 tensor
-  bias = b * s * 4 * (3 if seg else 1)  # key bias (+ q and kv int32 ids)
-  products = {'fwd': 2, 'dq': 3, 'dkv': 4}[name]  # matmuls of s x s x d
-  flops = 2 * products * h * pairs * d
-  moved = {'fwd': 4 * mat + row + bias,
-           'dq': 5 * mat + 2 * row + bias,
-           'dkv': 6 * mat + 2 * row + bias}[name]
-  return flops, moved
-
-
 def bound(flops, moved, dtype):
   """(ms, 'operations' or 'bytes'): the least time the card could take."""
   t_flops, t_bytes = flops / PEAK_FLOPS[dtype], moved / PEAK_BYTES
@@ -739,7 +732,7 @@ def check_kernels(tfa, cases, seed):
       tol = fwd_tol if name == 'fwd' else grad_tol
       err = compare(f'{name} {(b, h, s, d, dtype)}', kernel, plain, tol)
       bound_ms, bound_by = bound(
-          *work(name, b, h, s, d, dtype, s * int(mask.sum())), dtype)
+          *tfa.work(name, b, h, s, d, dtype, s * int(mask.sum())), dtype)
       rows.append({
           'name': name, 'shape': [b, h, s, d], 'dtype': str(dtype),
           'body': body(dtype), 'max_abs_err': err, 'tol': tol,
@@ -839,7 +832,7 @@ def check_seg_kernels(tfa, cases, seed):
       # out and lse on real rows only; the gradients everywhere.
       err = compare(f'{name}_seg {(b, h, s, d, dtype)}', kernel, plain, tol,
                     rows=real if name == 'fwd' else None)
-      bound_ms, bound_by = bound(*work(name, b, h, s, d, dtype, pairs,
+      bound_ms, bound_by = bound(*tfa.work(name, b, h, s, d, dtype, pairs,
                                        seg=True), dtype)
       rows.append({
           'name': f'{name}_seg', 'shape': [b, h, s, d], 'dtype': str(dtype),
@@ -1203,7 +1196,10 @@ def train(args, card):
   check_graph_vs_eager(loop, build, [(loader, 0, 3) for loader in loaders],
                        'both bins')
   check_resume(loop, build, loaders[1], steps_per_bin + 2)
-  check_telemetry(build, loaders[0], 0)
+  for bin_stats, loader in zip(per_bin, loaders):
+    bin_stats['step_costs'] = check_telemetry(
+        loop, loader, 0, f'bin s={bin_stats["seq_len"]} b='
+        f'{bin_stats["batch"]}', card)
   return per_bin, counts
 
 
@@ -1404,33 +1400,99 @@ def check_resume(loop, build, loader, start, steps=2):
       'bit, in a fresh loop and in the same loop (its graphs replayed)')
 
 
-def check_telemetry(build, loader, start, steps=3):
-  """With telemetry and trace on, a fresh loop runs ``steps`` steps with
-  the StepProfiler armed for 2: export_telemetry must write both files,
+def device_busy_us(trace_dir):
+  """Device-busy microseconds in a torch.profiler Chrome trace: the union
+  of its kernels', copies' and sets' intervals."""
+  with open(os.path.join(trace_dir, 'trace.json')) as f:
+    events = json.load(f)['traceEvents']
+  spans = sorted((e['ts'], e['ts'] + e['dur']) for e in events
+                 if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'))
+  busy, end = 0.0, None
+  for a, b in spans:
+    if end is None or a > end:
+      busy += b - a
+      end = b
+    elif b > end:
+      busy += b - end
+      end = b
+  return busy
+
+
+def expected_flops(loop, batch):
+  """The count's matmul and flash FLOPs a step of ``batch`` should have:
+  the analytic count at the run's max_predictions (models/flops.py) with
+  its attention term (4 b s^2 d a layer forward, x3) replaced by what the
+  kernels compute (tfa.work: fwd's 2, dq's 3 and dkv's 4 products over
+  every pair, or a packed batch's computed 64 x 64 tiles), plus the NSP
+  head's 2 b d 2 x3 that the analytic count leaves out."""
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  cfg = loop.model.cfg
+  b, s = batch['input_ids'].shape
+  d, h, dh, layers = (cfg.hidden_size, cfg.num_heads, cfg.head_dim,
+                      cfg.num_layers)
+  if 'segment_ids' in batch:
+    total, skipped = tfa.count_skippable_tiles(batch['segment_ids'],
+                                               head_dim=dh)
+    pairs = (total - skipped) * tfa.TILE_ROWS * tfa.stream_rows(dh)
+  else:
+    pairs = b * s * s
+  flash = layers * sum(tfa.work(k, b, h, s, dh, cfg.dtype, pairs)[0]
+                       for k in ('fwd', 'dq', 'dkv'))
+  return (loop.flops_per_step(b, s) - 12 * b * s * s * d * layers +
+          2 * b * d * 2 * 3 + flash)
+
+
+def check_telemetry(loop, loader, start, label, card, steps=4):
+  """With telemetry and trace on, the phase's ``loop`` with a fresh step
+  cache runs ``steps`` steps, the StepProfiler armed for the last 2
+  (reusing the loop spares a BERT-base build): export_telemetry must
+  write both files,
   the telemetry holding the train.step_cache_* counters, train.mfu and
-  non-zero hbm.* gauges, and the profiler exactly one trace."""
+  non-zero hbm.* gauges, and the profiler exactly one trace. The step
+  cost model: the file's train.xla_flops / train.xla_bytes are the sum of
+  the steps' bills (the miss's count, a packed step's K4 part scaled by
+  its own tiles), the count's matmul and flash FLOPs are
+  expected_flops' to STEP_FLOPS_RTOL, the profiled steps' billed FLOPs
+  over their device-busy time are at most the card's bf16 peak, and the
+  roofline verdict over the file names a bound class."""
   from lddl_tpu_torch import telemetry
-  from lddl_tpu_torch.training import TrainLoop, export_telemetry
+  from lddl_tpu_torch.models.flops import machine_balance
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.telemetry import diff_snapshot_lines
+  from lddl_tpu_torch.telemetry.report import merge_metric_lines
+  from lddl_tpu_torch.telemetry.roofline import roofline_verdict
+  from lddl_tpu_torch.training import export_telemetry
   with tempfile.TemporaryDirectory(prefix='lddl_smoke_tele_') as out:
     os.environ['LDDL_TELEMETRY_DIR'] = out
     telemetry.enable()
     telemetry.enable_trace()
     try:
-      loop = TrainLoop.build(**build)
+      loop.step_cache = None  # a fresh cache, made with telemetry on
       loop.loader = loader
       loader.start = start
+      loop.run(loop.step + 1, log_every=0)  # the miss
+      after_miss = telemetry.get_telemetry().snapshot_lines()
+      # The hits; the profiler starts at the first one's boundary (run()
+      # stops a capture in flight when it returns) and takes the next 2.
       telemetry.get_step_profiler().arm(2)
-      loop.run(steps, log_every=0)
-      del loop
-      torch.cuda.empty_cache()
+      loader.start = start + 1
+      loop.run(loop.step + steps - 1, log_every=0)
+      hits = merge_metric_lines([diff_snapshot_lines(
+          after_miss, telemetry.get_telemetry().snapshot_lines())])
+      (costs,) = loop.step_cache._costs.values()
+      batches = loader.batches[start:start + steps]
+      want_flops = expected_flops(loop, batches[0])
+      analytic = loop.flops_per_step(*batches[0]['input_ids'].shape)
       paths = sorted(os.path.basename(p) for p in export_telemetry())
       with open(os.path.join(out, 'telemetry.rank0.jsonl')) as f:
-        lines = {x['name']: x for x in map(json.loads, f)
-                 if x['kind'] != 'meta'}
+        raw = [json.loads(x) for x in f]
+      lines = {x['name']: x for x in raw if x['kind'] != 'meta'}
       profiles = os.path.join(out, 'profiles')
       captures = sorted(os.listdir(profiles))
       traced = [os.path.isfile(os.path.join(profiles, c, 'trace.json'))
                 for c in captures]
+      busy_us = (device_busy_us(os.path.join(profiles, captures[0]))
+                 if traced == [True] else 0.0)
     finally:
       telemetry.disable()
       telemetry.disable_trace()
@@ -1454,6 +1516,85 @@ def check_telemetry(build, loader, start, steps=3):
       f'{hbm["bytes_limit"] / 2**30:.2f} GiB (headroom '
       f'{100 * hbm["headroom_frac"]:.1f}%); profiler wrote {captures[0]}/'
       'trace.json')
+
+  # The step cost model.
+  def computed_tiles(batch):
+    total, skipped = tfa.count_skippable_tiles(
+        batch['segment_ids'], head_dim=loop.model.cfg.head_dim)
+    return total - skipped
+
+  bills = [costs.bill(computed_tiles(x) if costs.seg_flops else None)
+           for x in batches]
+  totals = {k: lines.get(f'train.xla_{k}', {}).get('total')
+            for k in ('flops', 'bytes')}
+  want_totals = {'flops': sum(x[0] for x in bills),
+                 'bytes': sum(x[1] for x in bills)}
+  if any(totals[k] is None or abs(totals[k] - want_totals[k]) >
+         1e-12 * want_totals[k] for k in totals):
+    raise AssertionError(f'{label}: train.xla_flops / xla_bytes {totals}; '
+                         f'want the steps\' bills {want_totals}')
+  counted = costs.matmul_flops + costs.flash_flops
+  if abs(counted - want_flops) > STEP_FLOPS_RTOL * want_flops:
+    raise AssertionError(f'{label}: the count\'s matmul + flash FLOPs '
+                         f'{counted:.6e} (matmul {costs.matmul_flops:.6e}, '
+                         f'flash {costs.flash_flops:.6e}); want '
+                         f'{want_flops:.6e} within {STEP_FLOPS_RTOL}')
+  # The profiler ran over the last two steps.
+  if not busy_us:
+    raise AssertionError(f'{label}: the profiler\'s trace shows no device '
+                         'activity')
+  profiled = bills[-2][0] + bills[-1][0]
+  rate = profiled / (busy_us * 1e-6)
+  byte_rate = (bills[-2][1] + bills[-1][1]) / (busy_us * 1e-6)
+  if rate > PEAK_FLOPS[torch.bfloat16]:
+    raise AssertionError(f'{label}: {profiled:.4e} counted FLOPs over '
+                         f'{busy_us:.0f} us device-busy is {rate / 1e12:.1f} '
+                         'TFLOP/s, above the card\'s bf16 peak: the count '
+                         'is wrong')
+  merged = merge_metric_lines([raw])
+  verdict = roofline_verdict(merged,
+                             merged['metrics']['train.step_seconds']['sum'])
+  if verdict['bound'].startswith('unknown'):
+    raise AssertionError(f'{label}: roofline verdict over the file '
+                         f'{verdict}')
+  # The verdict the live monitor would give over the hits alone.
+  hits_s = hits['metrics']['train.step_seconds']['sum']
+  live = roofline_verdict(hits, hits_s)
+  peak = PEAK_FLOPS[torch.bfloat16]
+  result = {
+      'label': label, 'flops_per_step': costs.flops,
+      'matmul_flops': costs.matmul_flops, 'flash_flops': costs.flash_flops,
+      'seg_flops': costs.seg_flops, 'other_flops': costs.other_flops,
+      'bytes_per_step': costs.bytes, 'expected_flops': want_flops,
+      'analytic_flops': analytic, 'bills': bills,
+      'busy_ms_per_step': busy_us / 2e3,
+      'flops_per_busy_s': rate, 'bytes_per_busy_s': byte_rate,
+      'bound': verdict['bound'], 'hits_bound': live['bound'],
+      'hits_flops_frac': live['flops_frac'], 'hits_bw_frac': live['bw_frac'],
+      'arithmetic_intensity': verdict['arithmetic_intensity'],
+      'machine_balance': machine_balance(),
+      'hits_ms_per_step': hits_s / (steps - 1) * 1e3,
+      'mfu_counted': sum(x[0] for x in bills[1:]) / (hits_s * peak),
+      'mfu_analytic': (steps - 1) * analytic / (hits_s * peak)}
+  log(f'  step costs ({label}): {costs.flops:.4e} FLOPs a step (matmul '
+      f'{costs.matmul_flops:.4e}, flash {costs.flash_flops:.4e} of which K4 '
+      f'{costs.seg_flops:.4e}, elementwise {costs.other_flops:.4e}), '
+      f'{costs.bytes / 1e9:.3f} GB of operands; matmul + flash = expected '
+      f'{want_flops:.6e} (analytic {analytic:.4e} + recompute + NSP) to '
+      f'{abs(counted - want_flops) / want_flops:.1e}; totals over {steps} '
+      f'steps = the bills [{card}]')
+  log(f'  step costs ({label}): {rate / 1e12:.1f} TFLOP/s and '
+      f'{byte_rate / 1e12:.2f} TB/s of operands over '
+      f'{busy_us / 2e3:.2f} ms device-busy a profiled step; verdict over '
+      f'the file {verdict["bound"]}, over the {steps - 1} hits '
+      f'({result["hits_ms_per_step"]:.2f} ms/step, profiled) '
+      f'{live["bound"]}: flops_frac {live["flops_frac"]:.4f}, bw_frac '
+      f'{live["bw_frac"]:.4f}, intensity '
+      f'{verdict["arithmetic_intensity"]:.1f} FLOPs/byte vs balance '
+      f'{machine_balance():.1f}; MFU over the hits counted '
+      f'{result["mfu_counted"]:.4f} vs analytic '
+      f'{result["mfu_analytic"]:.4f} [{card}]')
+  return result
 
 
 # ---- phase 6: packed long-context training ----
@@ -1563,6 +1704,8 @@ def train_packed(args, card):
       f'{hbm["peak_bytes_in_use"] / 2**30:.2f} of '
       f'{hbm["bytes_limit"] / 2**30:.2f} GiB reserved (headroom '
       f'{100 * hbm["headroom_frac"]:.1f}%; graph pools included)')
+  stats['step_costs'] = check_telemetry(loop, loader, 0,
+                                        f'packed s={s} b={b}', card)
   return stats, counts
 
 

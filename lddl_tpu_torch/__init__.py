@@ -103,5 +103,11 @@ accounting. The static analyzer: ``analysis`` (``python -m
 lddl_tpu_torch.cli lddl_analyze``, the stdlib only: ``lddl_tpu``'s rules
 LDA001-LDA018 with torch's collectives, compiled-code roots, host syncs
 and global-generator draws beside JAX's), which also runs the perf
-gate's concurrency leg.
+gate's concurrency leg. The step cost model: ``telemetry.step_costs``
+(FLOPs and operand bytes counted op by op at the step cache's miss,
+billed as ``train.xla_flops`` / ``train.xla_bytes``; the flash wrappers
+bill ``ops.flash_attention.work``) and ``telemetry.roofline``'s
+``compiled_step_costs``. Each package exports ``lddl_tpu``'s names
+(``core.types``'s ``File``, ``pipeline.parquet_io.read_samples``,
+``models.flops.machine_balance`` among them), its JAX-only ones aside.
 """

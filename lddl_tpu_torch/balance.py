@@ -28,25 +28,13 @@ import time
 import numpy as np
 
 from .comm import get_backend
+from .core.types import File
 from .core.utils import (count_parquet_samples_strided, get_all_bin_ids,
                          get_all_parquets_under, get_file_paths_for_bin_id)
 from .pipeline.parquet_io import ParquetFile, Table, write_shard_file
 from .pipeline.shard_format import scan_shard_format
 
 NUM_SAMPLES_CACHE = '.num_samples.json'
-
-
-class File:
-  """A shard file on disk together with its sample count."""
-
-  __slots__ = ('path', 'num_samples')
-
-  def __init__(self, path, num_samples):
-    self.path = path
-    self.num_samples = num_samples
-
-  def __repr__(self):
-    return f'File(path={self.path}, num_samples={self.num_samples})'
 
 
 def count_samples(paths, comm):

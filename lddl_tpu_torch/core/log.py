@@ -1,12 +1,12 @@
 """Hierarchical, scope-addressed logging of the loader.
 
 Copied from :mod:`lddl_tpu.core.log` (``warn_once``, ``DummyLogger``,
-``DatasetLogger``; stdlib only). ``DatasetLogger.to('node'|'rank')``
-returns a real logger only on the rank that owns the scope;
-other ranks get a no-op logger, so library code can log unconditionally.
-The port runs one process until its comm backend is ported, so the
-loader passes its own ``dp_rank`` where the JAX package asks
-``discover_topology``.
+``DatasetLogger``; stdlib only). ``DatasetLogger.to('node'|'rank'|
+'worker')`` returns a real logger only where the scope is owned (a
+loader worker set by :meth:`DatasetLogger.set_worker` owns the node and
+rank scopes as worker 0 only); elsewhere a no-op logger, so library code
+can log unconditionally. The loader passes its own ``dp_rank`` where the
+JAX package asks ``discover_topology``.
 """
 
 import logging
@@ -79,9 +79,10 @@ class _StderrHandler(logging.StreamHandler):
 
 
 class DatasetLogger:
-  """Loggers scoped to the node or the rank: a real logger on the rank
-  that owns the scope (local rank 0 for 'node'), a no-op one elsewhere.
-  The JAX package's per-worker scope waits for loader worker processes."""
+  """Loggers scoped to the node, the rank or a loader worker: a real
+  logger where the scope is owned (local rank 0 for 'node', and for
+  'node' and 'rank' worker 0 once :meth:`set_worker` ran in a worker;
+  every worker its own 'worker' scope), a no-op one elsewhere."""
 
   def __init__(
       self,
@@ -90,19 +91,31 @@ class DatasetLogger:
       rank=0,
       local_rank=0,
       node_rank=0,
+      num_workers=1,
   ):
     self._log_dir = log_dir
     self._log_level = log_level
     self._rank = rank
     self._local_rank = local_rank
     self._node_rank = node_rank
+    self._num_workers = num_workers
+    self._worker_rank = None  # set per loader worker via set_worker()
     if log_dir is not None:
       pathlib.Path(log_dir).mkdir(parents=True, exist_ok=True)
     self._loggers = {}
-    # No caller in the port reaches to() from two threads; the lock is
-    # there for lddl-analyze, whose call resolution is by name and so links
-    # every tensor.to(...) on the feed's producer thread to this method.
+    # No caller in the port reaches to() or set_worker() from two threads;
+    # the lock is there for lddl-analyze, whose call resolution is by name
+    # and so links every tensor.to(...) on the feed's producer thread to
+    # this method.
     self._lock = threading.Lock()
+
+  def set_worker(self, worker_rank):
+    with self._lock:
+      self._worker_rank = worker_rank
+
+  @property
+  def num_workers(self):
+    return self._num_workers
 
   @property
   def rank(self):
@@ -132,19 +145,24 @@ class DatasetLogger:
     return logger
 
   def to(self, which):
-    """Return a logger scoped to 'node' or 'rank'."""
-    if which == 'node':
-      owns = self._local_rank == 0
-      name = f'node-{self._node_rank}'
-    elif which == 'rank':
-      owns = True
-      name = f'node-{self._node_rank}_rank-{self._rank}'
-    else:
+    """Return a logger scoped to 'node', 'rank', or 'worker'."""
+    if which not in ('node', 'rank', 'worker'):
       raise ValueError(f"unknown logging scope {which!r}; "
-                       "expected 'node' or 'rank'")
-    if not owns:
-      return DummyLogger()
+                       "expected 'node', 'rank' or 'worker'")
     with self._lock:
+      worker = self._worker_rank
+      first_worker = worker is None or worker == 0
+      if which == 'node':
+        owns = self._local_rank == 0 and first_worker
+        name = f'node-{self._node_rank}'
+      elif which == 'rank':
+        owns = first_worker
+        name = f'node-{self._node_rank}_rank-{self._rank}'
+      else:
+        owns = True
+        name = f'node-{self._node_rank}_rank-{self._rank}_worker-{worker}'
+      if not owns:
+        return DummyLogger()
       if name not in self._loggers:
         self._loggers[name] = self._make_logger(name, name + '.log')
       return self._loggers[name]

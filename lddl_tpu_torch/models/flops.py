@@ -48,6 +48,18 @@ def peak_hbm_bytes_per_device(device_name=None):
   return _lookup(_PEAK_HBM_GBPS, 'LDDL_PEAK_HBM_GBPS', 1e9, device_name)
 
 
+def machine_balance(device_name=None):
+  """The roofline ridge point of the card in FLOPs/byte (peak FLOP/s over
+  peak memory bytes/s): work whose arithmetic intensity exceeds it is
+  compute-bound, below it memory-bound. None when either peak is
+  unknown."""
+  flops = peak_flops_per_device(device_name)
+  bw = peak_hbm_bytes_per_device(device_name)
+  if not flops or not bw:
+    return None
+  return flops / bw
+
+
 def bert_encoder_flops(cfg, batch, seq_len):
   """Forward matmul FLOPs of the encoder stack on a padded batch.
 

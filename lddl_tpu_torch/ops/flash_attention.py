@@ -57,6 +57,17 @@ all padding skips every tile and gives out = 0 (with a finite lse), where
 the plain version, which skips nothing, averages over the padding keys.
 Padding rows are never compared, and their cotangents are zero in the
 model.
+
+Step costs: :func:`work` gives a launch's FLOPs and bytes from its shapes
+and the (query, key) pairs it computes, one formula for K1-K4 (the
+on-card bound table of ``chip_smoke.py`` reads it too). Under a
+:class:`~lddl_tpu_torch.telemetry.step_costs.StepCostCounter` each
+wrapper bills its launch by it, on the card and on the CPU alike, and
+keeps its own torch ops and the plain versions out of the count: a
+segment-free launch computes every ``s_q x s_kv`` pair (padded keys are
+masked by the bias, not skipped), a K4 launch the ``TILE_ROWS x
+stream_rows`` pairs of each tile pair it does not skip
+(:meth:`Segments.computed_tiles`).
 """
 
 import ctypes
@@ -64,6 +75,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..telemetry import step_costs
 from . import _build
 
 NEG_INF = -1e9
@@ -114,6 +126,46 @@ def device_launches():
   # The slots' order in csrc/flash_attention.cu (enum Kind, then kSeg).
   return dict(zip(('fwd', 'dq', 'dkv', 'fwd_seg', 'dq_seg', 'dkv_seg'),
                   map(int, out)))
+
+
+# ---- each launch's work ----
+
+
+def work(name, b, h, s, d, dtype, pairs, seg=False, s_kv=None):
+  """(FLOPs, bytes) of one ``name`` launch (``fwd``, ``dq`` or ``dkv``)
+  over ``[b * h, s, d]`` q (and ``[b * h, s_kv, d]`` k and v; default
+  ``s``): products over the ``pairs`` (query, key) pairs of one head
+  computed (summed over the batch rows), each input read once and each
+  output written once; ``seg`` adds the q and kv int32 ids to the
+  bias."""
+  s_kv = s if s_kv is None else s_kv
+  elt = torch.finfo(dtype).bits // 8
+  q_mat = b * h * s * d * elt      # one [bh, s, d] tensor (q, out, dO, dq)
+  kv_mat = b * h * s_kv * d * elt  # one [bh, s_kv, d] tensor (k, v, dk, dv)
+  row = b * h * s * 4              # one [bh, s] float32 tensor (lse, delta)
+  bias = b * s_kv * 4 + (b * (s + s_kv) * 4 if seg else 0)
+  products = {'fwd': 2, 'dq': 3, 'dkv': 4}[name]  # matmuls of s x s x d
+  flops = 2 * products * h * pairs * d
+  moved = {'fwd': 2 * q_mat + 2 * kv_mat + row + bias,
+           'dq': 3 * q_mat + 2 * kv_mat + 2 * row + bias,
+           'dkv': 2 * q_mat + 4 * kv_mat + 2 * row + bias}[name]
+  return flops, moved
+
+
+def _bill(name, q, k, heads, seg, kv_owned=False):
+  """Bill one launch of ``name`` on these inputs to the active step-cost
+  counter (nothing when none is active). Called with the counter paused:
+  the tile count's own ops are not the step's."""
+  if step_costs.active() is None:
+    return
+  bh, s_q, d = q.shape
+  s_kv = k.shape[1]
+  if seg is None:
+    pairs = bh // heads * s_q * s_kv
+  else:
+    pairs = seg.computed_tiles(d, kv_owned) * TILE_ROWS * stream_rows(d)
+  step_costs.bill(*work(name, bh // heads, heads, s_q, d, q.dtype, pairs,
+                        seg is not None, s_kv), seg=seg is not None)
 
 
 # ---- plain PyTorch versions (CPU path and the on-card reference) ----
@@ -237,6 +289,15 @@ class Segments:
     return (self.q, self.kv, self._tiles(self.q, q_rows),
             self._tiles(self.kv, kv_rows))
 
+  def computed_tiles(self, head_dim, kv_owned=False):
+    """The (owned, streamed) tile pairs a K4 launch computes over all rows
+    of the batch, per head: those whose id intervals meet (a host
+    read)."""
+    _, _, qi, ki = self.launch_args(head_dim, kv_owned)
+    live = ((qi[:, :, None, 0] <= ki[:, None, :, 1]) &
+            (ki[:, None, :, 0] <= qi[:, :, None, 1]))
+    return int(live.sum())
+
 
 def _ids(seg):
   """The plain versions' segment arguments: (q ids, kv ids) or ()."""
@@ -312,35 +373,41 @@ def _launch(name, heads, q, k, v, bias, *rest, seg=()):
 
 
 def _fwd(q, k, v, bias, heads, seg=None):
-  if not _use_kernel(q):
-    return _fwd_plain(q, k, v, bias, heads, *_ids(seg))
-  _check(q, k, v, bias, heads, seg=seg)
-  out = torch.empty_like(q)
-  lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-  _launch('fwd', heads, q, k, v, bias, out, lse,
-          seg=() if seg is None else seg.launch_args(q.shape[-1]))
+  with step_costs.uncounted():
+    _bill('fwd', q, k, heads, seg)
+    if not _use_kernel(q):
+      return _fwd_plain(q, k, v, bias, heads, *_ids(seg))
+    _check(q, k, v, bias, heads, seg=seg)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch('fwd', heads, q, k, v, bias, out, lse,
+            seg=() if seg is None else seg.launch_args(q.shape[-1]))
   return out, lse
 
 
 def _dq(q, k, v, bias, dout, lse, delta, heads, seg=None):
-  if not _use_kernel(q):
-    return _dq_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
-  _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
-  dq = torch.empty_like(q)
-  _launch('dq', heads, q, k, v, bias, dout, lse, delta, dq,
-          seg=() if seg is None else seg.launch_args(q.shape[-1]))
+  with step_costs.uncounted():
+    _bill('dq', q, k, heads, seg)
+    if not _use_kernel(q):
+      return _dq_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
+    _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
+    dq = torch.empty_like(q)
+    _launch('dq', heads, q, k, v, bias, dout, lse, delta, dq,
+            seg=() if seg is None else seg.launch_args(q.shape[-1]))
   return dq
 
 
 def _dkv(q, k, v, bias, dout, lse, delta, heads, seg=None):
-  if not _use_kernel(q):
-    return _dkv_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
-  _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
-  dk = torch.empty_like(k)
-  dv = torch.empty_like(v)
-  _launch('dkv', heads, q, k, v, bias, dout, lse, delta, dk, dv,
-          seg=() if seg is None else seg.launch_args(q.shape[-1],
-                                                     kv_owned=True))
+  with step_costs.uncounted():
+    _bill('dkv', q, k, heads, seg, kv_owned=True)
+    if not _use_kernel(q):
+      return _dkv_plain(q, k, v, bias, dout, lse, delta, heads, *_ids(seg))
+    _check(q, k, v, bias, heads, dout, lse, delta, seg=seg)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch('dkv', heads, q, k, v, bias, dout, lse, delta, dk, dv,
+            seg=() if seg is None else seg.launch_args(q.shape[-1],
+                                                       kv_owned=True))
   return dk, dv
 
 

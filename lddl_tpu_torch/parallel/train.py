@@ -50,6 +50,8 @@ from ..loader.bert import IGNORE_INDEX
 from ..loader.device import CUDA_FEED_LOCK
 from ..models.bert import SEEDED
 from ..ops import flash_attention as tfa
+from ..telemetry import get_telemetry
+from ..telemetry.step_costs import StepCostCounter
 from .mesh import backend_for
 
 
@@ -826,7 +828,7 @@ def _where_raised(exc):
   return f'{f.filename}:{f.lineno}: {f.line}'
 
 
-def capture_step(stream, warm_up, body, generators, what):
+def capture_step(stream, warm_up, body, generators, what, counter=None):
   """Capture train-step work into one CUDA graph: the miss of
   :class:`~lddl_tpu_torch.training.pretrain.CompiledStepCache` and of
   :class:`ScanTrainStep`.
@@ -841,14 +843,17 @@ def capture_step(stream, warm_up, body, generators, what):
   over. Capture executes nothing, so the kernels' launch counters
   (``tfa.launches``) are put back and the launches of one replay are
   returned. A capture that fails raises and names the op (``what`` says
-  what was captured); nothing falls back to eager.
+  what was captured); nothing falls back to eager. With a ``counter``
+  (:class:`~lddl_tpu_torch.telemetry.step_costs.StepCostCounter`) the
+  warm-up runs under it: it runs the same work eagerly, so its count is a
+  replay's. The capture stays outside the counter.
 
   Returns ``(warm_up's result, graph, body's outputs, launches per
   replay)``.
   """
   current = torch.cuda.current_stream()
   stream.wait_stream(current)
-  with torch.cuda.stream(stream):
+  with torch.cuda.stream(stream), (counter or contextlib.nullcontext()):
     result = warm_up()
   graph = torch.cuda.CUDAGraph()
   for gen in generators:
@@ -869,10 +874,19 @@ def capture_step(stream, warm_up, body, generators, what):
 
 
 # One captured step or window: the graph, the static input buffers it
-# reads, the outputs it writes (a window's: its last step's) and the kernel
-# launches it makes per replay.
-CapturedGraph = collections.namedtuple('CapturedGraph',
-                                       'graph inputs outputs launches')
+# reads, the outputs it writes (a window's: its last step's), the kernel
+# launches it makes per replay and, when it was counted, the StepCosts of a
+# replay (telemetry.step_costs; None uncounted).
+CapturedGraph = collections.namedtuple(
+    'CapturedGraph', 'graph inputs outputs launches costs',
+    defaults=(None,))
+
+
+def step_counter():
+  """A fresh :class:`~lddl_tpu_torch.telemetry.step_costs.StepCostCounter`
+  when telemetry is on, else None: a step is counted only where its count
+  is billed."""
+  return StepCostCounter() if get_telemetry().enabled else None
 
 
 class ScanTrainStep:
@@ -911,6 +925,12 @@ class ScanTrainStep:
   the time of the captures' runs, ``capture_seconds`` the part of it
   that capturing and instantiating the graphs took (the rest ran the K
   steps eagerly).
+
+  **Step costs.** With telemetry on, the first run of a key counts its K
+  step bodies (:mod:`~lddl_tpu_torch.telemetry.step_costs`; a graph's
+  in its warm-up) and ``last_costs`` holds the count of the window that
+  just ran, the K steps' together (XLA counts a ``scan`` body once); None
+  while the key is uncounted.
   """
 
   def __init__(self, model, opt, max_predictions=None, exchange=None,
@@ -924,6 +944,8 @@ class ScanTrainStep:
     self.hits = 0
     self.miss_seconds = 0.0
     self.capture_seconds = 0.0
+    self._costs = {}      # key -> the StepCosts of its window
+    self.last_costs = None
 
   @property
   def mode(self):
@@ -955,16 +977,21 @@ class ScanTrainStep:
     first = next(iter(window.values()))
     k = first.shape[0]
     self._seed(k, dropout_seed)
+    key = (signature(window), k, torch.are_deterministic_algorithms_enabled())
     if first.device.type == 'cuda' and self.mode == 'graph':
-      metrics = self._graph_run(window, k)
+      metrics = self._graph_run(window, k, key)
     else:
-      metrics = self._bodies(window, k)
+      counter = None if key in self._costs else step_counter()
+      with counter or contextlib.nullcontext():
+        metrics = self._bodies(window, k)
+      if counter is not None:
+        self._costs[key] = counter.costs
+    self.last_costs = self._costs.get(key)
     for _ in range(k):
       self.step.finish()
     return metrics
 
-  def _graph_run(self, window, k):
-    key = (signature(window), k, torch.are_deterministic_algorithms_enabled())
+  def _graph_run(self, window, k, key):
     entry = self._graphs.get(key)
     if entry is not None:
       for name, t in window.items():
@@ -987,11 +1014,15 @@ class ScanTrainStep:
       eager.append(time.perf_counter() - t)
       return metrics
 
+    counter = step_counter()
     metrics, graph, outputs, launches = capture_step(
         self._stream, warm_up, lambda: self._bodies(inputs, k),
         self.generators(),
-        f'a window of {k} train steps of signature {key[0]}')
-    self._graphs[key] = CapturedGraph(graph, inputs, outputs, launches)
+        f'a window of {k} train steps of signature {key[0]}', counter)
+    self._graphs[key] = CapturedGraph(graph, inputs, outputs, launches,
+                                      counter and counter.costs)
+    if counter is not None:
+      self._costs[key] = counter.costs
     self.captures += 1
     seconds = time.perf_counter() - t0
     self.miss_seconds += seconds

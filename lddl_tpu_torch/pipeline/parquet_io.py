@@ -1004,6 +1004,18 @@ def write_samples_partition(samples, schema, out_dir, partition_idx,
       output_format=output_format, writer=writer)
 
 
+def read_samples(path, columns=None):
+  """Read a Parquet shard back into a list of row dicts (``columns``, in
+  that order, or every column), as ``lddl_tpu``'s ``read_samples`` gives
+  them through ``pyarrow``'s ``to_pylist``."""
+  table = ParquetFile(path).read()
+  if columns is not None:
+    kinds = dict(table.fields)
+    table = Table({name: table.column(name) for name in columns},
+                  [(name, kinds[name]) for name in columns], table.metadata)
+  return table.to_pylist()
+
+
 # ---------------------------------------------------------------------------
 # completion manifests (the elastic executor; lddl_tpu/pipeline/parquet_io.py)
 

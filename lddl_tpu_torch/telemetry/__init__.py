@@ -14,8 +14,10 @@ formats:
     ``ledger.rank<R>.jsonl`` (replayed by :mod:`lddl_tpu_torch.replay`);
   - :mod:`.audit`: its offline auditor, ``python -m
     lddl_tpu_torch.telemetry.audit``;
-  - :mod:`.roofline`: card peaks, the roofline verdict, ``hbm.*`` gauges
-    from the CUDA caching allocator;
+  - :mod:`.roofline`: step costs, card peaks, the roofline verdict,
+    ``hbm.*`` gauges from the CUDA caching allocator;
+  - :mod:`.step_costs`: the step cost model, the FLOPs and operand bytes
+    of a step counted op by op (the counterpart of XLA's cost analysis);
   - :mod:`.profiling`: ``torch.profiler`` captures of N train steps;
   - :mod:`.sentinel` (``LDDL_SENTINEL``): streaming anomaly detectors;
   - :mod:`.perf`: the robust statistics the sentinel judges with;
@@ -37,11 +39,18 @@ worker never imports the HTTP server.
 from .ledger import (
     NOOP_LEDGER,
     Ledger,
+    NoopLedger,
+    compare_signals,
+    determinism_verdict,
     disable_ledger,
+    divergence_over_comm,
     enable_ledger,
     fingerprint_batch,
+    fingerprint_bytes,
+    fingerprint_file,
     fingerprint_packed,
     get_ledger,
+    ledger_file_name,
 )
 from .metrics import (
     NOOP,
@@ -81,6 +90,11 @@ _LAZY = {
     'maybe_start_monitor': 'server',
     'prometheus_lines': 'server',
     'stop_monitor': 'server',
+    'aggregate_over_comm': 'report',
+    'load_rank_files': 'report',
+    'merge_metric_lines': 'report',
+    'render_report': 'report',
+    'compiled_step_costs': 'roofline',
     'resolve_peaks': 'roofline',
     'roofline_verdict': 'roofline',
     'sample_hbm': 'roofline',

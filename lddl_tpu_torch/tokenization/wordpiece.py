@@ -75,6 +75,14 @@ class BertWordPiece:
     unk = self._unk_id
     return [t2i.get(t, unk) for t in tokens]
 
+  def get_special_tokens_mask(self, ids):
+    """1 where an id is a special token's ([UNK], [SEP], [PAD], [CLS],
+    [MASK], those in the vocab), else 0: HF's ``get_special_tokens_mask(
+    ids, already_has_special_tokens=True)``."""
+    special = {self.unk_token_id, self.sep_token_id, self.pad_token_id,
+               self.cls_token_id, self.mask_token_id} - {None}
+    return [1 if i in special else 0 for i in ids]
+
   def encoder(self):
     """The native encoder, built (and its library compiled, if this host
     has no build of it yet) at the first call."""

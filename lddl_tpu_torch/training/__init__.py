@@ -2,7 +2,7 @@
 CLI, the elastic hooks (:mod:`.elastic`) and the flight recorder
 (:mod:`.flight`, ``python -m lddl_tpu_torch.training.flight``)."""
 from .pretrain import (MODEL_SIZES, CompiledStepCache, TrainLoop,
-                       export_telemetry, state_fingerprint)
+                       export_telemetry, main, state_fingerprint)
 
 __all__ = ['MODEL_SIZES', 'CompiledStepCache', 'TrainLoop',
-           'export_telemetry', 'state_fingerprint']
+           'export_telemetry', 'main', 'state_fingerprint']

@@ -36,10 +36,13 @@ one CUDA graph per batch signature and replays it (``LDDL_STEP_CACHE=0``
 runs every step eagerly). :meth:`TrainLoop.run` carries the JAX loop's
 hooks: ``train.*`` telemetry and trace spans, MFU, the sentinels, the
 step profiler, fault injection, the preemption guard, the async
-checkpoint writer and rank membership. PyTorch has no compiler cost
-model, so the cache never bills ``train.xla_flops`` /
-``train.xla_bytes``, and MFU takes the analytic FLOP count as its
-numerator, as the JAX loop does when no cost model exists. With
+checkpoint writer and rank membership. With telemetry on, the cache
+counts a step's FLOPs and operand bytes at its miss (the port's step
+cost model, :mod:`~lddl_tpu_torch.telemetry.step_costs`, where the JAX
+loop asks XLA's cost analysis) and bills them every step as
+``train.xla_flops`` / ``train.xla_bytes``, which the roofline verdict
+reads; MFU then takes the counted FLOPs as its numerator, as the JAX
+loop takes XLA's, and the analytic count where no count exists. With
 ``LDDL_MONITOR`` set, ``run`` starts the live monitor
 (:mod:`~lddl_tpu_torch.telemetry.server`) for this rank.
 
@@ -110,7 +113,7 @@ from ..parallel.mesh import (axis_size, batch_rank, batch_size, make_mesh,
                              mesh_summary, reshard_state)
 from ..parallel.train import (AdamW, CapturedGraph, TrainStep, capture_step,
                               check_max_predictions, make_exchange,
-                              signature)
+                              signature, step_counter)
 from ..parallel.train import learning_rate as lr_schedule
 from ..telemetry import (get_step_profiler, get_telemetry, get_tracer,
                          rank_file_name, sample_hbm, trace_file_name)
@@ -295,8 +298,19 @@ class CompiledStepCache:
   capturable`): :attr:`mode` says which the card runs. Under NCCL the
   step's all-reduces are captured with the rest of it.
 
-  ``last_costs`` stays None: PyTorch has no compiler cost model, so
-  ``train.xla_flops`` / ``train.xla_bytes`` are not billed.
+  **Step costs.** With telemetry on, a miss counts its step
+  (:mod:`~lddl_tpu_torch.telemetry.step_costs`): a captured entry in the
+  capture's warm-up, which runs the same step eagerly, an eager entry by
+  running the miss's step under the counter. Every step of a counted
+  entry, hit or miss, bills the count as ``train.xla_flops`` /
+  ``train.xla_bytes`` (two counter adds, as the JAX cache bills XLA's
+  cost analysis) and sets ``last_costs`` to ``(flops, bytes)``, the
+  train loop's MFU numerator. A packed step's attention FLOPs follow its
+  own batch: the count's K4 FLOPs scaled by the attention tiles this
+  batch computes over those of the counted batch
+  (:meth:`~lddl_tpu_torch.telemetry.step_costs.StepCosts.bill`). With
+  telemetry off at the miss nothing is counted, and the entry's steps
+  leave ``last_costs`` None.
   """
 
   def __init__(self, step):
@@ -307,11 +321,15 @@ class CompiledStepCache:
     self.hits = 0
     self.misses = 0
     self.retrace_seconds = 0.0
+    # (signature, deterministic) -> the StepCosts of its step (counted).
+    self._costs = {}
     self.last_costs = None
-    tele = get_telemetry()
+    self._tele = tele = get_telemetry()
     self._hits_c = tele.counter('train.step_cache_hits')
     self._misses_c = tele.counter('train.step_cache_misses')
     self._retrace_h = tele.histogram('train.retrace_seconds')
+    self._flops_c = tele.counter('train.xla_flops')
+    self._bytes_c = tele.counter('train.xla_bytes')
 
   @property
   def mode(self):
@@ -322,17 +340,27 @@ class CompiledStepCache:
     key = (signature(batch), torch.are_deterministic_algorithms_enabled())
     if key not in self._graphs:
       t0 = time.perf_counter()
+      counter = step_counter()
       if (next(iter(batch.values())).device.type == 'cuda' and
           self.mode == 'graph'):
-        metrics, self._graphs[key] = self._miss(key, batch, dropout_seed)
+        metrics, self._graphs[key] = self._miss(key, batch, dropout_seed,
+                                                counter)
       else:
-        metrics, self._graphs[key] = self.step(batch, dropout_seed), None
+        with counter or contextlib.nullcontext():
+          metrics = self.step(batch, dropout_seed)
+        self._graphs[key] = None
+      if counter is not None:
+        self._costs[key] = counter.costs
+        if counter.costs.seg_flops:
+          counter.costs.seg_tiles = self._tiles(batch)
       self._count(False, time.perf_counter() - t0)
+      self._bill(key, batch)
       return metrics
     entry = self._graphs[key]
     if entry is None:
       metrics = self.step(batch, dropout_seed)
       self._count(True, 0.0)
+      self._bill(key, batch)
       return metrics
     for name, t in batch.items():
       entry.inputs[name].copy_(t)
@@ -342,7 +370,27 @@ class CompiledStepCache:
       tfa.launches[name] += n
     self.step.finish()
     self._count(True, 0.0)
+    self._bill(key, batch)
     return entry.outputs
+
+  def _tiles(self, batch):
+    """The attention tiles a packed batch's K4 launches compute (a host
+    read of its segment ids): the kernels' tile-skip rule."""
+    total, skipped = tfa.count_skippable_tiles(
+        batch['segment_ids'].cpu().numpy(),
+        head_dim=self.step.model.cfg.head_dim)
+    return total - skipped
+
+  def _bill(self, key, batch):
+    """Set ``last_costs`` for this step and bill it to ``train.xla_*``."""
+    costs = self._costs.get(key)
+    if costs is None or not self._tele.enabled:
+      self.last_costs = None
+      return
+    self.last_costs = costs.bill(self._tiles(batch) if costs.seg_flops
+                                 else None)
+    self._flops_c.add(self.last_costs[0])
+    self._bytes_c.add(self.last_costs[1])
 
   def _count(self, hit, seconds):
     if hit:
@@ -354,7 +402,7 @@ class CompiledStepCache:
     self._misses_c.add(1)
     self._retrace_h.observe(seconds)
 
-  def _miss(self, key, batch, dropout_seed):
+  def _miss(self, key, batch, dropout_seed, counter):
     if self._stream is None:
       self._stream = torch.cuda.Stream()
     inputs = {name: t.clone() for name, t in batch.items()}
@@ -362,9 +410,10 @@ class CompiledStepCache:
     metrics, graph, outputs, launches = capture_step(
         self._stream, lambda: self.step.body(inputs),
         lambda: self.step.body(inputs), self.step.generators(),
-        f'the train step for batch signature {key[0]}')
+        f'the train step for batch signature {key[0]}', counter)
     self.step.finish()
-    return metrics, CapturedGraph(graph, inputs, outputs, launches)
+    return metrics, CapturedGraph(graph, inputs, outputs, launches,
+                                  counter and counter.costs)
 
 
 def _step_cache_enabled():
@@ -954,10 +1003,17 @@ class TrainLoop:
               tele.gauge('train.samples_per_sec').set(
                   global_batch / max(now - t_wait, 1e-9))
               if peak_total:
-                b, s = batch['input_ids'].shape
+                # The counted FLOPs of this step where the step cache
+                # counted it (the JAX loop prefers XLA's count alike),
+                # else the analytic count.
+                measured = getattr(step_fn, 'last_costs', None)
+                if measured is not None:
+                  numerator = measured[0]
+                else:
+                  b, s = batch['input_ids'].shape
+                  numerator = self.flops_per_step(b, s * seq)
                 tele.gauge('train.mfu').set(
-                    self.flops_per_step(b, s * seq) /
-                    (max(now - t_wait, 1e-9) * peak_total))
+                    numerator / (max(now - t_wait, 1e-9) * peak_total))
               if 'segment_ids' in batch:
                 # The kernels' tile-skip rule on the host: how much
                 # attention work block-diagonal packing removed this step

@@ -740,8 +740,8 @@ def test_train_loop_serves_the_jax_loops_train_names(monkeypatch, tmp_path):
   rank; a scraper polling /snapshot all through the run is always
   answered; ``/profile?steps=2`` (armed over HTTP before the run) makes
   the loop write one torch.profiler trace; the served ``train.*`` names
-  are the JAX loop's (minus the cost-model counters, as the registry
-  test documents), and the dashboard lists the rank."""
+  are the JAX loop's, the cost-model counters included, and the
+  dashboard lists the rank."""
   from lddl_tpu import telemetry as jtele
   from test_torch_telemetry import _jax_loop
   monkeypatch.setenv('LDDL_MONITOR', '1')
@@ -794,7 +794,7 @@ def test_train_loop_serves_the_jax_loops_train_names(monkeypatch, tmp_path):
   assert len(losses) == 4 and codes[0] == 2 and set(codes[1:]) == {200}
   assert mon.enabled and len(_monitor_threads()) == 1
   got = _train_names(json.loads(_fetch(mon.url, '/snapshot')))
-  assert got == want - {'train.xla_flops', 'train.xla_bytes'}
+  assert got == want
   trace = tprofiling.get_step_profiler().last_trace_dir
   assert trace and os.path.exists(os.path.join(trace, 'trace.json'))
   assert trace.startswith(str(tmp_path / 'tele' / 'profiles'))

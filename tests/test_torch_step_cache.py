@@ -96,7 +96,7 @@ def test_miss_hit_sequence_matches_jax():
   assert got == want
   assert got[-1] == (3, 5)
   assert tcache.retrace_seconds > 0.0
-  assert tcache.last_costs is None  # no compiler cost model in torch
+  assert tcache.last_costs is None  # telemetry off: nothing is counted
 
 
 def test_cache_steps_equal_plain_steps():
@@ -130,12 +130,15 @@ def test_counter_names_match_jax():
   tcache = CompiledStepCache(_step())
   for _ in range(2):
     tcache(_tensors(batch), dropout_seed=3)
-  want = {n: line for n, line in _snapshot(jtele).items()
-          if n not in ('train.xla_flops', 'train.xla_bytes')}
+  want = _snapshot(jtele)
   got = _snapshot(ttele.get_telemetry())
   assert sorted(got) == sorted(want) == [
       'train.retrace_seconds', 'train.step_cache_hits',
-      'train.step_cache_misses']
+      'train.step_cache_misses', 'train.xla_bytes', 'train.xla_flops']
+  # XLA's count of a toy step and the port's of a BERT step differ; both
+  # bill theirs on each of the two steps.
+  for name in ('train.xla_flops', 'train.xla_bytes'):
+    assert got[name]['total'] > 0 and want[name]['total'] > 0, name
   for name in ('train.step_cache_hits', 'train.step_cache_misses'):
     assert got[name]['total'] == want[name]['total'] == 1, name
   assert got['train.retrace_seconds']['count'] == 1

@@ -8,9 +8,9 @@ TrainLoop.run, held against lddl_tpu on the same inputs (CPU).
     Sentinels fires the same detectors at the same steps;
   - the roofline verdict is the same host arithmetic;
   - a tiny-model TrainLoop.run over two bins emits the JAX loop's
-    ``train.*`` metric names and trace spans, minus the documented
-    ``train.xla_flops`` / ``train.xla_bytes`` (torch has no compiler
-    cost model);
+    ``train.*`` metric names and trace spans, ``train.xla_flops`` /
+    ``train.xla_bytes`` included (the port's step cost model bills them:
+    ``tests/test_torch_step_costs.py``);
   - export_telemetry writes both files; an armed StepProfiler writes one
     Chrome trace; sample_hbm reads the caching allocator.
 """
@@ -375,7 +375,7 @@ def test_run_emits_the_jax_loops_train_names(monkeypatch):
   want, want_spans, _, _ = _names_of_a_run(_jax_loop, jtele, jtrace)
   got, got_spans, tele, loop = _names_of_a_run(_port_loop, ttele, ttrace)
   assert {'train.xla_flops', 'train.xla_bytes'} <= want
-  assert got == want - {'train.xla_flops', 'train.xla_bytes'}
+  assert got == want
   assert got_spans == want_spans
   assert tele.counter('train.steps').total == 4
   assert tele.counter('train.step_cache_misses').total == 2
@@ -383,7 +383,14 @@ def test_run_emits_the_jax_loops_train_names(monkeypatch):
   assert tele.histogram('train.h2d_seconds').count == 4
   mfu = tele.gauge('train.mfu')
   assert mfu.count == 4 and mfu.value > 0
-  assert loop.step_cache.last_costs is None
+  # Two bins, a miss and a hit each: every step bills its bin's count.
+  counts = loop.step_cache._costs.values()
+  assert len(counts) == 2
+  assert tele.counter('train.xla_flops').total == sum(
+      2 * c.bill()[0] for c in counts)
+  assert tele.counter('train.xla_bytes').total == sum(
+      2 * c.bill()[1] for c in counts)
+  assert loop.step_cache.last_costs in [c.bill() for c in counts]
 
 
 def test_run_counts_attention_tiles_of_packed_batches(monkeypatch):
