@@ -35,8 +35,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      recorded at capture per replay, must agree), and exactly one cache
      miss per bin with none after the first pass over the bins (hits =
      steps - misses); time the same steps with the cache off
-     (LDDL_STEP_CACHE=0) and profile both ways, printing ms/step, device
-     busy and the idle share per bin with the cache on and off, and
+     (LDDL_STEP_CACHE=0) and profile them with the cache on, printing
+     ms/step per bin with the cache on and off, device busy, and the idle
+     share of each against that busy time, and
      check that the profiler saw 12 calls per replayed step of each
      kernel; check one step against dense attention from the same
      weights; check the timed graphs themselves (deterministic algorithms
@@ -65,8 +66,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (block_diagonal=True), dynamic masking, masked-only head of 1359
      predictions, the step cache on; check finite losses, 12 launches per
      step of each segmented kernel (none of the segment-free ones), on
-     the device and in the profiler, and one cache miss; time and profile
-     with the cache on and off; check one packed s=2048 step against
+     the device and in the profiler, and one cache miss; time with the
+     cache on and off, profile with it on; check one packed s=2048 step against
      dense attention, the timed graph against eager steps, graph vs eager
      (with and without remat) on packed rows bit for bit, and save,
      restore and resume bit for bit; the telemetry and step-cost checks
@@ -414,10 +415,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``capture_step`` body) and LDA002 (``torch.rand(3)``); ``--format
      sarif`` parses; the probed processes load nothing of lddl_tpu, torch
      or jax. 11g's gate lints over 20a's warm cache.
+  21. right after phase 6, BertConfig.ablate at BERT-base width: each of
+     'attention-core', 'ffn', 'norms' and 'gelu' built from --seed and
+     trained at phase 5's bins (bf16, flash, dropout 0.1, the step cache
+     on; phase 5's warm-up and timed steps, ABLATE_PROFILED profiled
+     steps a bin), launch
+     counts at 0 just before and read just after: finite losses, one
+     cache miss a bin, 12 launches a step of each of K1-K3 on the device
+     and in the profiler (none under 'attention-core'), the miss's
+     counted matmul + flash FLOPs = expected_flops less the ablated terms
+     to STEP_FLOPS_RTOL; ms/step and device-busy ms beside phase 5's.
 
 The last lines are the kernels' JSON summary (with the launch counts of
-phases 9-12, 14-17 and 19; phase 13 runs no kernel), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
+phases 9-12, 14-17, 19 and 21; phase 13 runs no kernel), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
 script exits non-zero before printing any result.
 """
 
@@ -1009,12 +1020,14 @@ def check_cache(cache, misses, steps, label):
       f'{cache.hits} hits over {steps} steps')
 
 
-def cache_line(label, on_ms, on_prof, off_ms, off_prof, card):
-  log(f'  {label}: cache on {on_ms:.2f} ms/step, busy '
-      f'{on_prof["device_busy_ms_per_step"]:.2f} ms, idle '
+def cache_line(label, on_ms, on_prof, off_ms, card):
+  """The cache off runs the same kernels: its idle share is taken
+  against the cache-on profile's busy time (profiled both ways, the two
+  read the same busy time within 0.1 ms in every cell)."""
+  busy = on_prof['device_busy_ms_per_step']
+  log(f'  {label}: cache on {on_ms:.2f} ms/step, busy {busy:.2f} ms, idle '
       f'{100 * on_prof["idle_share"]:.1f}% | cache off {off_ms:.2f} '
-      f'ms/step, busy {off_prof["device_busy_ms_per_step"]:.2f} ms, idle '
-      f'{100 * off_prof["idle_share"]:.1f}% [{card}]')
+      f'ms/step, idle {100 * (1 - busy / off_ms):.1f}% of it [{card}]')
 
 
 class BinLoader:
@@ -1165,7 +1178,7 @@ def train(args, card):
   cache = loop.step_cache
   check_cache(cache, len(BINS), total_steps, 'bins')
 
-  # The same steps with the cache off, then both ways profiled.
+  # The same steps with the cache off, then profiled with it on.
   for bin_stats, loader in zip(per_bin, loaders):
     with step_cache(False):
       dt_off, _ = timed_run(loop, loader, args.warmup, args.steps)
@@ -1175,15 +1188,10 @@ def train(args, card):
         bin_stats['ms_per_step'], card, 'on')
     check_profiled_launches(bin_stats['profile'], per_step,
                             f'bin s={bin_stats["seq_len"]}')
-    with step_cache(False):
-      bin_stats['profile_cache_off'] = profile_steps(
-          loop, loader, steps_per_bin, bin_stats['seq_len'],
-          1e3 * dt_off, card, 'off')
   for bin_stats in per_bin:
     cache_line(f'bin s={bin_stats["seq_len"]} b={bin_stats["batch"]}',
                bin_stats['ms_per_step'], bin_stats['profile'],
-               bin_stats['ms_per_step_cache_off'],
-               bin_stats['profile_cache_off'], card)
+               bin_stats['ms_per_step_cache_off'], card)
   # Bins switched back and forth since the first pass: no new miss.
   if cache.misses != len(BINS):
     raise AssertionError(f'step cache missed {cache.misses} times after '
@@ -1424,7 +1432,12 @@ def expected_flops(loop, batch):
   its attention term (4 b s^2 d a layer forward, x3) replaced by what the
   kernels compute (tfa.work: fwd's 2, dq's 3 and dkv's 4 products over
   every pair, or a packed batch's computed 64 x 64 tiles), plus the NSP
-  head's 2 b d 2 x3 that the analytic count leaves out."""
+  head's 2 b d 2 x3 that the analytic count leaves out. The analytic
+  count ignores BertConfig.ablate, as lddl_tpu's does; an ablated model's
+  dropped terms come off it: under 'attention-core' the q and k
+  projections (2 x 2 b s d^2 a layer forward, x3) and every kernel term,
+  under 'ffn' the FFN's two projections (2 x 2 b s d d_ff, x3); 'norms'
+  and 'gelu' drop no matmul."""
   from lddl_tpu_torch.ops import flash_attention as tfa
   cfg = loop.model.cfg
   b, s = batch['input_ids'].shape
@@ -1438,8 +1451,13 @@ def expected_flops(loop, batch):
     pairs = b * s * s
   flash = layers * sum(tfa.work(k, b, h, s, dh, cfg.dtype, pairs)[0]
                        for k in ('fwd', 'dq', 'dkv'))
+  dropped = 0
+  if cfg.ablate == 'attention-core':
+    dropped, flash = 12 * b * s * d * d * layers, 0
+  elif cfg.ablate == 'ffn':
+    dropped = 12 * b * s * d * cfg.intermediate_size * layers
   return (loop.flops_per_step(b, s) - 12 * b * s * s * d * layers +
-          2 * b * d * 2 * 3 + flash)
+          2 * b * d * 2 * 3 + flash - dropped)
 
 
 def check_telemetry(loop, loader, start, label, card, steps=4):
@@ -1517,11 +1535,11 @@ def check_telemetry(loop, loader, start, label, card, steps=4):
       f'{100 * hbm["headroom_frac"]:.1f}%); profiler wrote {captures[0]}/'
       'trace.json')
 
-  # The step cost model.
+  # The step cost model: a packed step billed the tiles its K4 launches
+  # compute, on the fwd/dq grid and on dkv's.
   def computed_tiles(batch):
-    total, skipped = tfa.count_skippable_tiles(
-        batch['segment_ids'], head_dim=loop.model.cfg.head_dim)
-    return total - skipped
+    return tfa.ring_tiles(batch['segment_ids'],
+                          head_dim=loop.model.cfg.head_dim)[1:]
 
   bills = [costs.bill(computed_tiles(x) if costs.seg_flops else None)
            for x in batches]
@@ -1685,12 +1703,8 @@ def train_packed(args, card):
   stats['profile'] = profile_steps(loop, loader, n_main, s, 1e3 * dt, card,
                                    'on')
   check_profiled_launches(stats['profile'], per_step, f'packed s={s}')
-  with step_cache(False):
-    stats['profile_cache_off'] = profile_steps(loop, loader, n_main, s,
-                                               1e3 * dt_off, card, 'off')
   cache_line(f'packed s={s} b={b}', stats['ms_per_step'], stats['profile'],
-             stats['ms_per_step_cache_off'], stats['profile_cache_off'],
-             card)
+             stats['ms_per_step_cache_off'], card)
   if loop.step_cache.misses != 1:
     raise AssertionError(f'packed step cache missed '
                          f'{loop.step_cache.misses} times')
@@ -1707,6 +1721,122 @@ def train_packed(args, card):
   stats['step_costs'] = check_telemetry(loop, loader, 0,
                                         f'packed s={s} b={b}', card)
   return stats, counts
+
+
+# ---- phase 21: BertConfig.ablate at BERT-base width ----
+
+ABLATE_VALUES = ('attention-core', 'ffn', 'norms', 'gelu')
+# Profiled steps a bin, after phase 5's warm-up (the miss, counted with
+# telemetry on, first) and timed steps: timed_run's ms/step holds run()'s
+# start and end, so the same counts as phase 5's compare like with like.
+ABLATE_PROFILED = 2
+
+
+def ablations(args, card, per_bin):
+  """Phase 21: each ablation of BertConfig.ablate built at full width
+  from the run's seed and trained at phase 5's bins (bf16, flash, dropout
+  0.1, the step cache on) through TrainLoop.run, launch counts at 0 just
+  before and read just after: finite losses, one cache miss a bin, 12
+  launches a step of each of K1-K3 (none under 'attention-core', which
+  must skip the attention; none of K4), the same per step in the
+  profiler, and the miss's counted matmul + flash FLOPs = the ablated
+  expected_flops to STEP_FLOPS_RTOL. Prints each ablation's ms/step and
+  device-busy ms a bin beside phase 5's (``per_bin``): the difference is
+  the dropped component's cost."""
+  import gc
+
+  from lddl_tpu_torch import telemetry
+  from lddl_tpu_torch.loader.bert import dynamic_mask_tokens
+  from lddl_tpu_torch.models import BertConfig
+  from lddl_tpu_torch.ops import flash_attention as tfa
+  from lddl_tpu_torch.training import MODEL_SIZES, TrainLoop
+  warmup, timed, profiled = args.warmup, args.steps, ABLATE_PROFILED
+  loaders = [BinLoader(s, b, warmup + timed + profiled, args.seed,
+                       dynamic_mask_tokens) for s, b in BINS]
+  out = []
+  for ablate in ABLATE_VALUES:
+    t0 = time.perf_counter()
+    cfg = BertConfig(attention_impl='flash', dtype=torch.bfloat16,
+                     ablate=ablate, **MODEL_SIZES[MODEL])
+    loop = TrainLoop.build(model_cfg=cfg, device=DEVICE, learning_rate=1e-4,
+                           warmup_steps=10, total_steps=1000, seed=args.seed,
+                           max_predictions=args.max_predictions)
+    label = f'21 {ablate}'
+    # The main path: counts at 0 just before, read just after.
+    tfa.reset_launches()
+    losses = []
+    telemetry.enable()  # each bin's miss counts its step
+    try:
+      for loader in loaders:
+        loop.loader = loader
+        loader.start = 0
+        losses += loop.run(loop.step + warmup, log_every=0)
+    finally:
+      telemetry.disable()
+    counted = list(loop.step_cache._costs.values())
+    rows = []
+    for loader in loaders:
+      dt, timed_losses = timed_run(loop, loader, warmup, timed)
+      losses += timed_losses
+      rows.append({'ms_per_step': 1e3 * dt})
+    for row, loader in zip(rows, loaders):
+      loop.loader = loader
+      loader.start = warmup + timed
+      busy, kernels, flash = device_busy(
+          lambda: losses.extend(loop.run(loop.step + profiled, log_every=0)),
+          profiled)
+      row.update(device_busy_ms_per_step=busy, kernels_per_step=kernels,
+                 flash_calls_per_step=flash)
+    counts = tfa.device_launches()
+    host = dict(tfa.launches)
+    if not all(np.isfinite(losses)):
+      raise AssertionError(f'{label}: non-finite loss in {losses}')
+    if loop.stop_reason is not None:
+      raise AssertionError(f'{label}: run stopped early: {loop.stop_reason}')
+    per_step = 0 if ablate == 'attention-core' else cfg.num_layers
+    want = {k: per_step * len(losses) if k in ('fwd', 'dq', 'dkv') else 0
+            for k in counts}
+    check_launches(counts, host, want, f'{label}, {len(losses)} steps')
+    check_cache(loop.step_cache, len(BINS), len(losses), label)
+    for (s, b), row, loader, costs, base in zip(BINS, rows, loaders, counted,
+                                                per_bin):
+      got = {k: v for k, v in row['flash_calls_per_step'].items() if v}
+      if got != {k: float(per_step) for k in ('fwd', 'dq', 'dkv')
+                 if per_step}:
+        raise AssertionError(f'{label} s={s}: the profiler saw flash kernel '
+                             f'calls {got} per step; want {per_step} of '
+                             'each of K1-K3')
+      flops = costs.matmul_flops + costs.flash_flops
+      want_flops = expected_flops(loop, loader.batches[0])
+      if abs(flops - want_flops) > STEP_FLOPS_RTOL * want_flops:
+        raise AssertionError(
+            f'{label} s={s}: the count\'s matmul + flash FLOPs {flops:.6e} '
+            f'(matmul {costs.matmul_flops:.6e}, flash {costs.flash_flops:.6e})'
+            f'; want the ablated expected_flops {want_flops:.6e} within '
+            f'{STEP_FLOPS_RTOL}')
+      base_busy = base['profile']['device_busy_ms_per_step']
+      row.update(seq_len=s, batch=b, flops=flops, expected_flops=want_flops,
+                 flash_flops=costs.flash_flops,
+                 delta_ms=row['ms_per_step'] - base['ms_per_step'],
+                 delta_busy_ms=row['device_busy_ms_per_step'] - base_busy)
+      log(f'  {label} s={s} b={b}: {row["ms_per_step"]:.2f} ms/step '
+          f'({row["delta_ms"]:+.2f} vs phase 5\'s {base["ms_per_step"]:.2f}),'
+          f' device busy {row["device_busy_ms_per_step"]:.2f} ms '
+          f'({row["delta_busy_ms"]:+.2f} vs {base_busy:.2f}), '
+          f'{row["kernels_per_step"]:.0f} kernels/step; matmul + flash '
+          f'{flops:.6e} FLOPs = the ablated expected {want_flops:.6e} '
+          f'(flash {costs.flash_flops:.4e}) [{card}]')
+    seconds = time.perf_counter() - t0
+    log(f'  {label}: losses {losses[0]:.4f} -> {losses[-1]:.4f} over '
+        f'{len(losses)} steps, {loop.step_cache.misses} misses; '
+        f'{seconds:.1f} s with the build [{card}]')
+    out.append({'ablate': ablate, 'bins': rows, 'launches': counts,
+                'steps': len(losses), 'seconds': seconds})
+    loop.step_cache = None
+    del loop, counted
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
 
 
 # ---- phase 7: training from shards ----
@@ -5187,8 +5317,9 @@ PLACE_FAULTS = {'no-row-sum': ('14a', '14b'), 'one-row-sum': ('14a',),
                 'no-replica-broadcast': ('14d',)}
 # 14d: steps at tensor=2 with the ledger and deterministic algorithms off
 # (CUDA's embedding backward then sums with atomics), the replicated
-# parameters compared across the ranks after each.
-PLACE_DRIFT_STEPS = 24
+# parameters compared across the ranks after each. Without the replicas'
+# broadcast they drift from step 1 (--place-faults).
+PLACE_DRIFT_STEPS = 12
 PLACE_LAYOUTS = (('14a', {'tensor': 2}), ('14b', {'fsdp': 2}))
 # 14c's step cache: a capture, its all-reduce over NCCL.
 PLACE_RESUME = ('graph', 1, 'nccl')
@@ -7943,7 +8074,11 @@ def main():
       f'block-diagonal, bf16 [{card}]')
   packed, seg_counts = train_packed(args, card)
   counts.update({k: v for k, v in seg_counts.items() if k.endswith('_seg')})
+  torch.cuda.empty_cache()
 
+  log(f'== 21: BertConfig.ablate at BERT-base width, phase 5\'s bins '
+      f'[{card}]')
+  ablated = ablations(args, card, per_bin)
   torch.cuda.empty_cache()
 
   log('== training from shards: the corpus loader [' + card + ']')
@@ -8087,6 +8222,8 @@ def main():
     entry['phase16_launches_per_rank'] = {
         job: r['launches_per_rank'][0][name]
         for job, r in sharded['jobs'].items()}
+    entry['phase21_launches'] = {a['ablate']: a['launches'][name]
+                                 for a in ablated}
     ring = next(x for x in ring_rows if x['name'] == name)
     entry['phase15a'] = {k: ring[k] for k in (
         'shape', 'max_abs_err', 'tol', 'bound_use', 'rel_norm_err', 'ms',
@@ -8139,7 +8276,8 @@ def main():
                   'placement': placed, 'sharded_replay': sharded,
                   'preprocessing': {k: v for k, v in prep.items()},
                   'formats': formats, 'fleet': fleet,
-                  'static_analysis': analysis, 'card': card},
+                  'static_analysis': analysis, 'ablations': ablated,
+                  'card': card},
                  default=str))
   log(f'phase seconds: {json.dumps(phase_seconds())}')
   log(json.dumps({'kernels': summary}))

@@ -67,6 +67,26 @@ def _close_join_timeout():
     return 10.0
 
 
+class PlacedBatch(dict):
+  """A batch the feed placed: its tensors by name, as a plain dict; and
+  ``host_segment_ids``, a numpy copy of the ``segment_ids`` of the rank's
+  whole rows as the host held them before the ``seq`` cut (None for a
+  batch without them). The step cost model counts a packed step's tiles
+  from them, every ring block's included, with no device read and no
+  collective (:func:`~lddl_tpu_torch.training.pretrain.packed_tiles`,
+  which keeps its count in ``tiles``, so it runs once a step)."""
+
+  def __init__(self, tensors, host_segment_ids=None):
+    super().__init__(tensors)
+    self.host_segment_ids = host_segment_ids
+    self.tiles = None
+
+
+def _host_ids(batch):
+  ids = batch.get('segment_ids')
+  return None if ids is None else np.array(ids, np.int32, copy=True)
+
+
 def _host_copy(batch):
   return {k: torch.from_numpy(np.array(v, copy=True))
           for k, v in batch.items()}
@@ -97,12 +117,16 @@ def make_global_batch(batch, mesh, device=None):
   does) and keeps its part (:func:`~lddl_tpu_torch.parallel.mesh.
   local_batch`): ``P(('data','fsdp'), 'seq')``, its rows and its
   ``1 / seq`` of each of them, replicated over ``tensor``. A sequence
-  length that ``seq`` does not divide raises ``ValueError``.
+  length that ``seq`` does not divide raises ``ValueError``. Returns a
+  :class:`PlacedBatch` that keeps the rows' whole segment ids on the host.
   """
-  from ..parallel.mesh import local_batch
+  from ..parallel.mesh import batch_rows, seq_shard
   device = torch.device('cuda' if device is None else device)
-  return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
-          for k, v in local_batch(batch, mesh).items()}
+  rows = batch_rows(mesh, len(next(iter(batch.values()))))
+  mine = {k: v[rows] for k, v in batch.items()}
+  return PlacedBatch({k: torch.from_numpy(np.array(v, copy=True)).to(device)
+                      for k, v in seq_shard(mine, mesh).items()},
+                     _host_ids(mine))
 
 
 def prefetch_to_device(iterator, device, size=2, coordinate=None,
@@ -119,7 +143,8 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None,
   columns of them (:func:`~lddl_tpu_torch.parallel.mesh.seq_shard`); the
   ledger's ``device`` record hashes the batch the iterator gave, before
   it is cut. A global batch, the same on every rank, is cut by
-  :func:`make_global_batch`.
+  :func:`make_global_batch`. Each placed dict is a :class:`PlacedBatch`,
+  which keeps the whole rows' segment ids on the host.
 
   A producer error is raised in the consumer at the batch where it
   happened. Closing the generator (or dropping it) stops the producer and
@@ -151,6 +176,8 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None,
     # as the JAX feed places lists.
     micro = isinstance(batch, (list, tuple))
     dicts = list(batch) if micro else [batch]
+    # Copied: a zero-copy batch's slot is reused after the next pull.
+    host_ids = [_host_ids(d) for d in dicts]
     if mesh is not None:
       from ..parallel.mesh import seq_shard
       dicts = [seq_shard(d, mesh) for d in dicts]
@@ -164,6 +191,7 @@ def prefetch_to_device(iterator, device, size=2, coordinate=None,
                   for d in pinned]
         ready = torch.cuda.Event()
         ready.record(side)
+    placed = [PlacedBatch(d, ids) for d, ids in zip(placed, host_ids)]
     return (placed if micro else placed[0]), ready
 
   ledger = get_ledger()

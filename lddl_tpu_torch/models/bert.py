@@ -45,6 +45,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import NEG_INF, flash_attention
 
 
+# BertConfig.ablate's values.
+ABLATIONS = ('', 'attention-core', 'ffn', 'norms', 'gelu')
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
   vocab_size: int = 30528  # 30522 padded up to a multiple of 64
@@ -61,8 +65,11 @@ class BertConfig:
   # One [d, 3d] projection instead of three [d, d] ones (changes the param
   # tree, so checkpoints are not interchangeable with the unfused layout).
   fused_qkv: bool = False
-  # Profiling aid of the TPU benchmark (drop one component); only '' (the
-  # real model) is ported.
+  # Profiling aid: drop one component from every layer to attribute step
+  # time. '' (default) = the real model; 'attention-core' (ctx := v, no
+  # q/k projection and no attention), 'ffn' (return after
+  # attention_norm), 'norms' (no attention_norm, output_norm), 'gelu' (no
+  # GELU). Never set in training configs.
   ablate: str = ''
 
   @property
@@ -170,6 +177,23 @@ class _ReduceFromTensor(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     return g, None
+
+
+class _ZeroGrads(torch.autograd.Function):
+  """Identity on ``x`` whose backward gives each of ``params`` a zero
+  gradient: parameters the forward does not read (the q and k
+  projections under ``ablate='attention-core'``) still get a gradient
+  tensor, as a flax parameter the program never reads gets zeros, so the
+  norm, the exchange and AdamW's decay see every parameter."""
+
+  @staticmethod
+  def forward(ctx, x, *params):
+    ctx.params = params
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    return (g, *(torch.zeros_like(p) for p in ctx.params))
 
 
 def copy_to_tensor(x, tp):
@@ -313,7 +337,14 @@ class SelfAttention(nn.Module):
   ``1 / seq`` of the rows (:func:`~lddl_tpu_torch.parallel.ring.
   make_ring_attention`; dense or flash blocks), at ``seq`` 1 too (one
   block, then the merge), as the JAX model does. Without a mesh
-  'ring_flash' is 'flash' and 'ring' is 'dense'."""
+  'ring_flash' is 'flash' and 'ring' is 'dense'.
+
+  ``ablate='attention-core'`` takes ``ctx := v`` ahead of every
+  attention branch. XLA drops the q and k projections the reference
+  then never reads; torch runs what it is given, so here they are never
+  computed (a fused rank projects its v rows alone), no attention kernel
+  launches and no ring rotates, and their parameters get zero gradients
+  (:class:`_ZeroGrads`)."""
 
   def __init__(self, cfg, tp=None, mesh=None):
     super().__init__()
@@ -337,6 +368,18 @@ class SelfAttention(nn.Module):
     heads, hd = self.heads, cfg.head_dim
     width = heads * hd
     x_in = copy_to_tensor(x, self.tp)
+    if cfg.ablate == 'attention-core':
+      if cfg.fused_qkv:
+        # The rank's block is its heads of q, of k and of v: v is the last
+        # third. The slice's backward gives the q and k rows zeros.
+        w, bias = self.qkv.weight[2 * width:], self.qkv.bias[2 * width:]
+        ctx = F.linear(x_in.to(cfg.dtype), w.to(cfg.dtype),
+                       bias.to(cfg.dtype))
+      else:
+        ctx = _ZeroGrads.apply(self.value(x_in), self.query.weight,
+                               self.query.bias, self.key.weight,
+                               self.key.bias)
+      return _dropout(self.out(ctx), cfg.dropout_rate, generator)
     if cfg.fused_qkv:
       q, k, v = self.qkv(x_in).split(width, dim=-1)
     else:
@@ -376,22 +419,34 @@ class Layer(nn.Module):
     self.cfg = cfg
     self.tp = tp
     self.attention = SelfAttention(cfg, tp, mesh)
-    self.attention_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
-    self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size,
-                              cfg.dtype, tp, 'column')
-    self.output = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype,
-                        tp, 'row')
-    self.output_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
+    # Under 'norms' and 'ffn' the dropped modules are not built: flax's
+    # nn.compact never creates their parameters either.
+    norms = cfg.ablate != 'norms'
+    if norms:
+      self.attention_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
+    if cfg.ablate != 'ffn':
+      self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size,
+                                cfg.dtype, tp, 'column')
+      self.output = Dense(cfg.intermediate_size, cfg.hidden_size,
+                          cfg.dtype, tp, 'row')
+      if norms:
+        self.output_norm = LayerNorm(cfg.hidden_size, cfg.dtype)
 
   def forward(self, x, attention_mask, generator=None, segment_ids=None):
     """``generator`` draws the attention output's mask, then the FFN
     output's; None is deterministic mode."""
-    x = self.attention_norm(
-        x + self.attention(x, attention_mask, generator, segment_ids))
-    h = F.gelu(self.intermediate(copy_to_tensor(x, self.tp)),
-               approximate='tanh')
+    ablate = self.cfg.ablate
+    x = x + self.attention(x, attention_mask, generator, segment_ids)
+    if ablate != 'norms':
+      x = self.attention_norm(x)
+    if ablate == 'ffn':
+      return x
+    h = self.intermediate(copy_to_tensor(x, self.tp))
+    if ablate != 'gelu':
+      h = F.gelu(h, approximate='tanh')
     h = _dropout(self.output(h), self.cfg.dropout_rate, generator)
-    return self.output_norm(x + h)
+    x = x + h
+    return x if ablate == 'norms' else self.output_norm(x)
 
 
 class Encoder(nn.Module):
@@ -513,8 +568,9 @@ class BertForPretraining(nn.Module):
     check_mesh(mesh)
     if cfg.attention_impl not in ('dense', 'flash', 'ring', 'ring_flash'):
       raise ValueError(f'unknown attention_impl {cfg.attention_impl!r}')
-    if cfg.ablate:
-      raise NotImplementedError(f'ablate={cfg.ablate!r} is not ported')
+    if cfg.ablate not in ABLATIONS:
+      raise ValueError(f'unknown ablate {cfg.ablate!r}; one of '
+                       f'{ABLATIONS}')
     if axis_size(mesh, 'seq') > 1 and cfg.attention_impl not in (
         'ring', 'ring_flash'):
       raise ValueError(

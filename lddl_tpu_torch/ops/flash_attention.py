@@ -165,7 +165,8 @@ def _bill(name, q, k, heads, seg, kv_owned=False):
   else:
     pairs = seg.computed_tiles(d, kv_owned) * TILE_ROWS * stream_rows(d)
   step_costs.bill(*work(name, bh // heads, heads, s_q, d, q.dtype, pairs,
-                        seg is not None, s_kv), seg=seg is not None)
+                        seg is not None, s_kv), seg=seg is not None,
+                  kv_owned=kv_owned)
 
 
 # ---- plain PyTorch versions (CPU path and the on-card reference) ----
@@ -242,6 +243,17 @@ def segment_block_intervals(segment_ids, block):
   return iv[..., 0].numpy(), iv[..., 1].numpy()
 
 
+def _live_tiles(q_ids, kv_ids, q_rows, kv_rows):
+  """(total, computed) tile pairs of numpy ``q_ids`` [b, s_q] against
+  ``kv_ids`` [b, s_kv] at ``q_rows`` x ``kv_rows`` tiles: the kernels'
+  interval test."""
+  qlo, qhi = segment_block_intervals(q_ids, q_rows)
+  klo, khi = segment_block_intervals(kv_ids, kv_rows)
+  live = ((qlo[:, :, None] <= khi[:, None, :]) &
+          (klo[:, None, :] <= qhi[:, :, None]))
+  return int(live.size), int(live.sum())
+
+
 def count_skippable_tiles(segment_ids, block_q=None, block_k=None,
                           head_dim=64):
   """``(total, skipped)`` tile counts of the forward grid for a ``[b, s]``
@@ -253,12 +265,32 @@ def count_skippable_tiles(segment_ids, block_q=None, block_k=None,
   self-attention, dk/dv)."""
   block_q = TILE_ROWS if block_q is None else block_q
   block_k = stream_rows(head_dim) if block_k is None else block_k
-  qlo, qhi = segment_block_intervals(segment_ids, block_q)
-  klo, khi = segment_block_intervals(segment_ids, block_k)
-  live = ((qlo[:, :, None] <= khi[:, None, :]) &
-          (klo[:, None, :] <= qhi[:, :, None]))
-  total = int(live.size)
-  return total, total - int(live.sum())
+  total, live = _live_tiles(segment_ids, segment_ids, block_q, block_k)
+  return total, total - live
+
+
+def ring_tiles(segment_ids, head_dim=64, seq_rank=0, seq=1):
+  """``(total, computed, kv_computed)`` tile pairs of one head that a
+  packed batch's K4 launches test and compute on seq rank ``seq_rank`` of
+  ``seq``, from the host ids of the rank's whole rows (``[b, s]``): its
+  ``1 / seq`` of the columns as q against every shard's columns as kv,
+  the ring's blocks (one block, self-attention, at ``seq`` 1). ``total``
+  and ``computed`` are at the grid of fwd and dq (``TILE_ROWS`` q rows
+  owned, ``stream_rows(head_dim)`` kv rows streamed; :func:`
+  count_skippable_tiles`' at ``seq`` 1), ``kv_computed`` at dkv's (kv
+  owned), so the step's K4 FLOPs are linear in the two counts."""
+  ids = np.asarray(segment_ids, np.int32)
+  per = ids.shape[1] // seq
+  q = ids[:, seq_rank * per:(seq_rank + 1) * per]
+  own, stream = TILE_ROWS, stream_rows(head_dim)
+  total = computed = kv_computed = 0
+  for j in range(seq):
+    kv = ids[:, j * per:(j + 1) * per]
+    n, live = _live_tiles(q, kv, own, stream)
+    total += n
+    computed += live
+    kv_computed += _live_tiles(q, kv, stream, own)[1]
+  return total, computed, kv_computed
 
 
 class Segments:

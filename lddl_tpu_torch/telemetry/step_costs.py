@@ -73,39 +73,51 @@ class StepCosts:
   """The count of one step (or one window of steps).
 
   ``matmul_flops`` (aten's matmul-class ops), ``flash_flops`` (the flash
-  kernels' launches, K1-K4; ``seg_flops`` is its K4 part), ``other_flops``
-  (elementwise and reductions) and ``bytes``. ``seg_tiles``, set by the
-  step cache for a packed step, is the attention tiles the counted batch
-  computes (``count_skippable_tiles``' total less its skipped):
-  :meth:`bill` scales ``seg_flops`` by another batch's over it.
+  kernels' launches, K1-K4; ``seg_flops`` is its K4 part, ``seg_kv_flops``
+  the part of that of the launches that own kv tiles, dkv's),
+  ``other_flops`` (elementwise and reductions) and ``bytes``, of which
+  ``collective_bytes`` are the collectives' buffers.
+  ``seg_tiles`` and ``seg_kv_tiles``, set by the step cache for a packed
+  step, are the tile pairs the counted batch's K4 launches compute on the
+  fwd/dq grid and on dkv's (:func:`~lddl_tpu_torch.ops.flash_attention.
+  ring_tiles`: under ``seq`` every ring block's): each K4 launch bills
+  its computed tiles, so each part is linear in its count, and
+  :meth:`bill` scales it by another batch's count over the counted one.
   """
 
-  __slots__ = ('matmul_flops', 'flash_flops', 'seg_flops', 'seg_tiles',
-               'other_flops', 'bytes')
+  __slots__ = ('matmul_flops', 'flash_flops', 'seg_flops', 'seg_kv_flops',
+               'seg_tiles', 'seg_kv_tiles', 'other_flops', 'bytes',
+               'collective_bytes')
 
   def __init__(self):
     self.matmul_flops = self.flash_flops = self.seg_flops = 0
-    self.seg_tiles = self.other_flops = self.bytes = 0
+    self.seg_kv_flops = self.seg_tiles = self.seg_kv_tiles = 0
+    self.other_flops = self.bytes = self.collective_bytes = 0
 
   @property
   def flops(self):
     return self.matmul_flops + self.flash_flops + self.other_flops
 
-  def bill(self, seg_tiles=None):
+  def bill(self, tiles=None):
     """``(flops, bytes)`` as floats for one step like the counted one whose
-    batch computes ``seg_tiles`` attention tiles (None: the counted
-    batch's). The K4 FLOPs follow the tiles; the rest is fixed by the
-    shapes. Bytes are the operands', which no tile skip changes."""
+    batch computes ``tiles`` = ``(fwd/dq tiles, dkv tiles)`` (None: the
+    counted batch's). The K4 FLOPs follow the tiles, exactly (integer
+    arithmetic); the rest is fixed by the shapes. Bytes are the
+    operands', which no tile skip changes."""
     flops = self.flops
-    if seg_tiles is not None and self.seg_tiles:
-      flops += self.seg_flops * seg_tiles / self.seg_tiles - self.seg_flops
+    if tiles is not None and self.seg_tiles and self.seg_kv_tiles:
+      q_flops = self.seg_flops - self.seg_kv_flops
+      flops += (q_flops * tiles[0] // self.seg_tiles +
+                self.seg_kv_flops * tiles[1] // self.seg_kv_tiles -
+                self.seg_flops)
     return float(flops), float(self.bytes)
 
   def __repr__(self):
     return (f'StepCosts(matmul_flops={self.matmul_flops}, flash_flops='
-            f'{self.flash_flops}, seg_flops={self.seg_flops}, seg_tiles='
-            f'{self.seg_tiles}, other_flops={self.other_flops}, bytes='
-            f'{self.bytes})')
+            f'{self.flash_flops}, seg_flops={self.seg_flops}, seg_kv_flops='
+            f'{self.seg_kv_flops}, seg_tiles={self.seg_tiles}, seg_kv_tiles='
+            f'{self.seg_kv_tiles}, other_flops={self.other_flops}, bytes='
+            f'{self.bytes}, collective_bytes={self.collective_bytes})')
 
 
 def _touched_bytes(t):
@@ -178,7 +190,9 @@ class StepCostCounter(TorchDispatchMode):
     results = _tensors(result)
     if func.namespace in _COLLECTIVES:
       writes = _by_storage(inout + out_args + results)
-      self.costs.bytes += sum(reads.values()) + sum(writes.values())
+      moved = sum(reads.values()) + sum(writes.values())
+      self.costs.bytes += moved
+      self.costs.collective_bytes += moved
       return
     # A result that shares an input's storage is the in-place operand
     # returned (counted with it) or a view of an input.
@@ -211,9 +225,10 @@ def active():
   return _ACTIVE[-1] if _ACTIVE else None
 
 
-def bill(flops, nbytes, seg=False):
+def bill(flops, nbytes, seg=False, kv_owned=False):
   """Add a flash launch's work to the active counter (if any): ``flops``
-  and ``nbytes`` from the kernels' formula; ``seg`` for a K4 launch."""
+  and ``nbytes`` from the kernels' formula; ``seg`` for a K4 launch,
+  ``kv_owned`` for one whose CTAs own kv tiles (dkv)."""
   counter = active()
   if counter is None:
     return
@@ -222,6 +237,8 @@ def bill(flops, nbytes, seg=False):
   costs.bytes += nbytes
   if seg:
     costs.seg_flops += flops
+    if kv_owned:
+      costs.seg_kv_flops += flops
 
 
 @contextlib.contextmanager

@@ -258,6 +258,31 @@ def _cpu_copy(obj):
   return obj
 
 
+def packed_tiles(batch, model):
+  """``(total, computed, kv_computed)`` tile pairs of one head that a
+  packed batch's K4 launches test and compute on this rank
+  (:func:`~lddl_tpu_torch.ops.flash_attention.ring_tiles`: under ``seq``
+  the rank's q columns against every shard's kv columns, the ring's
+  blocks), counted once a batch. The feed's batches carry their whole
+  rows' ids on the host (:class:`~lddl_tpu_torch.loader.device.
+  PlacedBatch`), and keep the count; any other batch is read from the
+  device, where under ``seq`` above 1 the rank holds its own columns
+  only: None then, and the step is billed the miss's count."""
+  if getattr(batch, 'tiles', None) is not None:
+    return batch.tiles
+  sp = getattr(model, 'sp', None)
+  ids = getattr(batch, 'host_segment_ids', None)
+  if ids is None:
+    if sp is not None:
+      return None
+    ids = batch['segment_ids'].cpu().numpy()
+  tiles = tfa.ring_tiles(ids, model.cfg.head_dim,
+                         *((0, 1) if sp is None else (sp.rank, sp.size)))
+  if hasattr(batch, 'tiles'):
+    batch.tiles = tiles
+  return tiles
+
+
 class CompiledStepCache:
   """Per-bin captured train step: one CUDA graph per batch signature.
 
@@ -308,7 +333,8 @@ class CompiledStepCache:
   train loop's MFU numerator. A packed step's attention FLOPs follow its
   own batch: the count's K4 FLOPs scaled by the attention tiles this
   batch computes over those of the counted batch
-  (:meth:`~lddl_tpu_torch.telemetry.step_costs.StepCosts.bill`). With
+  (:meth:`~lddl_tpu_torch.telemetry.step_costs.StepCosts.bill`), under
+  ``seq`` every ring block's (:func:`packed_tiles`). With
   telemetry off at the miss nothing is counted, and the entry's steps
   leave ``last_costs`` None.
   """
@@ -351,8 +377,10 @@ class CompiledStepCache:
         self._graphs[key] = None
       if counter is not None:
         self._costs[key] = counter.costs
-        if counter.costs.seg_flops:
-          counter.costs.seg_tiles = self._tiles(batch)
+        tiles = (packed_tiles(batch, self.step.model)
+                 if counter.costs.seg_flops else None)
+        if tiles is not None:
+          _, counter.costs.seg_tiles, counter.costs.seg_kv_tiles = tiles
       self._count(False, time.perf_counter() - t0)
       self._bill(key, batch)
       return metrics
@@ -373,22 +401,15 @@ class CompiledStepCache:
     self._bill(key, batch)
     return entry.outputs
 
-  def _tiles(self, batch):
-    """The attention tiles a packed batch's K4 launches compute (a host
-    read of its segment ids): the kernels' tile-skip rule."""
-    total, skipped = tfa.count_skippable_tiles(
-        batch['segment_ids'].cpu().numpy(),
-        head_dim=self.step.model.cfg.head_dim)
-    return total - skipped
-
   def _bill(self, key, batch):
     """Set ``last_costs`` for this step and bill it to ``train.xla_*``."""
     costs = self._costs.get(key)
     if costs is None or not self._tele.enabled:
       self.last_costs = None
       return
-    self.last_costs = costs.bill(self._tiles(batch) if costs.seg_flops
-                                 else None)
+    tiles = (packed_tiles(batch, self.step.model) if costs.seg_flops
+             else None)
+    self.last_costs = costs.bill(None if tiles is None else tiles[1:])
     self._flops_c.add(self.last_costs[0])
     self._bytes_c.add(self.last_costs[1])
 
@@ -1014,16 +1035,17 @@ class TrainLoop:
                   numerator = self.flops_per_step(b, s * seq)
                 tele.gauge('train.mfu').set(
                     numerator / (max(now - t_wait, 1e-9) * peak_total))
-              if 'segment_ids' in batch:
+              tiles = (packed_tiles(batch, self.model)
+                       if 'segment_ids' in batch else None)
+              if tiles is not None:
                 # The kernels' tile-skip rule on the host: how much
                 # attention work block-diagonal packing removed this step
-                # (with seq above 1, over the rank's own columns: the
-                # self-attention of its shard, not the whole row's).
-                total, skipped = tfa.count_skippable_tiles(
-                    batch['segment_ids'].cpu().numpy(),
-                    head_dim=self.model.cfg.head_dim)
+                # (with seq above 1, over every ring block of the rank's
+                # q columns). The step cache's bill counted the same
+                # tiles: the ids are read once a step.
+                total, computed, _ = tiles
                 tiles_total_c.add(total)
-                tiles_skipped_c.add(skipped)
+                tiles_skipped_c.add(total - computed)
             if log_every and self.step % log_every == 0:
               dt = time.perf_counter() - t0
               t0 = time.perf_counter()

@@ -161,8 +161,14 @@ def test_remat_gives_the_same_gradients_with_segment_ids():
   torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=0)
 
 
-def test_mesh_and_ablate_not_ported():
+def test_a_mesh_that_is_not_the_ports_is_refused():
   with pytest.raises(NotImplementedError):
     BertForPretraining(BertConfig(**TINY), mesh=object())
-  with pytest.raises(NotImplementedError):
-    BertForPretraining(BertConfig(ablate='ffn', **TINY))
+
+
+@pytest.mark.parametrize('ablate', ['attention_core', 'FFN', 'layernorm'])
+def test_an_unknown_ablate_raises(ablate):
+  """The reference runs the whole model on a value it does not know; the
+  port refuses it."""
+  with pytest.raises(ValueError, match='ablate'):
+    BertForPretraining(BertConfig(ablate=ablate, **TINY))

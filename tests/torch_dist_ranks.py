@@ -673,6 +673,71 @@ def counted_run(mesh, comm, cfg_kw, opt_kw, batches):
     metrics.disable()
 
 
+def counted_steps(rank, world, axes, cases, opt_kw):
+  """The step cost model on a mesh of ``axes`` (gloo, CPU, telemetry on):
+  per case (``{'cfg', 'batches'}``, global numpy batches), a loop's step
+  cache steps each batch (``make_global_batch``, which keeps the rows'
+  segment ids on the host) and then the last one again as a plain dict
+  (no host ids), while a second loop from the same init counts each
+  batch's step afresh under a ``StepCostCounter``. Returns per case the
+  bills and fresh counts, the miss's count, the tiles the rank's K4
+  launches compute (``packed_tiles``) and those of its own columns'
+  self-attention alone, ``train.xla_flops``, and the exchange's buffer
+  sizes in bytes."""
+  import torch
+
+  from lddl_tpu_torch.comm import get_backend
+  from lddl_tpu_torch.loader.device import make_global_batch
+  from lddl_tpu_torch.ops.flash_attention import count_skippable_tiles
+  from lddl_tpu_torch.parallel import make_mesh
+  from lddl_tpu_torch.telemetry import metrics
+  from lddl_tpu_torch.telemetry.step_costs import StepCostCounter
+  from lddl_tpu_torch.training.pretrain import (CompiledStepCache,
+                                                packed_tiles)
+  torch.set_num_threads(2)
+  comm = get_backend('torch')
+  mesh = make_mesh(device_type='cpu', **axes)
+  out = []
+  for i, case in enumerate(cases):
+    doing(f'counted_steps {axes}: case {i} of {len(cases)}')
+    tele = metrics.enable()
+    try:
+      loop = mesh_loop(mesh, comm, case['cfg'], opt_kw)
+      fresh = mesh_loop(mesh, comm, case['cfg'], opt_kw)
+      cache = CompiledStepCache(loop.step_fn)
+      steps = []
+      for batch in case['batches']:
+        placed = make_global_batch(batch, mesh, device='cpu')
+        cache(placed, loop.dropout_seed)
+        with StepCostCounter() as counter:
+          fresh.step_fn(make_global_batch(batch, mesh, device='cpu'),
+                        fresh.dropout_seed)
+        step = {'bill': cache.last_costs, 'count': counter.costs.bill(),
+                'costs': {k: getattr(counter.costs, k)
+                          for k in counter.costs.__slots__}}
+        if 'segment_ids' in placed:
+          step['tiles'] = packed_tiles(placed, loop.model)
+          step['own'] = count_skippable_tiles(
+              placed['segment_ids'].numpy(),
+              head_dim=loop.model.cfg.head_dim)
+        steps.append(step)
+      cache(dict(placed), loop.dropout_seed)
+      (costs,) = cache._costs.values()
+      exchange = loop.step_fn.exchange
+      sizes = {name: t.numel() * t.element_size() for name, t in (
+          ('flat', exchange.flat), ('full', getattr(exchange, 'full', None)),
+          ('replicas', getattr(exchange.replicas, 'buf', None)))
+               if t is not None}
+      out.append({'steps': steps, 'plain_bill': cache.last_costs,
+                  'miss': {k: getattr(costs, k) for k in costs.__slots__},
+                  'miss_bill': costs.bill(),
+                  'xla_flops': tele.counter('train.xla_flops').total,
+                  'sizes': sizes})
+    finally:
+      metrics.disable()
+  return out
+
+
 # ---- sequence parallelism: ring attention over the seq axis ----
 
 
