@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from lddl_tpu_torch/csrc (nvcc, sm_90a) and
      report each kernel's registers and spills (none allowed in the
-     tensor-core bodies at head_dim 64);
+     tensor-core bodies at head_dim 64, nor any spill or stack frame in a
+     masking kernel);
   3. hold each kernel (flash fwd, dq, dkv) against its plain PyTorch
      version on the card, in float32 (TF32 off) and bfloat16, at the
      shapes the training phase gives them plus a ragged and a d=32 case;
@@ -350,11 +351,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      program _partition_kernel, and the matrix program, of
      _device_kernel) against their plain versions on the card, exactly,
      at s=128 and s=512 over MASK_ROWS rows made from --seed with the
-     preprocessor's row lengths (mostly full) and with a max_predictions
-     cap, two launches bitwise equal, timed with the plain version (the
-     jit program's argsort-twice form as torch ops) beside the bound; an
-     empty partition launches nothing; the matrix program
-     through mask_batch(backend='device'), one launch; (b) ``python -m
+     preprocessor's row lengths (mostly full), over the rows of one of
+     17b's launches, with a max_predictions cap and over MASK_LONG's rows
+     of 8192 (the kernels' shared-memory form), two launches bitwise
+     equal, timed by their launches alone (CUDA graph replays,
+     kernel_ab.launches_ms) and as one wrapper call an event pair, with
+     the plain version (the jit program's argsort-twice form as torch
+     ops) beside the bound; the whole mask_partition_device call on 17b's
+     rows by the host clock; an empty partition launches nothing; the
+     matrix program through mask_batch(backend='device'), one launch;
+     (b) ``python -m
      lddl_tpu_torch.preprocess.bert --target-seq-length 512 --bin-size
      64 --num-blocks 8 --masking`` (the default mask backend, device) on
      a PREP_CORPUS_MB MiB synthetic corpus (core/synth, --seed), telemetry
@@ -623,33 +629,46 @@ def cuda_ms(fn, reps=20, warmup=3):
 # ---- phase 2: the build's register report ----
 
 
+def ptxas_entries(text, pattern):
+  """(match, stats) for each entry function in nvcc's ``-Xptxas -v`` log
+  whose name ``pattern`` matches: stats {'registers', 'spill_bytes',
+  'stack_bytes'}."""
+  found, stats = [], None
+  for line in text.splitlines():
+    entry = re.search(r"Compiling entry function '(\S+)'", line)
+    if entry:
+      m = re.search(pattern, entry.group(1))
+      stats = None if m is None else {'registers': None, 'spill_bytes': 0,
+                                      'stack_bytes': 0}
+      if m is not None:
+        found.append((m, stats))
+      continue
+    if stats is None:
+      continue
+    frame = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+    if frame:
+      stats['stack_bytes'] = int(frame.group(1))
+      stats['spill_bytes'] = int(frame.group(2)) + int(frame.group(3))
+    regs = re.search(r'Used (\d+) registers', line)
+    if regs:
+      stats['registers'] = int(regs.group(1))
+  return found
+
+
 def ptxas_report(text):
   """Registers and spills of every kernel instantiation from nvcc's
   ``-Xptxas -v`` log, logged one line each. Raises if a tensor-core body
   at head_dim 64 (BERT-base, the main path) spills. Returns {(name, body):
   {'registers': n, 'spill_bytes': n}} for the tensor-core (bf16) head_dim-64
   instantiations, the ones the main path runs."""
-  kernels, key = {}, None
-  for line in text.splitlines():
-    entry = re.search(r"Compiling entry function '(\S+)'", line)
-    if entry:
-      m = re.search(r'flash_(fwd|dq|dkv)(_mma)?_kernelILi(\d+)ELb([01])E',
-                    entry.group(1))
-      key = None if m is None else (
-          m.group(1) + ('_seg' if m.group(4) == '1' else ''),
-          MMA_BODY if m.group(2) else F32_BODY, int(m.group(3)))
-      if key is not None:
-        kernels[key] = {'registers': None, 'spill_bytes': 0}
-      continue
-    if key is None:
-      continue
-    spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
-                      line)
-    if spill:
-      kernels[key]['spill_bytes'] = int(spill.group(1)) + int(spill.group(2))
-    regs = re.search(r'Used (\d+) registers', line)
-    if regs:
-      kernels[key]['registers'] = int(regs.group(1))
+  kernels = {}
+  for m, r in ptxas_entries(
+      text, r'flash_(fwd|dq|dkv)(_mma)?_kernelILi(\d+)ELb([01])E'):
+    key = (m.group(1) + ('_seg' if m.group(4) == '1' else ''),
+           MMA_BODY if m.group(2) else F32_BODY, int(m.group(3)))
+    kernels[key] = {'registers': r['registers'],
+                    'spill_bytes': r['spill_bytes']}
   for (name, kind, d), r in sorted(kernels.items()):
     log(f'    {name:8s} {kind:14s} d={d:3d}: {r["registers"]} registers, '
         f'{r["spill_bytes"]} bytes spilled')
@@ -658,6 +677,29 @@ def ptxas_report(text):
                            f'{r["spill_bytes"]} bytes')
   return {(name, kind): r for (name, kind, d), r in kernels.items()
           if kind == MMA_BODY and d == 64}
+
+
+def masking_ptxas_report(text):
+  """Registers, spills and stack of every masking kernel instantiation
+  from nvcc's ``-Xptxas -v`` log (csrc/masking.cu: C keys a lane holds in
+  registers, 0 for shared memory), logged one line each. Raises if any
+  spills or keeps a stack frame (a register form whose keys went to local
+  memory). Returns {name: {...}} for the instantiations the main path
+  runs: s=512 rows (C = 16), uint16 ids for the partition program."""
+  kernels = {(m.group(1), m.group(2), int(m.group(3))): r
+             for m, r in ptxas_entries(
+                 text, r'(mask_partition|mask_matrix)_kernelI([a-z]?)Li(\d+)E')}
+  if len(kernels) != 15:  # 2 id types x 5 key forms + 5 forms
+    raise AssertionError(f'masking.cu: {len(kernels)} kernel instantiations '
+                         'in the ptxas log, not 15')
+  for (name, ids, c), r in sorted(kernels.items()):
+    log(f'    {name:14s} {ids or "-"} C={c:2d}: {r["registers"]} registers, '
+        f'{r["spill_bytes"]} bytes spilled, {r["stack_bytes"]} bytes stack')
+    if r['spill_bytes'] or r['stack_bytes']:
+      raise AssertionError(f'{name} (C={c}) spills {r["spill_bytes"]} bytes '
+                           f'and keeps {r["stack_bytes"]} bytes of stack')
+  return {name: kernels[(name, ids, 16)]
+          for name, ids in (('mask_partition', 't'), ('mask_matrix', ''))}
 
 
 # ---- phase 3: kernels vs plain versions ----
@@ -6606,6 +6648,9 @@ MASK_REPLACES = {'mask_partition': 'lddl_tpu/ops/masking.py:494',
 MASK_ROWS = 16384            # rows of 17a's partitions
 MASK_SEQ_LENS = (128, 512)
 MASK_CAP = 9                 # 17a's max_predictions cap case
+# 17a's long rows (seq_len, rows): above 1024 positions the kernels keep
+# a row's keys in shared memory, not in registers (csrc/masking.cu).
+MASK_LONG = (8192, 256)
 MASK_RATIO = 0.15
 MASK_IDS = {'mask_id': 103, 'cls_id': 101, 'sep_id': 102}
 MASK_SHORT_PROB = 0.1        # the preprocessor's short_seq_prob
@@ -6631,7 +6676,7 @@ PREP_DUP = 5                 # the preprocessor's default duplicate factor
 PREP_FLAGS = ['--target-seq-length', str(PREP_SEQ), '--bin-size',
               str(PREP_BIN), '--num-blocks', str(PREP_BLOCKS), '--masking']
 PREP_SHARDS = 8
-PREP_STEPS = 16
+PREP_STEPS = 8               # 17e's training steps
 PREP_BATCH = 16
 PREP_TIMEOUT = 600
 PREP_MASK_COLUMNS = ('mask_delta_positions', 'mask_delta_new_ids',
@@ -6723,9 +6768,13 @@ def check_equal(label, got, want):
 def mask_kernel_case(tm, kind, seq_len, seed, cap=None, inputs=None):
   """One program at one shape: the kernel twice (bitwise equal) and its
   plain version (the jit program as torch ops, argsort of the argsort: the
-  yardstick too) on the same card inputs, equal exactly; each timed by
-  CUDA events. ``inputs``: (flat, a, b, label) in place of mask_inputs'
+  yardstick too) on the same card inputs, equal exactly. The kernel is
+  timed by its launches alone (kernel_ab.launches_ms: CUDA graph replays
+  of the wrapper's call) and by one wrapper call a CUDA event pair (with
+  the host's work between the events); the plain version by CUDA
+  events. ``inputs``: (flat, a, b, label) in place of mask_inputs'
   MASK_ROWS rows."""
+  from kernel_ab import launches_ms
   flat, a, b, rows = inputs or (*mask_inputs(MASK_ROWS, seq_len, seed),
                                 'full')
   keys = tm.draw_keys(seed)
@@ -6766,19 +6815,42 @@ def mask_kernel_case(tm, kind, seq_len, seed, cap=None, inputs=None):
   valid = int((a[:, 1] - a[:, 0]).sum() + (b[:, 1] - b[:, 0]).sum())
   width = first[0].shape[1] if kind == 'mask_partition' else None
   bound_ms, bound_by = mask_bound(kind, n, seq_len, valid, picked, width)
-  ms = cuda_ms(kernel)
+  ms = launches_ms(kernel)
+  wrapper_ms = cuda_ms(kernel)
   plain_ms = cuda_ms(on_card_plain, reps=5, warmup=1)
   share = valid / (n * seq_len)
   row = {'name': kind, 'shape': [n, seq_len], 'rows': rows, 'cap': cap,
          'max_abs_err': 0,
-         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-         'bound_by': bound_by, 'picked': picked, 'valid': valid,
-         'valid_share': share, 'k_max': int(k.max())}
+         'ms': ms, 'wrapper_ms': wrapper_ms, 'plain_ms': plain_ms,
+         'bound_ms': bound_ms, 'bound_by': bound_by, 'picked': picked,
+         'valid': valid, 'valid_share': share, 'k_max': int(k.max())}
   log(f'  {label}: = plain exactly, two launches bitwise equal; kernel '
-      f'{ms:.4f} ms, plain (argsort-twice yardstick) {plain_ms:.3f} ms, '
+      f'{ms:.4f} ms by launches alone ({wrapper_ms:.4f} ms a wrapper call '
+      f'an event pair), plain (argsort-twice yardstick) {plain_ms:.3f} ms, '
       f'bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound;'
       f' {valid} valid positions ({share:.1%}), {picked} picked')
   return row
+
+
+def mask_call_ms(tm, inputs, seed, picked, reps=5):
+  """Host milliseconds of one whole mask_partition_device call on
+  ``inputs`` (flat, a, b, label) at PREP_SEQ: numpy in (the uploads), the
+  launch, numpy out (the downloads, which synchronise); the median of
+  ``reps`` after a warm-up. Its k must sum to ``picked``, the kernel's."""
+  flat, a, b, _ = inputs
+  kw = dict(seq_len=PREP_SEQ, masked_lm_ratio=MASK_RATIO,
+            vocab_size=VOCAB_REAL, seed=seed, **MASK_IDS)
+  tm.mask_partition_device(flat, a, b, **kw)
+  times = []
+  for _ in range(reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, k = tm.mask_partition_device(flat, a, b, **kw)
+    times.append(time.perf_counter() - t0)
+  if int(k.sum()) != picked:
+    raise AssertionError(f'17a: mask_partition_device picked {k.sum()}, '
+                         f'the kernel {picked}')
+  return 1e3 * float(np.median(times))
 
 
 def _on_card_plain(tm, kind, args, keys, kw):
@@ -6799,9 +6871,10 @@ def masking_kernels(args, card, path_sink):
   """17a: both masking programs against their plain versions on the
   card, at s=128 and s=512 over MASK_ROWS full rows, over the rows of one
   of the preprocessor's launches (partition 0 under ``path_sink``, 17c's
-  sink: 17b's rows), a max_predictions cap, an empty partition; and the
-  matrix program through its entry point, mask_batch(backend='device'),
-  counted."""
+  sink: 17b's rows; also the whole mask_partition_device call on them), a
+  max_predictions cap, MASK_LONG's rows of 8192 (keys in shared memory),
+  an empty partition; and the matrix program through its entry point,
+  mask_batch(backend='device'), counted."""
   from lddl_tpu_torch.ops import masking as tm
   rows = []
   for seq_len in MASK_SEQ_LENS:
@@ -6812,9 +6885,22 @@ def masking_kernels(args, card, path_sink):
     rows.append(mask_kernel_case(tm, kind, PREP_SEQ, args.seed + 3,
                                  inputs=path))
     torch.cuda.empty_cache()
+  # The whole call the preprocessor makes a partition, beside its kernel.
+  m1 = next(r for r in rows if r['name'] == 'mask_partition' and
+            r['rows'] == path[3])
+  m1['call_ms'] = mask_call_ms(tm, path, args.seed + 3, m1['picked'])
+  log(f'  17a: mask_partition_device on {path[3]} (numpy in, numpy out): '
+      f'{m1["call_ms"]:.3f} ms, the kernel {m1["ms"] / m1["call_ms"]:.1%} '
+      'of it')
   for kind in MASK_REPLACES:
     rows.append(mask_kernel_case(tm, kind, MASK_SEQ_LENS[-1],
                                  args.seed + 1, cap=MASK_CAP))
+    torch.cuda.empty_cache()
+  seq_long, n_long = MASK_LONG
+  long_rows = (*mask_inputs(n_long, seq_long, args.seed + seq_long), 'full')
+  for kind in MASK_REPLACES:
+    rows.append(mask_kernel_case(tm, kind, seq_long, args.seed + seq_long,
+                                 inputs=long_rows))
     torch.cuda.empty_cache()
   empty = np.zeros((0, 2), np.int64)
   tm.reset_launches()
@@ -8021,12 +8107,11 @@ def main():
   _build.build_all()  # the flash and masking libraries' nvcc together
   log(f'  kernels loaded in {time.perf_counter() - t0:.1f}s from '
       f'{_build.library_path()} and {_build.masking_library_path()}')
+  mask_ptxas = {}
   if _build.masking_build_info['log'] is not None:
-    log(f'  masking.cu: nvcc took {_build.masking_build_info["seconds"]:.1f}s;'
-        ' ' + '; '.join(
-            line.strip() for line in
-            _build.masking_build_info['log'].splitlines()
-            if 'registers' in line or 'spill' in line))
+    log(f'  masking.cu: nvcc took {_build.masking_build_info["seconds"]:.1f}'
+        's; ptxas:')
+    mask_ptxas = masking_ptxas_report(_build.masking_build_info['log'])
   if args.place_faults:
     place_faults(args, card)
     return 0
@@ -8253,7 +8338,13 @@ def main():
         'plain': 'the jit program as torch ops (argsort of the argsort), '
                  'on the card: the yardstick too',
         'valid_share': r['valid_share'],
-        'shape': r['shape'], 'dtype': 'int32'})
+        'shape': r['shape'], 'dtype': 'int32',
+        'wrapper_ms': r['wrapper_ms'],
+        'timed_by': 'launches alone: CUDA graph replays of the wrapper '
+                    '(kernel_ab.launches_ms)'})
+    summary[-1].update(mask_ptxas.get(name, {}))
+    if 'call_ms' in r:
+      summary[-1]['mask_partition_device_ms'] = r['call_ms']
     if name == 'mask_partition':
       summary[-1]['phase19_launches'] = {
           '19b_survivor': fleet['fleet']['mask_launches'],

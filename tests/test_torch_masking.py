@@ -7,11 +7,21 @@ positions, post-masking ids and k; masked ids and the picked bitmap. The
 host backend (native C++ and its numpy mirror) equals lddl_tpu's host
 backend bit for bit. The bits are JAX's under the threefry configuration
 asserted in :func:`test_the_jax_prng_configuration_the_bits_follow`.
+
+The kernels themselves run only on a card; :func:`warp_select` models
+their select lane for lane (a warp a row, contiguous runs, the descent
+over the keys' bits, the warp scan with its tie quota, the shared-memory
+layout of long rows) and is held exactly against the plain version's
+pick.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from lddl_tpu.ops import masking as jm
 from lddl_tpu_torch.ops import masking as tm
@@ -240,3 +250,204 @@ def test_an_unknown_device_raises():
     tm.partition_program(t, t, t, t, t, keys, seq_len=8, masked_lm_ratio=0.15,
                          vocab_size=VOCAB, mask_id=MASK, cls_id=CLS,
                          sep_id=SEP, max_pred=3)
+
+
+# ----------------------------------------------------------------------------
+# The kernels' select (csrc/masking.cu), modelled lane for lane in numpy.
+
+MASKING_CU = (Path(__file__).resolve().parent.parent / 'lddl_tpu_torch' /
+              'csrc' / 'masking.cu')
+WARP, KEY_BITS, REG_SEQ_LEN = 32, 23, 1024
+NO_KEY = 0xFFFFFFFF  # a position that draws nothing: above every key
+
+
+def test_the_model_follows_the_kernels_source():
+  """The model's constants are the kernel's; its body has no sort of every
+  position and no block-wide barrier."""
+  src = MASKING_CU.read_text()
+  for name, value in (('kWarp', WARP), ('kKeyBits', KEY_BITS),
+                      ('kRegSeqLen', REG_SEQ_LEN)):
+    assert re.search(rf'constexpr int {name} = {value};', src), name
+  assert re.search(r'kNoKey = 0xffffffffu;', src)
+  code = re.sub(r'//.*', '', src)
+  assert '__syncthreads' not in code and 'bitonic' not in code.lower()
+  assert '__reduce_add_sync' in code and '__shfl_up_sync' in code
+
+
+def _warp_scan(x):
+  """__shfl_up_sync's exclusive scan over 32 lanes (Hillis-Steele), and the
+  warp's total (lane 31's inclusive sum)."""
+  s = x.copy()
+  off = 1
+  while off < WARP:
+    s = s + np.concatenate([np.zeros(off, s.dtype), s[:-off]])
+    off *= 2
+  return s - x, int(s[-1])
+
+
+def warp_select(keys, npos, k):
+  """The kernel's pick of one row, lane for lane: ``keys`` uint32 [L] (the
+  uniform's 23 bits at valid positions, NO_KEY elsewhere), ``npos`` =
+  min(row_len, L), ``k`` the row's count. Returns the picked positions in
+  their output slots (ascending)."""
+  length = len(keys)
+  c = -(-npos // WARP)
+  # Lane i owns the run [i * c, i * c + c) of [0, npos): padding gets no key.
+  run = np.full((WARP, c), NO_KEY, np.uint64)
+  for lane in range(WARP):
+    for j in range(c):
+      p = lane * c + j
+      if p < npos:
+        run[lane, j] = keys[p]
+  if length > REG_SEQ_LEN:
+    # The long-row form: key j of lane i in shared memory at j * 32 + i.
+    smem = np.full(WARP * max(c, 1), 0xA5A5A5A5, np.uint64)
+    for lane in range(WARP):
+      for j in range(c):
+        smem[j * WARP + lane] = run[lane, j]
+    run = np.stack([[smem[j * WARP + lane] for j in range(c)]
+                    for lane in range(WARP)]).reshape(WARP, c)
+  t = 0
+  if k > 0:  # the descent over the key's bits, from the top
+    for b in range(KEY_BITS - 1, -1, -1):
+      cand = t | (1 << b)
+      under = int((run < cand).sum(axis=1).sum())  # __reduce_add_sync
+      if under <= k:
+        t = cand
+      if under == k:
+        break
+  under = (run < t).sum(axis=1)
+  equal = (run == t).sum(axis=1)
+  assert under.sum() < 1 << 16 and equal.sum() < 1 << 16
+  before, total = _warp_scan(under | (equal << 16))
+  quota = k - (total & 0xffff)
+  assert quota >= 0
+  slots = np.full(k, -1, np.int64)
+  for lane in range(WARP):
+    eq_rank = int(before[lane]) >> 16
+    slot = (int(before[lane]) & 0xffff) + min(quota, eq_rank)
+    for j in range(c):
+      key = int(run[lane, j])
+      pick = key < t
+      if key == t:
+        pick = eq_rank < quota
+        eq_rank += 1
+      if pick:
+        slots[slot] = lane * c + j
+        slot += 1
+  assert (slots >= 0).all()
+  return slots
+
+
+def _plain_pick(keys, valid, k):
+  """The plain version's pick (the jit program's argsort of the argsort)
+  over keys as the uniforms they are (bits * 2**-23, exact in float32):
+  the picked bitmap and the positions ascending, padded with L."""
+  u = torch.from_numpy((keys.astype(np.float64) * 2.0**-23).astype(
+      np.float32))
+  picked = tm._picked(torch.from_numpy(valid), u, torch.from_numpy(k))
+  length = keys.shape[1]
+  pos = torch.where(picked, torch.arange(length), length)
+  return picked.numpy(), torch.sort(pos, dim=1).values.numpy()
+
+
+def _select_rows(keys, valid, row_len, k):
+  """warp_select over each row, held against the plain pick exactly."""
+  picked, pos = _plain_pick(keys, valid, k)
+  length = keys.shape[1]
+  for i in range(len(keys)):
+    row_keys = np.where(valid[i], keys[i], NO_KEY)
+    got = warp_select(row_keys, max(0, min(int(row_len[i]), length)),
+                      int(k[i]))
+    np.testing.assert_array_equal(got, pos[i, :k[i]])
+    assert (pos[i, k[i]:] == length).all()
+    bitmap = np.zeros(length, bool)
+    bitmap[got] = True
+    np.testing.assert_array_equal(bitmap, picked[i])
+
+
+def _matrix_rows(rng, n, length, row_len):
+  """Valid positions as the matrix program keys them: below row_len and
+  not [CLS], the middle [SEP] (after ``na`` tokens of A) or the last."""
+  row_len = np.asarray(row_len, np.int64)
+  na = np.array([rng.integers(1, t - 3) if t > 4 else 1 for t in row_len])
+  pos = np.arange(length)[None, :]
+  special = ((pos == 0) | (pos == 1 + na[:, None]) |
+             (pos == row_len[:, None] - 1))
+  return (pos < row_len[:, None]) & ~special
+
+
+def _draw(rng, shape, values):
+  """23-bit keys: uniform, or drawn from ``values`` distinct ones (ties)."""
+  if values is None:
+    return rng.integers(0, 1 << KEY_BITS, shape).astype(np.uint64)
+  pool = rng.choice(1 << KEY_BITS, values, replace=False)
+  return pool[rng.integers(0, values, shape)].astype(np.uint64)
+
+
+def _counts(row_len, valid, mode):
+  """k as the programs count it (ratio 0.15, float32), or forced."""
+  nvalid = valid.sum(1)
+  if mode == 1:
+    return np.minimum(1, nvalid)
+  if mode == 'nvalid':
+    return nvalid
+  cap = 9 if mode == 'cap9' else None
+  return tm._pick_counts_f32(torch.from_numpy(np.asarray(row_len)), 0.15,
+                             torch.from_numpy(nvalid), cap).numpy()
+
+
+@pytest.mark.parametrize('values', [None, 2, 3, 4],
+                         ids=['distinct', 'ties2', 'ties3', 'ties4'])
+@pytest.mark.parametrize('short', [True, False], ids=['row5', 'rowL'])
+@pytest.mark.parametrize('length', [5, 128, 512, 1000, 1024, 1025, 8192])
+def test_warp_select_equals_the_plain_pick(length, short, values):
+  """The model equals the plain version's _picked and its sorted positions
+  for k as the programs count it, k = 1, k = every valid position and the
+  cap of 9; keys distinct or drawn from 2-4 values (ties broken by
+  position); rows of 5 positions and of L; the register form (L <= 1024)
+  and the shared-memory one (1025, 8192)."""
+  rng = np.random.default_rng([length, short, values or 0])
+  n = 3
+  row_len = np.full(n, 5 if short else length)
+  valid = _matrix_rows(rng, n, length, row_len)
+  keys = _draw(rng, (n, length), values)
+  for mode in ('ratio', 1, 'nvalid', 'cap9'):
+    _select_rows(keys, valid, row_len, _counts(row_len, valid, mode))
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data())
+def test_warp_select_on_random_rows(data):
+  """Random widths, row lengths (past L too), key widths (ties) and k."""
+  length = data.draw(st.integers(5, 1100) | st.integers(1025, 8192))
+  rng = np.random.default_rng(data.draw(st.integers(0, 2**32 - 1)))
+  row_len = np.array([data.draw(st.integers(5, length + 3))])
+  valid = _matrix_rows(rng, 1, length, np.minimum(row_len, length + 3))
+  bits = data.draw(st.integers(1, KEY_BITS))
+  keys = (_draw(rng, (1, length), None) >> (KEY_BITS - bits)) << (
+      KEY_BITS - bits)
+  k = np.array([data.draw(st.integers(0, int(valid.sum())))])
+  _select_rows(keys, valid, row_len, k)
+
+
+@pytest.mark.parametrize('seq_len,max_predictions', [
+    (128, None), (512, 9), (1025, None)])
+def test_warp_select_on_the_programs_draws(seq_len, max_predictions):
+  """The model over the partition program's own keys (the uniform's 23
+  bits from threefry at each valid position) gives its plain version's
+  positions and k."""
+  flat, a, b = _pairs(6, seq_len, seed=seq_len)
+  kw = _partition_kw(seq_len, seed=3, max_predictions=max_predictions)
+  pos, _, k = tm.mask_partition_device(flat, a, b, device='cpu', **kw)
+  keys8 = tm.draw_keys(3)
+  la, lb = a[:, 1] - a[:, 0], b[:, 1] - b[:, 0]
+  p = np.arange(seq_len)[None, :]
+  valid = (((p >= 1) & (p < 1 + la[:, None])) |
+           ((p >= 2 + la[:, None]) & (p < 2 + la[:, None] + lb[:, None])))
+  counts = torch.arange(len(a))[:, None] * seq_len + torch.from_numpy(p)
+  bits = (tm._bits(keys8[0:2], counts) >> 9).numpy().astype(np.uint64)
+  for i in range(len(a)):
+    got = warp_select(np.where(valid[i], bits[i], NO_KEY),
+                      min(int(la[i] + lb[i] + 3), seq_len), int(k[i]))
+    np.testing.assert_array_equal(got, pos[i, :k[i]])
